@@ -1,0 +1,200 @@
+"""CLIP encoders with deep prompt injection (port of
+``federated_multi_modal_tpu/models/clip_model.py``).
+
+Injection replaces rows and never grows the sequence:
+
+* vision: the last ``n_ctx`` tokens are replaced at layers ``1..K``;
+* text: tokens ``[1 : 1 + n_ctx]`` are replaced at layers ``1..K``.
+
+The text tower truncates at the last EOT position and packs ``128 // T``
+prompts per row under a block-causal mask, exactly as the JAX package does,
+so its attention runs through ``packed_attention_masked``; the vision tower
+with ``inference=True`` runs every block through ``fused_block_residual``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from federated_multi_modal_tpu_torch.models.params import CLIPConfig
+from federated_multi_modal_tpu_torch.ops.primitives import (
+    build_block_causal_mask,
+    build_causal_mask,
+    l2_normalize,
+    layer_norm,
+    linear,
+    residual_block,
+)
+
+# -- vision tower -------------------------------------------------------------
+
+
+def patchify(params_visual, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tensor:
+    """Patch embedding as one matmul: ``(B, H, W, 3)`` -> ``(B, grid^2,
+    width)``, patches flattened in ``(ky, kx, channel)`` order."""
+    B = images.shape[0]
+    P = cfg.vision_patch_size
+    g = cfg.grid_size
+    x = images.reshape(B, g, P, g, P, 3).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(B, g * g, P * P * 3)
+    return linear(x, params_visual["conv1"]["w"])
+
+
+def _broadcast_prompt(p: torch.Tensor, batch: int, dtype) -> torch.Tensor:
+    """(n_ctx, d) or (B, n_ctx, d) -> (B, n_ctx, d)."""
+    p = p.to(dtype)
+    if p.ndim == 2:
+        p = p[None].expand(batch, *p.shape)
+    return p
+
+
+def encode_image(
+    params,
+    cfg: CLIPConfig,
+    images: torch.Tensor,
+    shallow_prompts: Optional[torch.Tensor] = None,
+    deep_prompts: Optional[Sequence[torch.Tensor]] = None,
+    inference: bool = False,
+) -> torch.Tensor:
+    """Vision transformer forward with prompt injection.
+
+    Args:
+        params: the ``visual`` subtree.
+        images: ``(B, H, W, 3)``.
+        shallow_prompts: ``(n_ctx, width)`` or ``(B, n_ctx, width)`` tokens
+            appended after the positional embedding.
+        deep_prompts: per-layer prompts for layers ``1..len(deep_prompts)``;
+            layer ``i`` replaces the trailing ``n_ctx`` rows with
+            ``deep_prompts[i-1]``.
+        inference: no gradient flows into this tower; every block then
+            takes the whole-block kernel.
+
+    Returns:
+        ``(B, embed_dim)`` image features (before normalization), fp32.
+    """
+    dtype = params["conv1"]["w"].dtype
+    x = patchify(params, cfg, images.to(dtype))
+    B = x.shape[0]
+    w = cfg.vision_width
+
+    cls = params["class_embedding"].to(dtype).expand(B, 1, w)
+    x = torch.cat([cls, x], dim=1)
+    x = x + params["positional_embedding"].to(dtype)[None]
+
+    n_ctx = 0
+    if shallow_prompts is not None:
+        sp = _broadcast_prompt(shallow_prompts, B, dtype)
+        n_ctx = sp.shape[1]
+        x = torch.cat([x, sp], dim=1)
+
+    x = layer_norm(x, params["ln_pre"])
+
+    deep_prompts = deep_prompts or []
+    if deep_prompts and n_ctx == 0:
+        raise ValueError(
+            "deep_prompts require shallow_prompts: injection replaces the "
+            "trailing prompt tokens, and with none the sequence would grow")
+    for i, dp in enumerate(deep_prompts):
+        if dp.shape[-2] != n_ctx:
+            raise ValueError(
+                f"deep_prompts[{i}] has {dp.shape[-2]} rows but the shallow "
+                f"prompts define n_ctx={n_ctx}: injection replaces the "
+                "trailing prompt rows one-for-one")
+
+    for i, blk in enumerate(params["blocks"]):
+        if 1 <= i <= len(deep_prompts):
+            p = _broadcast_prompt(deep_prompts[i - 1], B, dtype)
+            x = torch.cat([x[:, : x.shape[1] - n_ctx], p], dim=1)
+        x = residual_block(x, blk, cfg.vision_heads, inference=inference)
+
+    pooled = layer_norm(x[:, 0, :], params["ln_post"])
+    # fp32 products of the storage dtype's values, fp32 result
+    return torch.matmul(pooled.float(), params["proj"].to(dtype).float())
+
+
+# -- text tower ---------------------------------------------------------------
+
+
+def embed_tokens(params_text, tokens: torch.Tensor) -> torch.Tensor:
+    """Token-id lookup -> ``(N, T, d)`` embeddings."""
+    return params_text["token_embedding"][tokens.long()]
+
+
+# P = 128 // T truncated prompts share one packed row (the JAX package's
+# MXU-tile target, kept so that both packages run the same packed shapes).
+TEXT_PACK_TARGET = 128
+
+
+def encode_text_embedded(
+    params,
+    cfg: CLIPConfig,
+    prompts: torch.Tensor,
+    eot_index: torch.Tensor,
+    deep_prompts: Optional[Sequence[torch.Tensor]] = None,
+    max_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Text transformer over assembled prompt embeddings ``(N, 77, d)``:
+    add positions, run the causal blocks with deep prompts, LayerNorm,
+    pool at ``eot_index``, project -> ``(N, embed_dim)`` fp32.
+
+    ``max_len`` truncates the token axis (exact under the causal mask when
+    every EOT lies before it: pass ``PromptConstants.text_len``). When
+    ``128 // T >= 2``, that many sequences share one row under a
+    block-causal mask (the same per-sequence math, in attention-sized
+    rows)."""
+    if max_len is not None and prompts.shape[1] > max_len:
+        prompts = prompts[:, :max_len]
+    dtype = params["text_projection"].dtype
+    pos = params["positional_embedding"][: prompts.shape[1]]
+    x = prompts.to(dtype) + pos.to(dtype)[None]
+
+    N, T, d = x.shape
+    P = TEXT_PACK_TARGET // T
+    deep_prompts = deep_prompts or []
+    if P >= 2:
+        G = -(-N // P)
+        if G >= 8:
+            # the JAX package rounds the packed-row count to a multiple of 4
+            # for its 4-row kernel steps; kept so both run the same shapes
+            G = -(-G // 4) * 4
+        n_pad = G * P
+        if n_pad != N:
+            x = torch.cat([x, x.new_zeros(n_pad - N, T, d)], dim=0)
+        mask = build_block_causal_mask(P, T, device=x.device)
+        x = x.reshape(G, P * T, d)
+    else:
+        n_pad = N
+        mask = build_causal_mask(T, device=x.device)
+
+    for i, blk in enumerate(params["blocks"]):
+        if 1 <= i <= len(deep_prompts):
+            p = deep_prompts[i - 1]
+            if p.ndim == 3 and p.shape[0] == N and n_pad != N:
+                p = torch.cat([p, p.new_zeros(n_pad - N, *p.shape[1:])], dim=0)
+            p = _broadcast_prompt(p, n_pad, dtype)
+            n_ctx = p.shape[1]
+            xs = x.reshape(n_pad, T, d)
+            xs = torch.cat([xs[:, :1], p, xs[:, 1 + n_ctx:]], dim=1)
+            x = xs.reshape(x.shape)
+        x = residual_block(x, blk, cfg.transformer_heads, mask)
+
+    x = x.reshape(n_pad, T, d)[:N]
+    x = layer_norm(x, params["ln_final"])
+    pooled = x[torch.arange(N, device=x.device), eot_index.long()]
+    return torch.matmul(pooled.float(),
+                        params["text_projection"].to(dtype).float())
+
+
+# -- similarity head ----------------------------------------------------------
+
+
+def cosine_logits(image_features, text_features, logit_scale,
+                  max_scale: float | None = None) -> torch.Tensor:
+    """``exp(logit_scale) * norm(img) @ norm(txt)^T`` in fp32, clamped at
+    ``max_scale`` when given (MaPLe clamps at 100)."""
+    scale = torch.exp(logit_scale.float())
+    if max_scale is not None:
+        scale = torch.clamp(scale, max=max_scale)
+    return scale * (l2_normalize(image_features) @ l2_normalize(text_features).T)

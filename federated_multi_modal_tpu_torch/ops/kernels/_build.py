@@ -1,0 +1,144 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+The sources are ``federated_multi_modal_tpu_torch/csrc/*.cu``. On first use
+each source is compiled by its own ``nvcc`` process for ``sm_90a`` (all
+started together), the objects are linked into one shared library with a
+plain C interface, and the library is loaded with ``ctypes``. The library
+lands in ``federated_multi_modal_tpu_torch/build/`` (listed in
+``.gitignore``) under a name that carries a hash of the sources and flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
+
+Nothing here runs when the module is imported: the CPU tests import every
+module, and there is no ``nvcc`` on a machine without CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # qkv, mask, out, B, T, D, H, valid_T, scale, stream
+    "fmm_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # A, W, bias, residual, residual_f32, out, out_f32, M, N, K, gelu, stream
+    "fmm_gemm_epilogue": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # x, x_f32, gamma, beta, out, rows, D, eps, stream
+    "fmm_layernorm_rows": [_P, _I, _P, _P, _P, _I, _I, _F, _P],
+}
+
+# Launches of each CUDA kernel since the last reset, by entry point.
+LAUNCHES = {name: 0 for name in _SIGNATURES}
+
+_lib = None
+build_seconds = None  # wall time of the last build in this process, or 0.0 if loaded as built
+build_log = ""  # nvcc's output (register and shared-memory use per kernel)
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: the port's kernels need nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _run_all(cmds):
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed:\n{out}")
+    return outs
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of these sources exists."""
+    global build_seconds, build_log
+    lib_path = BUILD_DIR / f"libfmm_kernels_{_digest()}.so"
+    if lib_path.exists():
+        build_seconds = 0.0
+        return lib_path
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    outs = _run_all([
+        [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        for src, obj in zip(_sources(), objs)
+    ])
+    tmp = lib_path.with_suffix(f".{tag}.tmp")
+    outs += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]])
+    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
+    for obj in objs:
+        obj.unlink()
+    build_seconds = time.perf_counter() - t0
+    build_log = "".join(outs)
+    return lib_path
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.fmm_error_string.argtypes = [ctypes.c_int]
+        lib.fmm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one kernel entry point on the current stream; raise if CUDA
+    refused the launch (a refused launch never runs, and a later
+    synchronize would not report it)."""
+    lib = library()
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {err} ({lib.fmm_error_string(err).decode()})")
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -39,6 +39,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running learning/integration tests"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with CUDA and nvcc; skips elsewhere"
+    )
 
 
 def pytest_sessionstart(session):
