@@ -80,3 +80,19 @@ def unflatten(flat: dict):
         return node
 
     return listify(root)
+
+
+def tree_map_multi(fn, tree, *rest):
+    """``fn(leaf, *leaves at the same position in rest)`` over every
+    non-None leaf of ``tree``; the other trees share its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map_multi(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_multi(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(tree, *rest)
+
+
+def leaves(tree) -> list:
+    """The non-None leaves in :func:`flatten`'s order."""
+    return list(flatten(tree).values())

@@ -3,13 +3,16 @@
 
 Injection replaces rows and never grows the sequence:
 
-* vision: the last ``n_ctx`` tokens are replaced at layers ``1..K``;
+* vision: the last ``n_ctx`` tokens (``n_ctx + n_extra`` with the per-image
+  caption tokens, which are re-injected with every deep prompt) are
+  replaced at layers ``1..K``;
 * text: tokens ``[1 : 1 + n_ctx]`` are replaced at layers ``1..K``.
 
 The text tower truncates at the last EOT position and packs ``128 // T``
 prompts per row under a block-causal mask, exactly as the JAX package does,
 so its attention runs through ``packed_attention_masked``; the vision tower
-with ``inference=True`` runs every block through ``fused_block_residual``.
+runs every block through ``fused_block_residual`` with ``inference=True``,
+and through ``fused_block_train`` or ``fused_block_train_dw`` in training.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ def encode_image(
     images: torch.Tensor,
     shallow_prompts: Optional[torch.Tensor] = None,
     deep_prompts: Optional[Sequence[torch.Tensor]] = None,
+    extra_tokens: Optional[torch.Tensor] = None,
     inference: bool = False,
 ) -> torch.Tensor:
     """Vision transformer forward with prompt injection.
@@ -68,8 +72,11 @@ def encode_image(
         deep_prompts: per-layer prompts for layers ``1..len(deep_prompts)``;
             layer ``i`` replaces the trailing ``n_ctx`` rows with
             ``deep_prompts[i-1]``.
+        extra_tokens: ``(B, k, width)`` per-image conditioning tokens (the
+            caption token), appended after the shallow prompts and
+            re-injected after every deep prompt.
         inference: no gradient flows into this tower; every block then
-            takes the whole-block kernel.
+            takes the whole-block inference kernel (else a train kernel).
 
     Returns:
         ``(B, embed_dim)`` image features (before normalization), fp32.
@@ -89,7 +96,14 @@ def encode_image(
         n_ctx = sp.shape[1]
         x = torch.cat([x, sp], dim=1)
 
+    n_extra = 0
+    if extra_tokens is not None:
+        extra_tokens = extra_tokens.to(dtype)
+        n_extra = extra_tokens.shape[1]
+        x = torch.cat([x, extra_tokens], dim=1)
+
     x = layer_norm(x, params["ln_pre"])
+    n_tail = n_ctx + n_extra
 
     deep_prompts = deep_prompts or []
     if deep_prompts and n_ctx == 0:
@@ -105,8 +119,10 @@ def encode_image(
 
     for i, blk in enumerate(params["blocks"]):
         if 1 <= i <= len(deep_prompts):
-            p = _broadcast_prompt(deep_prompts[i - 1], B, dtype)
-            x = torch.cat([x[:, : x.shape[1] - n_ctx], p], dim=1)
+            tail = [_broadcast_prompt(deep_prompts[i - 1], B, dtype)]
+            if extra_tokens is not None:
+                tail.append(extra_tokens)
+            x = torch.cat([x[:, : x.shape[1] - n_tail], *tail], dim=1)
         x = residual_block(x, blk, cfg.vision_heads, inference=inference)
 
     pooled = layer_norm(x[:, 0, :], params["ln_post"])

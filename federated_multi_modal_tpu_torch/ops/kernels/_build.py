@@ -34,14 +34,25 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     # qkv, mask, out, B, T, D, H, valid_T, scale, stream
     "fmm_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # A, W, bias, residual, residual_f32, out, out_f32, M, N, K, gelu, stream
-    "fmm_gemm_epilogue": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # qkv, g, mask, dqkv, B, T, D, H, scale, stream
+    "fmm_attention_core_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # A, W, layout, M, N, K, splits, k_per_split, bias, pre_out, pre_f32,
+    # gelu, dgelu_in, dgelu_f32, residual, residual_f32, out, out_f32, stream
+    "fmm_gemm_epilogue": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,
+                          _I, _P, _I, _P, _I, _P],
     # x, x_f32, gamma, beta, out, rows, D, eps, stream
     "fmm_layernorm_rows": [_P, _I, _P, _P, _P, _I, _I, _F, _P],
+    # x, x_f32, dxn, dres, dres_f32, gamma, dx, dx_f32, dx_copy, partial,
+    # rows, D, rows_per_block, eps, stream
+    "fmm_layernorm_bwd_rows": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
+                               _I, _F, _P],
+    # x, x_f32, out, rows, N, splits, rows_per_split, stream
+    "fmm_column_sum": [_P, _I, _P, _L, _L, _I, _L, _P],
 }
 
 # Launches of each CUDA kernel since the last reset, by entry point.

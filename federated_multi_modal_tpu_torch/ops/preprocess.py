@@ -69,3 +69,70 @@ def center_boxes(n: int, canvas_size: int = DEFAULT_CANVAS, out_size: int = 224)
     boxes = np.tile(
         np.asarray([[0.0, 0.0, canvas_size, canvas_size]], np.float32), (n, 1))
     return boxes, np.zeros(n, bool)
+
+
+# -- crop-parameter sampling (torchvision RandomResizedCrop's procedure on
+# -- canvas coordinates) ------------------------------------------------------
+
+
+def sample_rrc_boxes(rng: np.random.Generator, n: int,
+                     canvas_size: int = DEFAULT_CANVAS, scale=(0.08, 1.0),
+                     ratio=(3.0 / 4.0, 4.0 / 3.0)):
+    """Host-side sampling of ``(n, 4)`` random-resized-crop boxes ``(y0,
+    x0, h, w)`` and ``(n,)`` flip flags, as the JAX package's numpy sampler
+    draws them (a copy: the same draws from the same generator)."""
+    boxes = np.empty((n, 4), np.float32)
+    area = canvas_size * canvas_size
+    log_ratio = (np.log(ratio[0]), np.log(ratio[1]))
+    for i in range(n):
+        for _ in range(10):
+            target_area = area * rng.uniform(scale[0], scale[1])
+            aspect = np.exp(rng.uniform(log_ratio[0], log_ratio[1]))
+            w = int(round(np.sqrt(target_area * aspect)))
+            h = int(round(np.sqrt(target_area / aspect)))
+            if 0 < w <= canvas_size and 0 < h <= canvas_size:
+                y0 = rng.integers(0, canvas_size - h + 1)
+                x0 = rng.integers(0, canvas_size - w + 1)
+                boxes[i] = (y0, x0, h, w)
+                break
+        else:  # centre fallback (torchvision semantics)
+            boxes[i] = (0, 0, canvas_size, canvas_size)
+    flips = rng.random(n) < 0.5
+    return boxes, flips.astype(bool)
+
+
+def sample_rrc_boxes_torch(generator: torch.Generator, n: int,
+                           canvas_size: int = DEFAULT_CANVAS, scale=(0.08, 1.0),
+                           ratio=(3.0 / 4.0, 4.0 / 3.0), trials: int = 10):
+    """Device-side counterpart of :func:`sample_rrc_boxes` (the JAX
+    package's ``sample_rrc_boxes_jax``): all ``trials`` candidates drawn at
+    once on the generator's device and the first in-bounds one kept, so
+    sampling needs no host round trip. The same distribution, not the same
+    numbers (a ``torch.Generator`` is not ``jax.random``). Returns ``(boxes
+    (n, 4) fp32 [y0, x0, h, w], flips (n,) bool)``."""
+    device = generator.device
+
+    def uniform(*shape, lo=0.0, hi=1.0):
+        u = torch.rand(shape, generator=generator, device=device)
+        return lo + (hi - lo) * u
+
+    area = float(canvas_size * canvas_size)
+    target_area = area * uniform(n, trials, lo=scale[0], hi=scale[1])
+    aspect = torch.exp(uniform(n, trials, lo=float(np.log(ratio[0])),
+                               hi=float(np.log(ratio[1]))))
+    w = torch.round(torch.sqrt(target_area * aspect))
+    h = torch.round(torch.sqrt(target_area / aspect))
+    valid = (w > 0) & (w <= canvas_size) & (h > 0) & (h <= canvas_size)
+    first = torch.argmax(valid.to(torch.int32), dim=1)  # the first accepted trial
+    any_valid = valid.any(dim=1)
+    rows = torch.arange(n, device=device)
+    w_sel, h_sel = w[rows, first], h[rows, first]
+    y0 = torch.floor(uniform(n) * (canvas_size - h_sel + 1.0))
+    x0 = torch.floor(uniform(n) * (canvas_size - w_sel + 1.0))
+    full = torch.full_like(h_sel, float(canvas_size))
+    zero = torch.zeros_like(h_sel)
+    boxes = torch.stack([torch.where(any_valid, y0, zero), torch.where(any_valid, x0, zero),
+                         torch.where(any_valid, h_sel, full),
+                         torch.where(any_valid, w_sel, full)], dim=1)
+    flips = uniform(n) < 0.5
+    return boxes.float(), flips

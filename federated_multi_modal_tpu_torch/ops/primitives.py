@@ -9,6 +9,11 @@ implementation, as predicates on shapes:
 
 * text rows with a mask and ``T >= 32`` -> ``packed_attention_masked``;
 * inference blocks without a mask -> ``fused_block_residual``;
+* training blocks without a mask -> ``fused_block_train_dw`` when any of
+  the block's attention or MLP weights requires a gradient, else
+  ``fused_block_train`` (the JAX package declares which blocks train in a
+  module global, ``set_vision_attn_wgrad_blocks``; the port reads it from
+  the tensors, so a trainable weight can never take K3's zero gradient);
 * ``T < 32`` -> the plain formulation (the JAX package's XLA path).
 
 Shapes that the JAX package sends to a Pallas kernel the port has not
@@ -95,12 +100,16 @@ def residual_block(x: torch.Tensor, p, n_head: int,
                    inference: bool = False) -> torch.Tensor:
     """Pre-LN transformer block. ``inference=True`` asserts that no
     gradient flows through the block (eval towers); mask-free blocks then
-    take the whole-block kernel."""
+    take the whole-block kernel, and in training one of the two whole-block
+    train kernels, by whether the block's weights require gradients."""
     B, T, D = x.shape
     hidden = p["mlp"]["w_fc"].shape[-1]
-    if inference and _block_kernels.fused_block_eligible(
-            B, T, D, n_head, hidden, attn_mask):
-        return _block_kernels.fused_block_residual(x, p, n_head)
+    if _block_kernels.fused_block_eligible(B, T, D, n_head, hidden, attn_mask):
+        if inference:
+            return _block_kernels.fused_block_residual(x, p, n_head)
+        if any(p[a][b].requires_grad for a, b in _block_kernels.WEIGHT_LEAVES):
+            return _block_kernels.fused_block_train_dw(x, p, n_head)
+        return _block_kernels.fused_block_train(x, p, n_head)
     x = x + multi_head_attention(layer_norm(x, p["ln_1"]), p["attn"], n_head,
                                  attn_mask)
     x = x + mlp(layer_norm(x, p["ln_2"]), p["mlp"])

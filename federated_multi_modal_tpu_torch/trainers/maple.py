@@ -1,11 +1,11 @@
 """MaPLe's functional half (port of ``federated_multi_modal_tpu/trainers/
 maple.py``): the unfreeze predicate, the prompt learner's parameters and
-forward, and the prompt-cached eval functions.
+forward, the caption token, and the prompt-cached eval functions.
 
 The coupled prompt learner alternates: even depths own a text-side prompt
 projected into the vision width, odd depths a vision-side prompt projected
-into the text width. The ``MaPLe`` trainer class, the caption branch's
-forward and the loss come with the training slice.
+into the text width. The ``MaPLe`` trainer class is still to port; the loss
+is ``flagship.py``'s.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from federated_multi_modal_tpu_torch.engine.tree import merge_trees
 from federated_multi_modal_tpu_torch.models.clip_model import (
+    embed_tokens,
     encode_image,
     encode_text_embedded,
 )
@@ -94,6 +95,17 @@ def maple_prompts(pl: dict, prefix, suffix, depth: int):
     shared_ctx = apply_linear(pl["proj_lang_to_vis"], pl["ctx"])
     prompts = assemble_prompts_end(pl["ctx"], prefix, suffix)
     return prompts, shared_ctx, text_deep, vis_deep
+
+
+def caption_tokens_to_extra(pl: dict, text_params, caption_tokens):
+    """Pool the frozen caption embeddings into one vision-width token per
+    image: ``(B, 77)`` token ids -> ``(B, 1, width)`` fp32. The embeddings
+    get no gradient; the pooling softmax runs in fp32."""
+    emb = embed_tokens(text_params, caption_tokens).detach().float()  # (B, 77, d)
+    scores = torch.einsum("btd,d->bt", emb, pl["caption_pool_w"].float())
+    probs = torch.softmax(scores, dim=1)
+    pooled = torch.einsum("btd,bt->bd", emb, probs)
+    return apply_linear(pl["caption_proj"], pooled)[:, None, :]
 
 
 def make_maple_eval_fns(arch, depth: int, text_len: int):

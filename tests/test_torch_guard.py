@@ -43,3 +43,5 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
         flagship.build_maple_program(backbone="Tiny", depth=3)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params.load_jax_params({"logit_scale": 0.0})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flagship.example_batch(params.BACKBONE_CONFIGS["Tiny"], 2)
