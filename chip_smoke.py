@@ -45,7 +45,26 @@ What it does, in order (any failure raises and exits non-zero):
 8. times K1b, K3 and K4 (forward and backward), their plain versions and
    their library yardsticks (SDPA's backward; ``TransformerEncoderLayer``
    forward and backward with frozen or trainable weights);
-9. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+9. the unfused route (``FMM_TPU_FUSED=0``, the JAX package's gate, set for
+   the phase only): eval on 512 images (each vision block launches K2 and
+   no K5), then the train step at batch 512 (K1, K1b, K2 and K2b 12 each,
+   no K3 or K4: one counted step, five timed, one profiled); K2 and K2b
+   against their plain versions on the path's inputs and cotangents and on
+   seeded unit-scale ones, with a planted fault per limit; 16-image logits
+   and a whole 16-image step against the plain path under the same gate;
+   K2 and K2b timed beside SDPA;
+10. the two-kernel eval block (``FMM_TPU_FUSED_BLOCK=0``): eval on 512
+   images (K6a and K6b 12 each, no K5), K6a and K6b against their plain
+   versions on block 0's inputs and on seeded ones, planted faults,
+   16-image logits against the plain path, timings beside
+   ``F.layer_norm``/``F.linear``/SDPA yardsticks;
+11. the sublayer train route (``FMM_TPU_FUSED_TRAIN=1``,
+   ``FMM_TPU_FUSED_TRAIN_BLOCK=0``): the train step at batch 512 (K7
+   forward and backward 11 each, K4 once, no K3), timed and profiled; K7
+   against its plain version on the first frozen block's inputs and
+   cotangent and on seeded ones, planted faults, a whole 16-image step
+   against the plain path, K7 timed beside its yardstick;
+12. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -54,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -213,18 +233,27 @@ def compare_scaled(got, ref, tol: float) -> dict:
 
 def device_profile(fn):
     """Run ``fn`` once under ``torch.profiler``; return its kernels in order
-    as ``(name, device us)`` and the window's host wall time in us."""
+    as ``(name, device us)`` and the window's host wall time in us. A
+    small launch and a synchronize come first inside the profiler, outside
+    the window (``record_function``): the tracer drops the first launches
+    of a trace, and these are the ones it drops."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        with record_function("chip_smoke_window"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    start = next(e for e in events if e.name == "chip_smoke_window").time_range.start
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and e.time_range.start >= start and e.name != "chip_smoke_window"),
                      key=lambda e: e.time_range.start)
     return [(e.name, e.time_range.elapsed_us()) for e in kernels], wall_us
 
@@ -348,6 +377,112 @@ def patched(obj, **attrs):
             setattr(obj, name, real)
 
 
+@contextlib.contextmanager
+def gates(**env):
+    """Set the JAX package's routing gates (environment variables, read by
+    the port when it routes a block), then put the environment back."""
+    saved = {name: os.environ.get(name) for name in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def overlay(module, **attrs):
+    """A stand-in for one of the port's kernel modules as the primitives
+    see it: all of ``module``'s attributes, with ``attrs`` in place of
+    some (recorders, plain versions)."""
+    return types.SimpleNamespace(**{**vars(module), **attrs})
+
+
+def plain_kernels() -> dict:
+    """Stand-ins for the primitives' kernel modules under which every
+    wrapper runs its plain version: the plain path."""
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    return {
+        "_attn_kernels": overlay(
+            k_attn, packed_attention_masked=k_attn.packed_attention_masked_reference,
+            packed_attention=k_attn.packed_attention_reference),
+        "_block_kernels": overlay(k_block, **{
+            name: getattr(k_block, name + "_reference") for name in (
+                "fused_block_residual", "fused_block_train", "fused_block_train_dw",
+                "fused_ln_attention_residual", "fused_ln_mlp_residual",
+                "fused_ln_attention")}),
+    }
+
+
+def kernel_counters() -> dict:
+    """Every ported kernel's wrapper, by the label its counts print under."""
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    return {"K1 packed_attention_masked": k_attn.packed_attention_masked,
+            "K1b packed_attention_masked_bwd": k_attn.packed_attention_masked_bwd,
+            "K2 packed_attention": k_attn.packed_attention,
+            "K2b packed_attention_bwd": k_attn.packed_attention_bwd,
+            "K3 fused_block_train": k_block.fused_block_train,
+            "K4 fused_block_train_dw": k_block.fused_block_train_dw,
+            "K5 fused_block_residual": k_block.fused_block_residual,
+            "K6a fused_ln_attention_residual": k_block.fused_ln_attention_residual,
+            "K6b fused_ln_mlp_residual": k_block.fused_ln_mlp_residual,
+            "K7 fused_ln_attention": k_block.fused_ln_attention}
+
+
+def reset_counts() -> None:
+    from federated_multi_modal_tpu_torch.ops.kernels import _build
+
+    for fn in kernel_counters().values():
+        fn.launches = 0
+        if hasattr(fn, "backward_launches"):
+            fn.backward_launches = 0
+    _build.reset_launches()
+
+
+def read_counts() -> dict:
+    """Each wrapper's launches (and backward launches) since the last
+    :func:`reset_counts`, then each CUDA entry point's."""
+    from federated_multi_modal_tpu_torch.ops.kernels import _build
+
+    counts = {}
+    for name, fn in kernel_counters().items():
+        counts[name] = fn.launches
+        if hasattr(fn, "backward_launches"):
+            counts[name + " (backward)"] = fn.backward_launches
+    counts.update(_build.LAUNCHES)
+    return counts
+
+
+def check_counts(counts: dict, expected: dict, what: str) -> None:
+    wrong = {k: (counts[k], v) for k, v in expected.items() if counts[k] != v}
+    if wrong:
+        raise AssertionError(f"launches per {what} (got, expected): {wrong}")
+
+
+def cotangent_recorder(first: dict, key: str, fn):
+    """``fn`` (a kernel wrapper) that keeps the inputs of its first call
+    under ``first[key]["args"]`` (tensors detached) and, when its output
+    needs a gradient, the cotangent that reaches it under
+    ``first[key]["dy"]``."""
+    def rec(*args):
+        out = fn(*args)
+        if key not in first:
+            first[key] = {"args": tuple(a.detach() if hasattr(a, "detach") else a
+                                        for a in args)}
+            if out.requires_grad:
+                def hook(g):
+                    first[key]["dy"] = g.detach().clone()
+                out.register_hook(hook)
+        return out
+    return rec
+
+
 def seeded_cotangent(like, seed: int):
     """A standard-normal tensor of ``like``'s shape, dtype and device, drawn
     on the device from ``seed``: a cotangent of unit scale."""
@@ -385,7 +520,8 @@ def fault_ln_grad_tail(layernorm_bwd):
     def faulty(x, dxn, dres, gamma, out_dtype, copy_bf16=False):
         dx, copy, dg, db = layernorm_bwd(x, dxn, dres, gamma, out_dtype, copy_bf16)
         tail = slice(-PLANTED_FAULT_ROWS, None)
-        _, _, dg_t, db_t = layernorm_bwd(x[tail], dxn[tail], dres[tail], gamma, out_dtype)
+        _, _, dg_t, db_t = layernorm_bwd(x[tail], dxn[tail],
+                                         None if dres is None else dres[tail], gamma, out_dtype)
         return dx, copy, dg - dg_t, db - db_t
     return faulty
 
@@ -394,6 +530,39 @@ def fault_mask_dropped(attention_bwd):
     """The attention backward ignores the mask it is given."""
     def faulty(qkv, g, n_head, mask=None):
         return attention_bwd(qkv, g, n_head, None)
+    return faulty
+
+
+def fault_attention_tail(attention):
+    """A mask-free attention forward leaves the last rows of its output
+    unwritten (zero); masked (text) launches stay whole."""
+    def faulty(qkv, n_head, mask=None):
+        out = attention(qkv, n_head, mask)
+        if mask is None:
+            out.view(-1, out.shape[-1])[-PLANTED_FAULT_ROWS:] = 0
+        return out
+    return faulty
+
+
+def fault_attention_bwd_tail(attention_bwd):
+    """A mask-free attention backward leaves the last rows of d(QKV)
+    unwritten (zero); masked (text) launches stay whole."""
+    def faulty(qkv, g, n_head, mask=None):
+        dqkv = attention_bwd(qkv, g, n_head, mask)
+        if mask is None:
+            dqkv.view(-1, dqkv.shape[-1])[-PLANTED_FAULT_ROWS:] = 0
+        return dqkv
+    return faulty
+
+
+def fault_residual_gemm_tail(gemm):
+    """A product with a residual epilogue (an out-projection or the MLP's
+    proj) leaves the last rows of its output unwritten (zero)."""
+    def faulty(*args, **kwargs):
+        out = gemm(*args, **kwargs)
+        if kwargs.get("residual") is not None:
+            out[-PLANTED_FAULT_ROWS:] = 0
+        return out
     return faulty
 
 
@@ -493,33 +662,29 @@ def check_train_launches(counts: dict, arch) -> None:
     """Each text block launches K1 and K1b once per step, vision blocks
     0-10 K3 (forward and backward) and block 11 K4."""
     n_text, n_vis = arch.transformer_layers, arch.vision_layers
-    expected = {"K1 packed_attention_masked": n_text,
-                "K1b packed_attention_masked_bwd": n_text,
-                "K3 fused_block_train": n_vis - 1,
-                "K3 fused_block_train (backward)": n_vis - 1,
-                "K4 fused_block_train_dw": 1, "K4 fused_block_train_dw (backward)": 1}
-    wrong = {k: (counts[k], v) for k, v in expected.items() if counts[k] != v}
-    if wrong:
-        raise AssertionError(f"launches per train step (got, expected): {wrong}")
+    check_counts(counts, {"K1 packed_attention_masked": n_text,
+                          "K1b packed_attention_masked_bwd": n_text,
+                          "K3 fused_block_train": n_vis - 1,
+                          "K3 fused_block_train (backward)": n_vis - 1,
+                          "K4 fused_block_train_dw": 1,
+                          "K4 fused_block_train_dw (backward)": 1}, "train step")
 
 
-def train_phase(prog, canvas) -> tuple:
-    """The train path: the step with its kernels recorded, the timed steps,
-    the kernel checks on the step's own inputs, the whole 16-image step
-    against the plain path, and the timings. Returns ``(rows, checks,
-    summary)``."""
+def drive_train(prog, canvas, recorders: dict, label: str = "") -> dict:
+    """The train step (``loss_fn`` and ``make_train_step`` with the
+    federated SGD) at batch ``BATCH`` with random crops and captions: one
+    step under ``recorders`` (stand-ins for the primitives' kernel modules)
+    with every count set to 0 just before and read just after, then
+    ``TRAIN_STEPS`` timed steps and one under the profiler. Returns the
+    counts, the numbers, the train state and the batch maker."""
     import torch
 
     from federated_multi_modal_tpu_torch.engine.trainer import make_train_step
     from federated_multi_modal_tpu_torch.flagship import (
         build_fed_optimizer,
         estimate_train_step_flops,
-        example_batch,
     )
     from federated_multi_modal_tpu_torch.ops import primitives
-    from federated_multi_modal_tpu_torch.ops.kernels import _build
-    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
-    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
     from federated_multi_modal_tpu_torch.ops.preprocess import (
         crop_resize_flip_normalize,
         sample_rrc_boxes_torch,
@@ -529,9 +694,8 @@ def train_phase(prog, canvas) -> tuple:
     arch = prog["arch"]
     res = arch.image_resolution
     frozen = prog["frozen"]
-    loss_fn = prog["loss_fn"]
     tx = build_fed_optimizer()
-    train_step = make_train_step(loss_fn, tx)
+    train_step = make_train_step(prog["loss_fn"], tx)
     state = {"trainable": prog["trainable"], "opt": tx.init(prog["trainable"])}
     rng = np.random.default_rng(1)
     labels = torch.from_numpy(rng.integers(0, N_CLASSES, BATCH)).cuda()
@@ -548,68 +712,18 @@ def train_phase(prog, canvas) -> tuple:
             state["trainable"], frozen, state["opt"], make_batch())
         return loss, gnorm
 
-    # -- the step, with the first inputs and cotangents of each kernel ------
-    first = {}
-
-    def keep_cotangent(key, out):
-        def hook(g):
-            first[key]["dy"] = g.detach().clone()
-        out.register_hook(hook)
-
-    def attn_rec(qkv, mask, n_head):
-        out = k_attn.packed_attention_masked(qkv, mask, n_head)
-        if "k1b" not in first and out.requires_grad:
-            first["k1b"] = {"qkv": qkv.detach(), "mask": mask, "n_head": n_head}
-            keep_cotangent("k1b", out)
-        return out
-
-    def block_rec(key, fn):
-        def rec(x, p, n_head):
-            out = fn(x, p, n_head)
-            if key not in first:
-                first[key] = {"x": x.detach(), "p": p, "n_head": n_head}
-                keep_cotangent(key, out)
-            return out
-        return rec
-
-    attn_ns = types.SimpleNamespace(packed_attention_masked=attn_rec)
-    block_ns = types.SimpleNamespace(
-        fused_block_eligible=k_block.fused_block_eligible,
-        WEIGHT_LEAVES=k_block.WEIGHT_LEAVES,
-        fused_block_residual=k_block.fused_block_residual,
-        fused_block_train=block_rec("k3", k_block.fused_block_train),
-        fused_block_train_dw=block_rec("k4", k_block.fused_block_train_dw))
-    counters = {"K1 packed_attention_masked": k_attn.packed_attention_masked,
-                "K1b packed_attention_masked_bwd": k_attn.packed_attention_masked_bwd,
-                "K3 fused_block_train": k_block.fused_block_train,
-                "K4 fused_block_train_dw": k_block.fused_block_train_dw}
-
-    def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
-            if hasattr(fn, "backward_launches"):
-                fn.backward_launches = 0
-        _build.reset_launches()
-
-    with patched(primitives, _attn_kernels=attn_ns, _block_kernels=block_ns):
+    with patched(primitives, **recorders):
         reset_counts()
         t0 = time.perf_counter()
         loss0, gnorm0 = one_step()
         torch.cuda.synchronize()
         first_step_s = time.perf_counter() - t0
-        counts = {}
-        for name, fn in counters.items():
-            counts[name] = fn.launches
-            if hasattr(fn, "backward_launches"):
-                counts[name + " (backward)"] = fn.backward_launches
-        counts.update(_build.LAUNCHES)
-    print("launches, one train step:", json.dumps(counts))
-    check_train_launches(counts, arch)
+        counts = read_counts()
+    print(f"launches, one train step{label}:", json.dumps(counts))
     assert bool(torch.isfinite(loss0)), "non-finite first loss"
-    print(f"first step (with its recorders): {first_step_s:.2f} s, loss "
+    print(f"first step{label} (with its recorders): {first_step_s:.2f} s, loss "
           f"{float(loss0):.6f}, gnorm {float(gnorm0):.4f}")
 
-    # -- the timed steps -----------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
@@ -623,12 +737,12 @@ def train_phase(prog, canvas) -> tuple:
     median_ms = statistics.median(step_ms)
     flops = estimate_train_step_flops(arch, BATCH, N_CLASSES, prog["text_len"],
                                       use_captions=True)
-    print(f"train step: median {median_ms:.2f} ms of {TRAIN_STEPS} "
+    print(f"train step{label}: median {median_ms:.2f} ms of {TRAIN_STEPS} "
           f"({', '.join(f'{t:.2f}' for t in step_ms)}), "
           f"{flops / median_ms / 1e9:.2f} TFLOP/s of {flops / 1e12:.2f} TFLOP "
           f"(analytic), {BATCH / median_ms * 1e3:.1f} images/s, peak "
           f"{peak_gib:.2f} GiB")
-    print("train losses:", json.dumps(losses))
+    print(f"train losses{label}:", json.dumps(losses))
     assert all(np.isfinite(losses)), losses
 
     step_kernels, step_wall_us = device_profile(one_step)
@@ -636,18 +750,100 @@ def train_phase(prog, canvas) -> tuple:
     for name, us in step_kernels:
         by_name[short_name(name)] = by_name.get(short_name(name), 0.0) + us
     busy_us = sum(by_name.values())
-    print(f"one train step: wall {step_wall_us / 1e3:.2f} ms, device busy "
+    print(f"one train step{label}: wall {step_wall_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / step_wall_us:.3f}")
     print("  device ms by kernel:", json.dumps(
         {k: round(v / 1e3, 3) for k, v in
          sorted(by_name.items(), key=lambda kv: -kv[1])[:14]}))
+    summary = {
+        "train_step_ms": median_ms, "train_step_ms_all": step_ms,
+        "train_tflops": flops / median_ms / 1e9, "train_step_flops": flops,
+        "train_images_per_s": BATCH / median_ms * 1e3, "train_losses": losses,
+        "train_peak_gib": peak_gib, "train_device_busy_ms": busy_us / 1e3,
+        "train_idle_share": 1 - busy_us / step_wall_us, "train_launches": counts,
+    }
+    return {"counts": counts, "summary": summary, "state": state, "make_batch": make_batch}
+
+
+def whole_step_vs_plain(loss_fn, tr, frozen, small, vision_fault, other_fault,
+                        label: str = "") -> list:
+    """One whole ``STEP_IMAGES``-image step (loss and every trainable
+    gradient) on the kernel path against the plain path, with the noise
+    floor of the comparison, and two planted faults, each given as
+    ``(module, {attribute: stand-in})``: one the vision limit must catch,
+    one the other limit. Returns the checks."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops import primitives
+
+    kernel_step = step_loss_and_grads(loss_fn, tr, frozen, small)
+    with patched(primitives, **plain_kernels()):
+        plain_step = step_loss_and_grads(loss_fn, tr, frozen, small)
+        # The noise floor of this comparison: the plain path again with one
+        # pixel of each image moved by one bf16 step.
+        nudged = dict(small, image=small["image"].clone())
+        px = (torch.arange(STEP_IMAGES), 5, 7, 1)
+        nudged["image"][px] = (small["image"][px].float() * (1 + 2 ** -7)).to(
+            small["image"].dtype)
+        noise_step = step_loss_and_grads(loss_fn, tr, frozen, nudged)
+    step_cmp = hold_step(kernel_step, plain_step)
+    noise = hold_step(noise_step, plain_step)
+    faults = []
+    for module, attrs in (vision_fault, other_fault):
+        with patched(module, **attrs):
+            faults.append(hold_step(step_loss_and_grads(loss_fn, tr, frozen, small),
+                                    plain_step))
+    errs = step_cmp.pop("errs")
+    for c in (noise, *faults):
+        del c["errs"]
+    step_cmp["noise_floor"] = noise
+    print(f"whole step{label}, {STEP_IMAGES} images, kernel path vs plain path:",
+          json.dumps(step_cmp))
+    print("  max |err| over max |value| of each trainable gradient:",
+          json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+    for (module, attrs), fault, limit in zip((vision_fault, other_fault), faults,
+                                             ("vision", "other")):
+        print(f"  planted fault for the {limit} limit ({', '.join(attrs)} of "
+              f"{module.__name__.rsplit('.', 1)[-1]}):", json.dumps(fault))
+    return [(f"whole step{label}", step_cmp),
+            (f"whole step{label} planted fault caught by the vision limit",
+             {"ok": not faults[0]["vision"]["ok"]}),
+            (f"whole step{label} planted fault caught by the other limit",
+             {"ok": not faults[1]["other"]["ok"]})]
+
+
+def train_phase(prog, canvas) -> tuple:
+    """The train path: the step with its kernels recorded, the timed steps,
+    the kernel checks on the step's own inputs, the whole 16-image step
+    against the plain path, and the timings. Returns ``(rows, checks,
+    summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.flagship import example_batch
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    arch = prog["arch"]
+    frozen = prog["frozen"]
+    loss_fn = prog["loss_fn"]
+
+    # -- the step, with the first inputs and cotangents of each kernel ------
+    first = {}
+    run = drive_train(prog, canvas, {
+        "_attn_kernels": overlay(k_attn, packed_attention_masked=cotangent_recorder(
+            first, "k1b", k_attn.packed_attention_masked)),
+        "_block_kernels": overlay(
+            k_block,
+            fused_block_train=cotangent_recorder(first, "k3", k_block.fused_block_train),
+            fused_block_train_dw=cotangent_recorder(first, "k4", k_block.fused_block_train_dw))})
+    counts, state, make_batch = run["counts"], run["state"], run["make_batch"]
+    check_train_launches(counts, arch)
 
     # -- K1b, K3 and K4 against their plain versions -----------------------
     # On the main path's own inputs and cotangents, then with a seeded
     # cotangent of unit scale (and, for the blocks, seeded weights), then
     # with a planted fault that the comparison must catch.
-    r = first["k1b"]
-    qkv, mask, n_t, g = r["qkv"], r["mask"], r["n_head"], r["dy"].contiguous()
+    (qkv, mask, n_t), g = first["k1b"]["args"], first["k1b"]["dy"].contiguous()
     g_unit = seeded_cotangent(g, seed=5)
 
     def k1b_check(g):
@@ -668,9 +864,8 @@ def train_phase(prog, canvas) -> tuple:
               ("K1b planted fault caught", {"ok": not k1b_fault["ok"]})]
     block_cmps = {}
     for key, wgrad in (("k3", False), ("k4", True)):
-        r = first[key]
-        x, dy, n_v = r["x"], r["dy"].contiguous(), r["n_head"]
-        p = _detached_block(r["p"], ())
+        (x, p_main, n_v), dy = first[key]["args"], first[key]["dy"].contiguous()
+        p = _detached_block(p_main, ())
         cmps = block_train_checks(x, dy, p, n_v, wgrad)
         print(f"{key.upper()} vs plain, main path's inputs, [max |err|, err/tol]:",
               json.dumps(brief(cmps)))
@@ -704,53 +899,18 @@ def train_phase(prog, canvas) -> tuple:
         torch.cuda.empty_cache()
 
     # -- one whole 16-image step: kernel path against plain path ------------
-    small = {k: v[:STEP_IMAGES] for k, v in make_batch().items()}
-    tr = state["trainable"]
-    kernel_step = step_loss_and_grads(loss_fn, tr, frozen, small)
-    plain_attn = types.SimpleNamespace(
-        packed_attention_masked=k_attn.packed_attention_masked_reference)
-    plain_block = types.SimpleNamespace(
-        fused_block_eligible=k_block.fused_block_eligible,
-        WEIGHT_LEAVES=k_block.WEIGHT_LEAVES,
-        fused_block_residual=k_block.fused_block_residual_reference,
-        fused_block_train=k_block.fused_block_train_reference,
-        fused_block_train_dw=k_block.fused_block_train_dw_reference)
-    with patched(primitives, _attn_kernels=plain_attn, _block_kernels=plain_block):
-        plain_step = step_loss_and_grads(loss_fn, tr, frozen, small)
-        # The noise floor of this comparison: the plain path again with one
-        # pixel of each image moved by one bf16 step.
-        nudged = dict(small, image=small["image"].clone())
-        px = (torch.arange(STEP_IMAGES), 5, 7, 1)
-        nudged["image"][px] = (small["image"][px].float() * (1 + 2 ** -7)).to(
-            small["image"].dtype)
-        noise_step = step_loss_and_grads(loss_fn, tr, frozen, nudged)
-    step_cmp = hold_step(kernel_step, plain_step)
-    noise = hold_step(noise_step, plain_step)
     # Planted faults, one for each limit: the vision LayerNorms' gradients
     # skip the last rows (vision limit); K1b ignores the mask (the rest).
-    with patched(k_block, CUDA_STEPS=k_block.CUDA_STEPS._replace(
-            layernorm_bwd=fault_ln_grad_tail(k_block.layernorm_bwd_rows_cuda))):
-        fault_vision = hold_step(step_loss_and_grads(loss_fn, tr, frozen, small), plain_step)
-    with patched(k_attn, attention_core_bwd_cuda=fault_mask_dropped(
-            k_attn.attention_core_bwd_cuda)):
-        fault_text = hold_step(step_loss_and_grads(loss_fn, tr, frozen, small), plain_step)
-    errs = step_cmp.pop("errs")
-    for c in (noise, fault_vision, fault_text):
-        del c["errs"]
-    step_cmp["noise_floor"] = noise
-    print(f"whole step, {STEP_IMAGES} images, kernel path vs plain path:",
-          json.dumps(step_cmp))
-    print("  max |err| over max |value| of each trainable gradient:",
-          json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
-    print("  planted fault, vision LayerNorm gradients skip the last "
-          f"{PLANTED_FAULT_ROWS} rows:", json.dumps(fault_vision))
-    print("  planted fault, K1b ignores the mask:", json.dumps(fault_text))
-    checks += [("whole step", step_cmp),
-               ("whole step planted fault caught by the vision limit",
-                {"ok": not fault_vision["vision"]["ok"]}),
-               ("whole step planted fault caught by the other limit",
-                {"ok": not fault_text["other"]["ok"]})]
-    del kernel_step, plain_step, noise_step, nudged
+    small = {k: v[:STEP_IMAGES] for k, v in make_batch().items()}
+    tr = state["trainable"]
+    step_checks = whole_step_vs_plain(
+        loss_fn, tr, frozen, small,
+        (k_block, {"CUDA_STEPS": k_block.CUDA_STEPS._replace(
+            layernorm_bwd=fault_ln_grad_tail(k_block.layernorm_bwd_rows_cuda))}),
+        (k_attn, {"attention_core_bwd_cuda": fault_mask_dropped(
+            k_attn.attention_core_bwd_cuda)}))
+    checks += step_checks
+    step_cmp = step_checks[0][1]
 
     # -- logits_fn of the trained state against the prompt-cached eval path --
     images = example_batch(arch, STEP_IMAGES, N_CLASSES, use_captions=False,
@@ -806,10 +966,9 @@ def train_phase(prog, canvas) -> tuple:
              k_block.fused_block_train_reference),
             ("k4", True, "fused_block_train_dw", 1307, k_block.fused_block_train_dw,
              k_block.fused_block_train_dw_reference)):
-        r = first[key]
-        x, dy, n_v = r["x"], r["dy"].contiguous(), r["n_head"]
+        (x, p_main, n_v), dy = first[key]["args"], first[key]["dy"].contiguous()
         grad_leaves = k_block.BLOCK_LEAVES if wgrad else k_block.LN_LEAVES
-        p = _detached_block(r["p"], grad_leaves)
+        p = _detached_block(p_main, grad_leaves)
         wanted = [p[a][b] for a, b in grad_leaves]
 
         def fwd_bwd(fn=fn, x=x, p=p, n_v=n_v, dy=dy, wanted=wanted):
@@ -821,7 +980,7 @@ def train_phase(prog, canvas) -> tuple:
         print(f"one {name} forward + backward, device us per launch:",
               json.dumps([[short_name(n), round(us, 1)] for n, us in launches]))
         plain_ms = cuda_ms(lambda: fwd_bwd(fn=plain), 3, 1)
-        lib_ms = library_block_ms(_detached_block(r["p"], ()), n_v, x, dy, wgrad)
+        lib_ms = library_block_ms(_detached_block(p_main, ()), n_v, x, dy, wgrad)
         B5, T5, D5 = x.shape
         M5 = B5 * T5
         hidden = p["mlp"]["w_fc"].shape[1]
@@ -859,14 +1018,480 @@ def train_phase(prog, canvas) -> tuple:
               f"{lib_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]})")
     print(f"packed_attention_masked_bwd: {k1b_ms:.4f} ms, plain {k1b_plain_ms:.4f} ms, "
           f"SDPA backward {k1b_lib_ms:.4f} ms, bound {k1b_bound[0]:.4f} ms")
-    summary = {
-        "train_step_ms": median_ms, "train_step_ms_all": step_ms,
-        "train_tflops": flops / median_ms / 1e9, "train_step_flops": flops,
-        "train_images_per_s": BATCH / median_ms * 1e3, "train_losses": losses,
-        "train_peak_gib": peak_gib, "train_device_busy_ms": busy_us / 1e3,
-        "train_idle_share": 1 - busy_us / step_wall_us,
-        "train_launches": counts, "whole_step_vs_plain": step_cmp,
-    }
+    summary = dict(run["summary"], whole_step_vs_plain=step_cmp)
+    return rows, checks, summary
+
+
+# -- the JAX package's other routes -------------------------------------------
+#
+# Each phase sets the gates of one route for its run only (``gates``), on
+# top of the defaults that ``main`` sets for the whole run.
+
+DEFAULT_GATES = {"FMM_TPU_FUSED": "1", "FMM_TPU_FUSED_BLOCK": "1",
+                 "FMM_TPU_FUSED_TRAIN": "0", "FMM_TPU_FUSED_TRAIN_BLOCK": "1",
+                 "FMM_TPU_FUSED_TRAIN_DW": "1", "FMM_TPU_FUSED_NBLK": "1"}
+
+
+def eval_counted(prog, canvas, boxes, flips, recorders: dict, label: str) -> tuple:
+    """``eval_prepare_fn`` once, then ``eval_apply_fn`` on the ``BATCH``
+    centre crops under ``recorders``, with every count set to 0 just before
+    the apply and read just after. Returns ``(logits, counts, prep,
+    images)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.preprocess import crop_resize_flip_normalize
+
+    tr, fr = prog["trainable"], prog["frozen"]
+    prep = prog["eval_prepare_fn"](tr, fr)
+    with patched(primitives, **recorders):
+        reset_counts()
+        images = crop_resize_flip_normalize(canvas, boxes, flips,
+                                            out_size=prog["arch"].image_resolution)
+        logits = prog["eval_apply_fn"](tr, fr, images, prep)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    print(f"launches, eval_apply_fn{label}:", json.dumps(counts))
+    assert logits.shape == (BATCH, N_CLASSES), logits.shape
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    return logits, counts, prep, images
+
+
+def eval_vs_plain(prog, images, logits, label: str) -> dict:
+    """The first ``E2E_IMAGES`` logits against the plain path's."""
+    from federated_multi_modal_tpu_torch.ops import primitives
+
+    tr, fr = prog["trainable"], prog["frozen"]
+    with patched(primitives, **plain_kernels()):
+        logits_plain = prog["eval_apply_fn"](tr, fr, images[:E2E_IMAGES],
+                                             prog["eval_prepare_fn"](tr, fr))
+    cmp = compare(logits[:E2E_IMAGES], logits_plain, TOL_E2E)
+    print(f"eval path{label} vs plain path, {E2E_IMAGES} images:", json.dumps(cmp))
+    return cmp
+
+
+def eval_images_per_s(prog, canvas, boxes, flips, prep, label: str) -> dict:
+    """Median wall ms of crop + ``eval_apply_fn`` on ``BATCH`` images."""
+    from federated_multi_modal_tpu_torch.ops.preprocess import crop_resize_flip_normalize
+
+    tr, fr = prog["trainable"], prog["frozen"]
+
+    def crop_and_apply():
+        imgs = crop_resize_flip_normalize(canvas, boxes, flips,
+                                          out_size=prog["arch"].image_resolution)
+        return prog["eval_apply_fn"](tr, fr, imgs, prep)
+
+    ms = wall_ms(crop_and_apply, 5)
+    print(f"eval{label}: apply (crop + towers) {ms:.2f} ms per {BATCH} images = "
+          f"{BATCH / ms * 1e3:.1f} images/s")
+    return {"eval_apply_ms": ms, "eval_images_per_s": BATCH / ms * 1e3}
+
+
+def unfused_phase(prog, canvas, boxes, flips) -> tuple:
+    """``FMM_TPU_FUSED=0``: eval and the train step with every vision block
+    on the plain block and K2 (K2b in the backward); K2 and K2b against
+    their plain versions, the 16-image logits and step against the plain
+    path, and the timings. Returns ``(rows, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+
+    arch = prog["arch"]
+    n_text, n_vis = arch.transformer_layers, arch.vision_layers
+    label = " (unfused)"
+    first = {}
+    with gates(**dict(DEFAULT_GATES, FMM_TPU_FUSED="0")):
+        logits, eval_counts, prep, images = eval_counted(
+            prog, canvas, boxes, flips, {"_attn_kernels": overlay(
+                k_attn, packed_attention=cotangent_recorder(
+                    first, "eval", k_attn.packed_attention))}, label)
+        check_counts(eval_counts, {"K2 packed_attention": n_vis, "K5 fused_block_residual": 0,
+                                   "fmm_attention_core": n_vis, "fmm_gemm_epilogue": 0},
+                     "eval apply" + label)
+        e2e = eval_vs_plain(prog, images, logits, label)
+        summary = eval_images_per_s(prog, canvas, boxes, flips, prep, label)
+        del logits, prep, images
+        torch.cuda.empty_cache()
+
+        run = drive_train(prog, canvas, {"_attn_kernels": overlay(
+            k_attn, packed_attention=cotangent_recorder(
+                first, "train", k_attn.packed_attention))}, label)
+        counts = run["counts"]
+        check_counts(counts, {
+            "K1 packed_attention_masked": n_text, "K1b packed_attention_masked_bwd": n_text,
+            "K2 packed_attention": n_vis, "K2b packed_attention_bwd": n_vis,
+            "K3 fused_block_train": 0, "K3 fused_block_train (backward)": 0,
+            "K4 fused_block_train_dw": 0, "K4 fused_block_train_dw (backward)": 0,
+            "K5 fused_block_residual": 0}, "train step" + label)
+        small = {k: v[:STEP_IMAGES] for k, v in run["make_batch"]().items()}
+        # Planted faults: K2b leaves the last rows of the vision blocks'
+        # d(QKV) unwritten (vision limit); K1b ignores the mask (the rest).
+        checks = whole_step_vs_plain(
+            prog["loss_fn"], run["state"]["trainable"], prog["frozen"], small,
+            (k_attn, {"attention_core_bwd_cuda": fault_attention_bwd_tail(
+                k_attn.attention_core_bwd_cuda)}),
+            (k_attn, {"attention_core_bwd_cuda": fault_mask_dropped(
+                k_attn.attention_core_bwd_cuda)}), label)
+        summary.update(run["summary"], whole_step_vs_plain=checks[0][1],
+                       eval_launches=eval_counts)
+        del run, small
+        torch.cuda.empty_cache()
+    checks.insert(0, ("eval path" + label, e2e))
+
+    # -- K2 and K2b against their plain versions --------------------------
+    qkv_e, n = first["eval"]["args"]
+    qkv, g = first["train"]["args"][0], first["train"]["dy"].contiguous()
+
+    def k2_check(qkv):
+        return compare(k_attn.packed_attention(qkv, n),
+                       k_attn.attention_core_reference(qkv, n), TOL_K1)
+
+    def k2b_check(g):
+        return compare_scaled(k_attn.packed_attention_bwd(qkv, g, n),
+                              k_attn.attention_core_bwd_reference(qkv, g, n), TOL_K1B)
+
+    cmps = {"K2": k2_check(qkv_e), "K2 seeded qkv": k2_check(seeded_cotangent(qkv_e, 7)),
+            "K2b": k2b_check(g), "K2b seeded cotangent": k2b_check(seeded_cotangent(g, 8))}
+    with patched(k_attn, attention_core_cuda=fault_attention_tail(k_attn.attention_core_cuda),
+                 attention_core_bwd_cuda=fault_attention_bwd_tail(
+                     k_attn.attention_core_bwd_cuda)):
+        faults = {"K2": k2_check(qkv_e), "K2b": k2b_check(seeded_cotangent(g, 8))}
+    for name, c in cmps.items():
+        print(f"{name} vs plain{' (eval input)' if name == 'K2' else ''}:", json.dumps(c))
+    print(f"K2, K2b planted faults (the last {PLANTED_FAULT_ROWS} rows unwritten):",
+          json.dumps(brief(faults)))
+    checks += list(cmps.items())
+    checks += [(f"{k} planted fault caught", {"ok": not c["ok"]}) for k, c in faults.items()]
+
+    # -- timings ---------------------------------------------------------------
+    B, T, D3 = qkv.shape
+    hd = D3 // 3 // n
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (t.reshape(B, T, n, hd).transpose(1, 2).detach().requires_grad_(True)
+               for t in qkv.split(D3 // 3, dim=-1))
+    g_heads = g.reshape(B, T, n, hd).transpose(1, 2)
+    k2_ms = cuda_ms(lambda: k_attn.packed_attention(qkv, n), 20)
+    k2_plain_ms = cuda_ms(lambda: k_attn.attention_core_reference(qkv, n), 5, 1)
+    sdpa_f_ms = cuda_ms(lambda: sdpa(q, k, v), 20)
+    k2b_ms = cuda_ms(lambda: k_attn.packed_attention_bwd(qkv, g, n), 10)
+    k2b_plain_ms = cuda_ms(lambda: k_attn.attention_core_bwd_reference(qkv, g, n), 3, 1)
+    sdpa_fb_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(q, k, v), (q, k, v), g_heads), 20)
+    pairs = B * n * hd * T * T
+    k2_bound = bound(qkv.numel() * 2 + B * T * D3 // 3 * 2, 4 * pairs)
+    k2b_bound = bound(2 * qkv.numel() * 2 + g.numel() * 2, 10 * pairs)
+    print(f"packed_attention: {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, SDPA "
+          f"{sdpa_f_ms:.4f} ms, bound {k2_bound[0]:.4f} ms; packed_attention_bwd: "
+          f"{k2b_ms:.4f} ms, plain {k2b_plain_ms:.4f} ms, SDPA backward "
+          f"{sdpa_fb_ms - sdpa_f_ms:.4f} ms, bound {k2b_bound[0]:.4f} ms")
+    common = {"route": "cuda", "shape": [list(qkv.shape), n]}
+    rows = [
+        dict(common, name="packed_attention",
+             launches_eval_apply=eval_counts["K2 packed_attention"],
+             source="federated_multi_modal_tpu_torch/csrc/attention_core.cu",
+             replaces="federated_multi_modal_tpu/ops/pallas/attention.py:386",
+             tpu_function="attention_packed_fwd (behind packed_attention)",
+             launches=counts["K2 packed_attention"],
+             max_abs_err=cmps["K2"]["max_abs_err"], tol=cmps["K2"]["tol"],
+             ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound[0], bound_by=k2_bound[1],
+             library_ms=sdpa_f_ms,
+             library_call="torch.nn.functional.scaled_dot_product_attention (no mask)"),
+        dict(common, name="packed_attention_bwd",
+             source="federated_multi_modal_tpu_torch/csrc/attention_core_bwd.cu",
+             replaces="federated_multi_modal_tpu/ops/pallas/attention.py:422",
+             tpu_function="attention_packed_bwd (the custom VJP of packed_attention)",
+             launches=counts["K2b packed_attention_bwd"],
+             max_abs_err=cmps["K2b"]["max_abs_err"], tol=cmps["K2b"]["tol"],
+             ms=k2b_ms, plain_ms=k2b_plain_ms, bound_ms=k2b_bound[0], bound_by=k2b_bound[1],
+             library_ms=sdpa_fb_ms - sdpa_f_ms,
+             library_call="torch.nn.functional.scaled_dot_product_attention (no mask), "
+                          "forward + backward minus forward"),
+    ]
+    return rows, checks, summary
+
+
+def two_kernel_eval_phase(prog, canvas, boxes, flips) -> tuple:
+    """``FMM_TPU_FUSED_BLOCK=0``: eval with every vision block on K6a then
+    K6b; both against their plain versions, the 16-image logits against
+    the plain path, and the timings. Returns ``(rows, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    n_vis = prog["arch"].vision_layers
+    label = " (two-kernel block)"
+    first = {}
+    with gates(**dict(DEFAULT_GATES, FMM_TPU_FUSED_BLOCK="0")):
+        logits, counts, prep, images = eval_counted(
+            prog, canvas, boxes, flips, {"_block_kernels": overlay(
+                k_block,
+                fused_ln_attention_residual=cotangent_recorder(
+                    first, "k6a", k_block.fused_ln_attention_residual),
+                fused_ln_mlp_residual=cotangent_recorder(
+                    first, "k6b", k_block.fused_ln_mlp_residual))}, label)
+        check_counts(counts, {"K6a fused_ln_attention_residual": n_vis,
+                              "K6b fused_ln_mlp_residual": n_vis,
+                              "K5 fused_block_residual": 0, "fmm_gemm_epilogue": 4 * n_vis,
+                              "fmm_layernorm_rows": 2 * n_vis, "fmm_attention_core": n_vis},
+                     "eval apply" + label)
+        e2e = eval_vs_plain(prog, images, logits, label)
+        summary = eval_images_per_s(prog, canvas, boxes, flips, prep, label)
+        apply_kernels, apply_wall_us = device_profile(
+            lambda: prog["eval_apply_fn"](prog["trainable"], prog["frozen"], images, prep))
+        busy_us = sum(us for _, us in apply_kernels)
+        summary["eval_apply_idle_share"] = 1 - busy_us / apply_wall_us
+        print(f"one eval apply{label} (towers only): wall {apply_wall_us / 1e3:.2f} ms, "
+              f"device busy {busy_us / 1e3:.2f} ms, idle share "
+              f"{summary['eval_apply_idle_share']:.3f}")
+        del logits, prep, images
+    summary["eval_launches"] = counts
+
+    x, lnp, attnp, n = first["k6a"]["args"]
+    y, ln2, mlpp = first["k6b"]["args"]
+    seeded = seeded_block({"ln_1": lnp, "attn": attnp, "ln_2": ln2, "mlp": mlpp}, seed=8)
+    x_unit, y_unit = seeded_cotangent(x, 9), seeded_cotangent(y, 10)
+
+    def k6a(x, lnp, attnp, tol):
+        return compare(k_block.fused_ln_attention_residual(x, lnp, attnp, n),
+                       k_block.fused_ln_attention_residual_reference(x, lnp, attnp, n), tol)
+
+    def k6b(y, ln2, mlpp, tol):
+        return compare(k_block.fused_ln_mlp_residual(y, ln2, mlpp),
+                       k_block.fused_ln_mlp_residual_reference(y, ln2, mlpp), tol)
+
+    cmps = {"K6a": k6a(x, lnp, attnp, TOL_K5), "K6b": k6b(y, ln2, mlpp, TOL_K5),
+            "K6a seeded": k6a(x_unit, seeded["ln_1"], seeded["attn"], TOL_K5_SEEDED),
+            "K6b seeded": k6b(y_unit, seeded["ln_2"], seeded["mlp"], TOL_K5_SEEDED)}
+    with patched(k_block, gemm_epilogue_cuda=fault_residual_gemm_tail(
+            k_block.gemm_epilogue_cuda)):
+        faults = {"K6a": k6a(x, lnp, attnp, TOL_K5), "K6b": k6b(y, ln2, mlpp, TOL_K5),
+                  "K6a seeded": k6a(x_unit, seeded["ln_1"], seeded["attn"], TOL_K5_SEEDED),
+                  "K6b seeded": k6b(y_unit, seeded["ln_2"], seeded["mlp"], TOL_K5_SEEDED)}
+    for name, c in cmps.items():
+        print(f"{name} vs plain:", json.dumps(c))
+    print(f"K6a, K6b planted faults (the last {PLANTED_FAULT_ROWS} output rows "
+          "unwritten):", json.dumps(brief(faults)))
+    checks = [("eval path" + label, e2e), *cmps.items()]
+    checks += [(f"{k} planted fault caught", {"ok": not c["ok"]}) for k, c in faults.items()]
+    del seeded, x_unit, y_unit
+
+    # -- timings and yardsticks -------------------------------------------
+    F = torch.nn.functional
+    B, T, D = x.shape
+    M = B * T
+    bf = torch.bfloat16
+
+    def lin(w, b):
+        return w.to(bf).T.contiguous(), b.to(bf)
+
+    w_qkv, b_qkv = lin(attnp["w_qkv"], attnp["b_qkv"])
+    w_out, b_out = lin(attnp["w_out"], attnp["b_out"])
+    w_fc, b_fc = lin(mlpp["w_fc"], mlpp["b_fc"])
+    w_proj, b_proj = lin(mlpp["w_proj"], mlpp["b_proj"])
+    hidden = w_fc.shape[0]
+
+    def k6a_library():
+        xn = F.layer_norm(x, (D,), lnp["scale"].to(bf), lnp["bias"].to(bf), 1e-5)
+        q, k, v = F.linear(xn, w_qkv, b_qkv).view(B, T, 3, n, D // n).permute(2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B, T, D)
+        return x + F.linear(a, w_out, b_out)
+
+    def k6b_library():
+        h = F.linear(F.layer_norm(y, (D,), ln2["scale"].to(bf), ln2["bias"].to(bf), 1e-5),
+                     w_fc, b_fc)
+        return y + F.linear(h * torch.sigmoid(1.702 * h), w_proj, b_proj)
+
+    with torch.no_grad():
+        lib_cmps = {
+            "K6a library yardstick": compare(
+                k6a_library(), k_block.fused_ln_attention_residual_reference(x, lnp, attnp, n),
+                TOL_LIBRARY),
+            "K6b library yardstick": compare(
+                k6b_library(), k_block.fused_ln_mlp_residual_reference(y, ln2, mlpp),
+                TOL_LIBRARY)}
+        print("K6a, K6b library yardsticks vs plain:", json.dumps(brief(lib_cmps)))
+        checks += list(lib_cmps.items())
+        times = {
+            "K6a": (cuda_ms(lambda: k_block.fused_ln_attention_residual(x, lnp, attnp, n), 10),
+                    cuda_ms(lambda: k_block.fused_ln_attention_residual_reference(
+                        x, lnp, attnp, n), 3, 1),
+                    cuda_ms(k6a_library, 10)),
+            "K6b": (cuda_ms(lambda: k_block.fused_ln_mlp_residual(y, ln2, mlpp), 10),
+                    cuda_ms(lambda: k_block.fused_ln_mlp_residual_reference(y, ln2, mlpp), 3, 1),
+                    cuda_ms(k6b_library, 10))}
+    for key, fn, args in (("K6a", k_block.fused_ln_attention_residual, (x, lnp, attnp, n)),
+                          ("K6b", k_block.fused_ln_mlp_residual, (y, ln2, mlpp))):
+        launches, _ = device_profile(lambda: fn(*args))
+        print(f"one {key}, device us per launch:",
+              json.dumps([[short_name(nm), round(us, 1)] for nm, us in launches]))
+    attn_ops = 4 * B * D * T * T
+    bounds = {
+        "K6a": bound(2 * M * D * 2 + 4 * D * D * 2 + 4 * D * 2 + 2 * D * 4,
+                     2 * M * 4 * D * D + attn_ops),
+        "K6b": bound(2 * M * D * 2 + 2 * D * hidden * 2 + (hidden + D) * 2 + 2 * D * 4,
+                     2 * M * 2 * D * hidden)}
+    rows = []
+    for key, name, line, tpu in (
+            ("K6a", "fused_ln_attention_residual", 200, "fused_ln_attention_residual"),
+            ("K6b", "fused_ln_mlp_residual", 462, "fused_ln_mlp_residual")):
+        ms, plain_ms, lib_ms = times[key]
+        b = bounds[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "federated_multi_modal_tpu_torch/csrc/gemm_epilogue.cu",
+            "sources": [f"federated_multi_modal_tpu_torch/csrc/{f}" for f in (
+                ("layernorm_rows.cu", "gemm_epilogue.cu", "attention_core.cu")
+                if key == "K6a" else ("layernorm_rows.cu", "gemm_epilogue.cu"))],
+            "replaces": f"federated_multi_modal_tpu/ops/pallas/fused_block.py:{line}",
+            "tpu_function": tpu, "shape": [list(x.shape), n, hidden],
+            "launches": counts[f"{key} {name}"],
+            "max_abs_err": cmps[key]["max_abs_err"], "tol": cmps[key]["tol"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms,
+            "library_call": ("F.layer_norm + F.linear + scaled_dot_product_attention + "
+                             "F.linear + x" if key == "K6a" else
+                             "F.layer_norm + F.linear + x*sigmoid(1.702x) + F.linear + x"),
+        })
+        print(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
+              f"bound {b[0]:.3f} ms ({b[1]})")
+    return rows, checks, summary
+
+
+def ln_attention_checks(x, dy, lnp, w, b, n_head: int, tol_act: float = TOL_TRAIN_ACT,
+                        steps=None) -> dict:
+    """K7 on ``x``, ``dy`` and its parameters: the CUDA forward and backward
+    (dx, d gamma, d beta) against the plain steps. ``steps`` replaces the
+    CUDA steps (a planted fault)."""
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    cuda, plain = steps or k_block.CUDA_STEPS, k_block.PLAIN_STEPS
+    cmps = {"out": compare(k_block.ln_attention_forward(x, lnp, w, b, n_head, cuda),
+                           k_block.ln_attention_forward(x, lnp, w, b, n_head, plain), tol_act)}
+    got = k_block.ln_attention_backward(x, dy, lnp, w, b, n_head, cuda)
+    ref = k_block.ln_attention_backward(x, dy, lnp, w, b, n_head, plain)
+    for name, gt, rf, tol in zip(("dx", "ln_1.scale", "ln_1.bias"), got, ref,
+                                 (TOL_TRAIN_DX, TOL_TRAIN_PARAM, TOL_TRAIN_PARAM)):
+        cmps[name] = compare_scaled(gt, rf, tol)
+    return cmps
+
+
+def sublayer_train_phase(prog, canvas) -> tuple:
+    """``FMM_TPU_FUSED_TRAIN=1, FMM_TPU_FUSED_TRAIN_BLOCK=0``: the train
+    step with the frozen vision blocks on K7 (and a plain out-projection
+    and MLP) and the last block on K4; K7 against its plain version, a
+    whole 16-image step against the plain path, and the timings. Returns
+    ``(rows, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    arch = prog["arch"]
+    n_text, n_vis = arch.transformer_layers, arch.vision_layers
+    label = " (sublayer)"
+    first = {}
+    with gates(**dict(DEFAULT_GATES, FMM_TPU_FUSED_TRAIN="1", FMM_TPU_FUSED_TRAIN_BLOCK="0")):
+        run = drive_train(prog, canvas, {"_block_kernels": overlay(
+            k_block, fused_ln_attention=cotangent_recorder(
+                first, "k7", k_block.fused_ln_attention))}, label)
+        counts = run["counts"]
+        check_counts(counts, {
+            "K1 packed_attention_masked": n_text, "K1b packed_attention_masked_bwd": n_text,
+            "K7 fused_ln_attention": n_vis - 1, "K7 fused_ln_attention (backward)": n_vis - 1,
+            "K4 fused_block_train_dw": 1, "K4 fused_block_train_dw (backward)": 1,
+            "K3 fused_block_train": 0, "K3 fused_block_train (backward)": 0,
+            "K2 packed_attention": 0, "K5 fused_block_residual": 0}, "train step" + label)
+        small = {k: v[:STEP_IMAGES] for k, v in run["make_batch"]().items()}
+        # Planted faults: the vision LayerNorms' gradients skip the last rows
+        # (vision limit); K1b ignores the mask (the rest).
+        checks = whole_step_vs_plain(
+            prog["loss_fn"], run["state"]["trainable"], prog["frozen"], small,
+            (k_block, {"CUDA_STEPS": k_block.CUDA_STEPS._replace(
+                layernorm_bwd=fault_ln_grad_tail(k_block.layernorm_bwd_rows_cuda))}),
+            (k_attn, {"attention_core_bwd_cuda": fault_mask_dropped(
+                k_attn.attention_core_bwd_cuda)}), label)
+        summary = dict(run["summary"], whole_step_vs_plain=checks[0][1])
+        del run, small
+        torch.cuda.empty_cache()
+
+    x, lnp, w, b, n = first["k7"]["args"]
+    lnp = {k: t.detach() for k, t in lnp.items()}
+    dy = first["k7"]["dy"].contiguous()
+    cmps = ln_attention_checks(x, dy, lnp, w, b, n)
+    seeded = seeded_block({"ln_1": lnp, "attn": {"w_qkv": w, "b_qkv": b}}, seed=12)
+    s_args = (seeded["ln_1"], seeded["attn"]["w_qkv"], seeded["attn"]["b_qkv"], n)
+    dy_unit = seeded_cotangent(dy, 13)
+    seeded_cmps = ln_attention_checks(x, dy_unit, *s_args, TOL_TRAIN_SEEDED)
+    print("K7 vs plain, main path's inputs, [max |err|, err/tol]:", json.dumps(brief(cmps)))
+    print("K7 vs plain, seeded weights and unit cotangent, [max |err|, err/tol]:",
+          json.dumps(brief(seeded_cmps)))
+    cs = k_block.CUDA_STEPS
+    faults = {
+        "out": ln_attention_checks(x, dy, lnp, w, b, n, steps=cs._replace(
+            attention=fault_attention_tail(k_block.attention_core_cuda)))["out"],
+        "dx": ln_attention_checks(x, dy, lnp, w, b, n, steps=cs._replace(
+            layernorm_bwd=fault_dx_tail_zero(k_block.layernorm_bwd_rows_cuda)))["dx"]}
+    ln_fault = ln_attention_checks(x, dy_unit, *s_args, TOL_TRAIN_SEEDED, steps=cs._replace(
+        layernorm_bwd=fault_ln_grad_tail(k_block.layernorm_bwd_rows_cuda)))
+    faults.update({k: ln_fault[k] for k in ("ln_1.scale", "ln_1.bias")})
+    print(f"K7 planted faults (the last {PLANTED_FAULT_ROWS} rows unwritten or skipped), "
+          "[max |err|, err/tol]:", json.dumps(brief(faults)))
+    checks += [(f"K7 {k}", c) for k, c in cmps.items()]
+    checks += [(f"K7 seeded {k}", c) for k, c in seeded_cmps.items()]
+    checks += [(f"K7 planted fault caught by {k}", {"ok": not c["ok"]})
+               for k, c in faults.items()]
+    del seeded, dy_unit, ln_fault
+
+    # -- timings and the yardstick ------------------------------------------
+    F = torch.nn.functional
+    B, T, D = x.shape
+    ln = {k: t.detach().requires_grad_(True) for k, t in lnp.items()}
+
+    def fwd_bwd(fn=k_block.fused_ln_attention):
+        xr = x.detach().requires_grad_(True)
+        torch.autograd.grad(fn(xr, ln, w, b, n), [xr, ln["scale"], ln["bias"]], dy)
+
+    bf = torch.bfloat16
+    w_t, b_t = w.to(bf).T.contiguous(), b.to(bf)
+    ln_lib = {k: t.detach().to(bf).requires_grad_(True) for k, t in lnp.items()}
+
+    def library_fwd_bwd():
+        xr = x.detach().requires_grad_(True)
+        xn = F.layer_norm(xr, (D,), ln_lib["scale"], ln_lib["bias"], 1e-5)
+        q, k, v = F.linear(xn, w_t, b_t).view(B, T, 3, n, D // n).permute(2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B, T, D)
+        torch.autograd.grad(a, [xr, ln_lib["scale"], ln_lib["bias"]], dy)
+
+    ms = cuda_ms(fwd_bwd, 10)
+    plain_ms = cuda_ms(lambda: fwd_bwd(k_block.fused_ln_attention_reference), 3, 1)
+    lib_ms = cuda_ms(library_fwd_bwd, 10)
+    launches, _ = device_profile(fwd_bwd)
+    print("one fused_ln_attention forward + backward, device us per launch:",
+          json.dumps([[short_name(nm), round(us, 1)] for nm, us in launches]))
+    M = B * T
+    attn_fwd = 4 * B * D * T * T
+    k7_bound = bound(4 * M * D * 2 + 3 * D * D * 2 + 3 * D * 2 + 4 * D * 4,
+                     2 * (2 * M * 3 * D * D) + attn_fwd + 2 * attn_fwd)
+    worst = max(cmps.values(), key=lambda c: c["max_err_over_tol"])
+    rows = [{
+        "name": "fused_ln_attention", "route": "cuda",
+        "source": "federated_multi_modal_tpu_torch/csrc/attention_core_bwd.cu",
+        "sources": [f"federated_multi_modal_tpu_torch/csrc/{f}" for f in (
+            "layernorm_rows.cu", "gemm_epilogue.cu", "attention_core.cu",
+            "attention_core_bwd.cu", "layernorm_bwd_rows.cu")],
+        "replaces": "federated_multi_modal_tpu/ops/pallas/fused_block.py:324",
+        "tpu_function": "fused_ln_attention_fwd (:324) and fused_ln_attention_bwd (:359), "
+                        "behind fused_ln_attention",
+        "shape": [list(x.shape), n], "launches": counts["K7 fused_ln_attention"],
+        "backward_launches": counts["K7 fused_ln_attention (backward)"],
+        "max_abs_err": worst["max_abs_err"], "max_err_over_tol": worst["max_err_over_tol"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
+        "library_ms": lib_ms,
+        "library_call": "F.layer_norm + F.linear + scaled_dot_product_attention, "
+                        "forward + backward",
+        "timed": "forward + backward",
+    }]
+    print(f"fused_ln_attention: fwd+bwd {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+          f"{lib_ms:.3f} ms, bound {k7_bound[0]:.3f} ms ({k7_bound[1]})")
     return rows, checks, summary
 
 
@@ -887,6 +1512,9 @@ def main() -> int:
         crop_resize_flip_normalize,
     )
 
+    # The main path runs under the JAX package's default gates, whatever the
+    # environment says; each later phase sets its route's gates on top.
+    os.environ.update(DEFAULT_GATES)
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -923,19 +1551,10 @@ def main() -> int:
 
     # -- 3. the main path, with the first inputs of each kernel recorded ------
     first = {}
-
-    def recorder(key, fn):
-        def rec(*args):
-            first.setdefault(key, args)
-            return fn(*args)
-        return rec
-
-    attn_rec = types.SimpleNamespace(packed_attention_masked=recorder(
-        "k1", k_attn.packed_attention_masked))
-    block_rec = types.SimpleNamespace(
-        fused_block_residual=recorder("k5", k_block.fused_block_residual),
-        fused_block_eligible=k_block.fused_block_eligible,
-        WEIGHT_LEAVES=k_block.WEIGHT_LEAVES)
+    attn_rec = overlay(k_attn, packed_attention_masked=cotangent_recorder(
+        first, "k1", k_attn.packed_attention_masked))
+    block_rec = overlay(k_block, fused_block_residual=cotangent_recorder(
+        first, "k5", k_block.fused_block_residual))
     with patched(primitives, _attn_kernels=attn_rec, _block_kernels=block_rec):
         k_attn.packed_attention_masked.launches = 0
         k_block.fused_block_residual.launches = 0
@@ -974,13 +1593,13 @@ def main() -> int:
           f"{float(logits.abs().max()):.4f}")
 
     # -- 4. kernels against their plain versions, on the main path's inputs ---
-    qkv, mask, n_head_t = first["k1"]
+    qkv, mask, n_head_t = first["k1"]["args"]
     k1_got = k_attn.packed_attention_masked(qkv, mask, n_head_t)
     k1_ref = k_attn.packed_attention_masked_reference(qkv, mask, n_head_t)
     k1_cmp = compare(k1_got, k1_ref, TOL_K1)
     print("K1 packed_attention_masked vs plain:", json.dumps(k1_cmp))
 
-    x, blk, n_head_v = first["k5"]
+    x, blk, n_head_v = first["k5"]["args"]
     k5_got = k_block.fused_block_residual(x, blk, n_head_v)
     k5_ref = k_block.fused_block_residual_reference(x, blk, n_head_v)
     k5_cmp = compare(k5_got, k5_ref, TOL_K5)
@@ -1005,13 +1624,7 @@ def main() -> int:
     print("K5 library block (TransformerEncoderLayer) vs plain:", json.dumps(lib_cmp))
     del k1_got, k1_ref, k5_got, k5_ref
 
-    plain_attn = types.SimpleNamespace(
-        packed_attention_masked=k_attn.packed_attention_masked_reference)
-    plain_block = types.SimpleNamespace(
-        fused_block_residual=k_block.fused_block_residual_reference,
-        fused_block_eligible=k_block.fused_block_eligible,
-        WEIGHT_LEAVES=k_block.WEIGHT_LEAVES)
-    with patched(primitives, _attn_kernels=plain_attn, _block_kernels=plain_block):
+    with patched(primitives, **plain_kernels()):
         prep_plain = prepare(tr, fr)
         logits_plain = apply(tr, fr, images[:E2E_IMAGES], prep_plain)
     e2e_cmp = compare(logits[:E2E_IMAGES], logits_plain, TOL_E2E)
@@ -1130,12 +1743,26 @@ def main() -> int:
         "K1 packed_attention_masked"]
     rows = rows[:1] + train_rows + rows[1:]
     summary.update(train_summary)
+    torch.cuda.empty_cache()
+
+    # -- 9.-11. the JAX package's other routes ----------------------------------
+    route_checks = []
+    for key, phase, args in (
+            ("unfused", unfused_phase, (prog, canvas, boxes, flips)),
+            ("two_kernel_eval", two_kernel_eval_phase, (prog, canvas, boxes, flips)),
+            ("sublayer_train", sublayer_train_phase, (prog, canvas))):
+        t0 = time.perf_counter()
+        phase_rows, phase_checks, phase_summary = phase(*args)
+        rows += phase_rows
+        route_checks += phase_checks
+        summary[key] = dict(phase_summary, phase_s=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
     print("summary:", json.dumps(summary))
     print(card)
     print(json.dumps({"kernels": rows}))
     checks = [("K1", k1_cmp), ("K5", k5_cmp), ("K5 seeded", k5s_cmp),
               ("K5 library yardstick", lib_cmp), ("end to end", e2e_cmp)]
-    checks += train_checks
+    checks += train_checks + route_checks
     checks += [(f"K5 block 0 {step}", c) for step, c in k5_steps.items()]
     checks += [(f"K5 seeded {step}", c) for step, c in k5s_steps.items()]
     failed = [name for name, c in checks if not c["ok"]]

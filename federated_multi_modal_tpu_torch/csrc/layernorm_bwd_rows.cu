@@ -5,7 +5,7 @@
 // For each row, with the moments of x recomputed in fp32 (two passes, as
 // the forward computes them) and x^ = (x - mean) * rstd:
 //   gv = dxn * gamma
-//   dx = dres + rstd * (gv - mean(gv) - x^ * mean(gv * x^))
+//   dx = dres + rstd * (gv - mean(gv) - x^ * mean(gv * x^))   (dres may be null)
 // written in fp32 or bf16 (and optionally a second bf16 copy), and the
 // per-block partial column sums of dxn * x^ (d gamma) and dxn (d beta).
 //
@@ -16,7 +16,9 @@
 // giving the block's dx in x's dtype (residual gradient dyh); dg1/db1 and
 // dg2/db2; and for the trainable block the bias gradients db_qkv and db_fc
 // (sums of the bf16 dqkv and dh), db_out and db_proj (sums of the fp32 dyh
-// and dout), all accumulated in fp32.
+// and dout), all accumulated in fp32. With no residual branch (dres null)
+// it is the LayerNorm backward of fused_ln_attention_bwd, giving that
+// kernel's dx, dgamma and dbeta.
 // Bound on the H100: bytes. At the vision shape (101,888 rows of 768) LN2's
 // backward reads fp32 y and dxn2 and bf16 dout (784 MB) and writes fp32 and
 // bf16 dyh (470 MB), ~0.37 ms at 3.35 TB/s; a column sum reads its matrix
@@ -102,14 +104,15 @@ __global__ void __launch_bounds__(kThreads)
     }
     const float m1 = fmm::warp_sum(s1) * inv_d;
     const float m2 = fmm::warp_sum(s2) * inv_d;
-    const Tres* rr = dres + row * D;
+    const Tres* rr = dres != nullptr ? dres + row * D : nullptr;
     Tout* orow = dx + row * D;
 #pragma unroll
     for (int t = 0; t < kPerLane; ++t) {
       const int j = lane + 32 * t;
       if (j < D) {
         const float gv = dv[t] * gamma[j];
-        const float v = fmm::to_f32(rr[j]) + rstd * (gv - m1 - xv[t] * m2);
+        const float g = rstd * (gv - m1 - xv[t] * m2);
+        const float v = rr != nullptr ? fmm::to_f32(rr[j]) + g : g;
         store_f(orow + j, v);
         if (dx_copy != nullptr) dx_copy[row * D + j] = __float2bfloat16(v);
       }
@@ -167,7 +170,7 @@ cudaError_t dispatch_out(int out_f32, const void* x, const void* dxn, const void
 }  // namespace
 
 // x (rows, D) bf16 or fp32, dxn (rows, D) fp32, dres (rows, D) bf16 or
-// fp32, gamma (D,) fp32; dx (rows, D) bf16 or fp32, dx_copy (rows, D) bf16
+// fp32 or null, gamma (D,) fp32; dx (rows, D) bf16 or fp32, dx_copy (rows, D) bf16
 // or null; partial (ceil(rows / rows_per_block), 2, D) fp32: per block, the
 // sums of dxn * x^ and of dxn over its rows. All contiguous, D <= 1024.
 FMM_EXPORT int fmm_layernorm_bwd_rows(const void* x, int x_f32, const void* dxn, const void* dres,

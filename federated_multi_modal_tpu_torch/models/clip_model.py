@@ -12,7 +12,11 @@ The text tower truncates at the last EOT position and packs ``128 // T``
 prompts per row under a block-causal mask, exactly as the JAX package does,
 so its attention runs through ``packed_attention_masked``; the vision tower
 runs every block through ``fused_block_residual`` with ``inference=True``,
-and through ``fused_block_train`` or ``fused_block_train_dw`` in training.
+and through ``fused_block_train`` or ``fused_block_train_dw`` in training,
+unless the JAX package's routing gates pick another kernel
+(``ops/primitives.py``). ``FMM_TPU_FUSED_NBLK > 1``, which makes the JAX
+package's eval tower run groups of blocks through one kernel, is refused on
+CUDA: that kernel has no port yet.
 """
 
 from __future__ import annotations
@@ -28,8 +32,10 @@ from federated_multi_modal_tpu_torch.ops.primitives import (
     l2_normalize,
     layer_norm,
     linear,
+    refuse_unported,
     residual_block,
 )
+from federated_multi_modal_tpu_torch.ops.kernels.fused_block import fused_block_group_eligible
 
 # -- vision tower -------------------------------------------------------------
 
@@ -116,6 +122,12 @@ def encode_image(
                 f"deep_prompts[{i}] has {dp.shape[-2]} rows but the shallow "
                 f"prompts define n_ctx={n_ctx}: injection replaces the "
                 "trailing prompt rows one-for-one")
+
+    if inference and fused_block_group_eligible(
+            B, x.shape[1], w, cfg.vision_heads,
+            params["blocks"][0]["mlp"]["w_fc"].shape[-1], deep_prompts):
+        refuse_unported(x, "fused_block_group_residual, the block-group kernel K9 "
+                           "(ops/pallas/fused_block.py:776)")
 
     for i, blk in enumerate(params["blocks"]):
         if 1 <= i <= len(deep_prompts):

@@ -1,24 +1,30 @@
-"""Masked packed-QKV attention: the port of the TPU kernel
+"""Packed-QKV attention: the port of the TPU kernels
 ``federated_multi_modal_tpu/ops/pallas/attention.py::packed_attention_masked``
-and its custom VJP (forward ``attention_packed_fwd_masked``, backward
+(forward ``attention_packed_fwd_masked``, backward
 ``attention_packed_bwd_masked``), which runs the attention of every text
-block on sequence-packed rows under a block-causal mask.
+block on sequence-packed rows under a block-causal mask, and
+``packed_attention`` (forward ``attention_packed_fwd``, backward
+``attention_packed_bwd``), the mask-free attention of every vision block
+that no fused block kernel takes (``FMM_TPU_FUSED=0``, and the trainable
+block under ``FMM_TPU_FUSED_TRAIN_DW=0``).
 
-On CUDA tensors :func:`packed_attention_masked` launches the hand-written
-kernel ``csrc/attention_core.cu`` and, in the backward,
-``csrc/attention_core_bwd.cu`` (:func:`packed_attention_masked_bwd`); on CPU
-tensors it runs the plain PyTorch versions beside them. Nothing else
+On CUDA tensors both launch the hand-written kernel ``csrc/attention_core.cu``
+and, in the backward, ``csrc/attention_core_bwd.cu``
+(:func:`packed_attention_masked_bwd`, :func:`packed_attention_bwd`); on CPU
+tensors they run the plain PyTorch versions beside them. Nothing else
 selects between the two. The forward saves ``qkv`` only and the backward
-recomputes the probabilities from it, as the TPU kernel does; the mask gets
+recomputes the probabilities from it, as the TPU kernels do; the mask gets
 no gradient.
 
 Bound on the H100: memory. At the text shape of the MaPLe paths, qkv
 ``(200, 120, 1536)`` bf16 with 8 heads, the forward reads ~74 MB and writes
 ~25 MB (~29 us at 3.35 TB/s) and the backward reads ~98 MB and writes
-~74 MB (~51 us), for ~0.6 and ~1.5 GFLOP on the mask's finite pairs. Both
-kernels read each head's q, k and v (and g) once into shared memory and
-keep the scores and probabilities there, so no score tensor reaches device
-memory; see the sources for what still keeps them off their bounds.
+~74 MB (~51 us), for ~0.6 and ~1.5 GFLOP on the mask's finite pairs. At the
+vision shape ``(512, 200, 2304)`` with 12 heads the forward moves ~629 MB
+(~0.19 ms) and the backward ~1.1 GB (~0.33 ms), for ~63 and ~157 GFLOP.
+Both kernels read each head's q, k and v (and g) once into shared memory
+and keep the scores and probabilities there, so no score tensor reaches
+device memory; see the sources for what still keeps them off their bounds.
 """
 
 from __future__ import annotations
@@ -170,9 +176,11 @@ def attention_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
     return dqkv
 
 
-class _PackedAttentionMasked(torch.autograd.Function):
-    """``forward`` and ``backward`` are the two halves of the TPU kernel's
-    custom VJP, given as functions (the kernels or their plain versions)."""
+class _PackedAttention(torch.autograd.Function):
+    """``forward`` and ``backward`` are the two halves of a TPU kernel's
+    custom VJP, given as functions (the kernels or their plain versions) of
+    ``(qkv, mask, n_head)`` and ``(qkv, g, mask, n_head)``; ``mask`` is
+    ``None`` for the mask-free kernel."""
 
     @staticmethod
     def forward(ctx, qkv, attn_mask, n_head, fwd, bwd):
@@ -196,16 +204,22 @@ def _bwd_reference(qkv, g, attn_mask, n_head):
 
 def _fwd_cuda(qkv, attn_mask, n_head):
     out = attention_core_cuda(qkv, n_head, attn_mask)
-    packed_attention_masked.launches += 1
+    (packed_attention if attn_mask is None else packed_attention_masked).launches += 1
     return out
+
+
+def _bwd_cuda(qkv, g, attn_mask, n_head):
+    if attn_mask is None:
+        return packed_attention_bwd(qkv, g, n_head)
+    return packed_attention_masked_bwd(qkv, g, attn_mask, n_head)
 
 
 def packed_attention_masked_reference(qkv: torch.Tensor, attn_mask: torch.Tensor,
                                       n_head: int) -> torch.Tensor:
     """Plain version of :func:`packed_attention_masked`, forward and
     backward, on any device."""
-    return _PackedAttentionMasked.apply(qkv, attn_mask, n_head, _fwd_reference,
-                                        _bwd_reference)
+    return _PackedAttention.apply(qkv, attn_mask, n_head, _fwd_reference,
+                                  _bwd_reference)
 
 
 def packed_attention_masked_bwd(qkv: torch.Tensor, g: torch.Tensor,
@@ -226,9 +240,34 @@ def packed_attention_masked(qkv: torch.Tensor, attn_mask: torch.Tensor,
     differentiable in ``qkv``."""
     if qkv.device.type == "cpu":
         return packed_attention_masked_reference(qkv, attn_mask, n_head)
-    return _PackedAttentionMasked.apply(qkv, attn_mask, n_head, _fwd_cuda,
-                                        packed_attention_masked_bwd)
+    return _PackedAttention.apply(qkv, attn_mask, n_head, _fwd_cuda, _bwd_cuda)
 
 
-packed_attention_masked.launches = 0
-packed_attention_masked_bwd.launches = 0
+def packed_attention_reference(qkv: torch.Tensor, n_head: int) -> torch.Tensor:
+    """Plain version of :func:`packed_attention`, forward and backward, on
+    any device."""
+    return _PackedAttention.apply(qkv, None, n_head, _fwd_reference, _bwd_reference)
+
+
+def packed_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, n_head: int) -> torch.Tensor:
+    """d(QKV) of :func:`packed_attention` for the output cotangent ``g``:
+    the port of ``attention_packed_bwd``."""
+    if qkv.device.type == "cpu":
+        return attention_core_bwd_reference(qkv, g, n_head)
+    dqkv = attention_core_bwd_cuda(qkv, g, n_head)
+    packed_attention_bwd.launches += 1
+    return dqkv
+
+
+def packed_attention(qkv: torch.Tensor, n_head: int) -> torch.Tensor:
+    """softmax(q.k^T / sqrt(hd)).v per head over a packed ``(B, T, 3D)`` QKV
+    tensor -> ``(B, T, D)``, differentiable in ``qkv``: the mask-free
+    attention of a vision block outside the fused block kernels."""
+    if qkv.device.type == "cpu":
+        return packed_attention_reference(qkv, n_head)
+    return _PackedAttention.apply(qkv.contiguous(), None, n_head, _fwd_cuda, _bwd_cuda)
+
+
+for _fn in (packed_attention_masked, packed_attention_masked_bwd, packed_attention,
+            packed_attention_bwd):
+    _fn.launches = 0

@@ -4,7 +4,11 @@
 every vision block of the eval path ``encode_image(inference=True)``, and
 ``fused_block_train`` / ``fused_block_train_dw`` (``_fbt_fwd_save`` and
 ``_fbt_bwd``), which run the vision blocks of the train step (see "the
-training block" below).
+training block" below). Under the JAX package's routing gates, which this
+module reads as the JAX one does ("the routing gates" below), the eval
+block may instead take the two-kernel block ``fused_ln_attention_residual``
+and ``fused_ln_mlp_residual``, and a frozen train block the sublayer kernel
+``fused_ln_attention``: each is a sequence of the same hand-written kernels.
 
 The TPU kernel keeps all ~15 MB of a ViT-B/16 block's weights resident in
 VMEM and carries the attention-half output ``y`` in fp32 between the two
@@ -38,6 +42,7 @@ the transposed layouts and gradient epilogues of ``gemm_epilogue``.
 
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple
 
 import torch
@@ -112,8 +117,9 @@ def layernorm_bwd_rows_reference(x, dxn, dres, gamma, out_dtype,
     """Backward of :func:`layernorm_rows_reference` plus the residual
     branch: with the fp32 moments of ``x`` recomputed and ``gv = dxn *
     gamma``, ``dx = dres + rstd * (gv - mean(gv) - x^ * mean(gv * x^))`` in
-    ``out_dtype``. Returns ``(dx, dx in bf16 or None, d gamma, d beta)``,
-    the last two fp32 column sums of ``dxn * x^`` and ``dxn``."""
+    ``out_dtype`` (``dres`` may be ``None``: no residual branch). Returns
+    ``(dx, dx in bf16 or None, d gamma, d beta)``, the last two fp32 column
+    sums of ``dxn * x^`` and ``dxn``."""
     x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
     var = (x32 - mean).square().mean(-1, keepdim=True)
@@ -123,7 +129,9 @@ def layernorm_bwd_rows_reference(x, dxn, dres, gamma, out_dtype,
     gv = dxn * gamma.float()
     m1 = gv.mean(-1, keepdim=True)
     m2 = (gv * xhat).mean(-1, keepdim=True)
-    dx = dres.float() + rstd * (gv - m1 - xhat * m2)
+    dx = rstd * (gv - m1 - xhat * m2)
+    if dres is not None:
+        dx = dres.float() + dx
     copy = dx.to(torch.bfloat16) if copy_bf16 else None
     return dx.to(out_dtype), copy, (dxn * xhat).sum(0), dxn.sum(0)
 
@@ -268,14 +276,16 @@ _LN_ROWS_PER_BLOCK = 256
 def layernorm_bwd_rows_cuda(x, dxn, dres, gamma, out_dtype,
                             copy_bf16: bool = False, eps: float = 1e-5):
     """Launch ``layernorm_bwd_rows.cu`` on ``x (rows, D)`` (bf16 or fp32),
-    fp32 ``dxn`` and ``dres`` (bf16 or fp32); the column sums of d gamma
-    and d beta come from the per-block partials through
+    fp32 ``dxn`` and ``dres`` (bf16, fp32 or ``None``); the column sums of
+    d gamma and d beta come from the per-block partials through
     :func:`column_sum_cuda`. Same returns as the plain version."""
     _check_cuda("layernorm_bwd_rows x", x, _BF16_F32)
     _check_cuda("layernorm_bwd_rows dxn", dxn, (torch.float32,))
-    _check_cuda("layernorm_bwd_rows dres", dres, _BF16_F32)
+    if dres is not None:
+        _check_cuda("layernorm_bwd_rows dres", dres, _BF16_F32)
     rows, D = x.shape
-    if dxn.shape != (rows, D) or dres.shape != (rows, D) or D > 1024:
+    if dxn.shape != (rows, D) or (dres is not None and dres.shape != (rows, D)) \
+            or D > 1024:
         raise ValueError(f"layernorm_bwd_rows: dxn and dres must be ({rows}, "
                          f"{D}) with D <= 1024")
     if out_dtype not in _BF16_F32:
@@ -287,30 +297,52 @@ def layernorm_bwd_rows_cuda(x, dxn, dres, gamma, out_dtype,
     blocks = -(-rows // _LN_ROWS_PER_BLOCK)
     partial = torch.empty(blocks, 2 * D, dtype=torch.float32, device=x.device)
     _build.launch("fmm_layernorm_bwd_rows", x.data_ptr(), _is_f32(x),
-                  dxn.data_ptr(), dres.data_ptr(), _is_f32(dres),
+                  dxn.data_ptr(), _ptr(dres), _is_f32(dres),
                   gamma.data_ptr(), dx.data_ptr(), _is_f32(dx), _ptr(copy),
                   partial.data_ptr(), rows, D, _LN_ROWS_PER_BLOCK, eps)
     sums = column_sum_cuda(partial)
     return dx, copy, sums[:D], sums[D:]
 
 
-# -- the block -------------------------------------------------------------
+# -- the block and its halves --------------------------------------------
+
+
+def _ln_qkv_attention(x2, B, T, lnp, w_qkv, b_qkv, n_head, layernorm, gemm,
+                      attention):
+    """LN1 -> QKV + b -> attention over ``x2 (B * T, D)``: ``(a, qkv)``,
+    the ``(B * T, D)`` attention output and the ``(B * T, 3D)`` QKV, both
+    in the storage dtype."""
+    dt = x2.dtype
+    xn = layernorm(x2, lnp["scale"], lnp["bias"], dt)
+    qkv = gemm(xn, w_qkv, b_qkv, out_dtype=dt)
+    a = attention(qkv.reshape(B, T, -1), n_head).reshape(B * T, -1)
+    return a, qkv
+
+
+def _attention_half(x2, B, T, lnp, attnp, n_head, out_dtype, layernorm, gemm,
+                    attention):
+    """``x + out_proj(attention(qkv(ln_1(x))))`` over ``x2 (B * T, D)``,
+    one rounding to ``out_dtype`` after the fp32 sum."""
+    a, _ = _ln_qkv_attention(x2, B, T, lnp, attnp["w_qkv"], attnp["b_qkv"],
+                             n_head, layernorm, gemm, attention)
+    return gemm(a, attnp["w_out"], attnp["b_out"], residual=x2, out_dtype=out_dtype)
+
+
+def _mlp_half(y, lnp, mlpp, dt, layernorm, gemm):
+    """``y + proj(QuickGELU(fc(ln_2(y))))`` over ``y (rows, D)`` (bf16 or
+    fp32), with LN2's output and the hidden activation in the storage dtype
+    ``dt`` and the result in ``dt``."""
+    xn2 = layernorm(y, lnp["scale"], lnp["bias"], dt)
+    h = gemm(xn2, mlpp["w_fc"], mlpp["b_fc"], gelu=True, out_dtype=dt)
+    return gemm(h, mlpp["w_proj"], mlpp["b_proj"], residual=y, out_dtype=dt)
 
 
 def _block(x, p, n_head, layernorm, gemm, attention):
     """The whole-block sequence of ``_block_body32`` over given steps."""
     B, T, D = x.shape
-    dt = x.dtype
-    x2 = x.reshape(B * T, D)
-    attn, mlp = p["attn"], p["mlp"]
-    xn = layernorm(x2, p["ln_1"]["scale"], p["ln_1"]["bias"], dt)
-    qkv = gemm(xn, attn["w_qkv"], attn["b_qkv"], out_dtype=dt)
-    a = attention(qkv.reshape(B, T, 3 * D), n_head).reshape(B * T, D)
-    y = gemm(a, attn["w_out"], attn["b_out"], residual=x2,
-             out_dtype=torch.float32)
-    xn2 = layernorm(y, p["ln_2"]["scale"], p["ln_2"]["bias"], dt)
-    h = gemm(xn2, mlp["w_fc"], mlp["b_fc"], gelu=True, out_dtype=dt)
-    out = gemm(h, mlp["w_proj"], mlp["b_proj"], residual=y, out_dtype=dt)
+    y = _attention_half(x.reshape(B * T, D), B, T, p["ln_1"], p["attn"], n_head,
+                        torch.float32, layernorm, gemm, attention)
+    out = _mlp_half(y, p["ln_2"], p["mlp"], x.dtype, layernorm, gemm)
     return out.reshape(B, T, D)
 
 
@@ -320,13 +352,16 @@ def fused_block_residual_reference(x, p, n_head: int):
                   gemm_epilogue_reference, attention_core_reference)
 
 
+def _forward_only(name, x):
+    if x.requires_grad:
+        raise NotImplementedError(f"{name} is forward-only, like the TPU kernel")
+
+
 def fused_block_residual(x, p, n_head: int):
     """``x + attn(ln_1(x))`` then ``y + mlp(ln_2(y))`` for one pre-LN block
     (``p`` holds ``ln_1, attn{w_qkv, b_qkv, w_out, b_out}, ln_2,
     mlp{w_fc, b_fc, w_proj, b_proj}`` in the JAX package's layout)."""
-    if x.requires_grad:
-        raise NotImplementedError(
-            "fused_block_residual is forward-only, like the TPU kernel")
+    _forward_only("fused_block_residual", x)
     if x.device.type == "cpu":
         return fused_block_residual_reference(x, p, n_head)
     out = _block(x.contiguous(), p, n_head, layernorm_rows_cuda,
@@ -335,14 +370,144 @@ def fused_block_residual(x, p, n_head: int):
     return out
 
 
-fused_block_residual.launches = 0
+# -- the two-kernel inference block ----------------------------------------
+#
+# The port of ``fused_ln_attention_residual`` (K6a) and
+# ``fused_ln_mlp_residual`` (K6b), the eval block under
+# ``FMM_TPU_FUSED_BLOCK=0``: the two halves of :func:`fused_block_residual`,
+# but ``y`` is rounded to the storage dtype between them (K6a writes
+# ``x32 + proj + b_out`` with one rounding, K6b reads it). The TPU's K6b
+# consumes the hidden activation in two column chunks; that changes only the
+# order of its fp32 sums. Forward-only, like the TPU kernels. Bound on the
+# H100: operations, as the whole block's (at ViT-B/16 eval width ~0.55 TFLOP
+# for K6a, ~0.96 for K6b: ~0.55 and ~0.97 ms at 989 TFLOP/s, against ~0.1 ms
+# each of memory traffic for x, the weights and the output).
+
+
+def _ln_attention_residual(x, lnp, attnp, n_head, layernorm, gemm, attention):
+    B, T, D = x.shape
+    out = _attention_half(x.reshape(B * T, D), B, T, lnp, attnp, n_head, x.dtype,
+                          layernorm, gemm, attention)
+    return out.reshape(B, T, D)
+
+
+def fused_ln_attention_residual_reference(x, lnp, attnp, n_head: int):
+    """Plain version of :func:`fused_ln_attention_residual`."""
+    return _ln_attention_residual(x, lnp, attnp, n_head, layernorm_rows_reference,
+                                  gemm_epilogue_reference, attention_core_reference)
+
+
+def fused_ln_attention_residual(x, lnp, attnp, n_head: int):
+    """``x + out_proj(attention(qkv(ln_1(x))))`` in ``x``'s dtype (``lnp``
+    holds ``scale, bias``; ``attnp`` ``w_qkv, b_qkv, w_out, b_out``)."""
+    _forward_only("fused_ln_attention_residual", x)
+    if x.device.type == "cpu":
+        return fused_ln_attention_residual_reference(x, lnp, attnp, n_head)
+    out = _ln_attention_residual(x.contiguous(), lnp, attnp, n_head, layernorm_rows_cuda,
+                                 gemm_epilogue_cuda, attention_core_cuda)
+    fused_ln_attention_residual.launches += 1
+    return out
+
+
+def _ln_mlp_residual(x, lnp, mlpp, layernorm, gemm):
+    B, T, D = x.shape
+    return _mlp_half(x.reshape(B * T, D), lnp, mlpp, x.dtype, layernorm,
+                     gemm).reshape(B, T, D)
+
+
+def fused_ln_mlp_residual_reference(x, lnp, mlpp):
+    """Plain version of :func:`fused_ln_mlp_residual`."""
+    return _ln_mlp_residual(x, lnp, mlpp, layernorm_rows_reference,
+                            gemm_epilogue_reference)
+
+
+def fused_ln_mlp_residual(x, lnp, mlpp):
+    """``x + proj(QuickGELU(fc(ln_2(x))))`` in ``x``'s dtype (``mlpp`` holds
+    ``w_fc, b_fc, w_proj, b_proj``)."""
+    _forward_only("fused_ln_mlp_residual", x)
+    if x.device.type == "cpu":
+        return fused_ln_mlp_residual_reference(x, lnp, mlpp)
+    out = _ln_mlp_residual(x.contiguous(), lnp, mlpp, layernorm_rows_cuda,
+                           gemm_epilogue_cuda)
+    fused_ln_mlp_residual.launches += 1
+    return out
+
+
+for _fn in (fused_block_residual, fused_ln_attention_residual, fused_ln_mlp_residual):
+    _fn.launches = 0
+
+
+# -- the routing gates -----------------------------------------------------
+#
+# The JAX package's environment switches that choose a vision block's
+# kernel, with the same names and defaults, read when a block is routed
+# (never at import). Its gates for TPU tiling and VMEM (``FMM_TPU_FUSED_GB*``,
+# ``FMM_TPU_FUSED_VMEM``, ``FMM_TPU_FUSED_TRAIN_MODE``,
+# ``FMM_TPU_FUSED_TRAIN_DW_SAVEH``, ``FMM_TPU_PACKED_GB``) choose no kernel
+# and have no counterpart here.
+
+
+def _env_off(name: str) -> bool:
+    return os.environ.get(name, "1").lower() in ("0", "off", "false")
+
+
+def _env_on(name: str, default: str) -> bool:
+    return os.environ.get(name, default).lower() in ("1", "on", "true")
+
+
+def fused_ln_attention_eligible(B, T, D, n_head, attn_mask) -> bool:
+    """Mask-free, lane-aligned attention halves take the fused kernels
+    (K5, K6a, K3, K7); ``FMM_TPU_FUSED=0`` turns them all off."""
+    if _env_off("FMM_TPU_FUSED") or attn_mask is not None:
+        return False
+    return D % n_head == 0 and D % 128 == 0 and (D // n_head) % 8 == 0 and B >= 1
+
+
+def fused_ln_mlp_eligible(B, T, D, hidden) -> bool:
+    """Lane-aligned 4x MLP halves take the fused kernels; shares
+    ``FMM_TPU_FUSED`` with the attention half."""
+    if _env_off("FMM_TPU_FUSED"):
+        return False
+    return D % 128 == 0 and hidden == 4 * D and B >= 1
 
 
 def fused_block_eligible(B, T, D, n_head, hidden, attn_mask) -> bool:
-    """The JAX package's routing predicate for the whole-block kernel
-    (``fused_block_eligible``: mask-free, lane-aligned width, 4x MLP)."""
-    return (attn_mask is None and D % 128 == 0 and D % n_head == 0
-            and (D // n_head) % 8 == 0 and hidden == 4 * D)
+    """The whole-block kernel (K5): both halves eligible, and
+    ``FMM_TPU_FUSED_BLOCK`` not 0 (else the eval block takes K6a and K6b)."""
+    if _env_off("FMM_TPU_FUSED_BLOCK"):
+        return False
+    return (fused_ln_attention_eligible(B, T, D, n_head, attn_mask)
+            and fused_ln_mlp_eligible(B, T, D, hidden))
+
+
+def fused_block_train_enabled() -> bool:
+    """``FMM_TPU_FUSED_TRAIN_BLOCK`` (default on): frozen train blocks take
+    the whole-block train kernel K3 (else K7 under ``FMM_TPU_FUSED_TRAIN``)."""
+    return _env_on("FMM_TPU_FUSED_TRAIN_BLOCK", "1")
+
+
+def fused_block_train_dw_enabled() -> bool:
+    """``FMM_TPU_FUSED_TRAIN_DW`` (default on): trainable blocks take K4
+    (else the plain block with K2 and K2b)."""
+    return _env_on("FMM_TPU_FUSED_TRAIN_DW", "1")
+
+
+def fused_block_group_size() -> int:
+    """``FMM_TPU_FUSED_NBLK``: blocks per kernel on the TPU's eval path
+    (the group kernel K9 for more than one), read only to refuse it."""
+    try:
+        return max(1, int(os.environ.get("FMM_TPU_FUSED_NBLK", "1")))
+    except ValueError:
+        return 1
+
+
+def fused_block_group_eligible(B, T, D, n_head, hidden, deep_prompts) -> bool:
+    """Whether the JAX package's eval tower would run its blocks through
+    the group kernel K9 (``clip_model.py:218-230``): a group size over 1,
+    whole-block shapes, and batch-shared deep prompts."""
+    return (fused_block_group_size() > 1
+            and fused_block_eligible(B, T, D, n_head, hidden, None)
+            and all(p.ndim == 2 for p in deep_prompts))
 
 
 # -- the training block ----------------------------------------------------
@@ -422,9 +587,8 @@ def block_train_forward(x, p, n_head: int, steps: BlockSteps, save_h: bool):
     dt = x.dtype
     x2 = x.reshape(B * T, D)
     attn, mlp = p["attn"], p["mlp"]
-    xn = steps.layernorm(x2, p["ln_1"]["scale"], p["ln_1"]["bias"], dt)
-    qkv = steps.gemm(xn, attn["w_qkv"], attn["b_qkv"], out_dtype=dt)
-    a = steps.attention(qkv.reshape(B, T, 3 * D), n_head).reshape(B * T, D)
+    a, qkv = _ln_qkv_attention(x2, B, T, p["ln_1"], attn["w_qkv"], attn["b_qkv"],
+                               n_head, steps.layernorm, steps.gemm, steps.attention)
     y = steps.gemm(a, attn["w_out"], attn["b_out"], residual=x2,
                    out_dtype=torch.float32)
     xn2 = steps.layernorm(y, p["ln_2"]["scale"], p["ln_2"]["bias"], dt)
@@ -560,3 +724,102 @@ def fused_block_train_dw(x, p, n_head: int):
 for _fn in (fused_block_train, fused_block_train_dw):
     _fn.launches = 0
     _fn.backward_launches = 0
+
+
+# -- the sublayer train kernel ---------------------------------------------
+#
+# The port of ``fused_ln_attention`` (K7: ``fused_ln_attention_fwd`` and
+# ``fused_ln_attention_bwd`` behind a custom VJP), which the JAX package runs
+# in frozen train blocks under ``FMM_TPU_FUSED_TRAIN=1`` with
+# ``FMM_TPU_FUSED_TRAIN_BLOCK=0``; the out-projection and the MLP around it
+# stay plain autodiff. Forward: LN1 -> QKV + b -> attention, the
+# pre-out-projection output, saving only ``x`` (and the parameters), as the
+# TPU kernel does. Backward: LN1 and QKV recomputed, the attention backward,
+# d(LN1 out) = d(QKV) . W_qkv^T in fp32 (the TPU kernel folds it in per
+# head; the sums run in another order), then LN1's backward with no residual
+# branch: dx in x's dtype, fp32 d gamma and d beta. The TPU kernel returns
+# zeros for ``w`` and ``b``; the port refuses a ``w`` or ``b`` that requires
+# a gradient instead. Bound on the H100: operations. At ViT-B/16 train
+# width the forward's QKV product is ~0.36 TFLOP plus ~0.06 of attention
+# (~0.43 ms), the backward's d(LN1 out) ~0.36 plus ~0.13 of attention
+# (~0.5 ms; recomputation not counted), against ~0.1 and ~0.2 ms of memory
+# traffic.
+
+
+def ln_attention_forward(x, lnp, w, b, n_head: int, steps: BlockSteps):
+    """K7's forward over ``x (B, T, D)``: the ``(B, T, D)`` attention output
+    before the out-projection, in ``x``'s dtype."""
+    B, T, D = x.shape
+    a, _ = _ln_qkv_attention(x.reshape(B * T, D), B, T, lnp, w, b, n_head,
+                             steps.layernorm, steps.gemm, steps.attention)
+    return a.reshape(B, T, D)
+
+
+def ln_attention_backward(x, dy, lnp, w, b, n_head: int, steps: BlockSteps):
+    """K7's backward for the output cotangent ``dy``: ``(dx, d gamma,
+    d beta)``, dx in ``x``'s dtype and the LayerNorm gradients in fp32."""
+    B, T, D = x.shape
+    dt = x.dtype
+    x2 = x.reshape(B * T, D)
+    xn = steps.layernorm(x2, lnp["scale"], lnp["bias"], dt)
+    qkv = steps.gemm(xn, w, b, out_dtype=dt)
+    dqkv = steps.attention_bwd(qkv.reshape(B, T, 3 * D),
+                               dy.reshape(B, T, D).to(dt).contiguous(), n_head)
+    dyln = steps.gemm(dqkv.reshape(B * T, 3 * D), w, trans_w=True,
+                      out_dtype=torch.float32)
+    dx, _, dg, db = steps.layernorm_bwd(x2, dyln, None, lnp["scale"], dt)
+    return dx.reshape(B, T, D), dg, db
+
+
+class _FusedLnAttention(torch.autograd.Function):
+    """K7's forward and backward as given by ``steps``; ``counter`` is the
+    wrapper whose counts of launches to raise, or ``None``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, b, n_head, steps, counter):
+        out = ln_attention_forward(x, {"scale": gamma, "bias": beta}, w, b, n_head, steps)
+        ctx.save_for_backward(x, gamma, beta, w, b)
+        ctx.n_head, ctx.steps, ctx.counter = n_head, steps, counter
+        if counter is not None:
+            counter.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, w, b = ctx.saved_tensors
+        dx, dg, db = ln_attention_backward(
+            x, dy, {"scale": gamma, "bias": beta}, w, b, ctx.n_head, ctx.steps)
+        if ctx.counter is not None:
+            ctx.counter.backward_launches += 1
+        return (dx, dg.to(gamma.dtype).reshape(gamma.shape),
+                db.to(beta.dtype).reshape(beta.shape), None, None, None, None, None)
+
+
+def _frozen_qkv_guard(w, b):
+    if w.requires_grad or b.requires_grad:
+        raise ValueError(
+            "fused_ln_attention returns no gradient for w_qkv and b_qkv, but "
+            "they require one: route the block through fused_block_train_dw")
+
+
+def fused_ln_attention_reference(x, lnp, w, b, n_head: int):
+    """Plain version of :func:`fused_ln_attention`, on any device."""
+    _frozen_qkv_guard(w, b)
+    return _FusedLnAttention.apply(x, lnp["scale"], lnp["bias"], w, b, n_head,
+                                   PLAIN_STEPS, None)
+
+
+def fused_ln_attention(x, lnp, w, b, n_head: int):
+    """``attention(qkv(ln_1(x)))`` before the out-projection, differentiable
+    in ``x`` and the LayerNorm (``lnp`` holds ``scale, bias``), for frozen
+    ``w (D, 3D)`` and ``b (3D,)``: raises if either requires a gradient
+    (the TPU kernel would return zeros for them)."""
+    if x.device.type == "cpu":
+        return fused_ln_attention_reference(x, lnp, w, b, n_head)
+    _frozen_qkv_guard(w, b)
+    return _FusedLnAttention.apply(x.contiguous(), lnp["scale"], lnp["bias"], w, b,
+                                   n_head, CUDA_STEPS, fused_ln_attention)
+
+
+fused_ln_attention.launches = 0
+fused_ln_attention.backward_launches = 0

@@ -5,7 +5,10 @@ Same contract as the JAX module: functions on ``(batch, tokens, dim)``
 tensors, weights stored input-major ``(d_in, d_out)``, LayerNorm in fp32
 and cast back. The routing of :func:`multi_head_attention` and
 :func:`residual_block` mirrors the JAX package's under its ``"pallas"``
-implementation, as predicates on shapes:
+implementation: its shape predicates and its environment gates
+(``FMM_TPU_FUSED``, ``FMM_TPU_FUSED_BLOCK``, ``FMM_TPU_FUSED_TRAIN``,
+``FMM_TPU_FUSED_TRAIN_BLOCK``, ``FMM_TPU_FUSED_TRAIN_DW``), read when a
+block is routed. With the defaults:
 
 * text rows with a mask and ``T >= 32`` -> ``packed_attention_masked``;
 * inference blocks without a mask -> ``fused_block_residual``;
@@ -16,6 +19,15 @@ implementation, as predicates on shapes:
   the tensors, so a trainable weight can never take K3's zero gradient);
 * ``T < 32`` -> the plain formulation (the JAX package's XLA path).
 
+The gates move mask-free blocks onto the other kernels, as in the JAX
+package: ``FMM_TPU_FUSED_BLOCK=0`` sends the eval block to
+``fused_ln_attention_residual`` and ``fused_ln_mlp_residual``;
+``FMM_TPU_FUSED_TRAIN=1`` with ``FMM_TPU_FUSED_TRAIN_BLOCK=0`` sends a frozen
+train block to ``fused_ln_attention`` with a plain out-projection and MLP,
+and both at 0 send it to ``fused_block_train_dw``; ``FMM_TPU_FUSED_TRAIN_DW=0``
+sends the trainable block, and ``FMM_TPU_FUSED=0`` every mask-free block, to
+the plain block, whose attention is ``packed_attention``.
+
 Shapes that the JAX package sends to a Pallas kernel the port has not
 ported yet run the plain formulation on the CPU and raise on CUDA, so a
 run on the card never takes a path without its kernel.
@@ -24,6 +36,7 @@ run on the card never takes a path without its kernel.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -52,11 +65,18 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor = None) -> torch.Te
     return y
 
 
-def _not_ported(x: torch.Tensor, kernel: str) -> None:
+def fused_train_enabled() -> bool:
+    """``FMM_TPU_FUSED_TRAIN`` (default off): frozen train blocks take the
+    fused attention kernels too (K7 when ``FMM_TPU_FUSED_TRAIN_BLOCK=0``)."""
+    return os.environ.get("FMM_TPU_FUSED_TRAIN", "0").lower() in ("1", "on", "true")
+
+
+def refuse_unported(x: torch.Tensor, kernel: str) -> None:
+    """Raise on a CUDA tensor: the JAX package runs ``kernel`` here."""
     if x.is_cuda:
         raise NotImplementedError(
-            f"this shape takes the TPU kernel {kernel} in the JAX package, "
-            "which has no CUDA port yet (ROADMAP.md); it runs on the CPU only")
+            f"the JAX package runs the TPU kernel {kernel} here, which has "
+            "no CUDA port yet (ROADMAP.md); this route runs on the CPU only")
 
 
 def multi_head_attention(x: torch.Tensor, p, n_head: int,
@@ -70,12 +90,13 @@ def multi_head_attention(x: torch.Tensor, p, n_head: int,
     # heads pack into 128 lanes: the JAX package's packed-QKV kernels apply
     packs = 128 % head_dim == 0 and n_head % (128 // head_dim) == 0
     if packs and attn_mask is None:
-        _not_ported(x, "packed_attention (ops/pallas/attention.py:438)")
-    elif packs and T >= 32:
+        out = _attn_kernels.packed_attention(qkv, n_head)
+        return linear(out, p["w_out"], p["b_out"])
+    if packs and T >= 32:
         out = _attn_kernels.packed_attention_masked(qkv, attn_mask, n_head)
         return linear(out, p["w_out"], p["b_out"])
-    elif T >= 32:
-        _not_ported(x, "fused_attention_diff (ops/pallas/attention.py:601)")
+    if T >= 32:
+        refuse_unported(x, "fused_attention_diff (ops/pallas/attention.py:601)")
 
     q, k, v = (t.reshape(B, T, n_head, head_dim).transpose(1, 2)
                for t in qkv.split(D, dim=-1))
@@ -99,17 +120,39 @@ def residual_block(x: torch.Tensor, p, n_head: int,
                    attn_mask: torch.Tensor = None,
                    inference: bool = False) -> torch.Tensor:
     """Pre-LN transformer block. ``inference=True`` asserts that no
-    gradient flows through the block (eval towers); mask-free blocks then
-    take the whole-block kernel, and in training one of the two whole-block
-    train kernels, by whether the block's weights require gradients."""
+    gradient flows through the block (eval towers); in training, a block
+    none of whose attention or MLP weights requires a gradient is frozen.
+    Mask-free blocks take the kernel that the JAX package's
+    ``residual_block`` and ``encode_image`` pick for that case under the
+    environment gates (see the module docstring)."""
     B, T, D = x.shape
     hidden = p["mlp"]["w_fc"].shape[-1]
-    if _block_kernels.fused_block_eligible(B, T, D, n_head, hidden, attn_mask):
+    kernels = _block_kernels
+    trainable = any(p[a][b].requires_grad for a, b in kernels.WEIGHT_LEAVES)
+    # the JAX package takes the frozen-weight route for every inference
+    # block, and in training for the blocks its trainers declare frozen,
+    # once either train gate asks for the declaration
+    frozen_route = inference or (not trainable and (
+        fused_train_enabled() or kernels.fused_block_train_enabled()))
+    if frozen_route and kernels.fused_ln_attention_eligible(B, T, D, n_head, attn_mask):
+        mlp_fused = kernels.fused_ln_mlp_eligible(B, T, D, hidden)
         if inference:
-            return _block_kernels.fused_block_residual(x, p, n_head)
-        if any(p[a][b].requires_grad for a, b in _block_kernels.WEIGHT_LEAVES):
-            return _block_kernels.fused_block_train_dw(x, p, n_head)
-        return _block_kernels.fused_block_train(x, p, n_head)
+            if kernels.fused_block_eligible(B, T, D, n_head, hidden, attn_mask):
+                return kernels.fused_block_residual(x, p, n_head)
+            x = kernels.fused_ln_attention_residual(x, p["ln_1"], p["attn"], n_head)
+            if mlp_fused:
+                return kernels.fused_ln_mlp_residual(x, p["ln_2"], p["mlp"])
+            return x + mlp(layer_norm(x, p["ln_2"]), p["mlp"])
+        if kernels.fused_block_train_enabled() and mlp_fused:
+            return kernels.fused_block_train(x, p, n_head)
+        a = kernels.fused_ln_attention(x, p["ln_1"], p["attn"]["w_qkv"],
+                                       p["attn"]["b_qkv"], n_head)
+        x = x + linear(a, p["attn"]["w_out"], p["attn"]["b_out"])
+        return x + mlp(layer_norm(x, p["ln_2"]), p["mlp"])
+    if (not inference and kernels.fused_block_train_dw_enabled()
+            and kernels.fused_ln_attention_eligible(B, T, D, n_head, attn_mask)
+            and kernels.fused_ln_mlp_eligible(B, T, D, hidden)):
+        return kernels.fused_block_train_dw(x, p, n_head)
     x = x + multi_head_attention(layer_norm(x, p["ln_1"]), p["attn"], n_head,
                                  attn_mask)
     x = x + mlp(layer_norm(x, p["ln_2"]), p["mlp"])

@@ -299,3 +299,110 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         k_block.layernorm_bwd_rows_cuda(
             _randn(gen, 2, 1032), _randn(gen, 2, 1032, dtype=torch.float32),
             _randn(gen, 2, 1032), torch.ones(1032, device="cuda"), torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [1, 7, 199, 200, 257])
+def test_packed_attention(gen, T):
+    """K2 and K2b (the mask-free packed attention of the unfused route)
+    against the plain version, forward at K1's 2**-6 and d(QKV) at K1b's
+    2**-5, with one launch of each counted."""
+    B, H = 3, 2
+    qkv = _randn(gen, B, T, 3 * H * 64).requires_grad_(True)
+    g = _randn(gen, B, T, H * 64)
+    before = (k_attn.packed_attention.launches, k_attn.packed_attention_bwd.launches)
+    out = k_attn.packed_attention(qkv, H)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert (k_attn.packed_attention.launches,
+            k_attn.packed_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref_out = k_attn.packed_attention_reference(qkv, H)
+    (ref,) = torch.autograd.grad(ref_out, qkv, g)
+    _assert_close(out, ref_out, 2 ** -6)
+    _assert_close(got, ref, 2 ** -5)
+
+
+@pytest.mark.parametrize("T", [7, 199])
+def test_two_kernel_block(gen, T):
+    """K6a and K6b against their plain versions at the block's 2**-5, each
+    launched once; B odd."""
+    B, D, H = 3, 128, 2
+    p = _block_params(gen, D, torch.bfloat16, False)
+    x = _randn(gen, B, T, D)
+    before = (k_block.fused_ln_attention_residual.launches,
+              k_block.fused_ln_mlp_residual.launches)
+    y = k_block.fused_ln_attention_residual(x, p["ln_1"], p["attn"], H)
+    out = k_block.fused_ln_mlp_residual(y, p["ln_2"], p["mlp"])
+    torch.cuda.synchronize()
+    assert (k_block.fused_ln_attention_residual.launches,
+            k_block.fused_ln_mlp_residual.launches) == (before[0] + 1, before[1] + 1)
+    ref_y = k_block.fused_ln_attention_residual_reference(x, p["ln_1"], p["attn"], H)
+    assert y.dtype == out.dtype == torch.bfloat16
+    _assert_close(y, ref_y, 2 ** -5)
+    _assert_close(out, k_block.fused_ln_mlp_residual_reference(y, p["ln_2"], p["mlp"]),
+                  2 ** -5)
+
+
+@pytest.mark.parametrize("T", [7, 200])
+def test_fused_ln_attention(gen, T):
+    """K7's output, dx (bf16) and LayerNorm gradients (fp32) against its
+    plain version: the output at 2**-5, dx and the LayerNorm gradients at
+    2**-5 of their largest value; one forward and one backward counted."""
+    B, D, H = 3, 128, 2
+    p = _block_params(gen, D, torch.bfloat16, False)
+    x = _randn(gen, B, T, D).requires_grad_(True)
+    dy = _randn(gen, B, T, D)
+    ln, w, b = p["ln_1"], p["attn"]["w_qkv"], p["attn"]["b_qkv"]
+    fn = k_block.fused_ln_attention
+    before = (fn.launches, fn.backward_launches)
+    out = fn(x, ln, w, b, H)
+    got = torch.autograd.grad(out, [x, ln["scale"], ln["bias"]], dy)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref_out = k_block.fused_ln_attention_reference(x, ln, w, b, H)
+    ref = torch.autograd.grad(ref_out, [x, ln["scale"], ln["bias"]], dy)
+    _assert_close(out, ref_out, 2 ** -5)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    for g, r in zip(got, ref):
+        d = (g.float() - r.float()).abs()
+        assert float(d.max()) <= 2 ** -5 * float(r.abs().max()), float(d.max())
+
+
+def test_layernorm_bwd_rows_without_residual(gen):
+    """The LayerNorm backward with no residual branch (K7's)."""
+    x = _randn(gen, 513, 768, scale=3.0) + 1.0
+    dxn = _randn(gen, 513, 768, dtype=torch.float32)
+    gamma = _randn(gen, 768, dtype=torch.float32) * 0.1 + 1
+    got = k_block.layernorm_bwd_rows_cuda(x, dxn, None, gamma, torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = k_block.layernorm_bwd_rows_reference(x, dxn, None, gamma, torch.bfloat16)
+    assert got[1] is None and ref[1] is None
+    for i, tol in ((0, 2 ** -7), (2, 1e-4 * 513 ** 0.5), (3, 1e-4 * 513 ** 0.5)):
+        _assert_close(got[i], ref[i], tol)
+
+
+def test_unported_routes_raise(gen, monkeypatch):
+    """No silent fallback on the card: ``FMM_TPU_FUSED_NBLK=2`` (the JAX
+    package's group kernel K9) and heads that do not pack into 128 lanes
+    (K8) raise ``NotImplementedError``."""
+    from federated_multi_modal_tpu_torch.engine.tree import to_device
+    from federated_multi_modal_tpu_torch.models.clip_model import encode_image
+    from federated_multi_modal_tpu_torch.models.params import BACKBONE_CONFIGS, init_clip_params
+    from federated_multi_modal_tpu_torch.ops.primitives import multi_head_attention
+
+    cfg = BACKBONE_CONFIGS["Tiny"]
+    visual = to_device(init_clip_params(cfg, torch.Generator().manual_seed(0))["visual"], "cuda")
+    images = _randn(gen, 2, 32, 32, 3)
+    prompts = _randn(gen, 2, cfg.vision_width)
+    monkeypatch.setenv("FMM_TPU_FUSED_NBLK", "2")
+    with pytest.raises(NotImplementedError, match="K9"):
+        encode_image(visual, cfg, images, shallow_prompts=prompts,
+                     deep_prompts=[prompts], inference=True)
+    monkeypatch.delenv("FMM_TPU_FUSED_NBLK")
+    assert encode_image(visual, cfg, images, shallow_prompts=prompts,
+                        deep_prompts=[prompts], inference=True).shape == (2, cfg.embed_dim)
+
+    D, n_head = 96, 3  # 32-wide heads, 3 of them: no 128-lane packing
+    p = {"w_qkv": _randn(gen, D, 3 * D), "b_qkv": _randn(gen, 3 * D),
+         "w_out": _randn(gen, D, D), "b_out": _randn(gen, D)}
+    with pytest.raises(NotImplementedError, match="fused_attention_diff"):
+        multi_head_attention(_randn(gen, 1, 40, D), p, n_head)

@@ -141,7 +141,7 @@ def test_wrappers_refuse_gradients():
     autograd function, whose backward is the plain one on the CPU."""
     qkv = torch.zeros(1, 32, 384, requires_grad=True)
     out = port_attn.packed_attention_masked(qkv, build_block_causal_mask(4, 8), 2)
-    assert type(out.grad_fn).__name__ == "_PackedAttentionMaskedBackward"
+    assert type(out.grad_fn).__name__ == "_PackedAttentionBackward"
     x = torch.zeros(1, 8, 128, requires_grad=True)
     p = _map(torch.from_numpy, _block(np.random.default_rng(4), 128))
     with pytest.raises(NotImplementedError):
@@ -310,3 +310,139 @@ def test_cuda_steps_are_kernels_only():
         assert step.__name__.endswith("_cuda"), step.__name__
     for step in port_fb.PLAIN_STEPS:
         assert step.__name__.endswith("_reference"), step.__name__
+
+
+# K2 and K2b, the mask-free packed attention of the unfused vision route:
+# the JAX kernel's output and VJP against the port's plain version on the
+# same qkv and cotangent, as max |error| over max |value|. T=7 and T=13 are
+# off the multiple of 8, so the JAX kernels pad the tokens and set the
+# padded keys to -inf; the port needs no padding. fp32 reads at most
+# 3.8e-7 (sums in another order); bf16 reads 0 on both (P and dS rounded at
+# the same points). Tolerances: about ten times the fp32 reading, and in
+# bf16 one bf16 step (2**-8) of the largest value, for a flipped rounding.
+TOL_K2 = {"float32": 5e-6, "bfloat16": 2 ** -8}
+
+
+def _attention_case(T, dtype, seed):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((3, T, 3 * 128)).astype(np.float32)
+    g = rng.standard_normal((3, T, 128)).astype(np.float32)
+    if dtype == "bfloat16":
+        qkv, g = _bf16(qkv), _bf16(g)
+    return qkv, g
+
+
+@pytest.mark.parametrize("T,dtype", [(7, "float32"), (8, "float32"), (13, "bfloat16")])
+def test_packed_attention_matches_jax(T, dtype):
+    qkv, g = _attention_case(T, dtype, 40 + T)
+    out_ref, vjp = jax.vjp(lambda t: jax_attn.packed_attention(t, 2), jnp.asarray(qkv))
+    (dqkv_ref,) = vjp(jnp.asarray(g))
+    np.testing.assert_array_equal(
+        np.asarray(out_ref, np.float32),
+        np.asarray(jax_attn.attention_packed_fwd(jnp.asarray(qkv), 2), np.float32))
+
+    qkv_t = _to_torch(qkv).requires_grad_(True)
+    out = port_attn.packed_attention(qkv_t, 2)
+    (dqkv,) = torch.autograd.grad(out, qkv_t, _to_torch(g))
+    assert out.dtype == dqkv.dtype == qkv_t.dtype
+    errs = {"out": _rel_err(out, out_ref), "dqkv": _rel_err(dqkv, dqkv_ref)}
+    assert max(errs.values()) < TOL_K2[dtype], errs
+
+
+# K6a and K6b, the two-kernel eval block, at D=128, 2 heads, hidden 512, as
+# max |error| over max |value|: fp32 reads at most 2.3e-7. In bf16 both
+# round qkv, the attention output, LN2's output and the hidden activation
+# at the same points and the output once; K6a reads 9.7e-4 (a flipped
+# rounding, a quarter of one bf16 step of the largest value) and K6b 0.
+# Tolerances: about twenty times the fp32 reading; two bf16 steps.
+TOL_K6 = {"float32": 5e-6, "bfloat16": 2 ** -7}
+
+
+def _frozen_block(rng, D, dtype):
+    p = _block(rng, D)
+    if dtype == "bfloat16":
+        p = {k: (v if k.startswith("ln") else _map(_bf16, v)) for k, v in p.items()}
+    return p
+
+
+@pytest.mark.parametrize("T,dtype", [(13, "float32"), (7, "bfloat16")])
+def test_two_kernel_block_matches_jax(T, dtype):
+    rng = np.random.default_rng(50 + T)
+    x = rng.standard_normal((3, T, 128)).astype(np.float32)
+    x = _bf16(x) if dtype == "bfloat16" else x
+    p = _frozen_block(rng, 128, dtype)
+    pj, pt = _map(jnp.asarray, p), _map(_to_torch, p)
+
+    y_ref = jax_fb.fused_ln_attention_residual(jnp.asarray(x), pj["ln_1"], pj["attn"], 2)
+    out_ref = jax_fb.fused_ln_mlp_residual(y_ref, pj["ln_2"], pj["mlp"])
+    y = port_fb.fused_ln_attention_residual(_to_torch(x), pt["ln_1"], pt["attn"], 2)
+    # K6b alone on the JAX kernel's y, so its error is its own
+    out = port_fb.fused_ln_mlp_residual(_to_torch(np.asarray(y_ref)), pt["ln_2"], pt["mlp"])
+    assert y.dtype == out.dtype == _to_torch(x).dtype
+    errs = {"K6a": _rel_err(y, y_ref), "K6b": _rel_err(out, out_ref)}
+    assert max(errs.values()) < TOL_K6[dtype], errs
+
+
+# K7, the sublayer train kernel: the output and dx, d gamma, d beta of the
+# JAX kernel's VJP against the port's plain version, as max |error| over max
+# |value|. fp32 reads at most 5.8e-7. bf16 reads 0 on the output, 1.6e-4
+# on dx (a flipped rounding of a bf16 d(QKV) term) and 1.4e-7 on the fp32
+# LayerNorm gradients, sums over the rows that average such flips out.
+# Tolerances (output and dx, LayerNorm gradients): about ten times the fp32
+# reading; in bf16 two bf16 steps of the largest value and 1e-4.
+TOL_K7 = {"float32": (5e-6, 5e-6), "bfloat16": (2 ** -7, 1e-4)}
+
+
+def _ln_attention_case(T, dtype):
+    rng = np.random.default_rng(60 + T)
+    x = rng.standard_normal((2, T, 128)).astype(np.float32)
+    dy = rng.standard_normal((2, T, 128)).astype(np.float32)
+    p = _frozen_block(rng, 128, dtype)
+    if dtype == "bfloat16":
+        x, dy = _bf16(x), _bf16(dy)
+    return x, dy, p
+
+
+@pytest.mark.parametrize("T,dtype", [(7, "float32"), (13, "bfloat16")])
+def test_fused_ln_attention_matches_jax(T, dtype):
+    x, dy, p = _ln_attention_case(T, dtype)
+    pj = _map(jnp.asarray, p)
+    out_ref, vjp = jax.vjp(
+        lambda x_, ln_: jax_fb.fused_ln_attention(
+            x_, ln_, pj["attn"]["w_qkv"], pj["attn"]["b_qkv"], 2),
+        jnp.asarray(x), pj["ln_1"])
+    dx_ref, dln_ref = vjp(jnp.asarray(dy))
+
+    pt = _map(_to_torch, p)
+    xt = _to_torch(x).requires_grad_(True)
+    ln = {k: v.requires_grad_(True) for k, v in pt["ln_1"].items()}
+    out = port_fb.fused_ln_attention(xt, ln, pt["attn"]["w_qkv"], pt["attn"]["b_qkv"], 2)
+    dx, dg, db = torch.autograd.grad(out, [xt, ln["scale"], ln["bias"]], _to_torch(dy))
+    assert dx.dtype == xt.dtype and dg.dtype == db.dtype == torch.float32
+    tol_act, tol_ln = TOL_K7[dtype]
+    act = {"out": _rel_err(out, out_ref), "dx": _rel_err(dx, dx_ref)}
+    ln_errs = {"scale": _rel_err(dg, dln_ref["scale"]), "bias": _rel_err(db, dln_ref["bias"])}
+    assert max(act.values()) < tol_act, act
+    assert max(ln_errs.values()) < tol_ln, ln_errs
+
+
+def test_fused_ln_attention_refuses_trainable_qkv():
+    """K7 returns no gradient for w_qkv and b_qkv (the TPU kernel returns
+    zeros), so it refuses either when it requires one."""
+    x, _, p = _ln_attention_case(7, "float32")
+    pt = _map(torch.from_numpy, p)
+    for leaf in ("w_qkv", "b_qkv"):
+        w, b = pt["attn"]["w_qkv"].clone(), pt["attn"]["b_qkv"].clone()
+        (w if leaf == "w_qkv" else b).requires_grad_(True)
+        with pytest.raises(ValueError, match="fused_block_train_dw"):
+            port_fb.fused_ln_attention(torch.from_numpy(x), pt["ln_1"], w, b, 2)
+
+
+def test_two_kernel_block_refuses_gradients():
+    """K6a and K6b are forward-only, like the TPU kernels."""
+    p = _map(torch.from_numpy, _block(np.random.default_rng(7), 128))
+    x = torch.zeros(1, 8, 128, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        port_fb.fused_ln_attention_residual(x, p["ln_1"], p["attn"], 2)
+    with pytest.raises(NotImplementedError):
+        port_fb.fused_ln_mlp_residual(x, p["ln_2"], p["mlp"])
