@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MaPLe eval path and train step on one NVIDIA GPU
-and hold its hand-written CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's MaPLe eval path and train step, CoOp and zero-shot
+CLIP on one NVIDIA GPU and hold its hand-written CUDA kernels against their
+plain PyTorch versions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -64,7 +65,22 @@ What it does, in order (any failure raises and exits non-zero):
    against its plain version on the first frozen block's inputs and
    cotangent and on seeded ones, planted faults, a whole 16-image step
    against the plain path, K7 timed beside its yardstick;
-12. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+12. the block-group eval kernel K9 on MaPLe's eval (``FMM_TPU_FUSED_NBLK``
+   4, then 5): K9 3 launches per apply, ``inject_rows`` one per deep
+   prompt, no K5; K9 against its plain version on the first group's inputs
+   and on seeded ones with an extra row, a planted fault per limit, the
+   16-image logits against the plain path, the apply beside K5's;
+13. CoOp (ViT-B/16, 1000 classes, 16 context tokens): the train step at
+   batch 32 (K1, K1b and K5 12 each; K9 3 under ``NBLK=4``), a whole
+   16-image step against the plain path with a planted fault, the eval at
+   512 images under both gates;
+14. zero-shot CLIP on the same weights: the text features of one template
+   through K1 at 77 tokens (held against its plain version at that new
+   shape), the eval at 512 images under both gates;
+15. the split-head attention K8 on two test shapes through
+   ``multi_head_attention``, held against its plain version (forward and
+   gradients), planted faults, times beside SDPA;
+16. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -152,6 +168,19 @@ TOL_STEP_GRAD_OTHER = 2.0 ** -3
 # The planted faults drop the last rows of a sum or a write, the usual fault
 # of a kernel's ragged tail: 256 rows, one row block of layernorm_bwd_rows.
 PLANTED_FAULT_ROWS = 256
+# The block-group kernel K9: G blocks chained with the stream in fp32, each
+# block rounding its bf16 intermediates (qkv, attention output, LN outputs,
+# hidden) at the same points as the plain version; a flipped rounding in one
+# block passes into the next, so twice K5's limit, and with seeded biases and
+# LayerNorm affines twice K5's seeded one.
+TOL_K9 = 2.0 ** -4
+TOL_K9_SEEDED = 2.0 ** -3
+GROUP_SIZES = ("4", "5")  # FMM_TPU_FUSED_NBLK: blocks 0-3, 4-7, 8-11; 0-4, 5-9, 10-11
+COOP_BATCH = 32  # configs/trainers/CoOp/vit_b16.yaml
+ZS_TEMPLATE = "a photo of a {}."  # CUSTOM_TEMPLATES["ImageNet"]
+# K8 on two test shapes, since no backbone of the repository reaches it:
+# (name, B, T, D, heads, causal mask).
+SPLIT_SHAPES = (("a", 64, 257, 1280, 16, False), ("b", 256, 77, 768, 8, True))
 
 
 def card_line() -> str:
@@ -258,9 +287,27 @@ def device_profile(fn):
     return [(e.name, e.time_range.elapsed_us()) for e in kernels], wall_us
 
 
+def profile_by_kernel(fn, label: str, top: int = 10) -> dict:
+    """One run of ``fn`` under the profiler: wall and device-busy ms, the
+    idle share and the ``top`` largest device ms by kernel, printed."""
+    kernels, wall_us = device_profile(fn)
+    by_name = {}
+    for name, us in kernels:
+        by_name[short_name(name)] = by_name.get(short_name(name), 0.0) + us
+    busy_us = sum(by_name.values())
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "idle_share": 1 - busy_us / wall_us,
+           "device_ms_by_kernel": {k: round(v / 1e3, 3) for k, v in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:top]}}
+    print(f"one {label}: wall {out['wall_ms']:.2f} ms, device busy "
+          f"{out['device_busy_ms']:.2f} ms, idle share {out['idle_share']:.3f}")
+    print("  device ms by kernel:", json.dumps(out["device_ms_by_kernel"]))
+    return out
+
+
 def short_name(name: str) -> str:
-    for key in ("attention_core_bwd", "attention_core", "gemm_epilogue",
-                "layernorm_bwd_rows", "layernorm_rows", "column_sum"):
+    for key in ("attention_core_bwd", "attention_core", "attention_split", "gemm_epilogue",
+                "layernorm_bwd_rows", "layernorm_rows", "column_sum", "inject_rows"):
         if key in name:
             f32_in = "IfE" in name or "<float>" in name
             if key == "gemm_epilogue":
@@ -409,12 +456,13 @@ def plain_kernels() -> dict:
     return {
         "_attn_kernels": overlay(
             k_attn, packed_attention_masked=k_attn.packed_attention_masked_reference,
-            packed_attention=k_attn.packed_attention_reference),
+            packed_attention=k_attn.packed_attention_reference,
+            fused_attention_diff=k_attn.fused_attention_diff_reference),
         "_block_kernels": overlay(k_block, **{
             name: getattr(k_block, name + "_reference") for name in (
                 "fused_block_residual", "fused_block_train", "fused_block_train_dw",
                 "fused_ln_attention_residual", "fused_ln_mlp_residual",
-                "fused_ln_attention")}),
+                "fused_ln_attention", "fused_block_group_residual")}),
     }
 
 
@@ -432,7 +480,9 @@ def kernel_counters() -> dict:
             "K5 fused_block_residual": k_block.fused_block_residual,
             "K6a fused_ln_attention_residual": k_block.fused_ln_attention_residual,
             "K6b fused_ln_mlp_residual": k_block.fused_ln_mlp_residual,
-            "K7 fused_ln_attention": k_block.fused_ln_attention}
+            "K7 fused_ln_attention": k_block.fused_ln_attention,
+            "K8 fused_attention": k_attn.fused_attention,
+            "K9 fused_block_group_residual": k_block.fused_block_group_residual}
 
 
 def reset_counts() -> None:
@@ -745,22 +795,13 @@ def drive_train(prog, canvas, recorders: dict, label: str = "") -> dict:
     print(f"train losses{label}:", json.dumps(losses))
     assert all(np.isfinite(losses)), losses
 
-    step_kernels, step_wall_us = device_profile(one_step)
-    by_name = {}
-    for name, us in step_kernels:
-        by_name[short_name(name)] = by_name.get(short_name(name), 0.0) + us
-    busy_us = sum(by_name.values())
-    print(f"one train step{label}: wall {step_wall_us / 1e3:.2f} ms, device busy "
-          f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / step_wall_us:.3f}")
-    print("  device ms by kernel:", json.dumps(
-        {k: round(v / 1e3, 3) for k, v in
-         sorted(by_name.items(), key=lambda kv: -kv[1])[:14]}))
+    prof = profile_by_kernel(one_step, "train step" + label, top=14)
     summary = {
         "train_step_ms": median_ms, "train_step_ms_all": step_ms,
         "train_tflops": flops / median_ms / 1e9, "train_step_flops": flops,
         "train_images_per_s": BATCH / median_ms * 1e3, "train_losses": losses,
-        "train_peak_gib": peak_gib, "train_device_busy_ms": busy_us / 1e3,
-        "train_idle_share": 1 - busy_us / step_wall_us, "train_launches": counts,
+        "train_peak_gib": peak_gib, "train_device_busy_ms": prof["device_busy_ms"],
+        "train_idle_share": prof["idle_share"], "train_launches": counts,
     }
     return {"counts": counts, "summary": summary, "state": state, "make_batch": make_batch}
 
@@ -1235,13 +1276,9 @@ def two_kernel_eval_phase(prog, canvas, boxes, flips) -> tuple:
                      "eval apply" + label)
         e2e = eval_vs_plain(prog, images, logits, label)
         summary = eval_images_per_s(prog, canvas, boxes, flips, prep, label)
-        apply_kernels, apply_wall_us = device_profile(
-            lambda: prog["eval_apply_fn"](prog["trainable"], prog["frozen"], images, prep))
-        busy_us = sum(us for _, us in apply_kernels)
-        summary["eval_apply_idle_share"] = 1 - busy_us / apply_wall_us
-        print(f"one eval apply{label} (towers only): wall {apply_wall_us / 1e3:.2f} ms, "
-              f"device busy {busy_us / 1e3:.2f} ms, idle share "
-              f"{summary['eval_apply_idle_share']:.3f}")
+        summary["eval_apply_idle_share"] = profile_by_kernel(
+            lambda: prog["eval_apply_fn"](prog["trainable"], prog["frozen"], images, prep),
+            f"eval apply{label} (towers only)")["idle_share"]
         del logits, prep, images
     summary["eval_launches"] = counts
 
@@ -1495,6 +1532,532 @@ def sublayer_train_phase(prog, canvas) -> tuple:
     return rows, checks, summary
 
 
+# -- the block-group eval kernel, CoOp, zero-shot CLIP and K8 -----------------
+
+
+def fault_inject_last_row(inject):
+    """``inject_rows`` writes one row fewer: the last injected row keeps
+    the stream's old value."""
+    def faulty(stream, prompt, extra=None):
+        keep = stream[:, -1].clone()
+        inject(stream, prompt, extra)
+        stream[:, -1] = keep
+        return stream
+    return faulty
+
+
+def fault_extra_dropped(inject):
+    """``inject_rows`` writes the prompt rows but drops the extra rows."""
+    def faulty(stream, prompt, extra=None):
+        if extra is None:
+            return inject(stream, prompt)
+        keep = stream[:, -extra.shape[1]:].clone()
+        inject(stream, prompt, extra)
+        stream[:, -extra.shape[1]:] = keep
+        return stream
+    return faulty
+
+
+def seeded_affines(blk, seed: int):
+    """``blk`` with seeded biases and LayerNorm affines (``seeded_block``'s
+    draws) and its own weights."""
+    out = seeded_block(blk, seed)
+    for part in ("attn", "mlp"):
+        for name, t in blk[part].items():
+            if name.startswith("w"):
+                out[part][name] = t
+    return out
+
+
+def block_bound(B, T, D, n_head, hidden):
+    """Bytes of one block's weights, biases and LayerNorm parameters and
+    operations of its four products and attention (K5's count)."""
+    weight_elems = 4 * D * D + 2 * D * hidden
+    n_bytes = weight_elems * 2 + (3 * D + D + hidden + D) * 2 + 4 * D * 4
+    ops = 2 * B * T * weight_elems + 4 * B * n_head * (D // n_head) * T * T
+    return n_bytes, ops
+
+
+def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
+    """``FMM_TPU_FUSED_NBLK`` = 4, then 5: MaPLe's eval apply with the vision
+    blocks in groups through K9 and the deep prompts injected by
+    ``inject_rows``; K9 against its plain version on the first group's own
+    inputs and on seeded ones (extra rows at T = 200, seeded biases and
+    LayerNorm affines), with a planted fault per limit; the 16-image logits
+    against the plain path; the apply beside the K5 route's in this phase.
+    Returns ``(rows, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+    from federated_multi_modal_tpu_torch.ops.preprocess import crop_resize_flip_normalize
+
+    arch = prog["arch"]
+    n_vis = arch.vision_layers
+    tr, fr = prog["trainable"], prog["frozen"]
+    first, summary, checks, logits16 = {}, {}, [], {}
+    with gates(**DEFAULT_GATES):
+        prep = prog["eval_prepare_fn"](tr, fr)
+        n_deep = len(prep["vis_deep"])
+        summary["K5"] = eval_images_per_s(prog, canvas, boxes, flips, prep, " (K5, this phase)")
+        images = crop_resize_flip_normalize(canvas[:E2E_IMAGES], boxes[:E2E_IMAGES],
+                                            flips[:E2E_IMAGES], out_size=arch.image_resolution)
+        logits16["K5"] = prog["eval_apply_fn"](tr, fr, images, prep)
+    for nblk in GROUP_SIZES:
+        label = f" (FMM_TPU_FUSED_NBLK={nblk})"
+        with gates(**dict(DEFAULT_GATES, FMM_TPU_FUSED_NBLK=nblk)):
+            logits, counts, prep, images = eval_counted(
+                prog, canvas, boxes, flips, {"_block_kernels": overlay(
+                    k_block, fused_block_group_residual=cotangent_recorder(
+                        first, nblk, k_block.fused_block_group_residual))}, label)
+            check_counts(counts, {
+                "K9 fused_block_group_residual": -(-n_vis // int(nblk)),
+                "K5 fused_block_residual": 0, "fmm_inject_rows": n_deep,
+                "fmm_gemm_epilogue": 4 * n_vis, "fmm_layernorm_rows": 2 * n_vis,
+                "fmm_attention_core": n_vis}, "eval apply" + label)
+            checks.append(("eval path" + label, eval_vs_plain(prog, images, logits, label)))
+            vs_k5 = compare(logits[:E2E_IMAGES], logits16["K5"], TOL_E2E)
+            print(f"eval path{label} vs the K5 route, {E2E_IMAGES} images (printed, not "
+                  "checked):", json.dumps(brief({"vs K5": vs_k5})))
+            summary[nblk] = dict(eval_images_per_s(prog, canvas, boxes, flips, prep, label),
+                                 eval_launches=counts, max_abs_diff_vs_k5=vs_k5["max_abs_err"])
+            del logits, prep, images
+    summary["apply_ms_k9_over_k5"] = {n: summary[n]["eval_apply_ms"] / summary["K5"]["eval_apply_ms"]
+                                      for n in GROUP_SIZES}
+    print("eval apply ms, K9 over K5 (same phase):", json.dumps(summary["apply_ms_k9_over_k5"]))
+
+    # -- K9 and inject_rows against their plain versions -------------------
+    x, blocks, n, flags, prompts, extra = first[GROUP_SIZES[0]]["args"]
+    B, T, D = x.shape
+
+    def k9_check(x, blocks, extra, tol):
+        return compare(k_block.fused_block_group_residual(x, blocks, n, flags, prompts, extra),
+                       k_block.fused_block_group_residual_reference(
+                           x, blocks, n, flags, prompts, extra), tol)
+
+    gen = torch.Generator(device=x.device).manual_seed(14)
+    x_s = torch.randn(B, T + 1, D, generator=gen, device=x.device).to(x.dtype)
+    extra_s = torch.randn(B, 1, D, generator=gen, device=x.device).to(x.dtype)
+    blocks_s = [seeded_affines(b, seed=20 + i) for i, b in enumerate(blocks)]
+    cmps = {"K9": k9_check(x, blocks, extra, TOL_K9),
+            "K9 seeded": k9_check(x_s, blocks_s, extra_s, TOL_K9_SEEDED)}
+    stream = torch.randn(B, T + 1, D, generator=gen, device=x.device)
+    got = k_block.inject_rows_cuda(stream.clone(), prompts[0], extra_s)
+    ref = k_block.inject_rows_reference(stream.clone(), prompts[0], extra_s)
+    cmps["inject_rows"] = {"max_abs_err": float((got - ref).abs().max()), "tol": "exact",
+                           "ok": bool(torch.equal(got, ref))}
+    del got, ref
+    with patched(k_block, inject_rows_cuda=fault_inject_last_row(k_block.inject_rows_cuda)):
+        faults = {"K9 one row fewer": k9_check(x, blocks, extra, TOL_K9)}
+    with patched(k_block, inject_rows_cuda=fault_extra_dropped(k_block.inject_rows_cuda)):
+        faults["K9 seeded, extra rows dropped"] = k9_check(x_s, blocks_s, extra_s, TOL_K9_SEEDED)
+    for name, c in cmps.items():
+        print(f"{name} vs plain:", json.dumps(c))
+    print("K9 planted faults (inject_rows writes one row fewer; drops the extra rows):",
+          json.dumps(brief(faults)))
+    checks += list(cmps.items())
+    checks += [(f"{k} planted fault caught", {"ok": not c["ok"]}) for k, c in faults.items()]
+
+    # -- timings and the yardstick ------------------------------------------
+    G = len(blocks)
+    hidden = blocks[0]["mlp"]["w_fc"].shape[1]
+    k9_ms = cuda_ms(lambda: k_block.fused_block_group_residual(x, blocks, n, flags, prompts,
+                                                               extra), 5)
+    k9_plain_ms = cuda_ms(lambda: k_block.fused_block_group_residual_reference(
+        x, blocks, n, flags, prompts, extra), 2, 1)
+    layers = [library_block(b, n) for b in blocks]
+
+    def library_group():
+        y = x
+        for layer in layers:
+            y = layer(y)
+        return y
+
+    with torch.no_grad():
+        k9_lib_ms = cuda_ms(library_group, 5)
+    del layers
+    inject_host_us = cuda_ms(lambda: k_block.inject_rows_cuda(stream, prompts[0], extra_s),
+                             50) * 1e3
+    # device time per launch over twenty launches in one window: a single
+    # few-microsecond launch may be missing from the trace
+    traced = [us for name, us in device_profile(lambda: [
+        k_block.inject_rows_cuda(stream, prompts[0], extra_s) for _ in range(20)])[0]
+        if "inject_rows" in name]
+    assert traced, "no inject_rows launch in the profiler's trace"
+    inject_us = statistics.median(traced)
+    launches, _ = device_profile(lambda: k_block.fused_block_group_residual(
+        x, blocks, n, flags, prompts, extra))
+    print(f"one fused_block_group_residual (G={G}), device us per launch:",
+          json.dumps([[short_name(nm), round(us, 1)] for nm, us in launches]))
+    w_bytes, ops = block_bound(B, T, D, n, hidden)
+    k9_bound = bound(2 * B * T * D * 2 + G * w_bytes + sum(p.numel() for p in prompts) * 2,
+                     G * ops)
+    inj_bound = bound(prompts[0].numel() * 2 + extra_s.numel() * 2 + B * 3 * D * 4, 0)
+    counts = summary[GROUP_SIZES[0]]["eval_launches"]
+    row = {
+        "name": "fused_block_group_residual", "route": "cuda",
+        "source": "federated_multi_modal_tpu_torch/csrc/inject_rows.cu",
+        "sources": [f"federated_multi_modal_tpu_torch/csrc/{f}" for f in (
+            "inject_rows.cu", "layernorm_rows.cu", "gemm_epilogue.cu", "attention_core.cu")],
+        "replaces": "federated_multi_modal_tpu/ops/pallas/fused_block.py:776",
+        "tpu_function": "_fused_block_group_jit with G > 1 (_group_kernel), behind "
+                        "fused_block_group_residual",
+        "shape": [list(x.shape), n, hidden, G, list(flags)],
+        "launches": counts["K9 fused_block_group_residual"],
+        "launches_nblk5": summary[GROUP_SIZES[1]]["eval_launches"][
+            "K9 fused_block_group_residual"],
+        "max_abs_err": cmps["K9"]["max_abs_err"], "tol": cmps["K9"]["tol"],
+        "ms": k9_ms, "plain_ms": k9_plain_ms, "bound_ms": k9_bound[0], "bound_by": k9_bound[1],
+        "library_ms": k9_lib_ms,
+        "library_call": f"{G} x torch.nn.TransformerEncoderLayer (bf16, norm_first, QuickGELU)",
+        "inject_rows": {"launches": counts["fmm_inject_rows"], "device_us": inject_us,
+                        "us_by_events_one_call": inject_host_us,
+                        "shape": [[B, T + 1, D], list(prompts[0].shape), list(extra_s.shape)],
+                        "bound_us": inj_bound[0] * 1e3,
+                        "max_abs_err": cmps["inject_rows"]["max_abs_err"]},
+    }
+    print(f"fused_block_group_residual (G={G}): {k9_ms:.3f} ms, plain {k9_plain_ms:.3f} ms, "
+          f"library {k9_lib_ms:.3f} ms, bound {k9_bound[0]:.3f} ms ({k9_bound[1]}); "
+          f"inject_rows {inject_us:.2f} us on the device ({inject_host_us:.2f} us between "
+          f"events around one call), bound {inj_bound[0] * 1e3:.2f} us")
+    return [row], checks, summary
+
+
+def drive_steps(loss_fn, tx, trainable, frozen, make_batch, label: str) -> dict:
+    """One train step with every count set to 0 just before and read just
+    after, then ``TRAIN_STEPS`` timed steps; returns the counts, the
+    numbers and the state."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine.trainer import make_train_step
+
+    train_step = make_train_step(loss_fn, tx)
+    state = {"trainable": trainable, "opt": tx.init(trainable)}
+
+    def one_step():
+        state["trainable"], state["opt"], loss, _ = train_step(
+            state["trainable"], frozen, state["opt"], make_batch())
+        return loss
+
+    reset_counts()
+    loss0 = one_step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"launches, one train step{label}:", json.dumps(counts))
+    losses, step_ms = [float(loss0)], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = one_step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    assert all(np.isfinite(losses)), losses
+    median_ms = statistics.median(step_ms)
+    print(f"train step{label}: median {median_ms:.2f} ms of {TRAIN_STEPS} "
+          f"({', '.join(f'{t:.2f}' for t in step_ms)}), losses {json.dumps(losses)}")
+    return {"counts": counts, "state": state,
+            "summary": {"train_step_ms": median_ms, "train_step_ms_all": step_ms,
+                        "train_losses": losses, "train_launches": counts,
+                        "profile": profile_by_kernel(one_step, "train step" + label)}}
+
+
+def coop_phase(canvas, boxes, flips) -> tuple:
+    """CoOp at ViT-B/16, 1000 classes, 16 generic context tokens, class token
+    at the end: the train step at batch 32 (counted, timed) under the
+    default gates and under ``FMM_TPU_FUSED_NBLK=4``, a whole 16-image step
+    against the plain path with a planted fault, and the eval at 512 images
+    under both. Returns ``(program, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.preprocess import (
+        crop_resize_flip_normalize,
+        sample_rrc_boxes_torch,
+    )
+    from federated_multi_modal_tpu_torch.trainers.coop import (
+        build_coop_optimizer,
+        build_coop_program,
+    )
+
+    t0 = time.perf_counter()
+    prog = build_coop_program("ViT-B/16", classnames=[f"class {i}" for i in range(N_CLASSES)],
+                              n_ctx=16, csc=False, class_token_position="end", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    arch = prog["arch"]
+    n_text, n_vis = arch.transformer_layers, arch.vision_layers
+    tr, fr = prog["trainable"], prog["frozen"]
+    first = {}
+    with patched(primitives, _attn_kernels=overlay(
+            k_attn, packed_attention_masked=cotangent_recorder(
+                first, "k1", k_attn.packed_attention_masked))):
+        prog["eval_prepare_fn"](tr, fr)
+    qkv = first["k1"]["args"][0]
+    print(f"CoOp program: ViT-B/16, {prog['n_cls']} classes, n_ctx {prog['n_ctx']}, text_len "
+          f"{prog['text_len']}, text tower K1 on qkv {list(qkv.shape)}, init {init_s:.1f} s")
+    summary = {"init_s": init_s, "text_len": prog["text_len"], "k1_shape": list(qkv.shape)}
+    checks = []
+
+    rng = np.random.default_rng(3)
+    labels = torch.from_numpy(rng.integers(0, N_CLASSES, COOP_BATCH)).cuda()
+    gen = torch.Generator(device=canvas.device).manual_seed(4)
+    crops = canvas[:COOP_BATCH]
+
+    def make_batch():
+        b, f = sample_rrc_boxes_torch(gen, COOP_BATCH, crops.shape[1])
+        return {"image": crop_resize_flip_normalize(crops, b, f, out_size=arch.image_resolution),
+                "label": labels}
+
+    for nblk, expected in (("1", {"K5 fused_block_residual": n_vis,
+                                  "K9 fused_block_group_residual": 0}),
+                           ("4", {"K9 fused_block_group_residual": -(-n_vis // 4),
+                                  "K5 fused_block_residual": 0})):
+        label = f" (CoOp, B={COOP_BATCH}, FMM_TPU_FUSED_NBLK={nblk})"
+        with gates(**dict(DEFAULT_GATES, FMM_TPU_FUSED_NBLK=nblk)):
+            run = drive_steps(prog["loss_fn"], build_coop_optimizer(), tr, fr, make_batch, label)
+        check_counts(run["counts"], dict(
+            expected, **{"K1 packed_attention_masked": n_text,
+                         "K1b packed_attention_masked_bwd": n_text,
+                         "K3 fused_block_train": 0, "K4 fused_block_train_dw": 0,
+                         "fmm_inject_rows": 0}), "train step" + label)
+        summary[f"train_nblk{nblk}"] = run["summary"]
+        trained = run["state"]["trainable"]
+
+    # -- one whole 16-image step: kernel path against plain path ------------
+    small = {k: v[:STEP_IMAGES] for k, v in make_batch().items()}
+
+    def hold(got, ref):
+        (loss, grads), (r_loss, r_grads) = got, ref
+        loss_rel = abs(loss - r_loss) / abs(r_loss)
+        grad = compare_scaled(grads["prompt_learner.ctx"], r_grads["prompt_learner.ctx"],
+                              TOL_STEP_GRAD_OTHER)
+        return {"loss_rel_err": loss_rel, "loss_tol": TOL_STEP_LOSS, "ctx_grad": grad,
+                "max_err_over_tol": max(loss_rel / TOL_STEP_LOSS, grad["max_err_over_tol"]),
+                "ok": loss_rel <= TOL_STEP_LOSS and grad["ok"]}
+
+    kernel_step = step_loss_and_grads(prog["loss_fn"], trained, fr, small)
+    with patched(primitives, **plain_kernels()):
+        plain_step = step_loss_and_grads(prog["loss_fn"], trained, fr, small)
+    step_cmp = hold(kernel_step, plain_step)
+    with patched(k_attn, attention_core_bwd_cuda=fault_mask_dropped(
+            k_attn.attention_core_bwd_cuda)):
+        fault = hold(step_loss_and_grads(prog["loss_fn"], trained, fr, small), plain_step)
+    print(f"CoOp whole step, {STEP_IMAGES} images, kernel path vs plain path:",
+          json.dumps(step_cmp))
+    print("  planted fault (K1b ignores the mask):", json.dumps(fault))
+    checks += [("CoOp whole step", step_cmp),
+               ("CoOp whole step planted fault caught", {"ok": not fault["ok"]})]
+    del small
+
+    # -- the eval at BATCH images ---------------------------------------------
+    for nblk, expected in (("1", {"K5 fused_block_residual": n_vis}),
+                           ("4", {"K9 fused_block_group_residual": -(-n_vis // 4),
+                                  "K5 fused_block_residual": 0})):
+        label = f" (CoOp, FMM_TPU_FUSED_NBLK={nblk})"
+        with gates(**dict(DEFAULT_GATES, FMM_TPU_FUSED_NBLK=nblk)):
+            logits, counts, prep, images = eval_counted(prog, canvas, boxes, flips, {}, label)
+            check_counts(counts, expected, "eval apply" + label)
+            checks.append(("eval path" + label, eval_vs_plain(prog, images, logits, label)))
+            prepare_ms = wall_ms(lambda: prog["eval_prepare_fn"](tr, fr), 3)
+            summary[f"eval_nblk{nblk}"] = dict(
+                eval_images_per_s(prog, canvas, boxes, flips, prep, label),
+                eval_prepare_ms=prepare_ms, eval_launches=counts)
+            print(f"eval{label}: prepare {prepare_ms:.2f} ms")
+            del logits, prep, images
+    summary["whole_step_vs_plain"] = step_cmp
+    return prog, checks, summary
+
+
+def zeroshot_phase(coop_prog, canvas, boxes, flips) -> tuple:
+    """Zero-shot CLIP on the CoOp program's CLIP weights: the text features
+    of ``ZS_TEMPLATE`` over the same 1000 classes (K1 on 77 tokens under the
+    causal mask, held against its plain version), then the eval at 512
+    images under the default gates and ``FMM_TPU_FUSED_NBLK=4``, with the
+    16-image logits against the plain path. Returns ``(rows, checks,
+    summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.trainers.zsclip import (
+        make_zeroshot_infer,
+        zeroshot_text_features,
+    )
+
+    arch = coop_prog["arch"]
+    clip = coop_prog["frozen"]["clip"]
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    n_text, n_vis = arch.transformer_layers, arch.vision_layers
+    infer = make_zeroshot_infer(arch)
+    prog = {"arch": arch, "trainable": None, "frozen": clip,
+            "eval_prepare_fn": lambda _, fr: zeroshot_text_features(
+                fr, arch, classnames, [ZS_TEMPLATE], device=canvas.device),
+            "eval_apply_fn": lambda _, fr, images, feats: infer(fr, feats, images)}
+    first = {}
+    with patched(primitives, _attn_kernels=overlay(
+            k_attn, packed_attention_masked=cotangent_recorder(
+                first, "k1", k_attn.packed_attention_masked))):
+        reset_counts()
+        feats = prog["eval_prepare_fn"](None, clip)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    print("launches, zero-shot text features:", json.dumps(counts))
+    check_counts(counts, {"K1 packed_attention_masked": n_text, "fmm_attention_core": n_text},
+                 "zero-shot text features")
+    assert feats.shape == (N_CLASSES, arch.embed_dim) and bool(torch.isfinite(feats).all())
+    features_ms = wall_ms(lambda: prog["eval_prepare_fn"](None, clip), 3)
+    summary = {"text_features_ms": features_ms, "text_launches": counts,
+               "text_features_profile": profile_by_kernel(
+                   lambda: prog["eval_prepare_fn"](None, clip), "zero-shot text features")}
+    print(f"zero-shot text features ({N_CLASSES} classes, 77 tokens): {features_ms:.2f} ms")
+
+    # -- K1 at the new shape against its plain version ----------------------
+    qkv, mask, n = first["k1"]["args"]
+    k1 = compare(k_attn.packed_attention_masked(qkv, mask, n),
+                 k_attn.packed_attention_masked_reference(qkv, mask, n), TOL_K1)
+    print(f"K1 at qkv {list(qkv.shape)}, causal mask {list(mask.shape)}, vs plain:",
+          json.dumps(k1))
+    B1, T1, D3 = qkv.shape
+    hd = D3 // 3 // n
+    q, k, v = (t.reshape(B1, T1, n, hd).transpose(1, 2) for t in qkv.split(D3 // 3, dim=-1))
+    k1_times = {
+        "ms": cuda_ms(lambda: k_attn.packed_attention_masked(qkv, mask, n), 10),
+        "plain_ms": cuda_ms(lambda: k_attn.packed_attention_masked_reference(qkv, mask, n), 3, 1),
+        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 10)}
+    b = bound(qkv.numel() * 2 + mask.numel() * 4 + B1 * T1 * D3 // 3 * 2,
+              4 * B1 * n * hd * int(torch.isfinite(mask).sum()))
+    k1_times.update(bound_ms=b[0], bound_by=b[1], shape=[list(qkv.shape), list(mask.shape), n],
+                    max_abs_err=k1["max_abs_err"],
+                    library_call="scaled_dot_product_attention(is_causal=True)")
+    print("K1 at the zero-shot shape:", json.dumps(k1_times))
+    checks = [("K1 zero-shot shape", k1)]
+
+    for nblk, expected in (("1", {"K5 fused_block_residual": n_vis}),
+                           ("4", {"K9 fused_block_group_residual": -(-n_vis // 4),
+                                  "K5 fused_block_residual": 0})):
+        label = f" (zero-shot, FMM_TPU_FUSED_NBLK={nblk})"
+        with gates(**dict(DEFAULT_GATES, FMM_TPU_FUSED_NBLK=nblk)):
+            logits, counts, prep, images = eval_counted(prog, canvas, boxes, flips, {}, label)
+            check_counts(counts, expected, "eval apply" + label)
+            checks.append(("eval path" + label, eval_vs_plain(prog, images, logits, label)))
+            summary[f"eval_nblk{nblk}"] = dict(
+                eval_images_per_s(prog, canvas, boxes, flips, prep, label), eval_launches=counts)
+            del logits, prep, images
+    return k1_times, checks, summary
+
+
+def fault_split_tail(attention):
+    """The split-head attention leaves the last rows of its output
+    unwritten (zero)."""
+    def faulty(q, k, v, n_head, attn_mask=None):
+        out = attention(q, k, v, n_head, attn_mask)
+        out.view(-1, out.shape[-1])[-PLANTED_FAULT_ROWS:] = 0
+        return out
+    return faulty
+
+
+def fault_split_mask_dropped(attention):
+    """The split-head attention ignores the mask it is given."""
+    def faulty(q, k, v, n_head, attn_mask=None):
+        return attention(q, k, v, n_head, None)
+    return faulty
+
+
+def split_attention_phase(device) -> tuple:
+    """K8 on ``SPLIT_SHAPES``: each shape once through the route
+    (``multi_head_attention`` with seeded weights, counts set to 0 just
+    before and read just after), then the forward on the column split of a
+    seeded packed QKV against the plain version, the gradients of
+    ``fused_attention_diff`` against plain autograd with a seeded unit
+    cotangent, planted faults, and times beside SDPA, on ``device``.
+    Returns ``(row, checks)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf = torch.bfloat16
+    inputs = {}
+    for name, B, T, D, H, causal in SPLIT_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(30 + T)
+
+        def randn(*shape, scale=1.0, gen=gen):
+            return (torch.randn(shape, generator=gen, device=device) * scale).to(bf)
+
+        mask = primitives.build_causal_mask(T, device=device) if causal else None
+        p = {"w_qkv": randn(D, 3 * D, scale=D ** -0.5), "b_qkv": randn(3 * D, scale=0.1),
+             "w_out": randn(D, D, scale=D ** -0.5), "b_out": randn(D, scale=0.1)}
+        inputs[name] = (randn(B, T, D), p, randn(B, T, 3 * D), randn(B, T, D), mask, H)
+    reset_counts()
+    for name, (x, p, _, _, mask, H) in inputs.items():
+        out = primitives.multi_head_attention(x, p, H, mask)
+        assert bool(torch.isfinite(out).all())
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print("launches, multi_head_attention on the two K8 shapes:", json.dumps(counts))
+    check_counts(counts, {"K8 fused_attention": len(SPLIT_SHAPES),
+                          "fmm_attention_split": len(SPLIT_SHAPES),
+                          "fmm_attention_core": 0}, "K8 shapes")
+
+    checks, results = [], {}
+    for name, B, T, D, H, causal in SPLIT_SHAPES:
+        _, _, qkv, g, mask, _ = inputs[name]
+        hd = D // H
+        q, k, v = qkv.split(D, dim=-1)
+
+        def fwd_check():
+            return compare(k_attn.fused_attention(q, k, v, H, mask),
+                           k_attn.fused_attention_reference(q, k, v, H, mask), TOL_K1)
+
+        qkv_r = qkv.detach().requires_grad_(True)
+        (dqkv,) = torch.autograd.grad(
+            k_attn.fused_attention_diff(*qkv_r.split(D, dim=-1), H, mask), qkv_r, g)
+        (r_dqkv,) = torch.autograd.grad(
+            k_attn.fused_attention_reference(*qkv_r.split(D, dim=-1), H, mask), qkv_r, g)
+        cmps = {"forward": fwd_check(), "gradient": compare_scaled(dqkv, r_dqkv, TOL_K1B)}
+        with patched(k_attn, fused_attention_cuda=fault_split_tail(k_attn.fused_attention_cuda)):
+            faults = {"output's last rows dropped": fwd_check()}
+        if causal:
+            with patched(k_attn, fused_attention_cuda=fault_split_mask_dropped(
+                    k_attn.fused_attention_cuda)):
+                faults["mask dropped"] = fwd_check()
+        print(f"K8 shape ({name}) {[B, T, D]}, {H} heads of {hd}"
+              f"{', causal' if causal else ''}, vs plain:", json.dumps(cmps))
+        print(f"K8 shape ({name}) planted faults:", json.dumps(brief(faults)))
+        checks += [(f"K8 ({name}) {k}", c) for k, c in cmps.items()]
+        checks += [(f"K8 ({name}) planted fault caught: {k}", {"ok": not c["ok"]})
+                   for k, c in faults.items()]
+        qh, kh, vh = (t.reshape(B, T, H, hd).transpose(1, 2) for t in (q, k, v))
+        ms = cuda_ms(lambda: k_attn.fused_attention(q, k, v, H, mask), 20)
+        plain_ms = cuda_ms(lambda: k_attn.fused_attention_reference(q, k, v, H, mask), 5, 1)
+        lib_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=causal), 20)
+        pairs = int(torch.isfinite(mask).sum()) if causal else T * T
+        b = bound(4 * B * T * D * 2 + (T * T * 4 if causal else 0), 4 * B * H * hd * pairs)
+        results[name] = {
+            "shape": [[B, T, D], H, hd, "causal" if causal else "no mask"],
+            "max_abs_err": cmps["forward"]["max_abs_err"], "tol": cmps["forward"]["tol"],
+            "grad_max_err_over_max": cmps["gradient"]["max_err_over_max"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms}
+        print(f"fused_attention ({name}): {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    a = results["a"]
+    row = dict(
+        a, name="fused_attention", route="cuda",
+        source="federated_multi_modal_tpu_torch/csrc/attention_split.cu",
+        replaces="federated_multi_modal_tpu/ops/pallas/attention.py:127 (no mask) and :147 "
+                 "(masked)",
+        tpu_function="fused_attention (_attn_kernel_nomask, _attn_kernel), behind "
+                     "fused_attention_diff and multi_head_attention_pallas",
+        launches=counts["K8 fused_attention"],
+        library_call="torch.nn.functional.scaled_dot_product_attention (is_causal for (b))",
+        timed="forward; shape (a) here, (b) under shape_b", shape_b=results["b"])
+    return row, checks
+
+
 def main() -> int:
     import torch
 
@@ -1680,16 +2243,7 @@ def main() -> int:
         lambda: k_block.fused_block_residual(x, blk, n_head_v))
     print("one fused_block_residual, device us per launch:",
           json.dumps([[short_name(n), round(us, 1)] for n, us in block_kernels]))
-    apply_kernels, apply_wall_us = device_profile(crop_and_apply)
-    by_name = {}
-    for name, us in apply_kernels:
-        by_name[short_name(name)] = by_name.get(short_name(name), 0.0) + us
-    busy_us = sum(by_name.values())
-    print(f"one eval apply: wall {apply_wall_us / 1e3:.2f} ms, device busy "
-          f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / apply_wall_us:.3f}")
-    print("  device ms by kernel:", json.dumps(
-        {k: round(v / 1e3, 3) for k, v in
-         sorted(by_name.items(), key=lambda kv: -kv[1])[:10]}))
+    apply_prof = profile_by_kernel(crop_and_apply, "eval apply")
 
     rows = [
         {
@@ -1730,8 +2284,8 @@ def main() -> int:
         "card": card, "build_s": build_s, "init_s": init_s,
         "eval_prepare_ms": prepare_ms, "eval_apply_ms": apply_ms,
         "eval_images_per_s": BATCH / apply_ms * 1e3, "batch": BATCH,
-        "eval_apply_device_busy_ms": busy_us / 1e3,
-        "eval_apply_idle_share": 1 - busy_us / apply_wall_us,
+        "eval_apply_device_busy_ms": apply_prof["device_busy_ms"],
+        "eval_apply_idle_share": apply_prof["idle_share"],
         "e2e_vs_plain": e2e_cmp,
     }
     del first, images, logits, prep
@@ -1757,6 +2311,31 @@ def main() -> int:
         route_checks += phase_checks
         summary[key] = dict(phase_summary, phase_s=time.perf_counter() - t0)
         torch.cuda.empty_cache()
+
+    # -- 12.-15. K9 on MaPLe's eval, CoOp, zero-shot CLIP, K8 -------------------
+    t0 = time.perf_counter()
+    group_rows, group_checks, summary["group_eval"] = group_eval_phase(prog, canvas, boxes, flips)
+    summary["group_eval"]["phase_s"] = time.perf_counter() - t0
+    del prog
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    coop_prog, coop_checks, summary["coop"] = coop_phase(canvas, boxes, flips)
+    summary["coop"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zs_k1, zs_checks, summary["zeroshot"] = zeroshot_phase(coop_prog, canvas, boxes, flips)
+    summary["zeroshot"]["phase_s"] = time.perf_counter() - t0
+    del coop_prog
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k8_row, k8_checks = split_attention_phase(canvas.device)
+    summary["split_attention_phase_s"] = time.perf_counter() - t0
+    rows[0].update(
+        launches_coop_step=summary["coop"]["train_nblk1"]["train_launches"][
+            "K1 packed_attention_masked"],
+        launches_zeroshot=summary["zeroshot"]["text_launches"]["K1 packed_attention_masked"],
+        zeroshot_shape=zs_k1)
+    rows += group_rows + [k8_row]
+    route_checks += group_checks + coop_checks + zs_checks + k8_checks
     print("summary:", json.dumps(summary))
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -11,12 +11,12 @@ Injection replaces rows and never grows the sequence:
 The text tower truncates at the last EOT position and packs ``128 // T``
 prompts per row under a block-causal mask, exactly as the JAX package does,
 so its attention runs through ``packed_attention_masked``; the vision tower
-runs every block through ``fused_block_residual`` with ``inference=True``,
-and through ``fused_block_train`` or ``fused_block_train_dw`` in training,
-unless the JAX package's routing gates pick another kernel
-(``ops/primitives.py``). ``FMM_TPU_FUSED_NBLK > 1``, which makes the JAX
-package's eval tower run groups of blocks through one kernel, is refused on
-CUDA: that kernel has no port yet.
+runs every block through ``fused_block_residual`` with ``inference=True``
+(groups of ``FMM_TPU_FUSED_NBLK > 1`` blocks through
+``fused_block_group_residual``, with the deep prompts injected inside, as
+the JAX package's eval tower does), and through ``fused_block_train`` or
+``fused_block_train_dw`` in training, unless the JAX package's routing gates
+pick another kernel (``ops/primitives.py``).
 """
 
 from __future__ import annotations
@@ -26,16 +26,19 @@ from typing import Optional, Sequence
 import torch
 
 from federated_multi_modal_tpu_torch.models.params import CLIPConfig
+from federated_multi_modal_tpu_torch.ops.kernels.fused_block import (
+    fused_block_group_eligible,
+    fused_block_group_size,
+)
 from federated_multi_modal_tpu_torch.ops.primitives import (
     build_block_causal_mask,
     build_causal_mask,
     l2_normalize,
     layer_norm,
     linear,
-    refuse_unported,
     residual_block,
+    residual_block_group,
 )
-from federated_multi_modal_tpu_torch.ops.kernels.fused_block import fused_block_group_eligible
 
 # -- vision tower -------------------------------------------------------------
 
@@ -123,23 +126,42 @@ def encode_image(
                 f"prompts define n_ctx={n_ctx}: injection replaces the "
                 "trailing prompt rows one-for-one")
 
+    blocks = params["blocks"]
     if inference and fused_block_group_eligible(
-            B, x.shape[1], w, cfg.vision_heads,
-            params["blocks"][0]["mlp"]["w_fc"].shape[-1], deep_prompts):
-        refuse_unported(x, "fused_block_group_residual, the block-group kernel K9 "
-                           "(ops/pallas/fused_block.py:776)")
-
-    for i, blk in enumerate(params["blocks"]):
-        if 1 <= i <= len(deep_prompts):
-            tail = [_broadcast_prompt(deep_prompts[i - 1], B, dtype)]
-            if extra_tokens is not None:
-                tail.append(extra_tokens)
-            x = torch.cat([x[:, : x.shape[1] - n_tail], *tail], dim=1)
-        x = residual_block(x, blk, cfg.vision_heads, inference=inference)
+            B, x.shape[1], w, cfg.vision_heads, blocks[0]["mlp"]["w_fc"].shape[-1],
+            deep_prompts):
+        # groups of G blocks, the last one possibly shorter; the deep prompts
+        # and the extra tokens are injected inside the group
+        G = fused_block_group_size()
+        for s in range(0, len(blocks), G):
+            flags = [1 <= i <= len(deep_prompts) for i in range(s, min(s + G, len(blocks)))]
+            prompts = [deep_prompts[i - 1].to(dtype)
+                       for i, f in zip(range(s, s + G), flags) if f]
+            x = residual_block_group(x, blocks[s:s + G], cfg.vision_heads, flags, prompts,
+                                     extra_tokens if any(flags) else None)
+    else:
+        for i, blk in enumerate(blocks):
+            if 1 <= i <= len(deep_prompts):
+                tail = [_broadcast_prompt(deep_prompts[i - 1], B, dtype)]
+                if extra_tokens is not None:
+                    tail.append(extra_tokens)
+                x = torch.cat([x[:, : x.shape[1] - n_tail], *tail], dim=1)
+            x = residual_block(x, blk, cfg.vision_heads, inference=inference)
 
     pooled = layer_norm(x[:, 0, :], params["ln_post"])
     # fp32 products of the storage dtype's values, fp32 result
     return torch.matmul(pooled.float(), params["proj"].to(dtype).float())
+
+
+def encode_image_auto(params, cfg: CLIPConfig, images: torch.Tensor, **prompt_kwargs):
+    """The image tower of the backbone: :func:`encode_image` for a ViT.
+    The ModifiedResNet towers (RN50, RN101) raise: their port
+    (``models/resnet.py``) is ROADMAP module item 11."""
+    if cfg.is_vit:
+        return encode_image(params, cfg, images, **prompt_kwargs)
+    raise NotImplementedError(
+        "the ModifiedResNet image tower (models/resnet.py) is not ported yet "
+        "(ROADMAP.md, module item 11)")
 
 
 # -- text tower ---------------------------------------------------------------
@@ -213,6 +235,14 @@ def encode_text_embedded(
     pooled = x[torch.arange(N, device=x.device), eot_index.long()]
     return torch.matmul(pooled.float(),
                         params["text_projection"].to(dtype).float())
+
+
+def encode_text_tokens(params, cfg: CLIPConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Plain CLIP ``encode_text`` over ``(N, 77)`` token ids (the zero-shot
+    path): EOT at the argmax, the whole context, no truncation."""
+    tokens = tokens.long()
+    return encode_text_embedded(params, cfg, embed_tokens(params, tokens),
+                                tokens.argmax(-1))
 
 
 # -- similarity head ----------------------------------------------------------

@@ -41,6 +41,11 @@ _SIGNATURES = {
     "fmm_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # qkv, g, mask, dqkv, B, T, D, H, scale, stream
     "fmm_attention_core_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, q_stride, k_stride, v_stride, mask, out, B, T, D, H, head_dim,
+    # scale, stream
+    "fmm_attention_split": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, prompt, extra, B, T, D, n_ctx, n_extra, stream
+    "fmm_inject_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # A, W, layout, M, N, K, splits, k_per_split, bias, pre_out, pre_f32,
     # gelu, dgelu_in, dgelu_f32, residual, residual_f32, out, out_f32, stream
     "fmm_gemm_epilogue": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P,

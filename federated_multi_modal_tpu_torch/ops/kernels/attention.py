@@ -6,7 +6,9 @@ block on sequence-packed rows under a block-causal mask, and
 ``packed_attention`` (forward ``attention_packed_fwd``, backward
 ``attention_packed_bwd``), the mask-free attention of every vision block
 that no fused block kernel takes (``FMM_TPU_FUSED=0``, and the trainable
-block under ``FMM_TPU_FUSED_TRAIN_DW=0``).
+block under ``FMM_TPU_FUSED_TRAIN_DW=0``). The attention over split q, k
+and v for heads that do not pack into 128 lanes (``fused_attention``,
+``fused_attention_diff``) is at the end ("split-head attention").
 
 On CUDA tensors both launch the hand-written kernel ``csrc/attention_core.cu``
 and, in the backward, ``csrc/attention_core_bwd.cu``
@@ -55,24 +57,35 @@ def full_fp32_products():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              n_head: int, attn_mask: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Plain PyTorch attention over ``(B, T, D)`` q, k and v with the TPU
+    kernels' numerics (``_attn_body``): fp32 scores and softmax (products
+    of the storage dtype's values, exact in fp32, TF32 off), the additive
+    mask, ``p`` rounded to the storage dtype before P.V, fp32 P.V sums,
+    output in the storage dtype. Differentiable by autograd."""
+    B, T, D = q.shape
+    hd = D // n_head
+
+    def heads(t):
+        return t.reshape(B, T, n_head, hd).transpose(1, 2).float()
+
+    with full_fp32_products():
+        s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        if attn_mask is not None:
+            s = s + attn_mask.float()
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        out = torch.matmul(p.float(), heads(v)).to(q.dtype)
+    return out.transpose(1, 2).reshape(B, T, D)
+
+
 def attention_core_reference(qkv: torch.Tensor, n_head: int,
                              mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch attention over packed ``(B, T, 3D)`` QKV with the TPU
-    kernels' numerics: fp32 scores and softmax (products of the storage
-    dtype's values, exact in fp32, TF32 off), ``p`` rounded to the storage
-    dtype before P.V, fp32 P.V sums, output in the storage dtype."""
-    B, T, D3 = qkv.shape
-    D = D3 // 3
-    hd = D // n_head
-    q, k, v = (t.reshape(B, T, n_head, hd).transpose(1, 2).float()
-               for t in qkv.split(D, dim=-1))
-    with full_fp32_products():
-        s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
-        if mask is not None:
-            s = s + mask.float()
-        p = torch.softmax(s, dim=-1).to(qkv.dtype)
-        out = torch.matmul(p.float(), v).to(qkv.dtype)
-    return out.transpose(1, 2).reshape(B, T, D)
+    """Plain version of ``attention_core.cu``: :func:`fused_attention_reference`
+    over the column split of a packed ``(B, T, 3D)`` QKV tensor."""
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    return fused_attention_reference(q, k, v, n_head, mask)
 
 
 def attention_core_cuda(qkv: torch.Tensor, n_head: int,
@@ -271,3 +284,133 @@ def packed_attention(qkv: torch.Tensor, n_head: int) -> torch.Tensor:
 for _fn in (packed_attention_masked, packed_attention_masked_bwd, packed_attention,
             packed_attention_bwd):
     _fn.launches = 0
+
+
+# -- split-head attention --------------------------------------------------
+#
+# The port of ``fused_attention`` (K8: ``_attn_kernel_nomask`` and
+# ``_attn_kernel``, ``pallas_call`` at ``attention.py:127`` and ``:147``) and
+# of ``fused_attention_diff``, its custom VJP: the attention that
+# ``multi_head_attention`` runs when ``T >= 32`` and the heads do not pack
+# into 128 lanes. No backbone of the repository has such heads. On CUDA
+# tensors the forward launches ``csrc/attention_split.cu``, which reads q, k
+# and v through their own row strides (the column split of the packed QKV,
+# no copy) and takes any head width that is a multiple of 8 up to 128. The
+# backward is the VJP of :func:`fused_attention_reference`, recomputed from
+# the saved q, k and v, as ``_fad_bwd`` derives it through XLA; the mask gets
+# no gradient. Bound on the H100: memory (see the source).
+
+SMEM_PER_BLOCK = 232_448  # the 227 KB of shared memory a thread block may use
+SPLIT_WARPS = 8  # kWarps in attention_split.cu: one fp32 probability row each
+
+
+def fused_attention_max_tokens(head_dim: int) -> int:
+    """The longest T ``attention_split.cu`` holds in shared memory: q and v
+    (``2 head_dim`` bytes a token each), k padded by two elements and one
+    fp32 probability row per warp."""
+    return SMEM_PER_BLOCK // (4 * head_dim + 2 * (head_dim + 2) + 4 * SPLIT_WARPS)
+
+
+def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+                         attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``attention_split.cu`` on CUDA bf16 ``(B, T, D)`` q, k and v,
+    each with unit column stride, a row stride that is a multiple of 8 and
+    a batch stride of T rows."""
+    B, T, D = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (not t.is_cuda or t.dtype != torch.bfloat16 or tuple(t.shape) != (B, T, D)
+                or t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) != T * t.stride(1)
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"fused_attention takes bf16 CUDA q, k, v of one shape {(B, T, D)} with "
+                f"unit column stride, a row stride that is a multiple of 8 and a batch "
+                f"stride of T rows; got {name} {t.dtype} {tuple(t.shape)} strides "
+                f"{t.stride()} on {t.device}")
+    hd = D // n_head
+    if D != n_head * hd or hd % 8 or hd > 128:
+        raise ValueError(f"fused_attention takes head widths that are multiples of 8 up "
+                         f"to 128: D={D}, {n_head} heads")
+    if T > fused_attention_max_tokens(hd):
+        raise ValueError(
+            f"fused_attention holds at most {fused_attention_max_tokens(hd)} tokens per "
+            f"row in shared memory at head width {hd}, got T={T}")
+    if attn_mask is not None:
+        if attn_mask.shape != (T, T) or attn_mask.device != q.device:
+            raise ValueError(f"attn_mask must be ({T}, {T}) on {q.device}")
+        attn_mask = attn_mask.to(torch.float32).contiguous()
+    out = torch.empty(B, T, D, dtype=q.dtype, device=q.device)
+    _build.launch(
+        "fmm_attention_split", q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1),
+        k.stride(1), v.stride(1), None if attn_mask is None else attn_mask.data_ptr(),
+        out.data_ptr(), B, T, D, n_head, hd, 1.0 / math.sqrt(hd))
+    return out
+
+
+def _fused_attention_launch(q, k, v, n_head, attn_mask):
+    out = fused_attention_cuda(q, k, v, n_head, attn_mask)
+    fused_attention.launches += 1
+    return out
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+                    attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q.k^T / sqrt(hd) + M).v per head over ``(B, T, D)`` q, k and
+    v with an optional additive ``(T, T)`` mask -> ``(B, T, D)``, before the
+    out-projection. Forward-only, like the TPU kernel:
+    :func:`fused_attention_diff` is its differentiable form."""
+    if any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("fused_attention is forward-only, like the TPU kernel; "
+                                  "use fused_attention_diff")
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, n_head, attn_mask)
+    return _fused_attention_launch(q, k, v, n_head, attn_mask)
+
+
+class _FusedAttentionDiff(torch.autograd.Function):
+    """``fwd`` (the kernel or the plain version) forward; the backward
+    recomputes :func:`fused_attention_reference` from the saved q, k and v
+    and takes its VJP, in full fp32 products."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_head, attn_mask, fwd):
+        ctx.save_for_backward(q, k, v)
+        ctx.n_head, ctx.attn_mask = n_head, attn_mask
+        return fwd(q, k, v, n_head, attn_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad(), full_fp32_products():
+            leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = fused_attention_reference(*leaves, ctx.n_head, ctx.attn_mask)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None, None, None
+
+
+def fused_attention_diff_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   n_head: int, attn_mask: torch.Tensor | None = None
+                                   ) -> torch.Tensor:
+    """Plain version of :func:`fused_attention_diff`, on any device."""
+    return _FusedAttentionDiff.apply(q, k, v, n_head, attn_mask, fused_attention_reference)
+
+
+def fused_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+                         attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`fused_attention`, differentiable in q, k and v (the mask is a
+    constant and gets no gradient)."""
+    if q.device.type == "cpu":
+        return fused_attention_diff_reference(q, k, v, n_head, attn_mask)
+    return _FusedAttentionDiff.apply(q, k, v, n_head, attn_mask, _fused_attention_launch)
+
+
+def multi_head_attention_pallas(x: torch.Tensor, p, n_head: int,
+                                attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The JAX package's drop-in for ``multi_head_attention`` over
+    :func:`fused_attention` (forward-only; same packed-QKV parameters)."""
+    from federated_multi_modal_tpu_torch.ops.primitives import linear
+
+    qkv = linear(x, p["w_qkv"], p["b_qkv"])
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    return linear(fused_attention(q, k, v, n_head, attn_mask), p["w_out"], p["b_out"])
+
+
+fused_attention.launches = 0

@@ -1,7 +1,9 @@
 """Whole pre-LN transformer block: the port of the TPU kernels
 ``federated_multi_modal_tpu/ops/pallas/fused_block.py::fused_block_residual``
 (``pl.pallas_call`` in ``_fused_block_group_jit`` with one block), which runs
-every vision block of the eval path ``encode_image(inference=True)``, and
+every vision block of the eval path ``encode_image(inference=True)``, the
+same call with G > 1 blocks, ``fused_block_group_residual`` (K9, "the
+block-group inference kernel" below, under ``FMM_TPU_FUSED_NBLK > 1``), and
 ``fused_block_train`` / ``fused_block_train_dw`` (``_fbt_fwd_save`` and
 ``_fbt_bwd``), which run the vision blocks of the train step (see "the
 training block" below). Under the JAX package's routing gates, which this
@@ -308,11 +310,12 @@ def layernorm_bwd_rows_cuda(x, dxn, dres, gamma, out_dtype,
 
 
 def _ln_qkv_attention(x2, B, T, lnp, w_qkv, b_qkv, n_head, layernorm, gemm,
-                      attention):
+                      attention, dt=None):
     """LN1 -> QKV + b -> attention over ``x2 (B * T, D)``: ``(a, qkv)``,
     the ``(B * T, D)`` attention output and the ``(B * T, 3D)`` QKV, both
-    in the storage dtype."""
-    dt = x2.dtype
+    in the storage dtype ``dt`` (``x2``'s unless given: an fp32 stream
+    keeps its block's storage dtype)."""
+    dt = dt or x2.dtype
     xn = layernorm(x2, lnp["scale"], lnp["bias"], dt)
     qkv = gemm(xn, w_qkv, b_qkv, out_dtype=dt)
     a = attention(qkv.reshape(B, T, -1), n_head).reshape(B * T, -1)
@@ -320,21 +323,21 @@ def _ln_qkv_attention(x2, B, T, lnp, w_qkv, b_qkv, n_head, layernorm, gemm,
 
 
 def _attention_half(x2, B, T, lnp, attnp, n_head, out_dtype, layernorm, gemm,
-                    attention):
+                    attention, dt=None):
     """``x + out_proj(attention(qkv(ln_1(x))))`` over ``x2 (B * T, D)``,
     one rounding to ``out_dtype`` after the fp32 sum."""
     a, _ = _ln_qkv_attention(x2, B, T, lnp, attnp["w_qkv"], attnp["b_qkv"],
-                             n_head, layernorm, gemm, attention)
+                             n_head, layernorm, gemm, attention, dt)
     return gemm(a, attnp["w_out"], attnp["b_out"], residual=x2, out_dtype=out_dtype)
 
 
-def _mlp_half(y, lnp, mlpp, dt, layernorm, gemm):
+def _mlp_half(y, lnp, mlpp, dt, layernorm, gemm, out_dtype=None):
     """``y + proj(QuickGELU(fc(ln_2(y))))`` over ``y (rows, D)`` (bf16 or
     fp32), with LN2's output and the hidden activation in the storage dtype
-    ``dt`` and the result in ``dt``."""
+    ``dt`` and the result in ``out_dtype`` (``dt`` unless given)."""
     xn2 = layernorm(y, lnp["scale"], lnp["bias"], dt)
     h = gemm(xn2, mlpp["w_fc"], mlpp["b_fc"], gelu=True, out_dtype=dt)
-    return gemm(h, mlpp["w_proj"], mlpp["b_proj"], residual=y, out_dtype=dt)
+    return gemm(h, mlpp["w_proj"], mlpp["b_proj"], residual=y, out_dtype=out_dtype or dt)
 
 
 def _block(x, p, n_head, layernorm, gemm, attention):
@@ -433,7 +436,123 @@ def fused_ln_mlp_residual(x, lnp, mlpp):
     return out
 
 
-for _fn in (fused_block_residual, fused_ln_attention_residual, fused_ln_mlp_residual):
+# -- the block-group inference kernel ----------------------------------------
+#
+# The port of ``fused_block_group_residual`` (K9: ``_group_kernel`` in
+# ``_fused_block_group_jit`` with G > 1), the eval tower under
+# ``FMM_TPU_FUSED_NBLK > 1``: G consecutive blocks in one call, the residual
+# stream in fp32 from the group's first block to its last and rounded to the
+# storage dtype only at the group's end, and the deep-prompt injection done
+# inside: before each flagged block, rows ``[T - n_ctx - n_extra, T)`` of the
+# fp32 stream take the block's ``(n_ctx, D)`` prompt, broadcast over the
+# batch, then the ``(B, n_extra, D)`` extra rows. The TPU kernel keeps the
+# stream in VMEM; here each block is K5's sequence of kernels reading and
+# writing an fp32 stream (``layernorm_rows`` reads fp32, ``gemm_epilogue``
+# takes an fp32 residual and, except in the group's last block, writes the
+# fp32 stream), and ``csrc/inject_rows.cu`` writes the injected rows into it
+# in place. A flagged first block injects into an fp32 copy of ``x``. Bound on
+# the H100: operations, G times K5's (~1.52 ms a block at ViT-B/16 eval width),
+# against an fp32 stream of ~0.05 ms of traffic per block boundary.
+
+
+def inject_rows_reference(stream, prompt, extra=None):
+    """Plain version of ``inject_rows.cu``: rows ``[T - n_ctx - n_extra,
+    T)`` of the fp32 ``stream (B, T, D)`` take ``prompt (n_ctx, D)`` for
+    every sample, then ``extra (B, n_extra, D)``, in place."""
+    T = stream.shape[1]
+    n_extra = 0 if extra is None else extra.shape[1]
+    stream[:, T - n_extra - prompt.shape[0]:T - n_extra] = prompt.float()
+    if extra is not None:
+        stream[:, T - n_extra:] = extra.float()
+    return stream
+
+
+def inject_rows_cuda(stream, prompt, extra=None):
+    """Launch ``inject_rows.cu`` on a CUDA fp32 ``stream (B, T, D)`` with
+    bf16 ``prompt (n_ctx, D)`` and ``extra (B, n_extra, D)`` or ``None``."""
+    B, T, D = stream.shape
+    _check_cuda("inject_rows stream", stream, (torch.float32,))
+    _check_cuda("inject_rows prompt", prompt, (torch.bfloat16,))
+    n_extra = 0
+    if extra is not None:
+        _check_cuda("inject_rows extra", extra, (torch.bfloat16,))
+        n_extra = extra.shape[1]
+        if extra.shape != (B, n_extra, D):
+            raise ValueError(f"inject_rows: extra must be ({B}, k, {D})")
+    n_ctx = prompt.shape[0]
+    if prompt.shape != (n_ctx, D) or D % 8 or not 0 < n_ctx + n_extra <= T:
+        raise ValueError(f"inject_rows: prompt must be (n_ctx, {D}) with D % 8 == 0 "
+                         f"and n_ctx + n_extra <= T = {T}")
+    _build.launch("fmm_inject_rows", stream.data_ptr(), prompt.data_ptr(), _ptr(extra),
+                  B, T, D, n_ctx, n_extra)
+    return stream
+
+
+def _group(x, blocks, n_head, inject_flags, prompts, extra, layernorm, gemm,
+           attention, inject):
+    """``_group_kernel``'s sequence over given steps: the stream in fp32
+    between the blocks, the injections before the flagged blocks, and one
+    rounding to ``x.dtype`` at the group's end."""
+    B, T, D = x.shape
+    dt = x.dtype
+    s = x.reshape(B * T, D)
+    prompts = iter(prompts)
+    extra = None if extra is None else extra.to(dt).contiguous()
+    for g, p in enumerate(blocks):
+        if inject_flags[g]:
+            if g == 0:
+                s = s.to(torch.float32, copy=True)
+            inject(s.view(B, T, D), next(prompts).to(dt).contiguous(), extra)
+        last = g == len(blocks) - 1
+        y = _attention_half(s, B, T, p["ln_1"], p["attn"], n_head, torch.float32,
+                            layernorm, gemm, attention, dt)
+        s = _mlp_half(y, p["ln_2"], p["mlp"], dt, layernorm, gemm,
+                      dt if last else torch.float32)
+    return s.reshape(B, T, D)
+
+
+def fused_block_group_residual_reference(x, blocks, n_head: int, inject_flags=(),
+                                         prompts=(), extra=None):
+    """Plain version of :func:`fused_block_group_residual`."""
+    flags = _group_flags(blocks, inject_flags, prompts, extra)
+    return _group(x, blocks, n_head, flags, prompts, extra, layernorm_rows_reference,
+                  gemm_epilogue_reference, attention_core_reference,
+                  inject_rows_reference)
+
+
+def _group_flags(blocks, inject_flags, prompts, extra):
+    if extra is not None and not any(inject_flags):
+        raise ValueError(
+            "fused_block_group_residual: `extra` tokens are only consumed at injection "
+            "points, but every inject_flag is False: pass a True flag or drop `extra`")
+    flags = tuple(inject_flags) or (False,) * len(blocks)
+    if len(flags) != len(blocks) or len(prompts) != sum(flags):
+        raise ValueError(
+            f"fused_block_group_residual: {len(flags)} inject_flags for {len(blocks)} "
+            f"blocks and {len(prompts)} prompts for {sum(flags)} True flags")
+    return flags
+
+
+def fused_block_group_residual(x, blocks, n_head: int, inject_flags=(), prompts=(),
+                               extra=None):
+    """``len(blocks)`` consecutive pre-LN blocks (each ``p`` as for
+    :func:`fused_block_residual`) with the residual stream in fp32 across
+    them. ``inject_flags[g]``: before block ``g``, replace the trailing
+    rows with the next of ``prompts`` (``(n_ctx, D)``, shared by the batch)
+    and ``extra`` (``(B, k, D)``, per sample, or ``None``)."""
+    _forward_only("fused_block_group_residual", x)
+    if x.device.type == "cpu":
+        return fused_block_group_residual_reference(x, blocks, n_head, inject_flags,
+                                                    prompts, extra)
+    flags = _group_flags(blocks, inject_flags, prompts, extra)
+    out = _group(x.contiguous(), blocks, n_head, flags, prompts, extra, layernorm_rows_cuda,
+                 gemm_epilogue_cuda, attention_core_cuda, inject_rows_cuda)
+    fused_block_group_residual.launches += 1
+    return out
+
+
+for _fn in (fused_block_residual, fused_ln_attention_residual, fused_ln_mlp_residual,
+            fused_block_group_residual):
     _fn.launches = 0
 
 
@@ -493,8 +612,8 @@ def fused_block_train_dw_enabled() -> bool:
 
 
 def fused_block_group_size() -> int:
-    """``FMM_TPU_FUSED_NBLK``: blocks per kernel on the TPU's eval path
-    (the group kernel K9 for more than one), read only to refuse it."""
+    """``FMM_TPU_FUSED_NBLK``: blocks per call on the eval path (the group
+    kernel K9 for more than one)."""
     try:
         return max(1, int(os.environ.get("FMM_TPU_FUSED_NBLK", "1")))
     except ValueError:

@@ -11,7 +11,11 @@ implementation: its shape predicates and its environment gates
 block is routed. With the defaults:
 
 * text rows with a mask and ``T >= 32`` -> ``packed_attention_masked``;
-* inference blocks without a mask -> ``fused_block_residual``;
+* ``T >= 32`` with heads that do not pack into 128 lanes (no backbone of
+  the repository has them) -> ``fused_attention_diff``;
+* inference blocks without a mask -> ``fused_block_residual``, or, for
+  groups of ``FMM_TPU_FUSED_NBLK > 1`` blocks of the eval tower,
+  ``fused_block_group_residual`` (:func:`residual_block_group`);
 * training blocks without a mask -> ``fused_block_train_dw`` when any of
   the block's attention or MLP weights requires a gradient, else
   ``fused_block_train`` (the JAX package declares which blocks train in a
@@ -27,10 +31,6 @@ train block to ``fused_ln_attention`` with a plain out-projection and MLP,
 and both at 0 send it to ``fused_block_train_dw``; ``FMM_TPU_FUSED_TRAIN_DW=0``
 sends the trainable block, and ``FMM_TPU_FUSED=0`` every mask-free block, to
 the plain block, whose attention is ``packed_attention``.
-
-Shapes that the JAX package sends to a Pallas kernel the port has not
-ported yet run the plain formulation on the CPU and raise on CUDA, so a
-run on the card never takes a path without its kernel.
 """
 
 from __future__ import annotations
@@ -71,14 +71,6 @@ def fused_train_enabled() -> bool:
     return os.environ.get("FMM_TPU_FUSED_TRAIN", "0").lower() in ("1", "on", "true")
 
 
-def refuse_unported(x: torch.Tensor, kernel: str) -> None:
-    """Raise on a CUDA tensor: the JAX package runs ``kernel`` here."""
-    if x.is_cuda:
-        raise NotImplementedError(
-            f"the JAX package runs the TPU kernel {kernel} here, which has "
-            "no CUDA port yet (ROADMAP.md); this route runs on the CPU only")
-
-
 def multi_head_attention(x: torch.Tensor, p, n_head: int,
                          attn_mask: torch.Tensor = None) -> torch.Tensor:
     """Self-attention with packed QKV (``w_qkv (D, 3D)``, ``b_qkv``,
@@ -96,7 +88,8 @@ def multi_head_attention(x: torch.Tensor, p, n_head: int,
         out = _attn_kernels.packed_attention_masked(qkv, attn_mask, n_head)
         return linear(out, p["w_out"], p["b_out"])
     if T >= 32:
-        refuse_unported(x, "fused_attention_diff (ops/pallas/attention.py:601)")
+        out = _attn_kernels.fused_attention_diff(*qkv.split(D, dim=-1), n_head, attn_mask)
+        return linear(out, p["w_out"], p["b_out"])
 
     q, k, v = (t.reshape(B, T, n_head, head_dim).transpose(1, 2)
                for t in qkv.split(D, dim=-1))
@@ -157,6 +150,15 @@ def residual_block(x: torch.Tensor, p, n_head: int,
                                  attn_mask)
     x = x + mlp(layer_norm(x, p["ln_2"]), p["mlp"])
     return x
+
+
+def residual_block_group(x: torch.Tensor, blocks, n_head: int, inject_flags,
+                         prompts, extra=None) -> torch.Tensor:
+    """Consecutive inference blocks in one call of the group kernel K9, with
+    the deep-prompt injections before the flagged blocks (the eval tower
+    under ``FMM_TPU_FUSED_NBLK > 1``; see ``fused_block_group_residual``)."""
+    return _block_kernels.fused_block_group_residual(x, blocks, n_head, inject_flags,
+                                                     prompts, extra)
 
 
 def build_causal_mask(context_length: int, device=None) -> torch.Tensor:

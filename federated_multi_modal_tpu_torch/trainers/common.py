@@ -1,7 +1,8 @@
 """Prompt-learner building blocks (port of
 ``federated_multi_modal_tpu/trainers/common.py``): the frozen class-prompt
-constants, context-vector initialization, prompt assembly and the small
-linear layers of the prompt learners."""
+constants, context-vector initialization, prompt assembly (class token at
+the end, or at any of CoOp's positions through a layout of gathers), the
+small linear layers of the prompt learners and the precision policy."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import List
 import numpy as np
 import torch
 
+from federated_multi_modal_tpu_torch.engine.tree import tree_map_with_path
 from federated_multi_modal_tpu_torch.models.clip_model import embed_tokens
 from federated_multi_modal_tpu_torch.tokenizer import get_tokenizer, tokenize
 
@@ -95,3 +97,61 @@ def linear_params(generator: torch.Generator, d_in: int, d_out: int) -> dict:
 
 def apply_linear(p, x):
     return torch.matmul(x, p["w"].to(x.dtype)) + p["b"].to(x.dtype)
+
+
+def build_position_layout(position: str, n_cls: int, n_ctx: int, seq_len: int,
+                          name_lens: List[int]):
+    """The class-token layout of CoOp's ``end``, ``middle`` and ``front``
+    positions as index tensors: ``(is_ctx, ctx_slot, src_pos)``, each
+    ``(n_cls, seq_len)``; output position ``p`` of class ``i`` reads
+    ``ctx[i, ctx_slot[i, p]]`` where ``is_ctx`` and else
+    ``full_embedding[i, src_pos[i, p]]``. The token layout of
+    ``full_embedding`` is ``[SOS, n_ctx placeholders, name (name_len
+    tokens), '.', EOS, padding]``."""
+    is_ctx = np.zeros((n_cls, seq_len), bool)
+    ctx_slot = np.zeros((n_cls, seq_len), np.int64)
+    src_pos = np.zeros((n_cls, seq_len), np.int64)
+    for i, name_len in enumerate(name_lens[:n_cls]):
+        name = [("fix", 1 + n_ctx + k) for k in range(name_len)]
+        rest = [("fix", p) for p in range(1 + n_ctx + name_len, seq_len)]
+        ctx = [("ctx", j) for j in range(n_ctx)]
+        if position == "end":
+            order = ctx + name + rest
+        elif position == "middle":
+            half = n_ctx // 2
+            order = ctx[:half] + name + ctx[half:] + rest
+        elif position == "front":
+            order = name + ctx + rest
+        else:
+            raise ValueError(f"class token position {position!r}: end, middle or front")
+        for p, (kind, idx) in enumerate([("fix", 0)] + order[:seq_len - 1]):
+            if kind == "ctx":
+                is_ctx[i, p] = True
+                ctx_slot[i, p] = idx
+            else:
+                src_pos[i, p] = idx
+    return tuple(torch.from_numpy(a) for a in (is_ctx, ctx_slot, src_pos))
+
+
+def assemble_prompts_positional(ctx, full_embedding, layout):
+    """Prompts for any class-token position by one gather from ``ctx``
+    (``(n_ctx, d)`` shared or ``(n_cls, n_ctx, d)`` class-specific) and one
+    from ``full_embedding (n_cls, seq, d)``, as ``layout``
+    (:func:`build_position_layout`) says."""
+    is_ctx, ctx_slot, src_pos = layout
+    n_cls, _, d = full_embedding.shape
+    if ctx.ndim == 2:
+        ctx = ctx[None].expand(n_cls, *ctx.shape)
+    ctx = ctx.to(full_embedding.dtype)
+    ctx_rows = torch.gather(ctx, 1, ctx_slot[:, :, None].expand(-1, -1, d))
+    fix_rows = torch.gather(full_embedding, 1, src_pos[:, :, None].expand(-1, -1, d))
+    return torch.where(is_ctx[:, :, None], ctx_rows, fix_rows)
+
+
+def apply_prec(prec: str, clip_params):
+    """``TRAINER.*.PREC``: ``"fp32"`` casts the frozen CLIP weights to fp32;
+    ``"fp16"``, ``"amp"`` and ``"bf16"`` keep the bf16 policy with fp32
+    LayerNorms."""
+    if prec == "fp32":
+        return tree_map_with_path(lambda _, t: t.to(torch.float32), clip_params)
+    return clip_params

@@ -9,9 +9,12 @@ without the repository's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import types
+
 import pytest
 import torch
 
+from federated_multi_modal_tpu_torch.ops.kernels import _build
 from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
 from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
 from federated_multi_modal_tpu_torch.ops.primitives import build_block_causal_mask
@@ -380,29 +383,126 @@ def test_layernorm_bwd_rows_without_residual(gen):
         _assert_close(got[i], ref[i], tol)
 
 
-def test_unported_routes_raise(gen, monkeypatch):
-    """No silent fallback on the card: ``FMM_TPU_FUSED_NBLK=2`` (the JAX
-    package's group kernel K9) and heads that do not pack into 128 lanes
-    (K8) raise ``NotImplementedError``."""
+def test_group_and_split_routes_launch_their_kernels(gen, monkeypatch):
+    """``FMM_TPU_FUSED_NBLK=2`` runs the eval tower through the group kernel
+    K9 (groups 0-1 and 2 of Tiny's three blocks, one deep prompt injected
+    in the first group) and heads that do not pack into 128 lanes through
+    K8, each launching its kernels; the grouped tower matches the plain
+    path."""
     from federated_multi_modal_tpu_torch.engine.tree import to_device
     from federated_multi_modal_tpu_torch.models.clip_model import encode_image
     from federated_multi_modal_tpu_torch.models.params import BACKBONE_CONFIGS, init_clip_params
-    from federated_multi_modal_tpu_torch.ops.primitives import multi_head_attention
+    from federated_multi_modal_tpu_torch.ops import primitives
 
     cfg = BACKBONE_CONFIGS["Tiny"]
     visual = to_device(init_clip_params(cfg, torch.Generator().manual_seed(0))["visual"], "cuda")
     images = _randn(gen, 2, 32, 32, 3)
     prompts = _randn(gen, 2, cfg.vision_width)
     monkeypatch.setenv("FMM_TPU_FUSED_NBLK", "2")
-    with pytest.raises(NotImplementedError, match="K9"):
-        encode_image(visual, cfg, images, shallow_prompts=prompts,
-                     deep_prompts=[prompts], inference=True)
-    monkeypatch.delenv("FMM_TPU_FUSED_NBLK")
-    assert encode_image(visual, cfg, images, shallow_prompts=prompts,
-                        deep_prompts=[prompts], inference=True).shape == (2, cfg.embed_dim)
+    before = (k_block.fused_block_group_residual.launches, k_block.fused_block_residual.launches,
+              _build.LAUNCHES["fmm_inject_rows"])
+    got = encode_image(visual, cfg, images, shallow_prompts=prompts, deep_prompts=[prompts],
+                       inference=True)
+    torch.cuda.synchronize()
+    assert (k_block.fused_block_group_residual.launches, k_block.fused_block_residual.launches,
+            _build.LAUNCHES["fmm_inject_rows"]) == (before[0] + 2, before[1], before[2] + 1)
+    monkeypatch.setattr(primitives, "_block_kernels", types.SimpleNamespace(**{
+        **vars(k_block),
+        "fused_block_group_residual": k_block.fused_block_group_residual_reference}))
+    ref = encode_image(visual, cfg, images, shallow_prompts=prompts, deep_prompts=[prompts],
+                       inference=True)
+    _assert_close(got, ref, 2 ** -4)
 
     D, n_head = 96, 3  # 32-wide heads, 3 of them: no 128-lane packing
     p = {"w_qkv": _randn(gen, D, 3 * D), "b_qkv": _randn(gen, 3 * D),
          "w_out": _randn(gen, D, D), "b_out": _randn(gen, D)}
-    with pytest.raises(NotImplementedError, match="fused_attention_diff"):
-        multi_head_attention(_randn(gen, 1, 40, D), p, n_head)
+    before = (k_attn.fused_attention.launches, _build.LAUNCHES["fmm_attention_split"])
+    out = primitives.multi_head_attention(_randn(gen, 1, 40, D), p, n_head)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 40, D)
+    assert (k_attn.fused_attention.launches,
+            _build.LAUNCHES["fmm_attention_split"]) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("n_extra", [0, 1, 3])
+@pytest.mark.parametrize("B,T,D", [(1, 8, 8), (5, 13, 128), (512, 200, 768)])
+def test_inject_rows(gen, B, T, D, n_extra):
+    """The trailing rows of an fp32 stream take the bf16 prompt (every
+    sample) then the extra rows, exactly; the rows before stay."""
+    n_ctx = min(2, T - n_extra)
+    stream = _randn(gen, B, T, D, dtype=torch.float32)
+    prompt = _randn(gen, n_ctx, D)
+    extra = _randn(gen, B, n_extra, D) if n_extra else None
+    ref = k_block.inject_rows_reference(stream.clone(), prompt, extra)
+    before = _build.LAUNCHES["fmm_inject_rows"]
+    got = k_block.inject_rows_cuda(stream, prompt, extra)
+    torch.cuda.synchronize()
+    assert got is stream and _build.LAUNCHES["fmm_inject_rows"] == before + 1
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("extra", [False, True])
+@pytest.mark.parametrize("T,G", [(13, 3), (199, 2)])
+def test_fused_block_group_residual(gen, T, G, extra):
+    """K9 over G blocks with an injection inside the group (and at its first
+    block for G=2: flags at blocks 0 and 1), against its plain version at
+    twice the block's 2**-5; one launch counted."""
+    B, D, H = 3, 128, 2
+    blocks = [_block_params(gen, D, torch.bfloat16, False) for _ in range(G)]
+    flags = (False, True, True)[:G] if G == 3 else (True, True)
+    prompts = [_randn(gen, 2, D, scale=0.3) for f in flags if f]
+    ex = _randn(gen, B, 1, D, scale=0.3) if extra else None
+    x = _randn(gen, B, T, D)
+    before = k_block.fused_block_group_residual.launches
+    got = k_block.fused_block_group_residual(x, blocks, H, flags, prompts, ex)
+    torch.cuda.synchronize()
+    assert k_block.fused_block_group_residual.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    ref = k_block.fused_block_group_residual_reference(x, blocks, H, flags, prompts, ex)
+    _assert_close(got, ref, 2 ** -4)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
+@pytest.mark.parametrize("hd,T", [(40, 77), (80, 257), (96, 77), (96, 13), (8, 40),
+                                  (128, 289)])
+def test_fused_attention(gen, hd, T, masked):
+    """K8 on the column split of a packed QKV (row stride 3D) against its
+    plain version: the forward at K1's 2**-6, the gradients of
+    ``fused_attention_diff`` (the plain VJP on both sides) against plain
+    autograd at 2**-5 of their largest value; T=13 and 77 are off the
+    multiple of 8, T=289 is the shared-memory limit at head width 128."""
+    from federated_multi_modal_tpu_torch.ops.primitives import build_causal_mask
+
+    B, H = 3, 2
+    D = H * hd
+    assert T <= k_attn.fused_attention_max_tokens(hd)
+    qkv = _randn(gen, B, T, 3 * D).requires_grad_(True)
+    mask = build_causal_mask(T, device="cuda") if masked else None
+    g = _randn(gen, B, T, D)
+    before = k_attn.fused_attention.launches
+    out = k_attn.fused_attention_diff(*qkv.split(D, dim=-1), H, mask)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert k_attn.fused_attention.launches == before + 1
+    ref_out = k_attn.fused_attention_reference(*qkv.split(D, dim=-1), H, mask)
+    (ref,) = torch.autograd.grad(ref_out, qkv, g)
+    _assert_close(out, ref_out, 2 ** -6)
+    d = (got.float() - ref.float()).abs()
+    assert float(d.max()) <= 2 ** -5 * float(ref.float().abs().max()), float(d.max())
+
+
+def test_fused_attention_refuses_what_it_does_not_take(gen):
+    """Head widths off the multiple of 8 or over 128, T over the shared-memory
+    limit, fp32 operands and a batch stride other than T rows raise."""
+    with pytest.raises(ValueError):
+        k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 60)] * 3, 2)  # head width 30
+    with pytest.raises(ValueError):
+        k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 272)] * 2 + [_randn(gen, 1, 8, 272)], 1)
+    limit = k_attn.fused_attention_max_tokens(64)
+    with pytest.raises(ValueError):
+        k_attn.fused_attention_cuda(*[_randn(gen, 1, limit + 1, 64)] * 3, 1)
+    with pytest.raises(ValueError):
+        k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 64, dtype=torch.float32)] * 3, 1)
+    q = _randn(gen, 2, 16, 64)[:, :8]
+    with pytest.raises(ValueError):
+        k_attn.fused_attention_cuda(q, q, q, 1)

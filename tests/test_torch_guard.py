@@ -9,6 +9,7 @@ import torch
 
 from federated_multi_modal_tpu_torch import flagship
 from federated_multi_modal_tpu_torch.models import params
+from federated_multi_modal_tpu_torch.trainers import coop, zsclip
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "optax", "federated_multi_modal_tpu")
@@ -45,3 +46,22 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
         params.load_jax_params({"logit_scale": 0.0})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         flagship.example_batch(params.BACKBONE_CONFIGS["Tiny"], 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        coop.build_coop_program(backbone="Tiny", n_ctx=4)
+    arch = params.BACKBONE_CONFIGS["Tiny"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zsclip.zeroshot_text_features(params.init_clip_params(arch), arch, ["cat"],
+                                      ["a photo of a {}."])
+
+
+def test_resnet_towers_raise_until_ported():
+    """The ModifiedResNet image towers (RN50, RN101) raise on every device
+    until ``models/resnet.py`` is ported (ROADMAP module item 11)."""
+    import dataclasses
+
+    from federated_multi_modal_tpu_torch.models.clip_model import encode_image_auto
+
+    rn50 = dataclasses.replace(params.CLIPConfig(), vision_layers=(3, 4, 6, 3))
+    assert not rn50.is_vit
+    with pytest.raises(NotImplementedError, match="models/resnet.py"):
+        encode_image_auto({}, rn50, torch.zeros(1, 224, 224, 3), inference=True)

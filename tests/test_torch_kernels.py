@@ -115,8 +115,9 @@ def test_cpu_tensors_take_the_plain_version():
     """On CPU tensors the wrappers call their plain versions: no launch is
     counted and no kernel library is built."""
     rng = np.random.default_rng(3)
-    before = (port_attn.packed_attention_masked.launches,
-              port_fb.fused_block_residual.launches, dict(_build.LAUNCHES))
+    counters = (port_attn.packed_attention_masked, port_fb.fused_block_residual,
+                port_attn.fused_attention, port_fb.fused_block_group_residual)
+    before = ([fn.launches for fn in counters], dict(_build.LAUNCHES))
     qkv = torch.from_numpy(rng.standard_normal((2, 32, 384)).astype(np.float32))
     mask = build_block_causal_mask(4, 8)
     torch.testing.assert_close(
@@ -128,8 +129,16 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(port_fb.fused_block_residual(x, p, 2),
                                port_fb.fused_block_residual_reference(x, p, 2),
                                rtol=0, atol=0)
-    after = (port_attn.packed_attention_masked.launches,
-             port_fb.fused_block_residual.launches, dict(_build.LAUNCHES))
+    q = qkv[..., :128]
+    torch.testing.assert_close(port_attn.fused_attention(q, q, q, 2, mask),
+                               port_attn.fused_attention_reference(q, q, q, 2, mask),
+                               rtol=0, atol=0)
+    prompt = torch.from_numpy(rng.standard_normal((2, 128)).astype(np.float32))
+    torch.testing.assert_close(
+        port_fb.fused_block_group_residual(x, [p, p], 2, (False, True), [prompt]),
+        port_fb.fused_block_group_residual_reference(x, [p, p], 2, (False, True), [prompt]),
+        rtol=0, atol=0)
+    after = ([fn.launches for fn in counters], dict(_build.LAUNCHES))
     assert after == before
     assert _build._lib is None
 
@@ -446,3 +455,152 @@ def test_two_kernel_block_refuses_gradients():
         port_fb.fused_ln_attention_residual(x, p["ln_1"], p["attn"], 2)
     with pytest.raises(NotImplementedError):
         port_fb.fused_ln_mlp_residual(x, p["ln_2"], p["mlp"])
+
+
+# K9, the block-group eval kernel: JAX's kernel in interpret mode against
+# the port's plain version over the schedule of ``test_pallas.py``'s group
+# tests (six blocks at D=128, 2 heads, hidden 512, four deep prompts of two
+# rows, groups of ``G`` blocks, the last possibly shorter), as max |error|
+# over max |value|. fp32 reads at most 4.4e-7; in bf16 (activations and
+# weights, LayerNorms fp32) both keep the stream in fp32 inside a group and
+# round at the same points, and flipped roundings read 2.9e-3 and 2.5e-3.
+# The tolerances are those of the K5 tests: 2e-5 in fp32, 2**-7 in bf16.
+TOL_K9 = {"float32": 2e-5, "bfloat16": 2 ** -7}
+
+
+def _group_case(T, dtype, n_extra, seed):
+    rng = np.random.default_rng(seed)
+    B, D, N, n_ctx, dp = 4, 128, 6, 2, 4
+    blocks = [_frozen_block(rng, D, dtype) for _ in range(N)]
+    prompts = [(rng.standard_normal((n_ctx, D)) * 0.3).astype(np.float32) for _ in range(dp)]
+    extra = (rng.standard_normal((B, n_extra, D)) * 0.3).astype(np.float32) if n_extra else None
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    if dtype == "bfloat16":
+        x = _bf16(x)
+    return x, blocks, prompts, extra
+
+
+@pytest.mark.parametrize("T,G,dtype,n_extra", [
+    (16, 3, "float32", 0), (16, 2, "float32", 0), (10, 2, "float32", 0),
+    (16, 2, "float32", 1), (10, 2, "bfloat16", 0), (16, 3, "bfloat16", 1)])
+def test_fused_block_group_matches_jax(T, G, dtype, n_extra):
+    """T=10 makes the JAX kernel pad to 16; ``n_extra`` per-sample rows are
+    re-injected with every deep prompt (the caption branch)."""
+    x, blocks, prompts, extra = _group_case(T, dtype, n_extra, 80 + T + G)
+    xj, xt = jnp.asarray(x), _to_torch(x)
+    for s in range(0, len(blocks), G):
+        grp = blocks[s:s + G]
+        flags = tuple(1 <= s + j <= len(prompts) for j in range(len(grp)))
+        pvs = [prompts[s + j - 1] for j in range(len(grp)) if flags[j]]
+        ex = extra if any(flags) else None
+        xj = jax_fb.fused_block_group_residual(
+            xj, tuple(_map(jnp.asarray, b) for b in grp), 2, inject_flags=flags,
+            prompts=tuple(jnp.asarray(p) for p in pvs),
+            extra=None if ex is None else jnp.asarray(ex))
+        xt = port_fb.fused_block_group_residual(
+            xt, [_map(_to_torch, b) for b in grp], 2, flags,
+            [torch.from_numpy(p) for p in pvs], None if ex is None else torch.from_numpy(ex))
+    assert xt.dtype == _to_torch(x).dtype
+    assert _rel_err(xt, xj) < TOL_K9[dtype]
+
+
+def test_fused_block_group_checks_its_arguments():
+    """As the JAX kernel: ``extra`` without a True flag and a prompt count
+    other than the flags' raise; an ``x`` that needs a gradient is refused
+    (forward-only)."""
+    x, blocks, prompts, extra = _group_case(8, "float32", 1, 90)
+    xt = torch.from_numpy(x)
+    bt = [_map(torch.from_numpy, b) for b in blocks[:2]]
+    pt = [torch.from_numpy(p) for p in prompts]
+    with pytest.raises(ValueError, match="extra"):
+        port_fb.fused_block_group_residual(xt, bt, 2, (False, False), (),
+                                           torch.from_numpy(extra))
+    with pytest.raises(ValueError, match="prompts"):
+        port_fb.fused_block_group_residual(xt, bt, 2, (False, True), pt[:2])
+    with pytest.raises(NotImplementedError):
+        port_fb.fused_block_group_residual(xt.requires_grad_(True), bt, 2)
+
+
+def test_inject_rows_reference_writes_the_tail():
+    """The trailing ``n_ctx + n_extra`` rows take the prompt (every sample)
+    then the extra rows, widened to fp32; the rows before stay."""
+    stream = torch.zeros(3, 9, 16)
+    prompt = torch.randn(2, 16).to(torch.bfloat16)
+    extra = torch.randn(3, 1, 16).to(torch.bfloat16)
+    port_fb.inject_rows_reference(stream, prompt, extra)
+    assert not stream[:, :6].any()
+    torch.testing.assert_close(stream[:, 6:8], prompt.float()[None].expand(3, 2, 16))
+    torch.testing.assert_close(stream[:, 8:], extra.float())
+
+
+# K8, split-head attention: JAX's ``fused_attention`` in interpret mode
+# against the port's plain version on the same q, k and v, with heads of 96
+# and 80 (no 128-lane packing), T=77 (the JAX kernel pads to 80 and masks the
+# padded keys) and T=199, with the causal mask and without, as max |error|
+# over max |value|. fp32 reads at most 7.2e-7 on the output and 1.0e-6 on the
+# gradients of ``fused_attention_diff`` (the plain formulation's VJP on both
+# sides); bf16 at most 1.5e-3 and 1.8e-3 (a flipped rounding of p or of a
+# bf16 cotangent term). Tolerances: about twenty times the fp32 reading, and
+# two bf16 steps.
+TOL_K8 = {"float32": 2e-5, "bfloat16": 2 ** -7}
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
+@pytest.mark.parametrize("T,hd,dtype", [(77, 96, "float32"), (199, 80, "float32"),
+                                        (77, 80, "bfloat16"), (199, 96, "bfloat16")])
+def test_fused_attention_matches_jax(T, hd, dtype, masked):
+    from federated_multi_modal_tpu.ops.primitives import build_causal_mask as jax_causal_mask
+
+    rng = np.random.default_rng(100 + T + hd)
+    B, n_head = 2, 2
+    q, k, v, g = (rng.standard_normal((B, T, n_head * hd)).astype(np.float32) for _ in range(4))
+    if dtype == "bfloat16":
+        q, k, v, g = (_bf16(t) for t in (q, k, v, g))
+    mask = jax_causal_mask(T) if masked else None
+    qj, kj, vj = (jnp.asarray(t) for t in (q, k, v))
+    ref = jax_attn.fused_attention(qj, kj, vj, n_head, mask)
+    out_ref, vjp = jax.vjp(lambda a, b, c: jax_attn.fused_attention_diff(a, b, c, n_head, mask),
+                           qj, kj, vj)
+    np.testing.assert_array_equal(np.asarray(out_ref, np.float32), np.asarray(ref, np.float32))
+    grads_ref = vjp(jnp.asarray(g))
+
+    mask_t = None if mask is None else torch.from_numpy(np.asarray(mask))
+    qt, kt, vt = (_to_torch(t).requires_grad_(True) for t in (q, k, v))
+    got = port_attn.fused_attention(*(t.detach() for t in (qt, kt, vt)), n_head, mask_t)
+    out = port_attn.fused_attention_diff(qt, kt, vt, n_head, mask_t)
+    torch.testing.assert_close(out, got, rtol=0, atol=0)
+    grads = torch.autograd.grad(out, (qt, kt, vt), _to_torch(g))
+    assert all(gr.dtype == qt.dtype for gr in grads)
+    errs = {"out": _rel_err(got, ref),
+            **{n: _rel_err(gr, r) for n, gr, r in zip("qkv", grads, grads_ref)}}
+    assert max(errs.values()) < TOL_K8[dtype], errs
+
+
+def test_multi_head_attention_pallas_matches_jax():
+    """The drop-in over ``fused_attention`` (fp32, 2 heads of 80, T=40,
+    causal): reads 4.0e-7; tolerance 1e-5."""
+    from federated_multi_modal_tpu.ops.primitives import build_causal_mask as jax_causal_mask
+
+    rng = np.random.default_rng(120)
+    D, T = 160, 40
+    p = {"w_qkv": rng.standard_normal((D, 3 * D)) * D ** -0.5, "b_qkv": rng.standard_normal(3 * D),
+         "w_out": rng.standard_normal((D, D)) * D ** -0.5, "b_out": rng.standard_normal(D)}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = rng.standard_normal((2, T, D)).astype(np.float32)
+    mask = jax_causal_mask(T)
+    ref = jax_attn.multi_head_attention_pallas(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()}, 2, mask)
+    got = port_attn.multi_head_attention_pallas(
+        torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in p.items()}, 2,
+        torch.from_numpy(np.asarray(mask)))
+    assert _rel_err(got, ref) < 1e-5
+
+
+def test_fused_attention_refuses_gradients():
+    """``fused_attention`` is forward-only, like the TPU kernel;
+    ``fused_attention_diff`` is its differentiable form."""
+    q = torch.zeros(1, 8, 80, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="fused_attention_diff"):
+        port_attn.fused_attention(q, q, q, 1)
+    out = port_attn.fused_attention_diff(q, q, q, 1)
+    assert type(out.grad_fn).__name__ == "_FusedAttentionDiffBackward"

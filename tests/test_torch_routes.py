@@ -57,7 +57,7 @@ SPIED = {
              "fused_ln_attention"),
 }
 PORT_SPIED = {
-    port_attn: ("packed_attention", "packed_attention_masked"),
+    port_attn: ("packed_attention", "packed_attention_masked", "fused_attention_diff"),
     port_fb: ("fused_block_residual", "fused_ln_attention_residual",
               "fused_ln_mlp_residual", "fused_block_train", "fused_block_train_dw",
               "fused_ln_attention"),
@@ -164,45 +164,144 @@ def test_every_vision_block_takes_the_jax_kernel(gates, tower_inputs, monkeypatc
         assert port_calls == jax_calls, (inference, port_calls)
 
 
-def test_group_gate_is_refused_on_the_card(tower_inputs, monkeypatch):
-    """``FMM_TPU_FUSED_NBLK > 1`` makes the JAX eval tower run its blocks
-    through the group kernel K9, which the port has not ported: the
-    predicate that decides the refusal says so when the JAX package takes
-    K9, and the CPU keeps the per-block plain path (the same logits as
-    without the gate). The refusal itself is a card-only test."""
-    w, heads, hidden = CFG.vision_width, CFG.vision_heads, 4 * CFG.vision_width
-    deep = [torch.zeros(2, w)]
-    _gates(monkeypatch, "defaults")
-    assert not port_fb.fused_block_group_eligible(2, 7, w, heads, hidden, deep)
-    with monkeypatch.context() as mp:
-        before = _port_tower_calls(mp, tower_inputs, True)
-    out = port_clip.encode_image(
-        tower_inputs["port"], CFG, torch.from_numpy(tower_inputs["images"]),
-        shallow_prompts=torch.from_numpy(tower_inputs["shallow"]),
-        deep_prompts=[torch.from_numpy(p) for p in tower_inputs["deep"]], inference=True)
+# The grouped eval tower (``FMM_TPU_FUSED_NBLK > 1``: K9 with the deep
+# prompts and the caption token injected inside each group) against the JAX
+# package's ``encode_image`` under the same gate, on Tiny CLIP weights with
+# two deep prompts and one extra token per image, as max |error| over max
+# |value| of the image features. fp32 reads 4.7e-7 under both group sizes.
+# bf16 reads 1.4e-3 (NBLK=2) and 2.5e-3 (NBLK=3), a flipped bf16 rounding of
+# an intermediate; the per-block path, which rounds the stream to bf16 at
+# every block boundary where the group keeps it in fp32 (the port's fault
+# before K9), reads 4.3e-3 and 5.1e-3 against the same JAX features, so the
+# bf16 tolerance of 2**-8 (3.9e-3) tells the two apart.
+TOL_GROUP = {"float32": 1e-5, "bfloat16": 2 ** -8}
 
+
+@pytest.fixture(scope="module")
+def clip_weights():
+    """Tiny CLIP in fp32 and under the bf16 policy, in both packages."""
+    out = {}
+    for dtype, policy in (("float32", False), ("bfloat16", True)):
+        jp = jax_params.init_clip_params(CFG, jax.random.PRNGKey(1), dtype_policy=policy)
+        out[dtype] = (jp, port_params.load_jax_params(flatten_params(jp), device="cpu"))
+    return out
+
+
+def test_group_gate_is_refused_on_the_card(tower_inputs, monkeypatch):
+    """The group route is refused where the JAX package refuses it, on the
+    card as on the CPU, and both packages then run the blocks one by one:
+    without ``FMM_TPU_FUSED_NBLK``, with per-sample deep prompts (K5 per
+    block) and under ``FMM_TPU_FUSED_BLOCK=0`` (no whole-block kernel, no
+    group: K6a and K6b per block). The predicate takes batch-shared deep
+    prompts at the whole-block shapes."""
+    inp = tower_inputs
+    w, heads, hidden = CFG.vision_width, CFG.vision_heads, 4 * CFG.vision_width
+    shared = [torch.zeros(2, w)]
+    _gates(monkeypatch, "defaults")
+    assert not port_fb.fused_block_group_eligible(2, 7, w, heads, hidden, shared)
     monkeypatch.setenv("FMM_TPU_FUSED_NBLK", "2")
-    assert port_fb.fused_block_group_eligible(2, 7, w, heads, hidden, deep)
-    assert not port_fb.fused_block_group_eligible(2, 7, w, heads, hidden, [deep[0][None]])
+    assert port_fb.fused_block_group_eligible(2, 7, w, heads, hidden, shared)
+    assert not port_fb.fused_block_group_eligible(2, 7, w, heads, hidden, [shared[0][None]])
+
+    per_sample = [np.repeat(p[None], 2, axis=0) for p in inp["deep"]]
+    # the group route calls none of these (JAX's fused_block_residual is
+    # itself a group of one, so the group function is not spied)
+    spied = ("fused_block_residual", "fused_ln_attention_residual", "fused_ln_mlp_residual")
+    for gates, deep, want in (("defaults", per_sample, K5 * 3),
+                              ("fused_block_0", inp["deep"], K6 * 3)):
+        _gates(monkeypatch, gates)
+        monkeypatch.setenv("FMM_TPU_FUSED_NBLK", "2")
+        with monkeypatch.context() as mp:
+            calls = _spy(mp, {jax_fb: spied})
+            jax.eval_shape(lambda: jax_clip.encode_image(
+                inp["jax"], CFG, jnp.asarray(inp["images"]),
+                shallow_prompts=jnp.asarray(inp["shallow"]),
+                deep_prompts=[jnp.asarray(p) for p in deep], inference=True))
+        assert calls == want, (gates, calls)
+        with monkeypatch.context() as mp:
+            calls = _spy(mp, {port_fb: spied})
+            port_clip.encode_image(
+                inp["port"], CFG, torch.from_numpy(inp["images"]),
+                shallow_prompts=torch.from_numpy(inp["shallow"]),
+                deep_prompts=[torch.from_numpy(p) for p in deep], inference=True)
+        assert calls == want, (gates, calls)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nblk", ["2", "3"])
+def test_grouped_tower_matches_jax(nblk, dtype, clip_weights, tower_inputs, monkeypatch):
+    """Under ``FMM_TPU_FUSED_NBLK``, both packages call the group kernel once
+    per group of the three blocks (groups 0-1 and 2, or 0-2), and the port's
+    image features match JAX's (the port's plain group version on the CPU,
+    JAX's kernel in interpret mode)."""
+    jp, pp = clip_weights[dtype]
+    inp = tower_inputs
+    _gates(monkeypatch, "defaults")
+    monkeypatch.setenv("FMM_TPU_FUSED_NBLK", nblk)
+    jax.clear_caches()
+
+    def port_tower():
+        return port_clip.encode_image(
+            pp["visual"], CFG, torch.from_numpy(inp["images"]),
+            shallow_prompts=torch.from_numpy(inp["shallow"]),
+            deep_prompts=[torch.from_numpy(p) for p in inp["deep"]],
+            extra_tokens=torch.from_numpy(inp["extra"]), inference=True)
+
+    groups = ["fused_block_group_residual"] * (2 if nblk == "2" else 1)
     with monkeypatch.context() as mp:
         calls = _spy(mp, {jax_fb: ("fused_block_residual", "fused_block_group_residual")})
-        jax.eval_shape(lambda: jax_clip.encode_image(
-            tower_inputs["jax"], CFG, jnp.asarray(tower_inputs["images"]),
-            shallow_prompts=jnp.asarray(tower_inputs["shallow"]),
-            deep_prompts=[jnp.asarray(p) for p in tower_inputs["deep"]], inference=True))
-    assert calls == ["fused_block_group_residual"] * 2  # blocks 0-1, then 2
+        ref = jax_clip.encode_image(
+            jp["visual"], CFG, jnp.asarray(inp["images"]),
+            shallow_prompts=jnp.asarray(inp["shallow"]),
+            deep_prompts=[jnp.asarray(p) for p in inp["deep"]],
+            extra_tokens=jnp.asarray(inp["extra"]), inference=True)
+    assert calls == groups, calls
     with monkeypatch.context() as mp:
-        calls = _spy(mp, PORT_SPIED)
-        grouped = port_clip.encode_image(
-            tower_inputs["port"], CFG, torch.from_numpy(tower_inputs["images"]),
-            shallow_prompts=torch.from_numpy(tower_inputs["shallow"]),
-            deep_prompts=[torch.from_numpy(p) for p in tower_inputs["deep"]],
-            inference=True)
-    assert calls == before
-    torch.testing.assert_close(grouped, out, rtol=0, atol=0)
+        calls = _spy(mp, {port_fb: ("fused_block_residual", "fused_block_group_residual")})
+        got = port_tower()
+    assert calls == groups, calls
+    assert _rel_err(got, ref) < TOL_GROUP[dtype]
+    if dtype == "bfloat16":
+        monkeypatch.setenv("FMM_TPU_FUSED_NBLK", "1")
+        assert _rel_err(port_tower(), ref) > TOL_GROUP[dtype]
 
-    monkeypatch.setenv("FMM_TPU_FUSED_BLOCK", "0")  # no whole-block kernel, no group
-    assert not port_fb.fused_block_group_eligible(2, 7, w, heads, hidden, deep)
+
+def test_unpackable_heads_take_fused_attention_diff(monkeypatch):
+    """``multi_head_attention`` with 32-wide heads, 3 of them (no 128-lane
+    packing): at T >= 32 both packages call ``fused_attention_diff`` (K8),
+    with and without a causal mask, and the outputs and the input gradient
+    match (fp32: at most 6.1e-7 and 7.3e-7; tolerance 1e-5); at T < 32
+    both take the plain formulation."""
+    from federated_multi_modal_tpu_torch.ops import primitives as port_prim
+
+    _gates(monkeypatch, "defaults")
+    rng = np.random.default_rng(71)
+    D, n_head = 96, 3
+    p = {"w_qkv": rng.standard_normal((D, 3 * D)) * D ** -0.5,
+         "b_qkv": rng.standard_normal(3 * D) * 0.1,
+         "w_out": rng.standard_normal((D, D)) * D ** -0.5, "b_out": rng.standard_normal(D) * 0.1}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    for T, masked, want in ((40, False, ["fused_attention_diff"]),
+                            (40, True, ["fused_attention_diff"]), (20, True, [])):
+        x = rng.standard_normal((2, T, D)).astype(np.float32)
+        g = rng.standard_normal((2, T, D)).astype(np.float32)
+        mask = port_prim.build_causal_mask(T) if masked else None
+        with monkeypatch.context() as mp:
+            calls = _spy(mp, {jax_attn: ("fused_attention_diff",)})
+            out_ref, vjp = jax.vjp(lambda x_: jax_prim.multi_head_attention(
+                x_, {k: jnp.asarray(v) for k, v in p.items()}, n_head,
+                None if mask is None else jnp.asarray(mask.numpy())), jnp.asarray(x))
+            (dx_ref,) = vjp(jnp.asarray(g))
+        assert calls == want, (T, masked, calls)
+        with monkeypatch.context() as mp:
+            calls = _spy(mp, {port_attn: ("fused_attention_diff",)})
+            xt = torch.from_numpy(x).requires_grad_(True)
+            out = port_prim.multi_head_attention(
+                xt, {k: torch.from_numpy(v) for k, v in p.items()}, n_head, mask)
+            (dx,) = torch.autograd.grad(out, xt, torch.from_numpy(g))
+        assert calls == want, (T, masked, calls)
+        assert _rel_err(out, out_ref) < 1e-5
+        assert _rel_err(dx, dx_ref) < 1e-5
 
 
 # The Tiny MaPLe program in fp32, where the point is the algorithm: the same
