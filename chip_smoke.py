@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MaPLe eval path and train step, CoOp and zero-shot
-CLIP on one NVIDIA GPU and hold its hand-written CUDA kernels against their
-plain PyTorch versions.
+CLIP and the attention microbench on one NVIDIA GPU and hold its hand-written
+CUDA kernels against their plain PyTorch versions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -80,7 +80,17 @@ What it does, in order (any failure raises and exits non-zero):
 15. the split-head attention K8 on two test shapes through
    ``multi_head_attention``, held against its plain version (forward and
    gradients), planted faults, times beside SDPA;
-16. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+16. the attention microbench (``federated_multi_modal_tpu_torch/tools/
+   attn_microbench.py``): its ``attn`` lines (every variant) and ``block``
+   lines ``attn_path``, ``attn_fusedp``, ``attn_fused`` and ``block`` at
+   B = 512, T = 200, two iterations each, with the counts set to 0 just
+   before and read just after (P1, P2 and P3 launched, no plain version
+   called, no ``FAILED`` line); P1, P2 and P3 against their plain versions
+   on the microbench's shapes with ViT-B/16 block 0's ``ln_1`` and QKV
+   weights (P2 with the microbench's cotangent and a seeded unit one), a
+   planted fault per limit, P1 against K7 and P3 against K2 printed, and
+   times beside their bounds and library yardsticks;
+17. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -181,6 +191,10 @@ ZS_TEMPLATE = "a photo of a {}."  # CUSTOM_TEMPLATES["ImageNet"]
 # K8 on two test shapes, since no backbone of the repository reaches it:
 # (name, B, T, D, heads, causal mask).
 SPLIT_SHAPES = (("a", 64, 257, 1280, 16, False), ("b", 256, 77, 768, 8, True))
+# The attention microbench (tools/attn_microbench.py's defaults: T = 200 at
+# B = BATCH), driven once with few iterations per line.
+MICROBENCH_T = 200
+MICROBENCH_ITERS = 2
 
 
 def card_line() -> str:
@@ -470,6 +484,7 @@ def kernel_counters() -> dict:
     """Every ported kernel's wrapper, by the label its counts print under."""
     from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
     from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
 
     return {"K1 packed_attention_masked": k_attn.packed_attention_masked,
             "K1b packed_attention_masked_bwd": k_attn.packed_attention_masked_bwd,
@@ -482,7 +497,10 @@ def kernel_counters() -> dict:
             "K6b fused_ln_mlp_residual": k_block.fused_ln_mlp_residual,
             "K7 fused_ln_attention": k_block.fused_ln_attention,
             "K8 fused_attention": k_attn.fused_attention,
-            "K9 fused_block_group_residual": k_block.fused_block_group_residual}
+            "K9 fused_block_group_residual": k_block.fused_block_group_residual,
+            "P1 fused_lnqkv_attention": k_proto.fused_lnqkv_attention,
+            "P2 fused_lnqkv_attention_bwd_dx": k_proto.fused_lnqkv_attention_bwd_dx,
+            "P3 packed4d_attention": k_proto.packed4d_attention}
 
 
 def reset_counts() -> None:
@@ -2058,6 +2076,231 @@ def split_attention_phase(device) -> tuple:
     return row, checks
 
 
+# -- the attention microbench and its prototypes P1-P3 -------------------------
+
+
+def fault_rows_dropped(fn):
+    """A kernel leaves the last rows of its output unwritten (zero)."""
+    def faulty(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        out.view(-1, out.shape[-1])[-PLANTED_FAULT_ROWS:] = 0
+        return out
+    return faulty
+
+
+def swap_head0_qk(t, D: int):
+    """``t`` with head 0's q and k columns (the last axis of a packed QKV
+    tensor, or of ``w_qkv`` and ``b_qkv``; heads of 64) swapped."""
+    t = t.clone()
+    q = t[..., :64].clone()
+    t[..., :64] = t[..., D:D + 64]
+    t[..., D:D + 64] = q
+    return t
+
+
+def prototype_phase(lnp, w, b, device) -> tuple:
+    """P1, P2 and P3 on the microbench's shapes (x and dy ``(BATCH, 200,
+    768)``, qkv ``(BATCH, 200, 2304)``) with ViT-B/16 block 0's ``ln_1``,
+    ``w_qkv`` and ``b_qkv``: each against its plain version (P2 with the
+    microbench's own cotangent, the squared loss's ``dy = y``, and a seeded
+    unit-scale one; P1 also with seeded biases and LayerNorm affines; P3 at
+    ``tpad`` 8 and 16), a planted fault per limit, P1 against K7's forward
+    and P3 against K2 printed, the microbench driven once (``attn`` with
+    every variant, ``block --only attn_path,attn_fusedp,attn_fused,block``)
+    with the counts set to 0 just before and read just after, and the
+    timings. Returns ``(rows, checks, summary)``."""
+    import argparse
+
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
+    from federated_multi_modal_tpu_torch.tools import attn_microbench as bench
+
+    F = torch.nn.functional
+    B, T, D = BATCH, MICROBENCH_T, w.shape[0]
+    n = D // 64
+    gen = torch.Generator(device=device).manual_seed(40)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    x, dy_unit, qkv = randn(B, T, D), randn(B, T, D), randn(B, T, 3 * D)
+
+    # -- the microbench, driven once through its entry points -----------------
+    plain_calls = []
+
+    def plain_recorder(fn):
+        def rec(*args, **kwargs):
+            plain_calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return rec
+
+    iters = MICROBENCH_ITERS
+    common = dict(batch=B, t=T, d=D, heads=n, n_cls=N_CLASSES, iters=iters, dtype="bf16",
+                  fwd_only=False, no_captions=False, attention="pallas", platform="default")
+    plain_names = ("fused_lnqkv_attention_reference", "fused_lnqkv_attention_bwd_dx_reference",
+                   "packed4d_attention_reference")
+    t0 = time.perf_counter()
+    with patched(k_proto, **{nm: plain_recorder(getattr(k_proto, nm)) for nm in plain_names}):
+        reset_counts()
+        failed = bench.run_attn(argparse.Namespace(**common, variants="", only=""), device)
+        failed += bench.run_block(argparse.Namespace(
+            **common, mode="block", variants="", only="attn_path,attn_fusedp,attn_fused,block"),
+            device)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    drive_s = time.perf_counter() - t0
+    print("launches, one drive of the microbench:", json.dumps(counts))
+    # every line runs a warm-up and a timed chain of `iters` iterations:
+    # P3 in packed4d and packed4d_par; P1 in the attn_fused check, attn_fusedp
+    # and attn_fused (forward, and forward + backward), P2 in the latter
+    check_counts(counts, {
+        "P3 packed4d_attention": 4 * iters, "fmm_attention_pair": 4 * iters,
+        "P1 fused_lnqkv_attention": 6 * iters + 1, "fmm_lnqkv_attention": 6 * iters + 1,
+        "P2 fused_lnqkv_attention_bwd_dx": 2 * iters, "fmm_lnqkv_attention_bwd_dx": 2 * iters},
+        "microbench drive")
+    checks = [("microbench drive, no FAILED line", {"ok": not failed, "failed": failed}),
+              ("microbench drive, no plain version", {"ok": not plain_calls,
+                                                      "calls": plain_calls})]
+
+    # -- each prototype against its plain version -----------------------------
+    def p1_check(x, lnp, w, b, tol=TOL_TRAIN_ACT):
+        return compare(k_proto.fused_lnqkv_attention(x, lnp, w, b, n),
+                       k_proto.fused_lnqkv_attention_reference(x, lnp, w, b, n), tol)
+
+    def p2_check(dy, tol=TOL_TRAIN_DX):
+        return compare_scaled(k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy, n),
+                              k_proto.fused_lnqkv_attention_bwd_dx_reference(
+                                  x, lnp, w, b, dy, n), tol)
+
+    def p3_check(tpad, qkv=qkv):
+        return compare(k_proto.packed4d_attention(qkv, n, tpad),
+                       k_proto.packed4d_attention_reference(qkv, n, tpad), TOL_K1)
+
+    # q > 0 > k: every real key scores far below zero, so the padded keys'
+    # zero scores would take the softmax if their mask were dropped
+    qkv_neg = qkv.clone()
+    qkv_neg[..., :D] = qkv[..., :D].abs() + 1
+    qkv_neg[..., D:2 * D] = -(qkv[..., D:2 * D].abs() + 1)
+
+    y = k_proto.fused_lnqkv_attention(x, lnp, w, b, n)
+    seeded = seeded_block({"ln_1": lnp, "attn": {"w_qkv": w, "b_qkv": b}}, seed=41)
+    s_args = (seeded["ln_1"], seeded["attn"]["w_qkv"], seeded["attn"]["b_qkv"])
+    cmps = {"P1": p1_check(x, lnp, w, b), "P1 seeded": p1_check(x, *s_args, TOL_TRAIN_SEEDED),
+            "P2 dx, the microbench's cotangent": p2_check(y),
+            "P2 dx, seeded unit cotangent": p2_check(dy_unit),
+            "P3 tpad 8": p3_check(8), "P3 tpad 16": p3_check(16),
+            "P3 tpad 16, negative scores": p3_check(16, qkv_neg)}
+    dx_again = k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy_unit, n)
+    cmps["P2 repeats bit for bit"] = {"ok": bool(torch.equal(
+        dx_again, k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy_unit, n)))}
+    for name, c in cmps.items():
+        print(f"{name} vs plain:", json.dumps(c))
+    checks += [(k, c) for k, c in cmps.items()]
+
+    swapped = {"P1 seeded": (swap_head0_qk(s_args[1], D), swap_head0_qk(s_args[2], D))}
+    with patched(k_proto, fused_lnqkv_attention_cuda=fault_rows_dropped(
+            k_proto.fused_lnqkv_attention_cuda)):
+        faults = {"P1, last rows dropped": p1_check(x, lnp, w, b)}
+    ref_s = k_proto.fused_lnqkv_attention_reference(x, *s_args, n)
+    faults["P1 seeded, head 0's q and k swapped"] = compare(
+        k_proto.fused_lnqkv_attention(x, s_args[0], *swapped["P1 seeded"], n), ref_s,
+        TOL_TRAIN_SEEDED)
+    with patched(k_proto, fused_lnqkv_attention_bwd_dx_cuda=fault_rows_dropped(
+            k_proto.fused_lnqkv_attention_bwd_dx_cuda)):
+        faults["P2 dx (microbench cotangent), last rows dropped"] = p2_check(y)
+        faults["P2 dx (unit cotangent), last rows dropped"] = p2_check(dy_unit)
+    qkv_swapped = swap_head0_qk(qkv, D)
+    faults["P3 tpad 8, head 0's q and k swapped"] = compare(
+        k_proto.packed4d_attention(qkv_swapped, n, 8),
+        k_proto.packed4d_attention_reference(qkv, n, 8), TOL_K1)
+    faults["P3 tpad 16 (negative scores), key mask dropped"] = compare(
+        k_proto.packed4d_attention_cuda(qkv_neg, n, valid_T=-(-T // 16) * 16),
+        k_proto.packed4d_attention_reference(qkv_neg, n, 16), TOL_K1)
+    print("P1-P3 planted faults, [max |err|, err/tol]:", json.dumps(brief(faults)))
+    checks += [(f"{k} planted fault caught", {"ok": not c["ok"]}) for k, c in faults.items()]
+    del ref_s, qkv_swapped, qkv_neg, dx_again
+
+    # printed, not checked: the rounding points differ
+    vs = {"P1 vs K7 forward": compare(y, k_block.fused_ln_attention(x, lnp, w, b, n),
+                                      TOL_TRAIN_ACT),
+          "P3 vs K2": compare(k_proto.packed4d_attention(qkv, n),
+                              k_attn.packed_attention(qkv, n), TOL_K1)}
+    print("P1 vs K7's forward, P3 vs K2 (printed, not checked), [max |err|, err/tol]:",
+          json.dumps(brief(vs)))
+
+    # -- timings, yardsticks and bounds ---------------------------------------
+    bf = torch.bfloat16
+    w_t, b_t = w.to(bf).T.contiguous(), b.to(bf)
+    g_lib, be_lib = lnp["scale"].to(bf), lnp["bias"].to(bf)
+
+    def library_fwd(xr):
+        xn = F.layer_norm(xr, (D,), g_lib, be_lib, 1e-5)
+        q, k, v = F.linear(xn, w_t, b_t).view(B, T, 3, n, 64).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(B, T, D)
+
+    def library_fwd_bwd():
+        xr = x.detach().requires_grad_(True)
+        torch.autograd.grad(library_fwd(xr), xr, dy_unit)
+
+    qh, kh, vh = (t.reshape(B, T, n, 64).transpose(1, 2) for t in qkv.split(D, dim=-1))
+    with torch.no_grad():
+        lib_p1 = cuda_ms(lambda: library_fwd(x), 10)
+    lib_p2 = cuda_ms(library_fwd_bwd, 10) - lib_p1
+    times = {
+        "P1": (cuda_ms(lambda: k_proto.fused_lnqkv_attention(x, lnp, w, b, n), 10),
+               cuda_ms(lambda: k_proto.fused_lnqkv_attention_reference(x, lnp, w, b, n), 3, 1),
+               lib_p1),
+        "P2": (cuda_ms(lambda: k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy_unit, n), 5),
+               cuda_ms(lambda: k_proto.fused_lnqkv_attention_bwd_dx_reference(
+                   x, lnp, w, b, dy_unit, n), 3, 1), lib_p2),
+        "P3": (cuda_ms(lambda: k_proto.packed4d_attention(qkv, n), 20),
+               cuda_ms(lambda: k_proto.packed4d_attention_reference(qkv, n), 5, 1),
+               cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)),
+    }
+    M = B * T
+    attn_fwd = 4 * B * D * T * T
+    qkv_flops = 2 * M * D * 3 * D
+    params_bytes = 3 * D * D * 2 + 3 * D * 2 + 2 * D * 4
+    bounds = {"P1": bound(2 * M * D * 2 + params_bytes, qkv_flops + attn_fwd),
+              "P2": bound(3 * M * D * 2 + params_bytes, qkv_flops + 2 * attn_fwd),
+              "P3": bound(M * 3 * D * 2 + M * D * 2, attn_fwd)}
+    meta = {
+        "P1": ("fused_lnqkv_attention", "lnqkv_attention.cu", ":110",
+               "fused_lnqkv_attention", "P1 fused_lnqkv_attention", [[B, T, D], n],
+               "F.layer_norm + F.linear + scaled_dot_product_attention, forward",
+               cmps["P1"]),
+        "P2": ("fused_lnqkv_attention_bwd_dx", "lnqkv_attention_bwd_dx.cu", ":207",
+               "fused_lnqkv_attention_bwd_dx", "P2 fused_lnqkv_attention_bwd_dx",
+               [[B, T, D], n], "the same, forward + backward (dx) minus forward",
+               cmps["P2 dx, the microbench's cotangent"]),
+        "P3": ("packed4d_attention", "attention_pair.cu", ":351", "_build_packed4d",
+               "P3 packed4d_attention", [[B, T, 3 * D], n],
+               "torch.nn.functional.scaled_dot_product_attention", cmps["P3 tpad 8"]),
+    }
+    rows = []
+    for key, (name, src, line, tpu_fn, counter, shape, lib_call, cmp) in meta.items():
+        ms, plain_ms, lib_ms = times[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"federated_multi_modal_tpu_torch/csrc/{src}",
+            "replaces": f"tools/attn_microbench.py{line}", "tpu_function": tpu_fn,
+            "shape": shape, "launches": counts[counter],
+            "launches_note": f"per drive of the microbench at iters={iters}; none on any "
+                             "program's path",
+            "max_abs_err": cmp["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": lib_ms,
+            "library_call": lib_call})
+        print(f"{name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
+              f"{bounds[key][0]:.4f} ms ({bounds[key][1]})")
+    summary = {"microbench_drive_s": drive_s, "launches": counts,
+               "p1_vs_k7": vs["P1 vs K7 forward"]["max_abs_err"],
+               "p3_vs_k2": vs["P3 vs K2"]["max_abs_err"]}
+    return rows, checks, summary
+
+
 def main() -> int:
     import torch
 
@@ -2065,6 +2308,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
 
+    from federated_multi_modal_tpu_torch.engine.tree import merge_trees
     from federated_multi_modal_tpu_torch.flagship import build_maple_program
     from federated_multi_modal_tpu_torch.ops import primitives
     from federated_multi_modal_tpu_torch.ops.kernels import _build
@@ -2316,7 +2560,10 @@ def main() -> int:
     t0 = time.perf_counter()
     group_rows, group_checks, summary["group_eval"] = group_eval_phase(prog, canvas, boxes, flips)
     summary["group_eval"]["phase_s"] = time.perf_counter() - t0
-    del prog
+    blk0 = merge_trees(tr, fr["model"])["clip"]["visual"]["blocks"][0]
+    proto_args = ({k: t.detach() for k, t in blk0["ln_1"].items()},
+                  blk0["attn"]["w_qkv"].detach(), blk0["attn"]["b_qkv"].detach())
+    del prog, blk0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     coop_prog, coop_checks, summary["coop"] = coop_phase(canvas, boxes, flips)
@@ -2329,13 +2576,19 @@ def main() -> int:
     t0 = time.perf_counter()
     k8_row, k8_checks = split_attention_phase(canvas.device)
     summary["split_attention_phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # -- 16. the attention microbench and its prototypes P1-P3 ----------------
+    t0 = time.perf_counter()
+    proto_rows, proto_checks, summary["prototypes"] = prototype_phase(*proto_args, canvas.device)
+    summary["prototypes"]["phase_s"] = time.perf_counter() - t0
     rows[0].update(
         launches_coop_step=summary["coop"]["train_nblk1"]["train_launches"][
             "K1 packed_attention_masked"],
         launches_zeroshot=summary["zeroshot"]["text_launches"]["K1 packed_attention_masked"],
         zeroshot_shape=zs_k1)
-    rows += group_rows + [k8_row]
-    route_checks += group_checks + coop_checks + zs_checks + k8_checks
+    rows += group_rows + [k8_row] + proto_rows
+    route_checks += group_checks + coop_checks + zs_checks + k8_checks + proto_checks
     print("summary:", json.dumps(summary))
     print(card)
     print(json.dumps({"kernels": rows}))

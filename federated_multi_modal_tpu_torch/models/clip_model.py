@@ -31,6 +31,7 @@ from federated_multi_modal_tpu_torch.ops.kernels.fused_block import (
     fused_block_group_size,
 )
 from federated_multi_modal_tpu_torch.ops.primitives import (
+    attention_impl,
     build_block_causal_mask,
     build_causal_mask,
     l2_normalize,
@@ -127,11 +128,12 @@ def encode_image(
                 "trailing prompt rows one-for-one")
 
     blocks = params["blocks"]
-    if inference and fused_block_group_eligible(
+    if inference and attention_impl() == "pallas" and fused_block_group_eligible(
             B, x.shape[1], w, cfg.vision_heads, blocks[0]["mlp"]["w_fc"].shape[-1],
             deep_prompts):
         # groups of G blocks, the last one possibly shorter; the deep prompts
-        # and the extra tokens are injected inside the group
+        # and the extra tokens are injected inside the group (under "xla" the
+        # JAX package never groups: clip_model.py:220-230)
         G = fused_block_group_size()
         for s in range(0, len(blocks), G):
             flags = [1 <= i <= len(deep_prompts) for i in range(s, min(s + G, len(blocks)))]

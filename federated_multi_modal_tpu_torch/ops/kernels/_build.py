@@ -58,6 +58,12 @@ _SIGNATURES = {
                                _I, _F, _P],
     # x, x_f32, out, rows, N, splits, rows_per_split, stream
     "fmm_column_sum": [_P, _I, _P, _L, _L, _I, _L, _P],
+    # x, W, bias, gamma, beta, out, B, T, D, H, scale, stream
+    "fmm_lnqkv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, W, bias, gamma, beta, dy, dxn scratch, dx, B, T, D, H, scale, stream
+    "fmm_lnqkv_attention_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, out, B, T, D, H, valid_T, scale, stream
+    "fmm_attention_pair": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 # Launches of each CUDA kernel since the last reset, by entry point.

@@ -89,8 +89,10 @@ def attention_core_reference(qkv: torch.Tensor, n_head: int,
 
 
 def attention_core_cuda(qkv: torch.Tensor, n_head: int,
-                        mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch ``attention_core.cu`` on a CUDA ``(B, T, 3D)`` bf16 tensor."""
+                        mask: torch.Tensor | None = None,
+                        valid_T: int | None = None) -> torch.Tensor:
+    """Launch ``attention_core.cu`` on a CUDA ``(B, T, 3D)`` bf16 tensor;
+    keys at or past ``valid_T`` (default T: none) get ``-inf``."""
     B, T, D3 = qkv.shape
     D = D3 // 3
     if not qkv.is_cuda:
@@ -116,7 +118,7 @@ def attention_core_cuda(qkv: torch.Tensor, n_head: int,
     _build.launch(
         "fmm_attention_core", qkv.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
-        B, T, D, n_head, T, 1.0 / math.sqrt(HEAD_DIM),
+        B, T, D, n_head, T if valid_T is None else valid_T, 1.0 / math.sqrt(HEAD_DIM),
     )
     return out
 

@@ -31,6 +31,9 @@ train block to ``fused_ln_attention`` with a plain out-projection and MLP,
 and both at 0 send it to ``fused_block_train_dw``; ``FMM_TPU_FUSED_TRAIN_DW=0``
 sends the trainable block, and ``FMM_TPU_FUSED=0`` every mask-free block, to
 the plain block, whose attention is ``packed_attention``.
+
+:func:`set_attention_impl` chooses between that routing (``"pallas"``) and
+the JAX package's XLA route (``"xla"``), which calls no kernel at all.
 """
 
 from __future__ import annotations
@@ -65,6 +68,29 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor = None) -> torch.Te
     return y
 
 
+_ATTENTION_IMPL = "pallas"
+
+
+def set_attention_impl(impl: str) -> None:
+    """``"pallas"``: :func:`multi_head_attention`, :func:`residual_block`,
+    :func:`residual_block_group` and the eval tower's group gate take the
+    kernel routes above. ``"xla"``: the gate closes, and the other two take
+    the plain formulation (the JAX package's XLA path: ``torch.matmul``
+    linears, eager fp32 softmax) and call no kernel wrapper;
+    :func:`residual_block_group`, K9's route alone, raises. The port's default is ``"pallas"``, the
+    JAX package's module default ``"xla"`` (its trainers and ``bench.py``
+    set ``"pallas"`` on a TPU): the port has a kernel for every route on
+    its card, so a bare call takes it."""
+    global _ATTENTION_IMPL
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"attention implementation must be 'xla' or 'pallas', got {impl!r}")
+    _ATTENTION_IMPL = impl
+
+
+def attention_impl() -> str:
+    return _ATTENTION_IMPL
+
+
 def fused_train_enabled() -> bool:
     """``FMM_TPU_FUSED_TRAIN`` (default off): frozen train blocks take the
     fused attention kernels too (K7 when ``FMM_TPU_FUSED_TRAIN_BLOCK=0``)."""
@@ -79,17 +105,18 @@ def multi_head_attention(x: torch.Tensor, p, n_head: int,
     head_dim = D // n_head
     qkv = linear(x, p["w_qkv"], p["b_qkv"])
 
-    # heads pack into 128 lanes: the JAX package's packed-QKV kernels apply
-    packs = 128 % head_dim == 0 and n_head % (128 // head_dim) == 0
-    if packs and attn_mask is None:
-        out = _attn_kernels.packed_attention(qkv, n_head)
-        return linear(out, p["w_out"], p["b_out"])
-    if packs and T >= 32:
-        out = _attn_kernels.packed_attention_masked(qkv, attn_mask, n_head)
-        return linear(out, p["w_out"], p["b_out"])
-    if T >= 32:
-        out = _attn_kernels.fused_attention_diff(*qkv.split(D, dim=-1), n_head, attn_mask)
-        return linear(out, p["w_out"], p["b_out"])
+    if _ATTENTION_IMPL == "pallas":
+        # heads pack into 128 lanes: the JAX package's packed-QKV kernels apply
+        packs = 128 % head_dim == 0 and n_head % (128 // head_dim) == 0
+        if packs and attn_mask is None:
+            out = _attn_kernels.packed_attention(qkv, n_head)
+            return linear(out, p["w_out"], p["b_out"])
+        if packs and T >= 32:
+            out = _attn_kernels.packed_attention_masked(qkv, attn_mask, n_head)
+            return linear(out, p["w_out"], p["b_out"])
+        if T >= 32:
+            out = _attn_kernels.fused_attention_diff(*qkv.split(D, dim=-1), n_head, attn_mask)
+            return linear(out, p["w_out"], p["b_out"])
 
     q, k, v = (t.reshape(B, T, n_head, head_dim).transpose(1, 2)
                for t in qkv.split(D, dim=-1))
@@ -118,6 +145,9 @@ def residual_block(x: torch.Tensor, p, n_head: int,
     Mask-free blocks take the kernel that the JAX package's
     ``residual_block`` and ``encode_image`` pick for that case under the
     environment gates (see the module docstring)."""
+    if _ATTENTION_IMPL == "xla":
+        x = x + multi_head_attention(layer_norm(x, p["ln_1"]), p["attn"], n_head, attn_mask)
+        return x + mlp(layer_norm(x, p["ln_2"]), p["mlp"])
     B, T, D = x.shape
     hidden = p["mlp"]["w_fc"].shape[-1]
     kernels = _block_kernels
@@ -156,7 +186,11 @@ def residual_block_group(x: torch.Tensor, blocks, n_head: int, inject_flags,
                          prompts, extra=None) -> torch.Tensor:
     """Consecutive inference blocks in one call of the group kernel K9, with
     the deep-prompt injections before the flagged blocks (the eval tower
-    under ``FMM_TPU_FUSED_NBLK > 1``; see ``fused_block_group_residual``)."""
+    under ``FMM_TPU_FUSED_NBLK > 1``; see ``fused_block_group_residual``).
+    A kernel route only: ``encode_image`` takes no group under ``"xla"``."""
+    if _ATTENTION_IMPL == "xla":
+        raise RuntimeError("residual_block_group is K9's route; under 'xla' run the "
+                           "blocks through residual_block")
     return _block_kernels.fused_block_group_residual(x, blocks, n_head, inject_flags,
                                                      prompts, extra)
 

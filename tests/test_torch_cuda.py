@@ -506,3 +506,82 @@ def test_fused_attention_refuses_what_it_does_not_take(gen):
     q = _randn(gen, 2, 16, 64)[:, :8]
     with pytest.raises(ValueError):
         k_attn.fused_attention_cuda(q, q, q, 1)
+
+
+# -- the attention microbench's prototypes P1-P3 ------------------------------
+
+
+def _lnqkv_params(gen, D):
+    lnp = {"scale": _randn(gen, D, dtype=torch.float32) * 0.1 + 1,
+           "bias": _randn(gen, D, dtype=torch.float32, scale=0.1)}
+    return lnp, _randn(gen, D, 3 * D, scale=D ** -0.5), _randn(gen, 3 * D, scale=0.1)
+
+
+@pytest.mark.parametrize("B,T,D", [(4, 16, 128), (4, 32, 128), (4, 48, 128), (2, 200, 768)])
+def test_fused_lnqkv_attention_prototypes(gen, B, T, D):
+    """P1 (forward) and P2 (dx) against their plain versions, at K7's limits:
+    the output at 2**-5, dx at 2**-5 of its largest value; through
+    ``make_fused_lnqkv_attention_fb`` one launch of each is counted. T = 32
+    and 48 run two and three warps over fewer than 64 padded tokens, where
+    a warp's 16 x 64 output tile is larger than its score tile."""
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
+
+    H = D // 64
+    lnp, w, b = _lnqkv_params(gen, D)
+    x = _randn(gen, B, T, D)
+    dy = _randn(gen, B, T, D)
+    got = k_proto.fused_lnqkv_attention_cuda(x, lnp, w, b, H)
+    dx = k_proto.fused_lnqkv_attention_bwd_dx_cuda(x, lnp, w, b, dy, H)
+    torch.cuda.synchronize()
+    _assert_close(got, k_proto.fused_lnqkv_attention_reference(x, lnp, w, b, H, GB=2), 2 ** -5)
+    ref_dx = k_proto.fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, H, GB=2)
+    d = (dx.float() - ref_dx.float()).abs()
+    assert float(d.max()) <= 2 ** -5 * float(ref_dx.float().abs().max()), float(d.max())
+
+    before = (k_proto.fused_lnqkv_attention.launches,
+              k_proto.fused_lnqkv_attention_bwd_dx.launches)
+    xr = x.clone().requires_grad_(True)
+    out = k_proto.make_fused_lnqkv_attention_fb(H, GB=2)(xr, lnp, w, b)
+    (dx_fb,) = torch.autograd.grad(out, xr, dy)
+    torch.cuda.synchronize()
+    assert (k_proto.fused_lnqkv_attention.launches,
+            k_proto.fused_lnqkv_attention_bwd_dx.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(dx_fb, dx, rtol=0, atol=0)  # no atomics: bit for bit
+
+
+@pytest.mark.parametrize("T,tpad", [(16, 8), (32, 8), (48, 8), (40, 16), (200, 8), (200, 16),
+                                    (13, 16)])
+def test_packed4d_attention(gen, T, tpad):
+    """P3 against its plain version (tokens padded to ``tpad``, padded keys
+    at -inf) at K2's 2**-6, one launch counted; T=200 at tpad 16, T=40 and
+    T=13 pad inside the kernel's 16-token tiles; T = 32, 40 and 48 run
+    several warps over fewer than 64 padded tokens."""
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
+
+    B, H = 3, 4
+    qkv = _randn(gen, B, T, 3 * H * 64)
+    before = k_proto.packed4d_attention.launches
+    got = k_proto.packed4d_attention(qkv, H, tpad)
+    torch.cuda.synchronize()
+    assert k_proto.packed4d_attention.launches == before + 1
+    _assert_close(got, k_proto.packed4d_attention_reference(qkv, H, tpad), 2 ** -6)
+
+
+def test_prototypes_refuse_what_they_do_not_take(gen):
+    """P3 over its shared-memory limit, P1 with T % 8 != 0, B % GB != 0 or T
+    over its limit, and P2 over its limit raise."""
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
+
+    with pytest.raises(ValueError):
+        k_proto.packed4d_attention_cuda(_randn(gen, 1, k_proto.MAX_TOKENS_PAIR + 1, 384), 2)
+    lnp, w, b = _lnqkv_params(gen, 128)
+    with pytest.raises(ValueError, match="T % 8"):
+        k_proto.fused_lnqkv_attention(_randn(gen, 4, 12, 128), lnp, w, b, 2)
+    with pytest.raises(ValueError, match="GB"):
+        k_proto.fused_lnqkv_attention(_randn(gen, 3, 16, 128), lnp, w, b, 2)
+    with pytest.raises(ValueError):
+        k_proto.fused_lnqkv_attention(_randn(gen, 4, k_proto.MAX_TOKENS_LNQKV + 8, 128),
+                                      lnp, w, b, 2)
+    x = _randn(gen, 4, k_proto.MAX_TOKENS_LNQKV_BWD + 8, 128)
+    with pytest.raises(ValueError):
+        k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, x, 2)
