@@ -45,7 +45,9 @@ What it does, in order (any failure raises and exits non-zero):
    against the prompt-cached eval path;
 8. times K1b, K3 and K4 (forward and backward), their plain versions and
    their library yardsticks (SDPA's backward; ``TransformerEncoderLayer``
-   forward and backward with frozen or trainable weights);
+   forward and backward with frozen or trainable weights); then drives the
+   train step again under ``set_text_pack(False)`` (``bench.py --no-pack``):
+   K1 and K1b 0 in the counted step, its median ms beside the packed one's;
 9. the unfused route (``FMM_TPU_FUSED=0``, the JAX package's gate, set for
    the phase only): eval on 512 images (each vision block launches K2 and
    no K5), then the train step at batch 512 (K1, K1b, K2 and K2b 12 each,
@@ -90,7 +92,10 @@ What it does, in order (any failure raises and exits non-zero):
    weights (P2 with the microbench's cotangent and a seeded unit one), a
    planted fault per limit, P1 against K7 and P3 against K2 printed, and
    times beside their bounds and library yardsticks;
-17. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+17. prints, for the tensor-core attention kernels (``attention_split.cu``,
+   ``attention_core_bwd.cu``) at the shapes phases 6-15 gave them, their
+   registers, spills, shared memory, resident blocks per SM and waves;
+18. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -316,6 +321,74 @@ def profile_by_kernel(fn, label: str, top: int = 10) -> dict:
     print(f"one {label}: wall {out['wall_ms']:.2f} ms, device busy "
           f"{out['device_busy_ms']:.2f} ms, idle share {out['idle_share']:.3f}")
     print("  device ms by kernel:", json.dumps(out["device_ms_by_kernel"]))
+    return out
+
+
+ATTN_TILE = 64  # query or key rows per block in both sources (am::kTile, csrc/attn_mma.cuh)
+
+
+def attention_resources(build_log: str, rows: list) -> dict:
+    """The tensor-core attention kernels at the shapes this run's phases gave
+    them (the rows of ``attention_split.cu`` and ``attention_core_bwd.cu``
+    in ``rows``): for each kernel a shape launches, its registers and spills
+    as ``ptxas -v`` printed them in this build, its dynamic shared memory
+    and resident blocks per SM from the CUDA occupancy calculator, and the
+    waves its grid (one block per 64-row tile, head and batch row) takes on
+    this card's SMs. Printed and kept in the summary; none of it is a
+    measured time, so none of it goes into the kernels line."""
+    import re
+
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import _build
+
+    ptxas, entry = {}, None  # (kernel name, template arguments): registers, spills
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(attention_split|attention_core_bwd_[a-z]+)_kernelI((?:L[ib]\d+E)+)E",
+                          line)
+            entry = m and (m[1], tuple(int(v) for v in re.findall(r"L[ib](\d+)E", m[2])))
+            continue
+        if not entry:
+            continue
+        rec = ptxas.setdefault(entry, {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            rec["spill_stores"], rec["spill_loads"] = int(spill[1]), int(spill[2])
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            rec["registers"] = int(regs[1])
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for row in rows:
+        source = row["source"].rsplit("/", 1)[1]
+        if source == "attention_split.cu":
+            # [[B, T, D], heads, head width, "causal" or "no mask"], shapes (a) and (b)
+            for (B, T, _), H, hd, mask in (row["shape"], row["shape_b"]["shape"]):
+                masked = mask != "no mask"
+                kernels = {f"attention_split<{hd}>": (
+                    ("attention_split", (hd, int(masked))),
+                    "fmm_attention_split_blocks_per_sm", hd)}
+                out[f"{row['name']} {[B, T]}, {H} heads of {hd}, {mask}"] = (B, T, H, masked,
+                                                                            kernels)
+        elif source == "attention_core_bwd.cu":
+            # [qkv shape, mask shape, heads] (K1b) or [qkv shape, heads] (K2b)
+            (B, T, _), H, masked = row["shape"][0], row["shape"][-1], len(row["shape"]) == 3
+            kernels = {f"attention_core_bwd {p}": (
+                (f"attention_core_bwd_{p}", (int(masked),)),
+                "fmm_attention_core_bwd_blocks_per_sm", i)
+                for i, p in enumerate(("stats", "dkdv", "dq"), start=1)}
+            out[f"{row['name']} {[B, T]}, {H} heads"] = (B, T, H, masked, kernels)
+    for label, (B, T, H, masked, kernels) in out.items():
+        blocks = -(-T // ATTN_TILE) * H * B
+        rec = {"masked": masked, "blocks": blocks}
+        for name, (key, entry_point, variant) in kernels.items():
+            per_sm, smem = _build.blocks_per_sm(entry_point, variant, masked)
+            rec[name] = dict(ptxas.get(key, {}), smem_bytes=smem, blocks_per_sm=per_sm,
+                             waves=round(blocks / (per_sm * sms), 2))
+        out[label] = rec
+    print("tensor-core attention kernels (ptxas, occupancy, waves):", json.dumps(out))
     return out
 
 
@@ -869,6 +942,31 @@ def whole_step_vs_plain(loss_fn, tr, frozen, small, vision_fault, other_fault,
              {"ok": not faults[0]["vision"]["ok"]}),
             (f"whole step{label} planted fault caught by the other limit",
              {"ok": not faults[1]["other"]["ok"]})]
+
+
+def unpacked_text_step(prog, canvas, packed_ms: float) -> dict:
+    """The MaPLe train step under ``set_text_pack(False)`` (put back
+    afterwards), as ``bench.py --no-pack`` runs the JAX package: the
+    24-token text rows take the plain attention (T < 32), so K1 and K1b
+    launch no time in the counted step; its median ms printed beside the
+    packed step's."""
+    from federated_multi_modal_tpu_torch.models import clip_model
+
+    arch = prog["arch"]
+    saved = clip_model._TEXT_PACK_DEFAULT
+    clip_model.set_text_pack(False)
+    try:
+        run = drive_train(prog, canvas, {}, " (text unpacked)")
+    finally:
+        clip_model.set_text_pack(saved)
+    check_counts(run["counts"], {
+        "K1 packed_attention_masked": 0, "K1b packed_attention_masked_bwd": 0,
+        "K3 fused_block_train": arch.vision_layers - 1,
+        "K4 fused_block_train_dw": 1}, "train step (text unpacked)")
+    ms = run["summary"]["train_step_ms"]
+    print(f"train step, text unpacked: median {ms:.2f} ms beside the packed step's "
+          f"{packed_ms:.2f} ms")
+    return dict(run["summary"], packed_train_step_ms=packed_ms)
 
 
 def train_phase(prog, canvas) -> tuple:
@@ -2542,6 +2640,10 @@ def main() -> int:
     rows = rows[:1] + train_rows + rows[1:]
     summary.update(train_summary)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    summary["text_unpacked"] = unpacked_text_step(prog, canvas, train_summary["train_step_ms"])
+    summary["text_unpacked"]["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
 
     # -- 9.-11. the JAX package's other routes ----------------------------------
     route_checks = []
@@ -2588,6 +2690,7 @@ def main() -> int:
         launches_zeroshot=summary["zeroshot"]["text_launches"]["K1 packed_attention_masked"],
         zeroshot_shape=zs_k1)
     rows += group_rows + [k8_row] + proto_rows
+    summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += group_checks + coop_checks + zs_checks + k8_checks + proto_checks
     print("summary:", json.dumps(summary))
     print(card)

@@ -1,165 +1,214 @@
 // attention_split: per (row b, head h) softmax(q k^T * scale + M) v over three
 // separate (B, T, D) bf16 operands, each with its own row stride, for any head
-// width that is a multiple of 8 up to 128.
+// width that is a multiple of 8 up to 128 and any T.
 //
 // Replaces federated_multi_modal_tpu/ops/pallas/attention.py fused_attention
-// (_attn_kernel_nomask at pallas_call :127, _attn_kernel at :147), the
-// attention that multi_head_attention runs when T >= 32 and the heads do not
-// pack into 128 lanes (behind fused_attention_diff and
-// multi_head_attention_pallas). The row strides let the caller pass the
-// column split of a packed (B, T, 3D) QKV tensor with no copy. Numerics
-// follow _attn_body: fp32 scores and softmax, the additive fp32 mask, p
-// rounded to bf16 before P.V, fp32 P.V sums, bf16 output. The TPU kernel pads
-// T to a multiple of 8 and sets the padded keys to -inf; here every block
-// handles its exact T, which gives the same result.
+// (_attn_kernel_nomask at pallas_call :127, _attn_kernel at :147, body
+// _attn_body :64-80), the attention that multi_head_attention runs when
+// T >= 32 and the heads do not pack into 128 lanes (behind
+// fused_attention_diff and multi_head_attention_pallas). The row strides let
+// the caller pass the column split of a packed (B, T, 3D) QKV tensor with no
+// copy. Numerics follow _attn_body: fp32 scores times the scale plus the fp32
+// mask, the fp32 softmax normalized and then rounded to bf16, P.V summed in
+// fp32, bf16 output. The TPU kernel pads T to a multiple of 8 and sets the
+// padded keys to -inf; here keys past T are -inf in the ragged last tile.
 //
 // Bound on the H100: bytes. At (64, 257, 1280) with 16 heads of 80 a launch
 // reads q, k and v and writes the output, 168 MB (~50 us at 3.35 TB/s), for
 // 21.6 GFLOP (~22 us at 989 TFLOP/s); at (256, 77, 768) with 8 heads of 96 and
 // a causal mask ~121 MB (~36 us) for ~2.4 GFLOP on the mask's finite pairs.
-// Design: attention_core.cu's, with the head width a template parameter: one
-// thread block per (b, h) stages its q, k and v slices in shared memory once
-// (k rows padded by two elements so that 32 lanes read 32 banks), one warp
-// per query row, lanes own keys for q.k and one or two bf16 pairs of output
-// columns for P.V. The products run on the CUDA cores in fp32, so the kernel
-// is bound by fp32 issue rate, not by memory; the tensor cores are the step
-// that would bring it to its bound. Shared memory caps T: q, v (4 HD bytes a
-// token), k (2 HD + 4) and one fp32 probability row per warp (32) within the
-// 227 KB a block may use, 553 tokens at HD = 64 and 289 at HD = 128.
-#include <math_constants.h>
-#include <stdint.h>
+// Design: one block of 4 warps per (b, h, 64-query tile), each warp 16 query
+// rows; K and V tiles of 64 keys stream through a two-stage cp.async ring in
+// shared memory (attn_mma.cuh), and both products run on the tensor cores
+// (mma.sync m16n8k16, bf16 in, fp32 accumulate) with the scores kept in
+// registers. To round p at the TPU kernel's point, normalized before P.V,
+// the block passes over the key tiles twice: first the online row max and
+// sum, then the scores again, p = bf16(exp(s - m) / l) and O += P.V. The
+// second Q.K^T costs little: the kernel is bound by bytes, and the K tiles
+// come back from L2. Head widths that are not a multiple of 16 are
+// zero-padded to the next 16 in shared memory for Q.K^T; P.V's columns go in
+// steps of 8. Shared memory is one Q tile and two stages of K and V, 5 x 64
+// rows of (16 ceil(HD / 16) + 8) bf16: 87 KB at HD = 128, 56 KB at HD = 80,
+// whatever T is. The Q fragments are read from shared memory at each use,
+// not held in
+// registers, and the compiler is held to the registers that let as many
+// blocks share an SM as their shared memory allows (up to 4), for more warps
+// in flight. A warp whose 16 x 64 mask tile is all -inf skips that tile (its
+// probabilities are exactly 0); the mask is read straight into the score
+// fragments, all of a tile's loads in flight at once, and the kernel is
+// built with a mask and without, so that a mask-free call pays nothing.
+#include <limits.h>
 
-#include "fmm_common.cuh"
+#include "attn_mma.cuh"
 
 namespace {
 
 using fmm::bf16;
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr size_t kMaxSmem = 232448;
-
-size_t smem_bytes(int T, int hd) {
-  return static_cast<size_t>(T) *
-         (2 * hd * sizeof(bf16) + (hd + 2) * sizeof(bf16) + kWarps * sizeof(float));
-}
+namespace am = fmm::attn_mma;
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+struct Shape {
+  static constexpr int kHdp = (HD + 15) / 16 * 16;  // Q.K^T contraction, zero-padded
+  static constexpr int kLd = kHdp + 8;              // shared-memory row stride (bf16)
+  static constexpr int kKSteps = kHdp / 16;
+  static constexpr int kNt = HD / 8;  // 8-column tiles of the output
+  static constexpr int kTileElems = am::kTile * kLd;
+  static constexpr size_t kSmemBytes = 5 * kTileElems * sizeof(bf16);  // Q, 2 x K, 2 x V
+  // Blocks an SM can hold by shared memory (232,448 bytes, 1 KB reserved a
+  // block), at most 4: the register budget the compiler is held to.
+  static constexpr int kFit = static_cast<int>(232448 / (kSmemBytes + 1024));
+  static constexpr int kMinBlocks = kFit < 4 ? kFit : 4;
+};
+
+template <int HD, bool kMasked>
+__global__ void __launch_bounds__(am::kThreads, Shape<HD>::kMinBlocks)
     attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, int q_stride, int k_stride, int v_stride,
                            const float* __restrict__ mask, bf16* __restrict__ out, int T, int D,
-                           int H, float scale) {
-  constexpr int kKStride = HD + 2;
-  constexpr int kChunks = HD / 8;
-  constexpr int kPairs = HD / 2;
-  constexpr int kPairsPerLane = (kPairs + 31) / 32;
+                           int H, int n_tiles, float scale) {
+  using S = Shape<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* vs = qs + static_cast<size_t>(T) * HD;
-  bf16* ks = vs + static_cast<size_t>(T) * HD;
-  float* prob = reinterpret_cast<float*>(ks + static_cast<size_t>(T) * kKStride);
+  bf16* ks = qs + S::kTileElems;      // two stages
+  bf16* vs = ks + 2 * S::kTileElems;  // two stages
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+  const int qt = blockIdx.x % n_tiles;
+  const int bh = blockIdx.x / n_tiles;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int q0 = qt * am::kTile;
   const bf16* qb = q + static_cast<size_t>(b) * T * q_stride + h * HD;
   const bf16* kb = k + static_cast<size_t>(b) * T * k_stride + h * HD;
   const bf16* vb = v + static_cast<size_t>(b) * T * v_stride + h * HD;
-
-  // Stage this head's q, k and v: HD / 8 chunks of 16 bytes per token each.
-  for (int idx = threadIdx.x; idx < T * kChunks; idx += kThreads) {
-    const int t = idx / kChunks;
-    const int c = idx % kChunks;
-    const uint4 qv = *reinterpret_cast<const uint4*>(qb + static_cast<size_t>(t) * q_stride + c * 8);
-    const uint4 kv = *reinterpret_cast<const uint4*>(kb + static_cast<size_t>(t) * k_stride + c * 8);
-    const uint4 vv = *reinterpret_cast<const uint4*>(vb + static_cast<size_t>(t) * v_stride + c * 8);
-    *reinterpret_cast<uint4*>(qs + t * HD + c * 8) = qv;
-    *reinterpret_cast<uint4*>(vs + t * HD + c * 8) = vv;
-    uint32_t* kd = reinterpret_cast<uint32_t*>(ks + t * kKStride + c * 8);
-    kd[0] = kv.x;
-    kd[1] = kv.y;
-    kd[2] = kv.z;
-    kd[3] = kv.w;
-  }
-  __syncthreads();
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* p = prob + warp * T;
 
-  for (int i = warp; i < T; i += kWarps) {
-    const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(qs + i * HD);
-    float row_max = -CUDART_INF_F;
-    for (int j = lane; j < T; j += 32) {
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(ks + j * kKStride);
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < kPairs; ++d) {
-        const float2 qf = __bfloat1622float2(q2[d]);
-        const float2 kf = __bfloat1622float2(k2[d]);
-        acc = fmaf(qf.x, kf.x, acc);
-        acc = fmaf(qf.y, kf.y, acc);
-      }
-      float s = acc * scale;
-      if (mask != nullptr) s += mask[static_cast<size_t>(i) * T + j];
-      p[j] = s;
-      row_max = fmaxf(row_max, s);
-    }
-    row_max = fmm::warp_max(row_max);
-    float sum = 0.f;
-    for (int j = lane; j < T; j += 32) {
-      const float e = expf(p[j] - row_max);
-      p[j] = e;
-      sum += e;
-    }
-    sum = fmm::warp_sum(sum);
-    for (int j = lane; j < T; j += 32) p[j] = __bfloat162float(__float2bfloat16(p[j] / sum));
-    __syncwarp();
-
-    float2 acc[kPairsPerLane];
-#pragma unroll
-    for (int u = 0; u < kPairsPerLane; ++u) acc[u] = make_float2(0.f, 0.f);
-    for (int j = 0; j < T; ++j) {
-      const float pj = p[j];
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(vs + j * HD);
-#pragma unroll
-      for (int u = 0; u < kPairsPerLane; ++u) {
-        const int c = lane + 32 * u;
-        if (c < kPairs) {
-          const float2 vf = __bfloat1622float2(v2[c]);
-          acc[u].x = fmaf(pj, vf.x, acc[u].x);
-          acc[u].y = fmaf(pj, vf.y, acc[u].y);
-        }
-      }
-    }
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-        out + (static_cast<size_t>(b) * T + i) * D + h * HD);
-#pragma unroll
-    for (int u = 0; u < kPairsPerLane; ++u) {
-      const int c = lane + 32 * u;
-      if (c < kPairs) dst[c] = __floats2bfloat162_rn(acc[u].x, acc[u].y);
-    }
-    __syncwarp();
+  if (S::kHdp != HD) {
+    // Columns [HD, HD + 8) of Q and of both K stages (contiguous rows) enter
+    // Q.K^T as zeros; the copies never write them.
+    for (int r = threadIdx.x; r < 3 * am::kTile; r += am::kThreads)
+      *reinterpret_cast<uint4*>(qs + r * S::kLd + HD) = make_uint4(0, 0, 0, 0);
   }
+
+  // Iterations [0, n_kt) stream the K tiles (pass 1), [n_kt, 2 n_kt) the K
+  // and V tiles (pass 2); iteration it uses stage it & 1.
+  const int n_kt = (T + am::kTile - 1) / am::kTile;
+  const int n_it = 2 * n_kt;
+  auto prefetch = [&](int it) {
+    const int pass2 = it >= n_kt;
+    const int j = pass2 ? it - n_kt : it;
+    const int st = it & 1;
+    am::load_tile<HD>(ks + st * S::kTileElems, S::kLd, kb, k_stride, j * am::kTile, T);
+    if (pass2) am::load_tile<HD>(vs + st * S::kTileElems, S::kLd, vb, v_stride, j * am::kTile, T);
+  };
+  am::load_tile<HD>(qs, S::kLd, qb, q_stride, q0, T);
+  prefetch(0);
+  am::cp_async_commit();
+
+  const float inv_scale = 1.f / scale;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  float unused[2];
+  float o[S::kNt][4];
+#pragma unroll
+  for (int nt = 0; nt < S::kNt; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) prefetch(it + 1);
+    am::cp_async_commit();
+    am::cp_async_wait<1>();
+    __syncthreads();
+    const bool pass2 = it >= n_kt;
+    const int j = pass2 ? it - n_kt : it;
+    const int st = it & 1;
+    float s[8][4];
+    if (!am::mask_tile<false, kMasked>(s, mask, T, q0 + warp * 16, j * am::kTile, inv_scale)) {
+      am::mma_abt<S::kKSteps>(s, qs, S::kLd, warp * 16, ks + st * S::kTileElems, S::kLd);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] *= scale;
+      if (!pass2) {
+        am::online_softmax<false>(s, s, m, l, unused);
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = __expf(s[nt][e] - m[e >> 1]) / l[e >> 1];
+        am::mma_pv<S::kNt>(o, s, vs + st * S::kTileElems, S::kLd);
+      }
+    }
+    if (it == n_kt - 1) {
+      l[0] = am::quad_sum(l[0]);
+      l[1] = am::quad_sum(l[1]);
+    }
+    __syncthreads();  // the stage is consumed before the next copy into it
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= T) continue;
+    bf16* dst = out + (static_cast<size_t>(b) * T + row) * D + h * HD + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < S::kNt; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8) =
+          __floats2bfloat162_rn(o[nt][2 * r], o[nt][2 * r + 1]);
+  }
+}
+
+template <int HD, bool kMasked>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(attention_split_kernel<HD, kMasked>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(Shape<HD>::kSmemBytes));
+}
+
+template <int HD, bool kMasked>
+int launch(const void* q, const void* k, const void* v, int q_stride, int k_stride,
+           int v_stride, const void* mask, void* out, int B, int T, int D, int H, float scale,
+           cudaStream_t stream) {
+  const int n_tiles = (T + am::kTile - 1) / am::kTile;
+  const long long blocks = static_cast<long long>(n_tiles) * H * B;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<HD, kMasked>();
+  if (err != cudaSuccess) return err;
+  attention_split_kernel<HD, kMasked>
+      <<<static_cast<int>(blocks), am::kThreads, Shape<HD>::kSmemBytes, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          q_stride, k_stride, v_stride, static_cast<const float*>(mask), static_cast<bf16*>(out),
+          T, D, H, n_tiles, scale);
+  return cudaGetLastError();
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, int q_stride, int k_stride,
            int v_stride, const void* mask, void* out, int B, int T, int D, int H, float scale,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(T, HD);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_split_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  return mask != nullptr
+             ? launch<HD, true>(q, k, v, q_stride, k_stride, v_stride, mask, out, B, T, D, H,
+                                scale, stream)
+             : launch<HD, false>(q, k, v, q_stride, k_stride, v_stride, mask, out, B, T, D, H,
+                                 scale, stream);
+}
+
+template <int HD, bool kMasked>
+int blocks_per_sm(int* blocks, int* smem_bytes) {
+  const cudaError_t err = allow_smem<HD, kMasked>();
   if (err != cudaSuccess) return err;
-  attention_split_kernel<HD><<<B * H, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      q_stride, k_stride, v_stride, static_cast<const float*>(mask), static_cast<bf16*>(out), T,
-      D, H, scale);
-  return cudaGetLastError();
+  *smem_bytes = static_cast<int>(Shape<HD>::kSmemBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, attention_split_kernel<HD, kMasked>, am::kThreads, Shape<HD>::kSmemBytes);
 }
 
 }  // namespace
+
+#define FMM_HEAD_DIMS(X) \
+  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
 
 // q, k, v (B, T, D) bf16 with row strides q_stride, k_stride, v_stride (in
 // elements; each a multiple of 8, batch stride T * row stride, 16-byte aligned
@@ -170,31 +219,32 @@ FMM_EXPORT int fmm_attention_split(const void* q, const void* k, const void* v, 
                                    int B, int T, int D, int H, int head_dim, float scale,
                                    void* stream) {
   if (B < 1 || T < 1 || H < 1 || D != H * head_dim || q_stride % 8 || k_stride % 8 ||
-      v_stride % 8 || q_stride < D || k_stride < D || v_stride < D ||
-      smem_bytes(T, head_dim) > kMaxSmem)
+      v_stride % 8 || q_stride < D || k_stride < D || v_stride < D)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-#define FMM_HEAD_DIM(n) \
-  case n:               \
+#define FMM_LAUNCH(n) \
+  case n:             \
     return launch<n>(q, k, v, q_stride, k_stride, v_stride, mask, out, B, T, D, H, scale, s);
-    FMM_HEAD_DIM(8)
-    FMM_HEAD_DIM(16)
-    FMM_HEAD_DIM(24)
-    FMM_HEAD_DIM(32)
-    FMM_HEAD_DIM(40)
-    FMM_HEAD_DIM(48)
-    FMM_HEAD_DIM(56)
-    FMM_HEAD_DIM(64)
-    FMM_HEAD_DIM(72)
-    FMM_HEAD_DIM(80)
-    FMM_HEAD_DIM(88)
-    FMM_HEAD_DIM(96)
-    FMM_HEAD_DIM(104)
-    FMM_HEAD_DIM(112)
-    FMM_HEAD_DIM(120)
-    FMM_HEAD_DIM(128)
-#undef FMM_HEAD_DIM
+    FMM_HEAD_DIMS(FMM_LAUNCH)
+#undef FMM_LAUNCH
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Resident blocks per SM of the kernel at head width head_dim, with a mask
+// or without (registers and shared memory as built) into *blocks, its
+// dynamic shared memory into *smem_bytes.
+FMM_EXPORT int fmm_attention_split_blocks_per_sm(int head_dim, int masked, int* blocks,
+                                                 int* smem_bytes) {
+  switch (head_dim) {
+#define FMM_OCCUPANCY(n)                                                  \
+  case n:                                                                 \
+    return masked ? blocks_per_sm<n, true>(blocks, smem_bytes)          \
+                  : blocks_per_sm<n, false>(blocks, smem_bytes);
+    FMM_HEAD_DIMS(FMM_OCCUPANCY)
+#undef FMM_OCCUPANCY
     default:
       return cudaErrorInvalidValue;
   }

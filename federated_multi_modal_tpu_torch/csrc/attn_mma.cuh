@@ -1,0 +1,295 @@
+// Tensor-core tile routines shared by the attention kernels attention_split.cu
+// (K8) and attention_core_bwd.cu (K1b, K2b and the attention backward of K3,
+// K4 and K7): warp-level mma.sync m16n8k16 products (bf16 in, fp32
+// accumulate) with ldmatrix fragment loads from shared memory, the cp.async
+// copies that stream 64-row tiles through a ring of shared-memory stages,
+// the additive mask read straight into accumulator fragments, and the online
+// row max and sum of a softmax over fragment rows.
+//
+// A block is 4 warps; a tile is 64 rows, 16 per warp. Fragment layout (PTX
+// ISA, mma.m16n8k16), lane = 4 g + t: a 16x8 fp32 accumulator c holds c[0],
+// c[1] at row g, columns 2t and 2t + 1, and c[2], c[3] at row g + 8. The
+// 16x16 bf16 A operand holds a[0] (row g, columns 2t, 2t + 1), a[1] (row
+// g + 8), a[2] (row g, columns 2t + 8, 2t + 9) and a[3] (row g + 8); the
+// 16x8 B operand holds b[0] (k 2t, 2t + 1 at column g) and b[1] (k 2t + 8,
+// 2t + 9). So two accumulators side by side, rounded to bf16 pairs, are the
+// A operand of the next product over those 16 columns, and scores and
+// probabilities never leave registers (FlashAttention-2's layout).
+//
+// Shared-memory tiles are row-major with a row stride of (width + 8) bf16:
+// the eight rows one ldmatrix reads start 16 bytes apart modulo 128, on
+// eight different groups of four banks.
+#pragma once
+
+#include <math_constants.h>
+#include <stdint.h>
+
+#include "fmm_common.cuh"
+
+namespace fmm {
+
+namespace attn_mma {
+
+constexpr int kTile = 64;  // rows of a query or key tile
+constexpr int kWarps = 4;  // 16 rows of a tile each
+constexpr int kThreads = 32 * kWarps;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; zeros
+// when !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's copy groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Rows [row0, row0 + kTile) of a (T, stride) bf16 matrix at src, its first
+// kCols columns (a multiple of 8), into dst (kTile rows of ld elements);
+// rows at or past T become zero. One copy group's worth: the caller commits.
+template <int kCols>
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
+                                          size_t stride, int row0, int T) {
+  constexpr int kChunks = kCols / 8;
+  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const bool valid = row0 + r < T;
+    const bf16* s = valid ? src + static_cast<size_t>(row0 + r) * stride + c * 8 : src;
+    cp_async16(dst + r * ld + c * 8, s, valid);
+  }
+}
+
+// fp32 values [row0, row0 + kTile) of a length-T vector into dst; zeros at
+// or past T.
+__device__ __forceinline__ void load_values(float* dst, const float* __restrict__ src, int row0,
+                                            int T) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    const bool valid = row0 + i < T;
+    cp_async4(dst + i, valid ? src + row0 + i : src, valid);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b on the tensor cores: a 16x16 bf16, b 16x8 bf16, c 16x8 fp32.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A operand of rows [r0, r0 + 16), columns [k0, k0 + 16) of a tile.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int r0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, tile + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+
+// The B operands of the two 8-column tiles n0 and n0 + 8 over k [k0, k0 +
+// 16), from a tile that holds n along its rows (K for Q.K^T): b[0], b[1] of
+// the first, b[2], b[3] of the second.
+__device__ __forceinline__ void load_b_rows_n(uint32_t (&b)[4], const bf16* tile, int ld, int n0,
+                                              int k0) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;
+  ldsm_x4(b, tile + (n0 + (m >> 1) * 8 + (lane & 7)) * ld + k0 + (m & 1) * 8);
+}
+
+// The same from a tile that holds k along its rows (V for P.V).
+__device__ __forceinline__ void load_b_rows_k(uint32_t (&b)[4], const bf16* tile, int ld, int k0,
+                                              int n0) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;
+  ldsm_x4_trans(b, tile + (k0 + (m & 1) * 8 + (lane & 7)) * ld + n0 + (m >> 1) * 8);
+}
+
+// One 8-column tile n0 of the latter.
+__device__ __forceinline__ void load_b_rows_k_x2(uint32_t (&b)[2], const bf16* tile, int ld,
+                                                 int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x2_trans(b, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n0);
+}
+
+// acc (16 x 64, as 8 accumulators) += A (rows [a_row0, a_row0 + 16) of
+// a_tile over columns [0, 16 KS), read from shared memory one 16-column step
+// at a time) times the transpose of the tile's 64 rows over the same
+// columns: one warp's block of a Q.K^T-shaped product.
+template <int KS>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* a_tile, int a_ld,
+                                        int a_row0, const bf16* tile, int ld) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4];
+    load_a(a, a_tile, a_ld, a_row0, kk * 16);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      load_b_rows_n(b, tile, ld, np * 16, kk * 16);
+      mma(acc[2 * np], a, b[0], b[1]);
+      mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// out (16 x 8 NT) += bf16(p) (16 x 64, p as 8 accumulators, rounded to bf16
+// here) times the tile's 64 rows over columns [0, 8 NT): one warp's block of
+// a P.V-shaped product.
+template <int NT>
+__device__ __forceinline__ void mma_pv(float (&out)[NT][4], const float (&p)[8][4],
+                                       const bf16* tile, int ld) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      load_b_rows_k(b, tile, ld, kk * 16, np * 16);
+      mma(out[2 * np], a, b[0], b[1]);
+      mma(out[2 * np + 1], a, b[2], b[3]);
+    }
+    if (NT & 1) {
+      uint32_t b[2];
+      load_b_rows_k_x2(b, tile, ld, kk * 16, (NT - 1) * 8);
+      mma(out[NT - 1], a, b[0], b[1]);
+    }
+  }
+}
+
+// One warp's 16 x 64 score tile (rows row0 + [0, 16), columns col0 + [0,
+// 64)) set to its additive mask divided by `scale`, the value its product
+// accumulates onto, so that scale * acc is q.k * scale + mask (exactly so
+// for masks of 0 and -inf). Entries whose row or column lies at or past T
+// are -inf: a key past the end gets probability 0, and a row past the end
+// (a padded query, or in the dK/dV pass a padded key) is never written, so
+// a warp whose 16 rows all lie past T skips every tile. kTrans reads the
+// mask at [column][row] (the dK/dV pass, whose rows are keys); without
+// kMasked there is no mask (the kernels are built both ways, so that the
+// mask's loads cost the mask-free kernels no registers). Returns whether the
+// whole warp tile is -inf: its probabilities are all exactly 0, so the
+// caller may skip it.
+template <bool kTrans, bool kMasked>
+__device__ __forceinline__ bool mask_tile(float (&acc)[8][4], const float* __restrict__ mask,
+                                          int T, int row0, int col0, float inv_scale) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  if (kMasked) {
+    // All 32 loads are started before any is used (entries out of range read
+    // entry 0 and are dropped below), so that they overlap.
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + g + 8 * (e >> 1);
+        const int col = col0 + nt * 8 + 2 * t + (e & 1);
+        const int at = kTrans ? col * T + row : row * T + col;
+        acc[nt][e] = __ldg(mask + (row < T && col < T ? at : 0));
+      }
+    }
+  }
+  bool all_masked = true;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + g + 8 * (e >> 1);
+      const int col = col0 + nt * 8 + 2 * t + (e & 1);
+      float v = -CUDART_INF_F;
+      if (row < T && col < T) v = kMasked ? acc[nt][e] * inv_scale : 0.f;
+      acc[nt][e] = v;
+      all_masked &= v == -CUDART_INF_F;
+    }
+  }
+  return __all_sync(0xffffffffu, all_masked);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Online softmax statistics of a warp's two fragment rows (r = 0: row g,
+// r = 1: row g + 8) over one 16 x 64 tile of scores s: m[r] is the running
+// row max (the same in the four lanes of a quad), l[r] this lane's running
+// sum of exp(s - m) over its own columns and, with kDp, d[r] this lane's
+// running sum of exp(s - m) * dp; the sums are rescaled when m moves. The
+// caller sums l and d over the quad at the end.
+template <bool kDp>
+__device__ __forceinline__ void online_softmax(const float (&s)[8][4], const float (&dp)[8][4],
+                                               float (&m)[2], float (&l)[2], float (&d)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = m[r];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+    mx = quad_max(mx);
+    const float base = mx == -CUDART_INF_F ? 0.f : mx;  // a row with no finite score yet
+    const float alpha = __expf(m[r] - base);
+    l[r] *= alpha;
+    if (kDp) d[r] *= alpha;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        const float p = __expf(s[nt][e] - base);
+        l[r] += p;
+        if (kDp) d[r] = fmaf(p, dp[nt][e], d[r]);
+      }
+    }
+    m[r] = mx;
+  }
+}
+
+}  // namespace attn_mma
+
+}  // namespace fmm

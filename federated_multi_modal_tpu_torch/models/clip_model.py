@@ -10,7 +10,8 @@ Injection replaces rows and never grows the sequence:
 
 The text tower truncates at the last EOT position and packs ``128 // T``
 prompts per row under a block-causal mask, exactly as the JAX package does,
-so its attention runs through ``packed_attention_masked``; the vision tower
+so its attention runs through ``packed_attention_masked`` (``set_text_pack``
+or ``pack=False`` turn packing off, as in the JAX package); the vision tower
 runs every block through ``fused_block_residual`` with ``inference=True``
 (groups of ``FMM_TPU_FUSED_NBLK > 1`` blocks through
 ``fused_block_group_residual``, with the deep prompts injected inside, as
@@ -178,6 +179,18 @@ def embed_tokens(params_text, tokens: torch.Tensor) -> torch.Tensor:
 # MXU-tile target, kept so that both packages run the same packed shapes).
 TEXT_PACK_TARGET = 128
 
+# Module default for encode_text_embedded's ``pack=None``, as in the JAX
+# package (its trainer sets it from ``cfg.TPU.TEXT_PACK``, its bench from
+# ``--no-pack``).
+_TEXT_PACK_DEFAULT = True
+
+
+def set_text_pack(enabled: bool) -> None:
+    """Set whether :func:`encode_text_embedded` packs text rows when its
+    caller passes ``pack=None``."""
+    global _TEXT_PACK_DEFAULT
+    _TEXT_PACK_DEFAULT = bool(enabled)
+
 
 def encode_text_embedded(
     params,
@@ -186,16 +199,19 @@ def encode_text_embedded(
     eot_index: torch.Tensor,
     deep_prompts: Optional[Sequence[torch.Tensor]] = None,
     max_len: Optional[int] = None,
+    pack: Optional[bool] = None,
 ) -> torch.Tensor:
     """Text transformer over assembled prompt embeddings ``(N, 77, d)``:
     add positions, run the causal blocks with deep prompts, LayerNorm,
     pool at ``eot_index``, project -> ``(N, embed_dim)`` fp32.
 
     ``max_len`` truncates the token axis (exact under the causal mask when
-    every EOT lies before it: pass ``PromptConstants.text_len``). When
-    ``128 // T >= 2``, that many sequences share one row under a
+    every EOT lies before it: pass ``PromptConstants.text_len``). With
+    ``pack`` on (``None``: the module default, see :func:`set_text_pack`)
+    and ``128 // T >= 2``, that many sequences share one row under a
     block-causal mask (the same per-sequence math, in attention-sized
-    rows)."""
+    rows); with it off, every sequence is its own row under a causal
+    mask."""
     if max_len is not None and prompts.shape[1] > max_len:
         prompts = prompts[:, :max_len]
     dtype = params["text_projection"].dtype
@@ -203,7 +219,8 @@ def encode_text_embedded(
     x = prompts.to(dtype) + pos.to(dtype)[None]
 
     N, T, d = x.shape
-    P = TEXT_PACK_TARGET // T
+    use_pack = _TEXT_PACK_DEFAULT if pack is None else pack
+    P = TEXT_PACK_TARGET // T if use_pack else 1
     deep_prompts = deep_prompts or []
     if P >= 2:
         G = -(-N // P)
@@ -239,12 +256,14 @@ def encode_text_embedded(
                         params["text_projection"].to(dtype).float())
 
 
-def encode_text_tokens(params, cfg: CLIPConfig, tokens: torch.Tensor) -> torch.Tensor:
+def encode_text_tokens(params, cfg: CLIPConfig, tokens: torch.Tensor,
+                       pack: Optional[bool] = None) -> torch.Tensor:
     """Plain CLIP ``encode_text`` over ``(N, 77)`` token ids (the zero-shot
-    path): EOT at the argmax, the whole context, no truncation."""
+    path): EOT at the argmax, the whole context, no truncation; ``pack`` as
+    in :func:`encode_text_embedded`."""
     tokens = tokens.long()
     return encode_text_embedded(params, cfg, embed_tokens(params, tokens),
-                                tokens.argmax(-1))
+                                tokens.argmax(-1), pack=pack)
 
 
 # -- similarity head ----------------------------------------------------------

@@ -39,8 +39,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # qkv, mask, out, B, T, D, H, valid_T, scale, stream
     "fmm_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # qkv, g, mask, dqkv, B, T, D, H, scale, stream
-    "fmm_attention_core_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, g, mask, stats scratch, dqkv, B, T, D, H, scale, stream
+    "fmm_attention_core_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, q_stride, k_stride, v_stride, mask, out, B, T, D, H, head_dim,
     # scale, stream
     "fmm_attention_split": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _F, _P],
@@ -68,6 +68,11 @@ _SIGNATURES = {
 
 # Launches of each CUDA kernel since the last reset, by entry point.
 LAUNCHES = {name: 0 for name in _SIGNATURES}
+
+# Entry points that launch nothing: resident blocks per SM of a kernel as
+# built and its dynamic shared memory (an int naming the variant, an int for
+# masked or not, two int* for the answers).
+_OCCUPANCY = ("fmm_attention_split_blocks_per_sm", "fmm_attention_core_bwd_blocks_per_sm")
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process, or 0.0 if loaded as built
@@ -143,6 +148,10 @@ def library():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name in _OCCUPANCY:
+            fn = getattr(lib, name)
+            fn.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+            fn.restype = ctypes.c_int
         lib.fmm_error_string.argtypes = [ctypes.c_int]
         lib.fmm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -159,6 +168,20 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(
             f"{name}: CUDA error {err} ({lib.fmm_error_string(err).decode()})")
     LAUNCHES[name] += 1
+
+
+def blocks_per_sm(name: str, variant: int, masked: bool) -> tuple:
+    """``(resident blocks per SM, dynamic shared memory bytes)`` of one
+    kernel (``name`` in ``_OCCUPANCY``, ``variant`` its head width or pass,
+    built with a mask or without), from the CUDA occupancy calculator with
+    the registers and shared memory it was built with."""
+    lib = library()
+    blocks, smem = _I(0), _I(0)
+    err = getattr(lib, name)(variant, int(masked), ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {err} ({lib.fmm_error_string(err).decode()})")
+    return blocks.value, smem.value
 
 
 def reset_launches() -> None:

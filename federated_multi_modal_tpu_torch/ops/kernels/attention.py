@@ -24,9 +24,11 @@ Bound on the H100: memory. At the text shape of the MaPLe paths, qkv
 ~74 MB (~51 us), for ~0.6 and ~1.5 GFLOP on the mask's finite pairs. At the
 vision shape ``(512, 200, 2304)`` with 12 heads the forward moves ~629 MB
 (~0.19 ms) and the backward ~1.1 GB (~0.33 ms), for ~63 and ~157 GFLOP.
-Both kernels read each head's q, k and v (and g) once into shared memory
-and keep the scores and probabilities there, so no score tensor reaches
-device memory; see the sources for what still keeps them off their bounds.
+The forward reads each head's q, k and v once into shared memory and keeps
+the scores there; the backward streams 64-row tiles through shared memory
+in three passes on the tensor cores (row statistics, dK and dV, dQ), with
+two fp32 ``(B, H, T)`` scratch vectors between them, so no score tensor
+reaches device memory; see the sources for what keeps them off their bounds.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ from federated_multi_modal_tpu_torch.ops.kernels import _build
 
 HEAD_DIM = 64  # the only head width attention_core.cu is built for
 MAX_TOKENS = 512  # kMaxT in attention_core.cu: a head's q, k, v in shared memory
-MAX_TOKENS_BWD = 320  # kMaxT in attention_core_bwd.cu: q, k, v and g of a head
 
 
 @contextlib.contextmanager
@@ -160,7 +161,9 @@ def attention_core_bwd_reference(qkv: torch.Tensor, g: torch.Tensor, n_head: int
 def attention_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
                             mask: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``attention_core_bwd.cu`` on CUDA bf16 ``qkv (B, T, 3D)`` and
-    ``g (B, T, D)``."""
+    ``g (B, T, D)``, any T; its row statistics (log-sum-exp and
+    rowsum(dP * P), fp32 ``(B, H, T)`` each) go through scratch allocated
+    here."""
     B, T, D3 = qkv.shape
     D = D3 // 3
     for name, t, shape in (("qkv", qkv, (B, T, D3)), ("g", g, (B, T, D))):
@@ -174,18 +177,15 @@ def attention_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
         raise ValueError(
             f"attention_core_bwd is built for head width {HEAD_DIM}: D={D}, "
             f"{n_head} heads")
-    if T > MAX_TOKENS_BWD:
-        raise ValueError(
-            f"attention_core_bwd holds at most {MAX_TOKENS_BWD} tokens per row "
-            f"in shared memory, got T={T}")
     if mask is not None:
         if mask.shape != (T, T) or mask.device != qkv.device:
             raise ValueError(f"mask must be ({T}, {T}) on {qkv.device}")
         mask = mask.to(torch.float32).contiguous()
     dqkv = torch.empty_like(qkv)
+    stats = torch.empty(2, B, n_head, T, dtype=torch.float32, device=qkv.device)
     _build.launch(
         "fmm_attention_core_bwd", qkv.data_ptr(), g.data_ptr(),
-        None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
+        None if mask is None else mask.data_ptr(), stats.data_ptr(), dqkv.data_ptr(),
         B, T, D, n_head, 1.0 / math.sqrt(HEAD_DIM),
     )
     return dqkv
@@ -297,20 +297,11 @@ for _fn in (packed_attention_masked, packed_attention_masked_bwd, packed_attenti
 # into 128 lanes. No backbone of the repository has such heads. On CUDA
 # tensors the forward launches ``csrc/attention_split.cu``, which reads q, k
 # and v through their own row strides (the column split of the packed QKV,
-# no copy) and takes any head width that is a multiple of 8 up to 128. The
-# backward is the VJP of :func:`fused_attention_reference`, recomputed from
-# the saved q, k and v, as ``_fad_bwd`` derives it through XLA; the mask gets
-# no gradient. Bound on the H100: memory (see the source).
-
-SMEM_PER_BLOCK = 232_448  # the 227 KB of shared memory a thread block may use
-SPLIT_WARPS = 8  # kWarps in attention_split.cu: one fp32 probability row each
-
-
-def fused_attention_max_tokens(head_dim: int) -> int:
-    """The longest T ``attention_split.cu`` holds in shared memory: q and v
-    (``2 head_dim`` bytes a token each), k padded by two elements and one
-    fp32 probability row per warp."""
-    return SMEM_PER_BLOCK // (4 * head_dim + 2 * (head_dim + 2) + 4 * SPLIT_WARPS)
+# no copy), takes any head width that is a multiple of 8 up to 128 and any T
+# (key tiles stream through shared memory). The backward is the VJP of
+# :func:`fused_attention_reference`, recomputed from the saved q, k and v, as
+# ``_fad_bwd`` derives it through XLA; the mask gets no gradient. Bound on
+# the H100: memory (see the source).
 
 
 def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
@@ -332,10 +323,6 @@ def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_he
     if D != n_head * hd or hd % 8 or hd > 128:
         raise ValueError(f"fused_attention takes head widths that are multiples of 8 up "
                          f"to 128: D={D}, {n_head} heads")
-    if T > fused_attention_max_tokens(hd):
-        raise ValueError(
-            f"fused_attention holds at most {fused_attention_max_tokens(hd)} tokens per "
-            f"row in shared memory at head width {hd}, got T={T}")
     if attn_mask is not None:
         if attn_mask.shape != (T, T) or attn_mask.device != q.device:
             raise ValueError(f"attn_mask must be ({T}, {T}) on {q.device}")

@@ -9,6 +9,7 @@ without the repository's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import math
 import types
 
 import pytest
@@ -121,12 +122,27 @@ def test_fused_block_residual(gen, T):
     _assert_close(got, k_block.fused_block_residual_reference(x, p, H), 2 ** -5)
 
 
+def _each_within_share_of_max(got, ref, D, tol) -> bool:
+    """Whether each of dQ, dK and dV (the packed thirds of d(QKV)) lies
+    within ``tol`` of its own largest value."""
+    return all(float((g.float() - r.float()).abs().max()) <= tol * float(r.float().abs().max())
+               for g, r in zip(got.split(D, dim=-1), ref.split(D, dim=-1)))
+
+
 @pytest.mark.parametrize("masked", [True, False])
-@pytest.mark.parametrize("T", [1, 7, 120, 199, 200, k_attn.MAX_TOKENS_BWD])
+@pytest.mark.parametrize("T", [1, 7, 120, 199, 200, 320, 384, 600])
 def test_attention_core_bwd(gen, T, masked):
-    """d(QKV) against the plain backward. dS is rounded to bf16 before the
-    dQ and dK sums, so a flipped rounding of one dS term moves an output by
-    one bf16 step of that term, not of the sum: 2**-5 covers a few."""
+    """d(QKV) against the plain backward, at T within one 64-row tile, over
+    ragged last tiles, and past the 320 tokens the earlier kernel held in
+    shared memory. dS is rounded to bf16 before the dQ and dK sums, so a
+    flipped rounding of one dS term moves an output by one bf16 step of
+    that term, not of the sum: 2**-5 covers a few.
+
+    From T = 320 on, the gradients fall toward the absolute part of that
+    limit, so each of dQ, dK and dV is also held to 2**-5 of its own
+    largest value, and a planted fault must fail that check: dK and dV of
+    the last key tile scaled by exp(-1/8), as a log-sum-exp shifted by 1/8
+    for that tile in the dK/dV pass would give."""
     B, H = 2, 2
     qkv = _randn(gen, B, T, 3 * H * 64)
     g = _randn(gen, B, T, H * 64)
@@ -137,7 +153,42 @@ def test_attention_core_bwd(gen, T, masked):
         mask.fill_diagonal_(0.0)
     got = k_attn.attention_core_bwd_cuda(qkv, g, H, mask)
     torch.cuda.synchronize()
+    ref = k_attn.attention_core_bwd_reference(qkv, g, H, mask)
+    _assert_close(got, ref, 2 ** -5)
+    if T >= 320:
+        D = H * 64
+        assert _each_within_share_of_max(got, ref, D, 2 ** -5)
+        fault = got.clone()
+        fault[:, (T - 1) // 64 * 64:, D:] *= math.exp(-1 / 8)
+        assert not _each_within_share_of_max(fault, ref, D, 2 ** -5)
+
+
+@pytest.mark.parametrize("P,L", [(6, 64), (5, 24)])
+def test_attention_core_bwd_block_causal(gen, P, L):
+    """The block-causal mask of P packed sequences of L tokens: at L = 64
+    every 64 x 64 tile off the diagonal is wholly -inf (the kernel's warps
+    skip them), at L = 24 (MaPLe's text rows) some 16-row warp tiles are.
+    Against the plain backward at 2**-5, as the random masks."""
+    B, H, T = 3, 2, P * L
+    qkv = _randn(gen, B, T, 3 * H * 64)
+    g = _randn(gen, B, T, H * 64)
+    mask = build_block_causal_mask(P, L, device="cuda")
+    got = k_attn.attention_core_bwd_cuda(qkv, g, H, mask)
+    torch.cuda.synchronize()
     _assert_close(got, k_attn.attention_core_bwd_reference(qkv, g, H, mask), 2 ** -5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_attention_core_bwd_is_deterministic(gen, masked):
+    """No sum crosses blocks (no atomics): two calls give the same bits."""
+    B, H, T = 8, 4, 200
+    qkv = _randn(gen, B, T, 3 * H * 64)
+    g = _randn(gen, B, T, H * 64)
+    mask = build_block_causal_mask(5, 40, device="cuda") if masked else None
+    first = k_attn.attention_core_bwd_cuda(qkv, g, H, mask)
+    second = k_attn.attention_core_bwd_cuda(qkv, g, H, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_packed_attention_masked_backward_counts_launches(gen):
@@ -292,10 +343,6 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         k_attn.attention_core_cuda(_randn(gen, 1, 513, 384), 2)
     with pytest.raises(ValueError):
         k_block.gemm_epilogue_cuda(_randn(gen, 4, 12), _randn(gen, 12, 8))
-    with pytest.raises(ValueError):
-        k_attn.attention_core_bwd_cuda(
-            _randn(gen, 1, k_attn.MAX_TOKENS_BWD + 1, 384),
-            _randn(gen, 1, k_attn.MAX_TOKENS_BWD + 1, 128), 2)
     with pytest.raises(ValueError):
         k_block.gemm_tn_cuda(_randn(gen, 16, 12), _randn(gen, 16, 8))
     with pytest.raises(ValueError):
@@ -464,18 +511,18 @@ def test_fused_block_group_residual(gen, T, G, extra):
 
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
 @pytest.mark.parametrize("hd,T", [(40, 77), (80, 257), (96, 77), (96, 13), (8, 40),
-                                  (128, 289)])
+                                  (128, 289), (80, 600), (128, 400)])
 def test_fused_attention(gen, hd, T, masked):
     """K8 on the column split of a packed QKV (row stride 3D) against its
     plain version: the forward at K1's 2**-6, the gradients of
     ``fused_attention_diff`` (the plain VJP on both sides) against plain
     autograd at 2**-5 of their largest value; T=13 and 77 are off the
-    multiple of 8, T=289 is the shared-memory limit at head width 128."""
+    multiple of 8, T=289 was the shared-memory limit at head width 128 of
+    the earlier kernel, and T=600 at 80 and 400 at 128 lie past it."""
     from federated_multi_modal_tpu_torch.ops.primitives import build_causal_mask
 
     B, H = 3, 2
     D = H * hd
-    assert T <= k_attn.fused_attention_max_tokens(hd)
     qkv = _randn(gen, B, T, 3 * D).requires_grad_(True)
     mask = build_causal_mask(T, device="cuda") if masked else None
     g = _randn(gen, B, T, D)
@@ -491,16 +538,30 @@ def test_fused_attention(gen, hd, T, masked):
     assert float(d.max()) <= 2 ** -5 * float(ref.float().abs().max()), float(d.max())
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_fused_attention_every_head_width(gen, hd, masked):
+    """Every head width the kernel is built for, at T = 70 (a full and a
+    ragged 64-key tile), on three separate contiguous operands, against the
+    plain version at K1's 2**-6; widths off the multiple of 16 run Q.K^T
+    over a zero-padded column tile and P.V in 8-column steps."""
+    from federated_multi_modal_tpu_torch.ops.primitives import build_causal_mask
+
+    B, H, T = 2, 3, 70
+    q, k, v = (_randn(gen, B, T, H * hd) for _ in range(3))
+    mask = build_causal_mask(T, device="cuda") if masked else None
+    got = k_attn.fused_attention_cuda(q, k, v, H, mask)
+    torch.cuda.synchronize()
+    _assert_close(got, k_attn.fused_attention_reference(q, k, v, H, mask), 2 ** -6)
+
+
 def test_fused_attention_refuses_what_it_does_not_take(gen):
-    """Head widths off the multiple of 8 or over 128, T over the shared-memory
-    limit, fp32 operands and a batch stride other than T rows raise."""
+    """Head widths off the multiple of 8 or over 128, fp32 operands and a
+    batch stride other than T rows raise."""
     with pytest.raises(ValueError):
         k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 60)] * 3, 2)  # head width 30
     with pytest.raises(ValueError):
         k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 272)] * 2 + [_randn(gen, 1, 8, 272)], 1)
-    limit = k_attn.fused_attention_max_tokens(64)
-    with pytest.raises(ValueError):
-        k_attn.fused_attention_cuda(*[_randn(gen, 1, limit + 1, 64)] * 3, 1)
     with pytest.raises(ValueError):
         k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 64, dtype=torch.float32)] * 3, 1)
     q = _randn(gen, 2, 16, 64)[:, :8]

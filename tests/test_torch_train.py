@@ -30,7 +30,7 @@ from federated_multi_modal_tpu.ops import preprocess as jax_pre
 from federated_multi_modal_tpu.trainers import maple as jax_maple
 from federated_multi_modal_tpu_torch import flagship as port_flagship
 from federated_multi_modal_tpu_torch.engine.trainer import make_train_step
-from federated_multi_modal_tpu_torch.engine.tree import flatten, tree_map_with_path
+from federated_multi_modal_tpu_torch.engine.tree import flatten, merge_trees, tree_map_with_path
 from federated_multi_modal_tpu_torch.models import clip_model as port_clip
 from federated_multi_modal_tpu_torch.models import params as port_params
 from federated_multi_modal_tpu_torch.ops import preprocess as port_pre
@@ -245,6 +245,78 @@ def test_loss_and_every_gradient_match_jax(jax_step, monkeypatch):
     assert "clip.visual.blocks.2.attn.w_qkv" in errs and "clip.text.blocks.2.mlp.w_fc" in errs
     worst = max(errs, key=errs.get)
     assert errs[worst] < GRAD_TOL, (worst, errs[worst])
+
+
+@pytest.mark.parametrize("pack", [True, False], ids=["packed", "unpacked"])
+def test_text_pack_switch_matches_jax(jax_step, monkeypatch, pack):
+    """``set_text_pack`` in both packages: the Tiny MaPLe text features
+    (``eval_prepare_fn``), the loss and every trainable gradient against
+    JAX's under the same setting, fp32, at the whole step's tolerances
+    (``LOSS_RTOL``, ``GRAD_TOL``; the text features at 1e-5 of their
+    largest value, as the logits). Unpacked, the 24-token rows take the
+    plain attention on both sides (T < 32) and no K1 wrapper runs; packed,
+    each text block runs K1 once. ``pack=None`` follows the module
+    default."""
+    _jax_globals(monkeypatch)
+    monkeypatch.setattr(jax_clip, "_TEXT_PACK_DEFAULT", jax_clip._TEXT_PACK_DEFAULT)
+    monkeypatch.setattr(port_clip, "_TEXT_PACK_DEFAULT", port_clip._TEXT_PACK_DEFAULT)
+    jax_clip.set_text_pack(pack)
+    port_clip.set_text_pack(pack)
+
+    prog = jax_flagship.build_maple_program(backbone="Tiny", depth=3, seed=0)
+    trainable, frozen = _fp32(prog["trainable"]), _fp32(prog["frozen"])
+    batch = {k: jnp.asarray(v) for k, v in jax_step["batch"].items()}
+    loss_ref, grads_ref = jax.value_and_grad(
+        lambda t: prog["loss_fn"](t, frozen, batch)[0])(trainable)
+    txt_ref = prog["eval_prepare_fn"](trainable, frozen)["txt_n"]
+    grads_ref = flatten_params(grads_ref)
+
+    calls = []
+    real_k1 = port_attn.packed_attention_masked
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return real_k1(*args)
+
+    monkeypatch.setattr(port_attn, "packed_attention_masked", spy)
+    loss_fn, tr, fr, batch_t = _port_program(jax_step)
+    prepare = port_flagship.build_maple_program(
+        backbone="Tiny", depth=3, seed=0, device="cpu")["eval_prepare_fn"]
+    txt = prepare(tr, fr)["txt_n"]
+    assert len(calls) == (CFG.transformer_layers if pack else 0)
+    assert _rel_err(txt, txt_ref) < 1e-5
+
+    tr = tree_map_with_path(lambda _, t: t.requires_grad_(True), tr)
+    flat = flatten(tr)
+    calls.clear()
+    loss, _ = loss_fn(tr, fr, batch_t)
+    grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+    assert len(calls) == (CFG.transformer_layers if pack else 0)
+    assert abs(loss.item() - float(loss_ref)) <= LOSS_RTOL * abs(float(loss_ref))
+    errs = {name: _rel_err(g, grads_ref[name]) for name, g in zip(flat, grads)
+            if g is not None}
+    assert "clip.text.blocks.2.attn.w_qkv" in errs
+    worst = max(errs, key=errs.get)
+    assert errs[worst] < GRAD_TOL, (worst, errs[worst])
+
+    # pack=None follows the module default; an explicit pack overrides it
+    text = merge_trees(tr, fr["model"])["clip"]["text"]
+    rng = np.random.default_rng(8)
+    prompts = torch.from_numpy((rng.standard_normal((7, 77, CFG.transformer_width))
+                                * 0.1).astype(np.float32))
+    eot = torch.from_numpy(rng.integers(4, 24, 7))
+    calls.clear()
+    with torch.no_grad():
+        default = port_clip.encode_text_embedded(text, CFG, prompts, eot, max_len=24)
+        assert len(calls) == (CFG.transformer_layers if pack else 0)
+        calls.clear()
+        explicit = port_clip.encode_text_embedded(text, CFG, prompts, eot, max_len=24,
+                                                  pack=pack)
+        other = port_clip.encode_text_embedded(text, CFG, prompts, eot, max_len=24,
+                                               pack=not pack)
+    assert len(calls) == CFG.transformer_layers
+    assert torch.equal(default, explicit)
+    assert _rel_err(other, explicit.numpy()) < 1e-5
 
 
 def test_three_sgd_steps_match_jax(jax_step):
