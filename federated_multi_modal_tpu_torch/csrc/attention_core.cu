@@ -1,147 +1,215 @@
 // attention_core: per (row b, head h) softmax(q k^T * scale + M) v, read
-// straight from a packed (B, T, 3D) bf16 QKV tensor.
+// straight from a packed (B, T, 3D) bf16 QKV tensor, for any head width that
+// is a multiple of 8 up to 128 and any T.
 //
 // Replaces the attention of two TPU kernels:
 //   * federated_multi_modal_tpu/ops/pallas/attention.py
-//     attention_packed_fwd_masked (behind packed_attention_masked), the text
-//     tower's block-causal packed rows;
+//     attention_packed_fwd_masked (pallas_call :497, behind
+//     packed_attention_masked), the text tower's block-causal packed rows,
+//     and attention_packed_fwd (:386, behind packed_attention), the same with
+//     no mask; both run _packed_fwd_body (:261);
 //   * the per-head loop of _block_body32 in ops/pallas/fused_block.py
-//     (behind fused_block_residual), the vision tower, with no mask.
+//     (behind fused_block_residual and the other fused blocks), the vision
+//     tower, with no mask.
 // Numerics follow the TPU kernels: fp32 scores and softmax, keys at index
-// >= valid_T set to -inf, p rounded to bf16 before P.V, fp32 P.V sums, bf16
-// output.
+// >= valid_T set to -inf (the TPU's padding of T to a multiple of 8), p
+// normalized and then rounded to bf16 before P.V, fp32 P.V sums, bf16
+// output. Each fp32 score is the correctly rounded q.k (summed on the fp64
+// tensor cores, attn_fwd.cuh): a 16-image train step through twelve
+// random-init blocks turns a score's last fp32 bit, through p's bf16
+// rounding, into gradient differences at the limit of chip_smoke.py's
+// whole-step check, whose reference forward is exact.
 //
-// Bound on the H100: at the text shape (200, 120, 1536) a launch moves
-// ~98 MB (qkv in, out back) for ~6 GFLOP, and at the vision shape
-// (512, 199, 2304) ~626 MB for ~62 GFLOP; both are bound by memory at
-// 3.35 TB/s (~29 us and ~0.19 ms).
-// Design: one thread block per (b, h) stages its q, k and v head slices in
-// shared memory once, so each qkv byte is read once from device memory, as
-// the bound counts it. The products run on the CUDA cores in fp32, one warp
-// per query row: lanes own keys for q.k (K rows padded to 66 elements so
-// that 32 lanes read 32 different banks) and own two output columns each
-// for P.V. That makes the kernel bound by fp32 issue rate, not by memory;
-// moving both products onto the tensor cores (mma or wgmma) is the step
-// that would bring it to its bound.
-#include <math_constants.h>
-#include <stdint.h>
+// Bound on the H100: bytes. At the text shape (200, 120, 1536) with 8 heads
+// a launch moves ~98 MB (qkv in, out back; ~29 us at 3.35 TB/s) for ~0.6
+// GFLOP on the mask's finite pairs, and at the vision shape (512, 200, 2304)
+// with 12 heads ~629 MB (~0.19 ms) for ~63 GFLOP (~64 us at 989 TFLOP/s; the
+// half of it that is q.k takes ~0.47 ms at the fp64 tensor cores' 67
+// TFLOP/s).
+// Design (attn_fwd.cuh over attn_mma.cuh): one block of 4 warps per (b, h,
+// 64-query tile), each warp 16 query rows; K and V tiles of 64 keys stream
+// through a two-stage cp.async ring; Q.K^T runs on mma.sync m8n8k4 fp64 and
+// P.V on mma.sync m16n8k16 bf16, both fed by ldmatrix, the scores in
+// registers. The mask goes straight into the score fragments; a warp whose
+// 16 x 64 mask tile is all -inf skips that tile (block-causal text rows,
+// causal 77-token rows). To round p after the normalization, rows of up to
+// 256 keys at head widths up to 64 take one pass with every score of the
+// warp held in registers (4 key tiles, 128 fp32 a thread; 2 tiles when T <=
+// 128, for three blocks an SM instead of two); longer rows and wider heads
+// take two passes over the key tiles (statistics, then p and P.V), as
+// attention_split.cu (K8) does. All are instantiations of one kernel;
+// fmm_attention_core_forced forces one, so that tests and timings can hold
+// them against each other. The blocks of one (b, h) are adjacent in the
+// grid, so its K and V tiles come from L2 after the first block.
+// What keeps it above its bound: the fp64 q.k (at T = 200, 256 padded keys,
+// ~52 GFLOP, 0.77 ms at the fp64 peak, with the bf16 operands converted to
+// fp64 on the way); one pass holds over 200 registers (two blocks, eight
+// warps, an SM); the softmax's expf and division run per score on the CUDA
+// cores, and each key tile costs two block barriers.
+#include <limits.h>
 
-#include "fmm_common.cuh"
+#include "attn_fwd.cuh"
 
 namespace {
 
 using fmm::bf16;
+namespace am = fmm::attn_mma;
+namespace af = fmm::attn_fwd;
 
-constexpr int kHeadDim = 64;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kKStride = kHeadDim + 2;
-// 227 KB of shared memory per block: q, v (128 B/token), k (132 B/token)
-// and one fp32 probability row per warp (32 B/token) fit up to T = 553.
-constexpr int kMaxT = 512;
-
-size_t smem_bytes(int T) {
-  return static_cast<size_t>(T) * (2 * kHeadDim * sizeof(bf16) + kKStride * sizeof(bf16) +
-                                   kWarps * sizeof(float));
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <int HD, bool kMasked, int kKt>
+__global__ void __launch_bounds__(am::kThreads, af::Smem<HD, kKt>::kMinBlocks)
     attention_core_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
-                          bf16* __restrict__ out, int T, int D, int H, int valid_T,
+                          bf16* __restrict__ out, int T, int D, int H, int valid_T, int n_tiles,
                           float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* vs = qs + static_cast<size_t>(T) * kHeadDim;
-  bf16* ks = vs + static_cast<size_t>(T) * kHeadDim;
-  float* prob = reinterpret_cast<float*>(ks + static_cast<size_t>(T) * kKStride);
+  const int qt = blockIdx.x % n_tiles;
+  const int bh = blockIdx.x / n_tiles;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int row_stride = 3 * D;
+  const bf16* base = qkv + static_cast<size_t>(b) * T * row_stride + h * HD;
+  const af::Tile tile{base,       base + D,   base + 2 * D,
+                      row_stride, row_stride, row_stride,
+                      mask,       out + static_cast<size_t>(b) * T * D + h * HD,
+                      D,          T,          valid_T,
+                      qt * am::kTile, scale};
+  af::attention_tile<HD, kMasked, kKt, true>(tile, reinterpret_cast<bf16*>(smem));
+}
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const size_t row_stride = 3 * static_cast<size_t>(D);
-  const bf16* base = qkv + static_cast<size_t>(b) * T * row_stride + h * kHeadDim;
+template <int HD, bool kMasked, int kKt>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(attention_core_kernel<HD, kMasked, kKt>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(af::Smem<HD, kKt>::kBytes));
+}
 
-  // Stage this head's q, k and v: 8 chunks of 16 bytes per token each.
-  for (int idx = threadIdx.x; idx < T * 8; idx += kThreads) {
-    const int t = idx >> 3;
-    const int c = idx & 7;
-    const bf16* src = base + t * row_stride + c * 8;
-    const uint4 qv = *reinterpret_cast<const uint4*>(src);
-    const uint4 kv = *reinterpret_cast<const uint4*>(src + D);
-    const uint4 vv = *reinterpret_cast<const uint4*>(src + 2 * D);
-    *reinterpret_cast<uint4*>(qs + t * kHeadDim + c * 8) = qv;
-    *reinterpret_cast<uint4*>(vs + t * kHeadDim + c * 8) = vv;
-    uint32_t* kd = reinterpret_cast<uint32_t*>(ks + t * kKStride + c * 8);
-    kd[0] = kv.x;
-    kd[1] = kv.y;
-    kd[2] = kv.z;
-    kd[3] = kv.w;
+template <int HD, bool kMasked, int kKt>
+int launch(const void* qkv, const void* mask, void* out, int B, int T, int D, int H, int valid_T,
+           float scale, cudaStream_t stream) {
+  const int n_tiles = (T + am::kTile - 1) / am::kTile;
+  const long long blocks = static_cast<long long>(n_tiles) * H * B;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<HD, kMasked, kKt>();
+  if (err != cudaSuccess) return err;
+  attention_core_kernel<HD, kMasked, kKt>
+      <<<static_cast<int>(blocks), am::kThreads, af::Smem<HD, kKt>::kBytes, stream>>>(
+          static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
+          static_cast<bf16*>(out), T, D, H, valid_T, n_tiles, scale);
+  return cudaGetLastError();
+}
+
+// Head widths up to this take one pass for rows of up to 4 key tiles.
+constexpr int kOnePassMaxHd = 64;
+
+// The key tiles a warp holds in registers when the kernel chooses: 2 or 4
+// for one pass over n_kt key tiles, 0 for two passes.
+int chosen_key_tiles(int hd, int n_kt) {
+  if (hd > kOnePassMaxHd || n_kt > 4) return 0;
+  return n_kt <= 2 ? 2 : 4;
+}
+
+template <int HD, bool kMasked>
+int launch(const void* qkv, const void* mask, void* out, int B, int T, int D, int H, int valid_T,
+           float scale, int key_tiles, cudaStream_t stream) {
+  const int n_kt = (valid_T + am::kTile - 1) / am::kTile;
+  if (key_tiles == 0)
+    return launch<HD, kMasked, 0>(qkv, mask, out, B, T, D, H, valid_T, scale, stream);
+  if constexpr (HD <= kOnePassMaxHd) {
+    if (key_tiles == 2 && n_kt <= 2)
+      return launch<HD, kMasked, 2>(qkv, mask, out, B, T, D, H, valid_T, scale, stream);
+    if (key_tiles == 4 && n_kt <= 4)
+      return launch<HD, kMasked, 4>(qkv, mask, out, B, T, D, H, valid_T, scale, stream);
   }
-  __syncthreads();
+  return cudaErrorInvalidValue;
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* p = prob + warp * T;
-  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(vs) + lane;
+template <int HD, bool kMasked, int kKt>
+int blocks_per_sm(int* blocks, int* smem_bytes) {
+  const cudaError_t err = allow_smem<HD, kMasked, kKt>();
+  if (err != cudaSuccess) return err;
+  *smem_bytes = static_cast<int>(af::Smem<HD, kKt>::kBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, attention_core_kernel<HD, kMasked, kKt>, am::kThreads, af::Smem<HD, kKt>::kBytes);
+}
 
-  for (int i = warp; i < T; i += kWarps) {
-    const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(qs + i * kHeadDim);
-    float row_max = -CUDART_INF_F;
-    for (int j = lane; j < T; j += 32) {
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(ks + j * kKStride);
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < kHeadDim / 2; ++d) {
-        const float2 qf = __bfloat1622float2(q2[d]);
-        const float2 kf = __bfloat1622float2(k2[d]);
-        acc = fmaf(qf.x, kf.x, acc);
-        acc = fmaf(qf.y, kf.y, acc);
-      }
-      float s = acc * scale;
-      if (mask != nullptr) s += mask[static_cast<size_t>(i) * T + j];
-      if (j >= valid_T) s = -CUDART_INF_F;
-      p[j] = s;
-      row_max = fmaxf(row_max, s);
-    }
-    row_max = fmm::warp_max(row_max);
-    float sum = 0.f;
-    for (int j = lane; j < T; j += 32) {
-      const float e = expf(p[j] - row_max);
-      p[j] = e;
-      sum += e;
-    }
-    sum = fmm::warp_sum(sum);
-    for (int j = lane; j < T; j += 32) p[j] = __bfloat162float(__float2bfloat16(p[j] / sum));
-    __syncwarp();
+template <int HD, bool kMasked>
+int blocks_per_sm(int kt, int* blocks, int* smem_bytes) {
+  if (kt == 0) return blocks_per_sm<HD, kMasked, 0>(blocks, smem_bytes);
+  if constexpr (HD <= kOnePassMaxHd) {
+    if (kt == 2) return blocks_per_sm<HD, kMasked, 2>(blocks, smem_bytes);
+    if (kt == 4) return blocks_per_sm<HD, kMasked, 4>(blocks, smem_bytes);
+  }
+  return cudaErrorInvalidValue;
+}
 
-    float ox = 0.f;
-    float oy = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const float pj = p[j];
-      const float2 vf = __bfloat1622float2(v2[j * (kHeadDim / 2)]);
-      ox = fmaf(pj, vf.x, ox);
-      oy = fmaf(pj, vf.y, oy);
-    }
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-                              out + (static_cast<size_t>(b) * T + i) * D + h * kHeadDim) +
-                          lane;
-    *dst = __floats2bfloat162_rn(ox, oy);
-    __syncwarp();
+}  // namespace
+
+#define FMM_HEAD_DIMS(X) \
+  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
+
+namespace {
+
+int dispatch(const void* qkv, const void* mask, void* out, int B, int T, int D, int H,
+             int valid_T, float scale, int key_tiles, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || D % H || valid_T < 1 || valid_T > T)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D / H) {
+#define FMM_LAUNCH(n)                                                                       \
+  case n:                                                                                   \
+    return mask != nullptr                                                                  \
+               ? launch<n, true>(qkv, mask, out, B, T, D, H, valid_T, scale, key_tiles, s)  \
+               : launch<n, false>(qkv, mask, out, B, T, D, H, valid_T, scale, key_tiles, s);
+    FMM_HEAD_DIMS(FMM_LAUNCH)
+#undef FMM_LAUNCH
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // qkv (B, T, 3D) bf16, mask (T, T) fp32 or null, out (B, T, D) bf16; all
-// contiguous, D = H * 64.
+// contiguous, 16-byte aligned; D = H * head width, the head width a multiple
+// of 8 up to 128; keys at or past valid_T (1 <= valid_T <= T) are -inf. The
+// kernel takes one pass or two as fmm_attention_core_key_tiles says.
 FMM_EXPORT int fmm_attention_core(const void* qkv, const void* mask, void* out, int B, int T,
                                   int D, int H, int valid_T, float scale, void* stream) {
-  if (T < 1 || T > kMaxT || D != H * kHeadDim || B < 1) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  attention_core_kernel<<<B * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<bf16*>(out), T,
-      D, H, valid_T, scale);
-  return cudaGetLastError();
+  if (H < 1 || D % H) return cudaErrorInvalidValue;
+  return dispatch(qkv, mask, out, B, T, D, H, valid_T, scale,
+                  chosen_key_tiles(D / H, (valid_T + am::kTile - 1) / am::kTile), stream);
+}
+
+// The key tiles fmm_attention_core holds in registers at this head width
+// and valid_T: 2 or 4 (one pass), 0 (two passes).
+FMM_EXPORT int fmm_attention_core_key_tiles(int head_dim, int valid_T) {
+  return chosen_key_tiles(head_dim, (valid_T + am::kTile - 1) / am::kTile);
+}
+
+// fmm_attention_core with its variant forced, for tests and timings only:
+// key_tiles 0 takes two passes, 2 or 4 one pass (head widths up to 64,
+// valid_T up to 64 key_tiles); anything else is refused.
+FMM_EXPORT int fmm_attention_core_forced(const void* qkv, const void* mask, void* out, int B,
+                                         int T, int D, int H, int valid_T, float scale,
+                                         int key_tiles, void* stream) {
+  return dispatch(qkv, mask, out, B, T, D, H, valid_T, scale, key_tiles, stream);
+}
+
+// Resident blocks per SM of one instantiation, with a mask or without
+// (registers and shared memory as built) into *blocks, its dynamic shared
+// memory into *smem_bytes. variant = head width + 256 * key tiles held in
+// registers (0: two passes; 2 or 4: one pass).
+FMM_EXPORT int fmm_attention_core_blocks_per_sm(int variant, int masked, int* blocks,
+                                                int* smem_bytes) {
+  const int kt = variant >> 8;
+  switch (variant & 255) {
+#define FMM_OCCUPANCY(n)                                                 \
+  case n:                                                                \
+    return masked ? blocks_per_sm<n, true>(kt, blocks, smem_bytes)       \
+                  : blocks_per_sm<n, false>(kt, blocks, smem_bytes);
+    FMM_HEAD_DIMS(FMM_OCCUPANCY)
+#undef FMM_OCCUPANCY
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -17,7 +17,8 @@
 // reads q, k and v and writes the output, 168 MB (~50 us at 3.35 TB/s), for
 // 21.6 GFLOP (~22 us at 989 TFLOP/s); at (256, 77, 768) with 8 heads of 96 and
 // a causal mask ~121 MB (~36 us) for ~2.4 GFLOP on the mask's finite pairs.
-// Design: one block of 4 warps per (b, h, 64-query tile), each warp 16 query
+// Design (the two-pass forward of attn_fwd.cuh, which attention_core.cu
+// shares): one block of 4 warps per (b, h, 64-query tile), each warp 16 query
 // rows; K and V tiles of 64 keys stream through a two-stage cp.async ring in
 // shared memory (attn_mma.cuh), and both products run on the tensor cores
 // (mma.sync m16n8k16, bf16 in, fp32 accumulate) with the scores kept in
@@ -30,8 +31,7 @@
 // steps of 8. Shared memory is one Q tile and two stages of K and V, 5 x 64
 // rows of (16 ceil(HD / 16) + 8) bf16: 87 KB at HD = 128, 56 KB at HD = 80,
 // whatever T is. The Q fragments are read from shared memory at each use,
-// not held in
-// registers, and the compiler is held to the registers that let as many
+// not held in registers, and the compiler is held to the registers that let as many
 // blocks share an SM as their shared memory allows (up to 4), for more warps
 // in flight. A warp whose 16 x 64 mask tile is all -inf skips that tile (its
 // probabilities are exactly 0); the mask is read straight into the score
@@ -39,133 +39,43 @@
 // built with a mask and without, so that a mask-free call pays nothing.
 #include <limits.h>
 
-#include "attn_mma.cuh"
+#include "attn_fwd.cuh"
 
 namespace {
 
 using fmm::bf16;
 namespace am = fmm::attn_mma;
+namespace af = fmm::attn_fwd;
 
+// Two passes at every T: Q, two K stages and two V stages in shared memory.
 template <int HD>
-struct Shape {
-  static constexpr int kHdp = (HD + 15) / 16 * 16;  // Q.K^T contraction, zero-padded
-  static constexpr int kLd = kHdp + 8;              // shared-memory row stride (bf16)
-  static constexpr int kKSteps = kHdp / 16;
-  static constexpr int kNt = HD / 8;  // 8-column tiles of the output
-  static constexpr int kTileElems = am::kTile * kLd;
-  static constexpr size_t kSmemBytes = 5 * kTileElems * sizeof(bf16);  // Q, 2 x K, 2 x V
-  // Blocks an SM can hold by shared memory (232,448 bytes, 1 KB reserved a
-  // block), at most 4: the register budget the compiler is held to.
-  static constexpr int kFit = static_cast<int>(232448 / (kSmemBytes + 1024));
-  static constexpr int kMinBlocks = kFit < 4 ? kFit : 4;
-};
+using Smem = af::Smem<HD, 0>;
 
 template <int HD, bool kMasked>
-__global__ void __launch_bounds__(am::kThreads, Shape<HD>::kMinBlocks)
+__global__ void __launch_bounds__(am::kThreads, Smem<HD>::kMinBlocks)
     attention_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, int q_stride, int k_stride, int v_stride,
                            const float* __restrict__ mask, bf16* __restrict__ out, int T, int D,
                            int H, int n_tiles, float scale) {
-  using S = Shape<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + S::kTileElems;      // two stages
-  bf16* vs = ks + 2 * S::kTileElems;  // two stages
-
   const int qt = blockIdx.x % n_tiles;
   const int bh = blockIdx.x / n_tiles;
   const int h = bh % H;
   const int b = bh / H;
-  const int q0 = qt * am::kTile;
-  const bf16* qb = q + static_cast<size_t>(b) * T * q_stride + h * HD;
-  const bf16* kb = k + static_cast<size_t>(b) * T * k_stride + h * HD;
-  const bf16* vb = v + static_cast<size_t>(b) * T * v_stride + h * HD;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  if (S::kHdp != HD) {
-    // Columns [HD, HD + 8) of Q and of both K stages (contiguous rows) enter
-    // Q.K^T as zeros; the copies never write them.
-    for (int r = threadIdx.x; r < 3 * am::kTile; r += am::kThreads)
-      *reinterpret_cast<uint4*>(qs + r * S::kLd + HD) = make_uint4(0, 0, 0, 0);
-  }
-
-  // Iterations [0, n_kt) stream the K tiles (pass 1), [n_kt, 2 n_kt) the K
-  // and V tiles (pass 2); iteration it uses stage it & 1.
-  const int n_kt = (T + am::kTile - 1) / am::kTile;
-  const int n_it = 2 * n_kt;
-  auto prefetch = [&](int it) {
-    const int pass2 = it >= n_kt;
-    const int j = pass2 ? it - n_kt : it;
-    const int st = it & 1;
-    am::load_tile<HD>(ks + st * S::kTileElems, S::kLd, kb, k_stride, j * am::kTile, T);
-    if (pass2) am::load_tile<HD>(vs + st * S::kTileElems, S::kLd, vb, v_stride, j * am::kTile, T);
-  };
-  am::load_tile<HD>(qs, S::kLd, qb, q_stride, q0, T);
-  prefetch(0);
-  am::cp_async_commit();
-
-  const float inv_scale = 1.f / scale;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f};
-  float unused[2];
-  float o[S::kNt][4];
-#pragma unroll
-  for (int nt = 0; nt < S::kNt; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) prefetch(it + 1);
-    am::cp_async_commit();
-    am::cp_async_wait<1>();
-    __syncthreads();
-    const bool pass2 = it >= n_kt;
-    const int j = pass2 ? it - n_kt : it;
-    const int st = it & 1;
-    float s[8][4];
-    if (!am::mask_tile<false, kMasked>(s, mask, T, q0 + warp * 16, j * am::kTile, inv_scale)) {
-      am::mma_abt<S::kKSteps>(s, qs, S::kLd, warp * 16, ks + st * S::kTileElems, S::kLd);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] *= scale;
-      if (!pass2) {
-        am::online_softmax<false>(s, s, m, l, unused);
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = __expf(s[nt][e] - m[e >> 1]) / l[e >> 1];
-        am::mma_pv<S::kNt>(o, s, vs + st * S::kTileElems, S::kLd);
-      }
-    }
-    if (it == n_kt - 1) {
-      l[0] = am::quad_sum(l[0]);
-      l[1] = am::quad_sum(l[1]);
-    }
-    __syncthreads();  // the stage is consumed before the next copy into it
-  }
-
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= T) continue;
-    bf16* dst = out + (static_cast<size_t>(b) * T + row) * D + h * HD + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < S::kNt; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8) =
-          __floats2bfloat162_rn(o[nt][2 * r], o[nt][2 * r + 1]);
-  }
+  const af::Tile tile{q + static_cast<size_t>(b) * T * q_stride + h * HD,
+                      k + static_cast<size_t>(b) * T * k_stride + h * HD,
+                      v + static_cast<size_t>(b) * T * v_stride + h * HD,
+                      q_stride, k_stride, v_stride,
+                      mask, out + static_cast<size_t>(b) * T * D + h * HD, D,
+                      T, T, qt * am::kTile, scale};
+  af::attention_tile<HD, kMasked, 0, false>(tile, reinterpret_cast<bf16*>(smem));
 }
 
 template <int HD, bool kMasked>
 cudaError_t allow_smem() {
   return cudaFuncSetAttribute(attention_split_kernel<HD, kMasked>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(Shape<HD>::kSmemBytes));
+                              static_cast<int>(Smem<HD>::kBytes));
 }
 
 template <int HD, bool kMasked>
@@ -178,7 +88,7 @@ int launch(const void* q, const void* k, const void* v, int q_stride, int k_stri
   const cudaError_t err = allow_smem<HD, kMasked>();
   if (err != cudaSuccess) return err;
   attention_split_kernel<HD, kMasked>
-      <<<static_cast<int>(blocks), am::kThreads, Shape<HD>::kSmemBytes, stream>>>(
+      <<<static_cast<int>(blocks), am::kThreads, Smem<HD>::kBytes, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           q_stride, k_stride, v_stride, static_cast<const float*>(mask), static_cast<bf16*>(out),
           T, D, H, n_tiles, scale);
@@ -200,9 +110,9 @@ template <int HD, bool kMasked>
 int blocks_per_sm(int* blocks, int* smem_bytes) {
   const cudaError_t err = allow_smem<HD, kMasked>();
   if (err != cudaSuccess) return err;
-  *smem_bytes = static_cast<int>(Shape<HD>::kSmemBytes);
+  *smem_bytes = static_cast<int>(Smem<HD>::kBytes);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, attention_split_kernel<HD, kMasked>, am::kThreads, Shape<HD>::kSmemBytes);
+      blocks, attention_split_kernel<HD, kMasked>, am::kThreads, Smem<HD>::kBytes);
 }
 
 }  // namespace

@@ -1,10 +1,11 @@
-// Tensor-core tile routines shared by the attention kernels attention_split.cu
-// (K8) and attention_core_bwd.cu (K1b, K2b and the attention backward of K3,
-// K4 and K7): warp-level mma.sync m16n8k16 products (bf16 in, fp32
-// accumulate) with ldmatrix fragment loads from shared memory, the cp.async
-// copies that stream 64-row tiles through a ring of shared-memory stages,
-// the additive mask read straight into accumulator fragments, and the online
-// row max and sum of a softmax over fragment rows.
+// Tensor-core tile routines shared by the attention kernels: the forward
+// (attn_fwd.cuh, behind attention_core.cu, attention_split.cu and
+// lnqkv_attention.cu) and attention_core_bwd.cu (K1b, K2b and the attention
+// backward of K3, K4 and K7): warp-level mma.sync m16n8k16 products (bf16
+// in, fp32 accumulate) with ldmatrix fragment loads from shared memory, the
+// cp.async copies that stream 64-row tiles through a ring of shared-memory
+// stages, the additive mask read straight into accumulator fragments, and
+// the online row max and sum of a softmax over fragment rows.
 //
 // A block is 4 warps; a tile is 64 rows, 16 per warp. Fragment layout (PTX
 // ISA, mma.m16n8k16), lane = 4 g + t: a 16x8 fp32 accumulator c holds c[0],
@@ -21,6 +22,7 @@
 // eight different groups of four banks.
 #pragma once
 
+#include <limits.h>
 #include <math_constants.h>
 #include <stdint.h>
 
@@ -114,6 +116,29 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a b with the product summed on the tensor cores from zero and added
+// to c on the CUDA cores, rounded to nearest. The tensor cores' fp32 sums
+// truncate: a product chained onto a large accumulator loses the low bits
+// of the sum toward zero at every step, a bias that (c += a b) repeated
+// along a row of keys carries into the result.
+__device__ __forceinline__ void mma_rn(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(d, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// mma_rn where kRn, else mma.
+template <bool kRn>
+__device__ __forceinline__ void mma_acc(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  if constexpr (kRn)
+    mma_rn(c, a, b0, b1);
+  else
+    mma(c, a, b0, b1);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -174,8 +199,9 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* a_tile, 
 
 // out (16 x 8 NT) += bf16(p) (16 x 64, p as 8 accumulators, rounded to bf16
 // here) times the tile's 64 rows over columns [0, 8 NT): one warp's block of
-// a P.V-shaped product.
-template <int NT>
+// a P.V-shaped product. kRn adds each 16-key step's product to out rounded
+// to nearest (mma_rn).
+template <int NT, bool kRn = false>
 __device__ __forceinline__ void mma_pv(float (&out)[NT][4], const float (&p)[8][4],
                                        const bf16* tile, int ld) {
 #pragma unroll
@@ -189,32 +215,120 @@ __device__ __forceinline__ void mma_pv(float (&out)[NT][4], const float (&p)[8][
     for (int np = 0; np < NT / 2; ++np) {
       uint32_t b[4];
       load_b_rows_k(b, tile, ld, kk * 16, np * 16);
-      mma(out[2 * np], a, b[0], b[1]);
-      mma(out[2 * np + 1], a, b[2], b[3]);
+      mma_acc<kRn>(out[2 * np], a, b[0], b[1]);
+      mma_acc<kRn>(out[2 * np + 1], a, b[2], b[3]);
     }
     if (NT & 1) {
       uint32_t b[2];
       load_b_rows_k_x2(b, tile, ld, kk * 16, (NT - 1) * 8);
-      mma(out[NT - 1], a, b[0], b[1]);
+      mma_acc<kRn>(out[NT - 1], a, b[0], b[1]);
     }
+  }
+}
+
+// d += a b on the fp64 tensor cores (mma.m8n8k4): a 8x4, b 4x8, d 8x8; lane
+// = 4 g + t holds a at (row g, k t), b at (k t, column g), d[0], d[1] at
+// (row g, columns 2t, 2t + 1): the top half of an m16n8 accumulator.
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(d0), "+d"(d1)
+               : "d"(a), "d"(b));
+}
+
+__device__ __forceinline__ double lo_bf16(uint32_t x) {
+  return static_cast<double>(__uint_as_float(x << 16));
+}
+
+__device__ __forceinline__ double hi_bf16(uint32_t x) {
+  return static_cast<double>(__uint_as_float(x & 0xffff0000u));
+}
+
+// An m16n8k16 bf16 A fragment's row (a[0], a[2] or a[1], a[3]; or the two B
+// fragments b[0], b[1] of one 8-column tile) as the four k steps of fp64
+// m8n8k4 products. In k step j lane 4 g + t takes column (2t, 2t + 1, 2t +
+// 8, 2t + 9)[j] of the 16: the same column in A and B, so the four steps sum
+// all 16 columns.
+__device__ __forceinline__ void split_k4(double (&x)[4], uint32_t lo8, uint32_t hi8) {
+  x[0] = lo_bf16(lo8);
+  x[1] = hi_bf16(lo8);
+  x[2] = lo_bf16(hi8);
+  x[3] = hi_bf16(hi8);
+}
+
+// acc (16 x 64, as 8 accumulators, holding the additive mask or -inf) =
+// fp32(q.k) * scale + acc, where q.k is one warp's Q.K^T-shaped product as
+// in mma_abt, summed on the fp64 tensor cores: the bf16 products are exact
+// in fp64 and each partial sum of up to 128 of them is rounded to 53 bits,
+// so fp32(q.k) is the correctly rounded score unless the exact sum lies
+// within ~2^-46 of its largest partial sum of a rounding boundary. Half of
+// the tile (4 accumulators, 32 fp64 registers) at a time. Bit nt of `live`
+// (the same in every lane) says whether 8-column tile nt has an entry of
+// acc that is not -inf; the products of the others are skipped, since
+// their scores stay -inf.
+template <int KS>
+__device__ __forceinline__ void mma_abt_exact(float (&acc)[8][4], const bf16* a_tile, int a_ld,
+                                              int a_row0, const bf16* tile, int ld, float scale,
+                                              unsigned live) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (!(live >> (4 * half) & 0xfu)) continue;
+    double d[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[nt][e] = 0.0;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      load_a(a, a_tile, a_ld, a_row0, kk * 16);
+      double top[4], bottom[4];  // rows g and g + 8
+      split_k4(top, a[0], a[2]);
+      split_k4(bottom, a[1], a[3]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int nt0 = 4 * half + 2 * np;
+        if (!(live >> nt0 & 3u)) continue;
+        uint32_t b[4];
+        load_b_rows_n(b, tile, ld, (2 * half + np) * 16, kk * 16);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (!(live >> (nt0 + i) & 1u)) continue;
+          double bk[4];
+          split_k4(bk, b[2 * i], b[2 * i + 1]);
+          double(&dt)[4] = d[2 * np + i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            dmma(dt[0], dt[1], top[j], bk[j]);
+            dmma(dt[2], dt[3], bottom[j], bk[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[4 * half + nt][e] = static_cast<float>(d[nt][e]) * scale + acc[4 * half + nt][e];
   }
 }
 
 // One warp's 16 x 64 score tile (rows row0 + [0, 16), columns col0 + [0,
 // 64)) set to its additive mask divided by `scale`, the value its product
 // accumulates onto, so that scale * acc is q.k * scale + mask (exactly so
-// for masks of 0 and -inf). Entries whose row or column lies at or past T
-// are -inf: a key past the end gets probability 0, and a row past the end
-// (a padded query, or in the dK/dV pass a padded key) is never written, so
-// a warp whose 16 rows all lie past T skips every tile. kTrans reads the
-// mask at [column][row] (the dK/dV pass, whose rows are keys); without
-// kMasked there is no mask (the kernels are built both ways, so that the
-// mask's loads cost the mask-free kernels no registers). Returns whether the
-// whole warp tile is -inf: its probabilities are all exactly 0, so the
+// for masks of 0 and -inf). Entries whose row lies at or past T, or whose
+// column lies at or past T or col_end (the forward's valid_T: keys past it
+// take no part), are -inf: a key past the end gets probability 0, and a row
+// past the end (a padded query, or in the dK/dV pass a padded key) is never
+// written, so a warp whose 16 rows all lie past T skips every tile. kTrans
+// reads the mask at [column][row] (the dK/dV pass, whose rows are keys);
+// without kMasked there is no mask (the kernels are built both ways, so that
+// the mask's loads cost the mask-free kernels no registers). Returns whether
+// the whole warp tile is -inf: its probabilities are all exactly 0, so the
 // caller may skip it.
 template <bool kTrans, bool kMasked>
 __device__ __forceinline__ bool mask_tile(float (&acc)[8][4], const float* __restrict__ mask,
-                                          int T, int row0, int col0, float inv_scale) {
+                                          int T, int row0, int col0, float inv_scale,
+                                          int col_end = INT_MAX) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -240,7 +354,7 @@ __device__ __forceinline__ bool mask_tile(float (&acc)[8][4], const float* __res
       const int row = row0 + g + 8 * (e >> 1);
       const int col = col0 + nt * 8 + 2 * t + (e & 1);
       float v = -CUDART_INF_F;
-      if (row < T && col < T) v = kMasked ? acc[nt][e] * inv_scale : 0.f;
+      if (row < T && col < T && col < col_end) v = kMasked ? acc[nt][e] * inv_scale : 0.f;
       acc[nt][e] = v;
       all_masked &= v == -CUDART_INF_F;
     }
@@ -263,8 +377,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 // row max (the same in the four lanes of a quad), l[r] this lane's running
 // sum of exp(s - m) over its own columns and, with kDp, d[r] this lane's
 // running sum of exp(s - m) * dp; the sums are rescaled when m moves. The
-// caller sums l and d over the quad at the end.
-template <bool kDp>
+// caller sums l and d over the quad at the end. kExactExp takes expf, as
+// PyTorch's softmax does, where the sum must match it to the last bits (the
+// forward); else the faster __expf.
+template <bool kDp, bool kExactExp = false>
 __device__ __forceinline__ void online_softmax(const float (&s)[8][4], const float (&dp)[8][4],
                                                float (&m)[2], float (&l)[2], float (&d)[2]) {
 #pragma unroll
@@ -274,14 +390,14 @@ __device__ __forceinline__ void online_softmax(const float (&s)[8][4], const flo
     for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
     mx = quad_max(mx);
     const float base = mx == -CUDART_INF_F ? 0.f : mx;  // a row with no finite score yet
-    const float alpha = __expf(m[r] - base);
+    const float alpha = kExactExp ? expf(m[r] - base) : __expf(m[r] - base);
     l[r] *= alpha;
     if (kDp) d[r] *= alpha;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
-        const float p = __expf(s[nt][e] - base);
+        const float p = kExactExp ? expf(s[nt][e] - base) : __expf(s[nt][e] - base);
         l[r] += p;
         if (kDp) d[r] = fmaf(p, dp[nt][e], d[r]);
       }

@@ -1,7 +1,7 @@
-// Device routines shared by the prototype kernels lnqkv_attention.cu (P1),
-// lnqkv_attention_bwd_dx.cu (P2) and attention_pair.cu (P3): one attention
-// head of width 64 held in shared memory, with its products on the tensor
-// cores (wmma 16x16x16, bf16 in, fp32 accumulate).
+// Device routines shared by the prototype kernels lnqkv_attention_bwd_dx.cu
+// (P2) and attention_pair.cu (P3): one attention head of width 64 held in
+// shared memory, with its products on the tensor cores (wmma 16x16x16, bf16
+// in, fp32 accumulate).
 //
 // Layout: a head's q, k and v (and g) live in shared memory as (Tp, kLd) bf16
 // rows, Tp = T rounded up to 16 (the wmma tile), rows at or past T zero or

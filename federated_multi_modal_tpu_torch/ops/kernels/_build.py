@@ -39,6 +39,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # qkv, mask, out, B, T, D, H, valid_T, scale, stream
     "fmm_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # the same, then the key tiles held in registers (forced), stream
+    "fmm_attention_core_forced": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # qkv, g, mask, stats scratch, dqkv, B, T, D, H, scale, stream
     "fmm_attention_core_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, q_stride, k_stride, v_stride, mask, out, B, T, D, H, head_dim,
@@ -58,8 +60,8 @@ _SIGNATURES = {
                                _I, _F, _P],
     # x, x_f32, out, rows, N, splits, rows_per_split, stream
     "fmm_column_sum": [_P, _I, _P, _L, _L, _I, _L, _P],
-    # x, W, bias, gamma, beta, out, B, T, D, H, scale, stream
-    "fmm_lnqkv_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, W, bias, gamma, beta, stats scratch, out, B, T, D, H, scale, stream
+    "fmm_lnqkv_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, W, bias, gamma, beta, dy, dxn scratch, dx, B, T, D, H, scale, stream
     "fmm_lnqkv_attention_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, out, B, T, D, H, valid_T, scale, stream
@@ -72,7 +74,8 @@ LAUNCHES = {name: 0 for name in _SIGNATURES}
 # Entry points that launch nothing: resident blocks per SM of a kernel as
 # built and its dynamic shared memory (an int naming the variant, an int for
 # masked or not, two int* for the answers).
-_OCCUPANCY = ("fmm_attention_split_blocks_per_sm", "fmm_attention_core_bwd_blocks_per_sm")
+_OCCUPANCY = ("fmm_attention_split_blocks_per_sm", "fmm_attention_core_bwd_blocks_per_sm",
+              "fmm_attention_core_blocks_per_sm", "fmm_lnqkv_attention_blocks_per_sm")
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process, or 0.0 if loaded as built
@@ -152,6 +155,8 @@ def library():
             fn = getattr(lib, name)
             fn.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
             fn.restype = ctypes.c_int
+        lib.fmm_attention_core_key_tiles.argtypes = [_I, _I]
+        lib.fmm_attention_core_key_tiles.restype = ctypes.c_int
         lib.fmm_error_string.argtypes = [ctypes.c_int]
         lib.fmm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -172,9 +177,11 @@ def launch(name: str, *args) -> None:
 
 def blocks_per_sm(name: str, variant: int, masked: bool) -> tuple:
     """``(resident blocks per SM, dynamic shared memory bytes)`` of one
-    kernel (``name`` in ``_OCCUPANCY``, ``variant`` its head width or pass,
-    built with a mask or without), from the CUDA occupancy calculator with
-    the registers and shared memory it was built with."""
+    kernel (``name`` in ``_OCCUPANCY``; ``variant`` its head width, its pass,
+    head width + 256 x key tiles held in registers for ``attention_core``, T
+    for ``lnqkv_attention``; built with a mask or without), from the CUDA
+    occupancy calculator with the registers and shared memory it was built
+    with."""
     lib = library()
     blocks, smem = _I(0), _I(0)
     err = getattr(lib, name)(variant, int(masked), ctypes.byref(blocks), ctypes.byref(smem))

@@ -24,11 +24,14 @@ Bound on the H100: memory. At the text shape of the MaPLe paths, qkv
 ~74 MB (~51 us), for ~0.6 and ~1.5 GFLOP on the mask's finite pairs. At the
 vision shape ``(512, 200, 2304)`` with 12 heads the forward moves ~629 MB
 (~0.19 ms) and the backward ~1.1 GB (~0.33 ms), for ~63 and ~157 GFLOP.
-The forward reads each head's q, k and v once into shared memory and keeps
-the scores there; the backward streams 64-row tiles through shared memory
-in three passes on the tensor cores (row statistics, dK and dV, dQ), with
-two fp32 ``(B, H, T)`` scratch vectors between them, so no score tensor
-reaches device memory; see the sources for what keeps them off their bounds.
+Both stream 64-row tiles through shared memory and run their products on
+the tensor cores with the scores in registers, so no score tensor reaches
+device memory: the forward in one pass over the key tiles (rows of up to 256
+keys at head widths up to 64) or two (statistics, then P.V), the backward in
+three (row statistics, dK and dV, dQ) with two fp32 ``(B, H, T)`` scratch
+vectors between them; see the sources for what keeps them off their bounds.
+The forward takes any T and any head width that is a multiple of 8 up to
+128; the backward any T at head width 64.
 """
 
 from __future__ import annotations
@@ -40,8 +43,7 @@ import torch
 
 from federated_multi_modal_tpu_torch.ops.kernels import _build
 
-HEAD_DIM = 64  # the only head width attention_core.cu is built for
-MAX_TOKENS = 512  # kMaxT in attention_core.cu: a head's q, k, v in shared memory
+HEAD_DIM = 64  # the only head width attention_core_bwd.cu is built for
 
 
 @contextlib.contextmanager
@@ -89,11 +91,11 @@ def attention_core_reference(qkv: torch.Tensor, n_head: int,
     return fused_attention_reference(q, k, v, n_head, mask)
 
 
-def attention_core_cuda(qkv: torch.Tensor, n_head: int,
-                        mask: torch.Tensor | None = None,
-                        valid_T: int | None = None) -> torch.Tensor:
-    """Launch ``attention_core.cu`` on a CUDA ``(B, T, 3D)`` bf16 tensor;
-    keys at or past ``valid_T`` (default T: none) get ``-inf``."""
+def _attention_core_args(qkv: torch.Tensor, n_head: int, mask: torch.Tensor | None,
+                         valid_T: int | None) -> tuple:
+    """The arguments of ``attention_core.cu``'s entry points after the
+    checks of what it takes: qkv, the fp32 mask or None, the output, B, T,
+    D, heads, valid_T and the scale."""
     B, T, D3 = qkv.shape
     D = D3 // 3
     if not qkv.is_cuda:
@@ -103,24 +105,50 @@ def attention_core_cuda(qkv: torch.Tensor, n_head: int,
         raise ValueError(
             f"attention_core takes contiguous 16-byte aligned bf16 qkv, got "
             f"{qkv.dtype}")
-    if D != n_head * HEAD_DIM:
+    hd = D // n_head
+    if D3 != 3 * D or D != n_head * hd or hd % 8 or hd > 128:
         raise ValueError(
-            f"attention_core is built for head width {HEAD_DIM}: D={D}, "
-            f"{n_head} heads")
-    if T > MAX_TOKENS:
-        raise ValueError(
-            f"attention_core holds at most {MAX_TOKENS} tokens per row in "
-            f"shared memory, got T={T}")
+            f"attention_core takes head widths that are multiples of 8 up to 128: "
+            f"D={D}, {n_head} heads")
+    valid_T = T if valid_T is None else valid_T
+    if not 1 <= valid_T <= T:
+        raise ValueError(f"valid_T must lie in [1, {T}], got {valid_T}")
     if mask is not None:
         if mask.shape != (T, T) or mask.device != qkv.device:
             raise ValueError(f"mask must be ({T}, {T}) on {qkv.device}")
         mask = mask.to(torch.float32).contiguous()
     out = torch.empty(B, T, D, dtype=qkv.dtype, device=qkv.device)
-    _build.launch(
-        "fmm_attention_core", qkv.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        B, T, D, n_head, T if valid_T is None else valid_T, 1.0 / math.sqrt(HEAD_DIM),
-    )
+    return (qkv.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
+            B, T, D, n_head, valid_T, 1.0 / math.sqrt(hd)), out
+
+
+def attention_core_cuda(qkv: torch.Tensor, n_head: int,
+                        mask: torch.Tensor | None = None,
+                        valid_T: int | None = None) -> torch.Tensor:
+    """Launch ``attention_core.cu`` on a CUDA ``(B, T, 3D)`` bf16 tensor,
+    any T, head widths that are multiples of 8 up to 128; keys at or past
+    ``valid_T`` (default T: none) get ``-inf``. The kernel chooses one pass
+    over the key tiles or two (:func:`attention_core_key_tiles`)."""
+    args, out = _attention_core_args(qkv, n_head, mask, valid_T)
+    _build.launch("fmm_attention_core", *args)
+    return out
+
+
+def attention_core_key_tiles(head_dim: int, valid_T: int) -> int:
+    """The key tiles ``attention_core.cu`` holds in registers at this head
+    width and ``valid_T``, as the kernel chooses: 2 or 4 (one pass over the
+    key tiles), 0 (two passes). Launches nothing."""
+    return _build.library().fmm_attention_core_key_tiles(head_dim, valid_T)
+
+
+def _attention_core_cuda_forced(qkv: torch.Tensor, n_head: int, key_tiles: int,
+                                mask: torch.Tensor | None = None,
+                                valid_T: int | None = None) -> torch.Tensor:
+    """:func:`attention_core_cuda` with the kernel's variant forced, for
+    tests and timings only: ``key_tiles`` 0 takes two passes, 2 or 4 one
+    pass (head widths up to 64, ``valid_T`` up to 64 ``key_tiles``)."""
+    args, out = _attention_core_args(qkv, n_head, mask, valid_T)
+    _build.launch("fmm_attention_core_forced", *args, key_tiles)
     return out
 
 

@@ -4,7 +4,8 @@ never call.
 
 * P1 :func:`fused_lnqkv_attention` (``fused_lnqkv_attention``,
   ``pallas_call`` at :110): LN1 -> QKV product -> attention in one kernel,
-  QKV never in device memory (``csrc/lnqkv_attention.cu``);
+  QKV never in device memory, both on the tensor cores
+  (``csrc/lnqkv_attention.cu``, after a small launch for the LN moments);
 * P2 :func:`fused_lnqkv_attention_bwd_dx` (``fused_lnqkv_attention_bwd_dx``,
   :207): dx of P1, recomputed from x alone (``csrc/lnqkv_attention_bwd_dx.cu``);
   :class:`FusedLnQkvAttention` is P1 forward and P2 backward, the
@@ -41,8 +42,9 @@ from federated_multi_modal_tpu_torch.ops.kernels.fused_block import (
     ln_attention_forward,
 )
 
-# The longest T each kernel holds in shared memory (kMaxT in its source).
-MAX_TOKENS_LNQKV = 240
+# The longest T each kernel takes (kMaxT in its source): P1's 16 warps of 16
+# query rows; P2's and P3's heads in shared memory.
+MAX_TOKENS_LNQKV = 256
 MAX_TOKENS_LNQKV_BWD = 208
 MAX_TOKENS_PAIR = 240
 
@@ -98,15 +100,17 @@ def fused_lnqkv_attention_reference(x, lnp, w, b, n_head: int, GB: int = 4):
 
 
 def fused_lnqkv_attention_cuda(x, lnp, w, b, n_head: int):
-    """Launch ``lnqkv_attention.cu`` on a CUDA bf16 ``x (B, T, D)``."""
+    """Launch ``lnqkv_attention.cu`` on a CUDA bf16 ``x (B, T, D)``, with an
+    fp32 ``(B, T, 2)`` scratch for the LN moments of each row."""
     B, T, D = x.shape
     _check_cuda("fused_lnqkv_attention x", x, (B, T, D))
     _check_width("fused_lnqkv_attention", D, n_head, T, MAX_TOKENS_LNQKV)
     w, b, gamma, beta = _ln_qkv_operands(x, lnp, w, b)
+    stats = torch.empty(B, T, 2, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     _build.launch("fmm_lnqkv_attention", x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                  gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), B, T, D, n_head,
-                  1.0 / math.sqrt(HEAD_DIM))
+                  gamma.data_ptr(), beta.data_ptr(), stats.data_ptr(), out.data_ptr(), B, T, D,
+                  n_head, 1.0 / math.sqrt(HEAD_DIM))
     return out
 
 

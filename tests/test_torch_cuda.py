@@ -41,19 +41,114 @@ def _assert_close(got, ref, tol):
     assert bool((d <= tol + tol * ref.float().abs()).all()), float(d.max())
 
 
+def _within_share_of_max(got, ref, share):
+    """max |got - ref| <= share * max |ref|."""
+    d = (got.float() - ref.float()).abs()
+    return float(d.max()) <= share * float(ref.float().abs().max())
+
+
+def _forward_mask(gen, T, masked):
+    """The mask a forward case runs under: causal at T = 77 (zero-shot's
+    rows), block-causal at T = 120 (five packed 24-token prompts, MaPLe's
+    text rows), else a random fifth of the keys at -inf (the diagonal kept);
+    None when not masked."""
+    if not masked:
+        return None
+    if T == 77:
+        return torch.triu(torch.full((T, T), float("-inf"), device="cuda"), diagonal=1)
+    if T == 120:
+        return build_block_causal_mask(5, 24, device="cuda")
+    mask = torch.where(torch.rand(T, T, generator=gen, device="cuda") < 0.2,
+                       float("-inf"), 0.0)
+    mask.fill_diagonal_(0.0)
+    return mask
+
+
 @pytest.mark.parametrize("masked", [True, False])
-@pytest.mark.parametrize("T", [1, 30, 200, 512])
+@pytest.mark.parametrize("T", [1, 30, 200, 512, 77, 120, 257, 600, 1030])
 def test_attention_core(gen, T, masked):
-    B, H = 3, 2
+    """The forward against its plain version at 2**-6, at T within one
+    64-key tile, over ragged last tiles, one pass (T <= 256) and two, and
+    past the 512 tokens the earlier kernel held in shared memory.
+
+    From T = 257 on, the outputs fall toward the absolute part of that
+    limit, so the output is also held to 2**-6 of its own largest value,
+    and a planted fault must fail that check: the kernel with the last key
+    tile's contribution dropped (``valid_T`` at the tile's first key)."""
+    B, H = 2 if T > 512 else 3, 2
     qkv = _randn(gen, B, T, 3 * H * 64)
-    mask = None
-    if masked:
-        mask = torch.where(torch.rand(T, T, generator=gen, device="cuda") < 0.2,
-                           float("-inf"), 0.0)
-        mask.fill_diagonal_(0.0)
+    mask = _forward_mask(gen, T, masked)
+    got = k_attn.attention_core_cuda(qkv, H, mask)
+    torch.cuda.synchronize()
+    ref = k_attn.attention_core_reference(qkv, H, mask)
+    _assert_close(got, ref, 2 ** -6)
+    if T >= 257:
+        assert _within_share_of_max(got, ref, 2 ** -6)
+        fault = k_attn.attention_core_cuda(qkv, H, mask, valid_T=(T - 1) // 64 * 64)
+        assert not _within_share_of_max(fault, ref, 2 ** -6)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,valid_T", [(208, 200), (256, 200), (600, 577), (130, 1)])
+def test_attention_core_valid_T(gen, T, valid_T, masked):
+    """Keys at or past ``valid_T`` take no part (the microbench's pad208 and
+    pad256 lines): every row, padded queries too, equals the plain version
+    with those keys masked."""
+    B, H = 2, 2
+    qkv = _randn(gen, B, T, 3 * H * 64)
+    mask = _forward_mask(gen, T, masked)
+    if mask is not None:
+        mask[:, 0] = 0.0  # every row keeps a key below valid_T
+    cut = torch.zeros(T, T, device="cuda")
+    cut[:, valid_T:] = float("-inf")
+    got = k_attn.attention_core_cuda(qkv, H, mask, valid_T=valid_T)
+    torch.cuda.synchronize()
+    ref = k_attn.attention_core_reference(qkv, H, cut if mask is None else mask + cut)
+    _assert_close(got, ref, 2 ** -6)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_attention_core_every_head_width(gen, hd, masked):
+    """Every head width the forward takes (multiples of 8 up to 128, as the
+    routing admits), at T = 200: one pass up to 64, two passes above."""
+    B, T, H = 2, 200, 2
+    qkv = _randn(gen, B, T, 3 * H * hd)
+    mask = torch.triu(torch.full((T, T), float("-inf"), device="cuda"), 1) if masked else None
     got = k_attn.attention_core_cuda(qkv, H, mask)
     torch.cuda.synchronize()
     _assert_close(got, k_attn.attention_core_reference(qkv, H, mask), 2 ** -6)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("hd,T", [(32, 77), (32, 600), (128, 120), (128, 600)])
+def test_attention_core_head_widths_32_128(gen, hd, T, masked):
+    """Head widths 32 and 128 (four heads of 32, two of 128: whole 128-lane
+    groups, as the JAX kernels pack them) at short and long T."""
+    B, H = 2, 4 if hd == 32 else 2
+    qkv = _randn(gen, B, T, 3 * H * hd)
+    mask = _forward_mask(gen, T, masked)
+    got = k_attn.attention_core_cuda(qkv, H, mask)
+    torch.cuda.synchronize()
+    _assert_close(got, k_attn.attention_core_reference(qkv, H, mask), 2 ** -6)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T", [40, 120, 200, 256])
+def test_attention_core_one_pass_and_two(gen, T, masked):
+    """Every variant of the kernel that takes the row, forced: one pass with
+    2 or 4 key tiles in registers, and two passes, each against the plain
+    version (the timing in chip_smoke.py compares them); and the variant
+    the kernel chooses is one pass."""
+    B, H = 3, 2
+    qkv = _randn(gen, B, T, 3 * H * 64)
+    mask = _forward_mask(gen, T, masked)
+    ref = k_attn.attention_core_reference(qkv, H, mask)
+    assert k_attn.attention_core_key_tiles(64, T) == (2 if T <= 128 else 4)
+    for key_tiles in ((2, 4, 0) if T <= 128 else (4, 0)):
+        got = k_attn._attention_core_cuda_forced(qkv, H, key_tiles, mask)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, 2 ** -6)
 
 
 def test_packed_attention_masked_counts_launches(gen):
@@ -340,7 +435,17 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError):
         k_attn.attention_core_cuda(_randn(gen, 1, 8, 384, dtype=torch.float32), 2)
     with pytest.raises(ValueError):
-        k_attn.attention_core_cuda(_randn(gen, 1, 513, 384), 2)
+        k_attn.attention_core_cuda(_randn(gen, 1, 8, 3 * 2 * 12), 2)  # head width 12
+    with pytest.raises(ValueError):
+        k_attn.attention_core_cuda(_randn(gen, 1, 8, 3 * 2 * 136), 2)  # head width 136
+    assert k_attn.attention_core_key_tiles(64, 300) == 0  # two passes past 256 keys
+    assert k_attn.attention_core_key_tiles(128, 200) == 0  # and past head width 64
+    with pytest.raises(RuntimeError):  # one pass forced past 256 keys
+        k_attn._attention_core_cuda_forced(_randn(gen, 1, 300, 384), 2, 4)
+    with pytest.raises(RuntimeError):  # two key tiles forced at 129 keys
+        k_attn._attention_core_cuda_forced(_randn(gen, 1, 129, 384), 2, 2)
+    with pytest.raises(ValueError):
+        k_attn.attention_core_cuda(_randn(gen, 1, 8, 384), 2, valid_T=9)
     with pytest.raises(ValueError):
         k_block.gemm_epilogue_cuda(_randn(gen, 4, 12), _randn(gen, 12, 8))
     with pytest.raises(ValueError):
@@ -578,23 +683,32 @@ def _lnqkv_params(gen, D):
     return lnp, _randn(gen, D, 3 * D, scale=D ** -0.5), _randn(gen, 3 * D, scale=0.1)
 
 
-@pytest.mark.parametrize("B,T,D", [(4, 16, 128), (4, 32, 128), (4, 48, 128), (2, 200, 768)])
+@pytest.mark.parametrize("B,T,D", [(4, 16, 128), (4, 32, 128), (4, 48, 128), (2, 200, 768),
+                                   (4, 40, 128), (2, 197, 768), (2, 256, 768)])
 def test_fused_lnqkv_attention_prototypes(gen, B, T, D):
     """P1 (forward) and P2 (dx) against their plain versions, at K7's limits:
-    the output at 2**-5, dx at 2**-5 of its largest value; through
+    the output at 2**-5 (against K7's plain forward, which P1's plain
+    version returns), dx at 2**-5 of its largest value; through
     ``make_fused_lnqkv_attention_fb`` one launch of each is counted. T = 32
     and 48 run two and three warps over fewer than 64 padded tokens, where
-    a warp's 16 x 64 output tile is larger than its score tile."""
+    a warp's 16 x 64 output tile is larger than its score tile. T = 40 and
+    197 are off P1's 32-row GEMM groups and 64-key tiles; 197 is off the
+    TPU prototype's multiple of 8 and 256, P1's largest, past P2's 208, so
+    there P1 is held alone."""
     from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
 
     H = D // 64
     lnp, w, b = _lnqkv_params(gen, D)
     x = _randn(gen, B, T, D)
-    dy = _randn(gen, B, T, D)
     got = k_proto.fused_lnqkv_attention_cuda(x, lnp, w, b, H)
+    torch.cuda.synchronize()
+    ref = k_block.ln_attention_forward(x, lnp, w, b, H, k_block.PLAIN_STEPS)
+    _assert_close(got, ref, 2 ** -5)
+    if T % 8 or T > k_proto.MAX_TOKENS_LNQKV_BWD:
+        return
+    dy = _randn(gen, B, T, D)
     dx = k_proto.fused_lnqkv_attention_bwd_dx_cuda(x, lnp, w, b, dy, H)
     torch.cuda.synchronize()
-    _assert_close(got, k_proto.fused_lnqkv_attention_reference(x, lnp, w, b, H, GB=2), 2 ** -5)
     ref_dx = k_proto.fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, H, GB=2)
     d = (dx.float() - ref_dx.float()).abs()
     assert float(d.max()) <= 2 ** -5 * float(ref_dx.float().abs().max()), float(d.max())

@@ -358,6 +358,38 @@ def test_packed_attention_matches_jax(T, dtype):
     assert max(errs.values()) < TOL_K2[dtype], errs
 
 
+# The forward at the shapes the tensor-core attention_core.cu opened on the
+# card: T past its earlier 512-token cap, and head widths 32 and 128 (four
+# heads of 32, one or two of 128, so that the heads fill whole 128-lane
+# groups as the JAX kernels' ``_packed_hp`` requires). The card holds the
+# kernel to attention_core_reference; here that plain version is held to
+# ``attention_packed_fwd`` and ``attention_packed_fwd_masked`` in interpret
+# mode, as max |error| over max |value|, at TOL_K2: fp32 reads at most
+# 9.9e-7 (sums in another order), bf16 1.2e-3 (p rounded at the same point,
+# a flipped rounding where the fp32 softmax differs in its last bits). T =
+# 517 is off the multiple of 8, so the JAX kernel pads the tokens and masks
+# the keys.
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
+@pytest.mark.parametrize("T,n_head,hd,dtype", [
+    (520, 4, 32, "float32"), (517, 2, 128, "float32"), (520, 1, 128, "bfloat16"),
+    (517, 4, 32, "bfloat16")])
+def test_attention_core_reference_matches_jax_past_the_old_limits(T, n_head, hd, dtype, masked):
+    rng = np.random.default_rng(T + hd)
+    qkv = rng.standard_normal((1, T, 3 * n_head * hd)).astype(np.float32)
+    if dtype == "bfloat16":
+        qkv = _bf16(qkv)
+    if masked:
+        mask = np.triu(np.full((T, T), -np.inf, np.float32), k=1)
+        ref = jax_attn.attention_packed_fwd_masked(jnp.asarray(qkv), jnp.asarray(mask), n_head)
+        got = port_attn.attention_core_reference(_to_torch(qkv), n_head, torch.from_numpy(mask))
+    else:
+        ref = jax_attn.attention_packed_fwd(jnp.asarray(qkv), n_head)
+        got = port_attn.attention_core_reference(_to_torch(qkv), n_head)
+    assert got.shape == (1, T, n_head * hd)
+    err = _rel_err(got, ref)
+    assert err < TOL_K2[dtype], err
+
+
 # K6a and K6b, the two-kernel eval block, at D=128, 2 heads, hidden 512, as
 # max |error| over max |value|: fp32 reads at most 2.3e-7. In bf16 both
 # round qkv, the attention output, LN2's output and the hidden activation
