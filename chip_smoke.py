@@ -60,7 +60,9 @@ What it does, in order (any failure raises and exits non-zero):
    seeded unit-scale ones, with a planted fault per limit; 16-image logits
    and a whole 16-image step against the plain path under the same gate;
    K2 and K2b timed beside SDPA, K2 also with one pass and two forced and
-   beside ``attention_split.cu`` on the column views of the same qkv;
+   beside ``attention_split.cu`` on the column views of the same qkv; the
+   attention backward at head widths 32 and 128 on seeded qkv of K2b's
+   shape against its plain version, with a planted fault, timed beside K2b;
 10. the two-kernel eval block (``FMM_TPU_FUSED_BLOCK=0``): eval on 512
    images (K6a and K6b 12 each, no K5), K6a and K6b against their plain
    versions on block 0's inputs and on seeded ones, planted faults,
@@ -94,13 +96,17 @@ What it does, in order (any failure raises and exits non-zero):
    before and read just after (P1, P2 and P3 launched, no plain version
    called, no ``FAILED`` line); P1, P2 and P3 against their plain versions
    on the microbench's shapes with ViT-B/16 block 0's ``ln_1`` and QKV
-   weights (P2 with the microbench's cotangent and a seeded unit one), a
-   planted fault per limit, P1 against K7 and P3 against K2 printed, and
-   times beside their bounds and library yardsticks;
+   weights (P2 with the microbench's cotangent and a seeded unit one, bit
+   for bit on repeat; P3 also at head widths 32 and 128), P2's wgmma GEMM
+   against its plain version, a planted fault per limit and per P2 stage,
+   P1 against K7 and P3 against K2 printed, and times beside their bounds
+   and library yardsticks (P2 by stage, P3 by head width);
 17. prints, for the tensor-core attention kernels (``attention_core.cu``,
-   ``attention_split.cu``, ``attention_core_bwd.cu``, ``lnqkv_attention.cu``)
-   at the shapes the phases gave them, their registers, spills, shared
-   memory, resident blocks per SM and waves;
+   ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
+   phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
+   ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``) and P2's
+   ``gemm_wgmma.cu`` at the shapes the phases gave them, their registers,
+   spills, shared memory, resident blocks per SM and waves;
 18. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --step-sweep N`` instead prints the whole-step
@@ -360,16 +366,20 @@ def forward_variant_ms(qkv, n_head: int, mask, key_tiles: tuple) -> dict:
 
 
 def attention_resources(build_log: str, rows: list) -> dict:
-    """The tensor-core attention kernels at the shapes this run's phases gave
-    them (the rows of ``attention_core.cu``, ``attention_split.cu``,
-    ``attention_core_bwd.cu`` and ``lnqkv_attention.cu`` in ``rows``): for
-    each kernel a shape launches, its registers and spills as ``ptxas -v``
+    """The tensor-core attention kernels and P2's GEMM at the shapes this
+    run's phases gave them (the rows of ``attention_core.cu``,
+    ``attention_split.cu``, ``attention_core_bwd.cu`` (with its head-width
+    line), ``lnqkv_attention.cu``, ``lnqkv_attention_bwd_dx.cu`` (and
+    ``gemm_wgmma.cu``) and ``attention_pair.cu`` in ``rows``): for each
+    kernel a shape launches, its registers and spills as ``ptxas -v``
     printed them in this build, its dynamic shared memory and resident
     blocks per SM from the CUDA occupancy calculator, and the waves its grid
     takes on this card's SMs (one block per 64-row tile, head and batch row;
-    one per head and batch row for ``lnqkv_attention``). Printed and kept in
-    the summary; none of it is a measured time, so none of it goes into the
-    kernels line."""
+    one per head and batch row for ``lnqkv_attention`` and P2's attention
+    stage; one per 64-row tile, 128-lane head group and batch row for
+    ``attention_pair``; one per 128 x 128 tile of the GEMM's output).
+    Printed and kept in the summary; none of it is a measured time, so none
+    of it goes into the kernels line."""
     import re
 
     import torch
@@ -380,11 +390,13 @@ def attention_resources(build_log: str, rows: list) -> dict:
     ptxas, entry = {}, None  # (kernel name, template arguments): registers, spills
     for line in build_log.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"(attention_core_bwd_[a-z]+|attention_split|attention_core)"
-                          r"_kernelI((?:L[ib]\d+E)+)E", line)
+            m = re.search(r"(attention_core_bwd_[a-z]+|attention_split|attention_core|"
+                          r"attention_pair)_kernelI((?:L[ib]\d+E)+)E", line)
             entry = m and (m[1], tuple(int(v) for v in re.findall(r"L[ib](\d+)E", m[2])))
-            if not m and "lnqkv_attention_kernel" in line:
-                entry = ("lnqkv_attention", ())
+            for plain in ("lnqkv_attention_bwd", "lnqkv_attention", "gemm_nt_f32"):
+                if not m and f"{plain}_kernel" in line:
+                    entry = (plain, ())
+                    break
             continue
         if not entry:
             continue
@@ -428,18 +440,42 @@ def attention_resources(build_log: str, rows: list) -> dict:
                         ("attention_split", (hd, int(masked))),
                         "fmm_attention_split_blocks_per_sm", hd)})
         elif source == "attention_core_bwd.cu":
-            # [qkv shape, mask shape, heads] (K1b) or [qkv shape, heads] (K2b)
-            (B, T, _), H, masked = row["shape"][0], row["shape"][-1], len(row["shape"]) == 3
-            shapes[f"{row['name']} {[B, T]}, {H} heads"] = (tiles(B, T, H), masked, {
-                f"attention_core_bwd {p}": (
-                    (f"attention_core_bwd_{p}", (int(masked),)),
-                    "fmm_attention_core_bwd_blocks_per_sm", i)
-                for i, p in enumerate(("stats", "dkdv", "dq"), start=1)})
+            # [qkv shape, mask shape, heads] (K1b) or [qkv shape, heads] (K2b),
+            # and K2b's head-width line ([qkv shape, heads] each)
+            # (K7's row gives x's shape and its head width)
+            for shape in [row["shape"]] + row.get("by_head_width", {}).get("shapes", []):
+                (B, T, D3), H, masked = shape[0], shape[-1], len(shape) == 3
+                hd = (row["head_dim"] if shape is row["shape"] and "head_dim" in row
+                      else D3 // 3 // H)
+                shapes[f"{row['name']} {[B, T]}, {H} heads of {hd}"] = (tiles(B, T, H), masked, {
+                    f"attention_core_bwd<{hd}> {p}": (
+                        (f"attention_core_bwd_{p}", (hd, int(masked))),
+                        "fmm_attention_core_bwd_blocks_per_sm", hd + 256 * i)
+                    for i, p in enumerate(("stats", "dkdv", "dq"), start=1)})
         elif source == "lnqkv_attention.cu":
             (B, T, _), H = row["shape"]
             shapes[f"{row['name']} {[B, T]}, {H} heads"] = (B * H, False, {
                 "lnqkv_attention": (("lnqkv_attention", ()),
                                     "fmm_lnqkv_attention_blocks_per_sm", T)})
+        elif source == "lnqkv_attention_bwd_dx.cu":
+            (B, T, D), H = row["shape"]
+            shapes[f"{row['name']} {[B, T]}, {H} heads"] = (B * H, False, {
+                "lnqkv_attention_bwd": (("lnqkv_attention_bwd", ()),
+                                        "fmm_lnqkv_attention_bwd_dqkv_blocks_per_sm", T)})
+            shapes[f"{row['name']} GEMM {[B * T, D, 3 * D]}"] = (
+                -(-B * T // 128) * -(-D // 128), False, {
+                    "gemm_nt_f32": (("gemm_nt_f32", ()), "fmm_gemm_nt_f32_blocks_per_sm", 0)})
+        elif source == "attention_pair.cu":
+            # [qkv shape, heads], and the head-width checks' shapes
+            for (B, T, D3), H in [row["shape"]] + row.get("head_width_shapes", []):
+                hd = D3 // 3 // H
+                kt = row["key_tiles"][str(hd)]
+                shapes[f"{row['name']} {[B, T]}, {H} heads of {hd}"] = (
+                    -(-T // ATTN_TILE) * (D3 // 3 // 128) * B, False, {
+                        f"attention_pair<{hd}>, " + (f"one pass, {kt} key tiles" if kt
+                                                     else "two passes"): (
+                            ("attention_pair", (hd, kt)), "fmm_attention_pair_blocks_per_sm",
+                            hd + 256 * kt)})
     out = {}
     for label, (blocks, masked, kernels) in shapes.items():
         rec = {"masked": masked, "blocks": blocks}
@@ -1394,11 +1430,54 @@ def eval_images_per_s(prog, canvas, boxes, flips, prep, label: str) -> dict:
     return {"eval_apply_ms": ms, "eval_images_per_s": BATCH / ms * 1e3}
 
 
+def backward_head_widths(qkv, g, n_head: int, k2b_ms: float) -> tuple:
+    """The attention backward (``attention_core_bwd.cu``) at head widths 32
+    and 128 on seeded unit-scale qkv and g of K2b's shape (the vision rows:
+    24 heads of 32, 6 of 128): each against its plain version at
+    ``TOL_K1B`` of its largest value, the planted fault (the last rows of
+    d(QKV) unwritten) that must fail that, and its time beside width 64's
+    (K2b on the main path's own inputs, ``k2b_ms``). Returns ``(checks,
+    summary)``; the summary's ``shapes`` feed ``attention_resources``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+
+    B, T, D3 = qkv.shape
+    D = D3 // 3
+    gen = torch.Generator(device=qkv.device).manual_seed(42)
+    summary = {"ms": {str(D // n_head): k2b_ms}, "shapes": [], "max_err_over_tol": {},
+               "planted_fault_err_over_tol": {}}
+    checks = []
+    for hd in (32, 128):
+        h = D // hd
+        q = torch.randn(qkv.shape, generator=gen, device=qkv.device).to(torch.bfloat16)
+        gg = torch.randn(g.shape, generator=gen, device=qkv.device).to(torch.bfloat16)
+        ref = k_attn.attention_core_bwd_reference(q, gg, h)
+        cmp = compare_scaled(k_attn.attention_core_bwd_cuda(q, gg, h), ref, TOL_K1B)
+        fault = compare_scaled(fault_attention_bwd_tail(k_attn.attention_core_bwd_cuda)(q, gg, h),
+                               ref, TOL_K1B)
+        del ref
+        summary["ms"][str(hd)] = cuda_ms(lambda: k_attn.attention_core_bwd_cuda(q, gg, h), 10)
+        summary["shapes"].append([[B, T, D3], h])
+        summary["max_err_over_tol"][str(hd)] = cmp["max_err_over_tol"]
+        summary["planted_fault_err_over_tol"][str(hd)] = fault["max_err_over_tol"]
+        checks += [(f"attention backward, head width {hd}", cmp),
+                   (f"attention backward, head width {hd}, planted fault caught",
+                    {"ok": not fault["ok"]})]
+        del q, gg
+        torch.cuda.empty_cache()
+    print(f"attention backward by head width at {[B, T, D3]} (ms; err/tol; planted fault "
+          f"err/tol):", json.dumps({k: summary[k] for k in
+                                    ("ms", "max_err_over_tol", "planted_fault_err_over_tol")}))
+    return checks, summary
+
+
 def unfused_phase(prog, canvas, boxes, flips) -> tuple:
     """``FMM_TPU_FUSED=0``: eval and the train step with every vision block
     on the plain block and K2 (K2b in the backward); K2 and K2b against
     their plain versions, the 16-image logits and step against the plain
-    path, and the timings. Returns ``(rows, checks, summary)``."""
+    path, the timings, and the backward at head widths 32 and 128
+    (:func:`backward_head_widths`). Returns ``(rows, checks, summary)``."""
     import torch
 
     from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
@@ -1498,6 +1577,8 @@ def unfused_phase(prog, canvas, boxes, flips) -> tuple:
           f"{sdpa_f_ms:.4f} ms, bound {k2_bound[0]:.4f} ms; packed_attention_bwd: "
           f"{k2b_ms:.4f} ms, plain {k2b_plain_ms:.4f} ms, SDPA backward "
           f"{sdpa_fb_ms - sdpa_f_ms:.4f} ms, bound {k2b_bound[0]:.4f} ms")
+    width_checks, by_width = backward_head_widths(qkv, g, n, k2b_ms)
+    checks += width_checks
     common = {"route": "cuda", "shape": [list(qkv.shape), n]}
     rows = [
         dict(common, name="packed_attention",
@@ -1520,7 +1601,8 @@ def unfused_phase(prog, canvas, boxes, flips) -> tuple:
              ms=k2b_ms, plain_ms=k2b_plain_ms, bound_ms=k2b_bound[0], bound_by=k2b_bound[1],
              library_ms=sdpa_fb_ms - sdpa_f_ms,
              library_call="torch.nn.functional.scaled_dot_product_attention (no mask), "
-                          "forward + backward minus forward"),
+                          "forward + backward minus forward",
+             by_head_width=by_width),
     ]
     return rows, checks, summary
 
@@ -1793,7 +1875,8 @@ def sublayer_train_phase(prog, canvas) -> tuple:
         "replaces": "federated_multi_modal_tpu/ops/pallas/fused_block.py:324",
         "tpu_function": "fused_ln_attention_fwd (:324) and fused_ln_attention_bwd (:359), "
                         "behind fused_ln_attention",
-        "shape": [list(x.shape), n], "launches": counts["K7 fused_ln_attention"],
+        "shape": [list(x.shape), n], "head_dim": D // n,
+        "launches": counts["K7 fused_ln_attention"],
         "backward_launches": counts["K7 fused_ln_attention (backward)"],
         "max_abs_err": worst["max_abs_err"], "max_err_over_tol": worst["max_err_over_tol"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
@@ -2357,6 +2440,21 @@ def fault_rows_dropped(fn):
     return faulty
 
 
+def fault_gemm_input(gemm, D: int, which: str):
+    """P2's GEMM given a d(QKV) with head 0's q, k and v columns zeroed
+    (``"head0"``: the attention stage left them unwritten) or its last 64
+    columns zeroed (``"ktile"``: the wgmma ring dropped its last K tile)."""
+    def faulty(a, w):
+        a = a.clone()
+        if which == "head0":
+            for part in range(3):
+                a[:, part * D:part * D + 64] = 0
+        else:
+            a[:, -64:] = 0
+        return gemm(a, w)
+    return faulty
+
+
 def swap_head0_qk(t, D: int):
     """``t`` with head 0's q and k columns (the last axis of a packed QKV
     tensor, or of ``w_qkv`` and ``b_qkv``; heads of 64) swapped."""
@@ -2428,7 +2526,8 @@ def prototype_phase(lnp, w, b, device) -> tuple:
     check_counts(counts, {
         "P3 packed4d_attention": 4 * iters, "fmm_attention_pair": 4 * iters,
         "P1 fused_lnqkv_attention": 6 * iters + 1, "fmm_lnqkv_attention": 6 * iters + 1,
-        "P2 fused_lnqkv_attention_bwd_dx": 2 * iters, "fmm_lnqkv_attention_bwd_dx": 2 * iters},
+        "P2 fused_lnqkv_attention_bwd_dx": 2 * iters,
+        "fmm_lnqkv_attention_bwd_dqkv": 2 * iters, "fmm_gemm_nt_f32": 2 * iters},
         "microbench drive")
     checks = [("microbench drive, no FAILED line", {"ok": not failed, "failed": failed}),
               ("microbench drive, no plain version", {"ok": not plain_calls,
@@ -2444,9 +2543,9 @@ def prototype_phase(lnp, w, b, device) -> tuple:
                               k_proto.fused_lnqkv_attention_bwd_dx_reference(
                                   x, lnp, w, b, dy, n), tol)
 
-    def p3_check(tpad, qkv=qkv):
-        return compare(k_proto.packed4d_attention(qkv, n, tpad),
-                       k_proto.packed4d_attention_reference(qkv, n, tpad), TOL_K1)
+    def p3_check(tpad, qkv=qkv, heads=n):
+        return compare(k_proto.packed4d_attention(qkv, heads, tpad),
+                       k_proto.packed4d_attention_reference(qkv, heads, tpad), TOL_K1)
 
     # q > 0 > k: every real key scores far below zero, so the padded keys'
     # zero scores would take the softmax if their mask were dropped
@@ -2461,7 +2560,9 @@ def prototype_phase(lnp, w, b, device) -> tuple:
             "P2 dx, the microbench's cotangent": p2_check(y),
             "P2 dx, seeded unit cotangent": p2_check(dy_unit),
             "P3 tpad 8": p3_check(8), "P3 tpad 16": p3_check(16),
-            "P3 tpad 16, negative scores": p3_check(16, qkv_neg)}
+            "P3 tpad 16, negative scores": p3_check(16, qkv_neg),
+            "P3 heads of 32": p3_check(8, heads=D // 32),
+            "P3 heads of 128": p3_check(8, heads=D // 128)}
     dx_again = k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy_unit, n)
     cmps["P2 repeats bit for bit"] = {"ok": bool(torch.equal(
         dx_again, k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy_unit, n)))}
@@ -2481,6 +2582,12 @@ def prototype_phase(lnp, w, b, device) -> tuple:
             k_proto.fused_lnqkv_attention_bwd_dx_cuda)):
         faults["P2 dx (microbench cotangent), last rows dropped"] = p2_check(y)
         faults["P2 dx (unit cotangent), last rows dropped"] = p2_check(dy_unit)
+    # one per new stage: the attention stage leaves head 0's d(QKV) zero; the
+    # GEMM's ring drops its last 64-deep K tile (v's last head)
+    with patched(k_proto, gemm_nt_f32_cuda=fault_gemm_input(k_proto.gemm_nt_f32_cuda, D, "head0")):
+        faults["P2 dx (unit cotangent), head 0's d(QKV) zeroed"] = p2_check(dy_unit)
+    with patched(k_proto, gemm_nt_f32_cuda=fault_gemm_input(k_proto.gemm_nt_f32_cuda, D, "ktile")):
+        faults["P2 dx (unit cotangent), the GEMM's last K tile dropped"] = p2_check(dy_unit)
     qkv_swapped = swap_head0_qk(qkv, D)
     faults["P3 tpad 8, head 0's q and k swapped"] = compare(
         k_proto.packed4d_attention(qkv_swapped, n, 8),
@@ -2514,6 +2621,30 @@ def prototype_phase(lnp, w, b, device) -> tuple:
         xr = x.detach().requires_grad_(True)
         torch.autograd.grad(library_fwd(xr), xr, dy_unit)
 
+    # P2's stages apart: its GEMM at P2's shape on seeded operands against its
+    # plain version (fp32 sums in another order, 2**-14 of the largest value)
+    # and timed beside torch.matmul's bf16 product; the LayerNorm backward
+    # without parameter gradients timed
+    from federated_multi_modal_tpu_torch.ops.kernels import gemm as k_gemm
+
+    M = B * T
+    a_g, w_g = randn(M, 3 * D), w.to(torch.bfloat16).contiguous()
+    cmps["P2's GEMM (wgmma) vs plain"] = compare_scaled(
+        k_gemm.gemm_nt_f32_cuda(a_g, w_g), k_gemm.gemm_nt_f32_reference(a_g, w_g), 2.0 ** -14)
+    cmps["P2's GEMM repeats bit for bit"] = {"ok": bool(torch.equal(
+        k_gemm.gemm_nt_f32_cuda(a_g, w_g), k_gemm.gemm_nt_f32_cuda(a_g, w_g)))}
+    print("P2's GEMM vs plain:", json.dumps(cmps["P2's GEMM (wgmma) vs plain"]))
+    checks += [(k, cmps[k])
+               for k in ("P2's GEMM (wgmma) vs plain", "P2's GEMM repeats bit for bit")]
+    dxn_g = k_gemm.gemm_nt_f32_cuda(a_g, w_g)
+    gamma_f = lnp["scale"].float().contiguous()
+    stage_ms = {
+        "gemm_wgmma dxn = d(QKV) . W^T": cuda_ms(lambda: k_gemm.gemm_nt_f32_cuda(a_g, w_g), 10),
+        "torch.matmul, bf16 out": cuda_ms(lambda: torch.matmul(a_g, w_g.T), 10),
+        "layernorm_bwd_rows, no parameter gradients": cuda_ms(
+            lambda: k_block.layernorm_bwd_rows_cuda(x.view(M, D), dxn_g, None, gamma_f,
+                                                    torch.bfloat16, param_grads=False), 10)}
+    del a_g, dxn_g
     qh, kh, vh = (t.reshape(B, T, n, 64).transpose(1, 2) for t in qkv.split(D, dim=-1))
     with torch.no_grad():
         lib_p1 = cuda_ms(lambda: library_fwd(x), 10)
@@ -2529,6 +2660,15 @@ def prototype_phase(lnp, w, b, device) -> tuple:
                cuda_ms(lambda: k_proto.packed4d_attention_reference(qkv, n), 5, 1),
                cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)),
     }
+    stage_ms["P2 whole"] = times["P2"][0]
+    stage_ms["attention stage (whole less GEMM and LayerNorm backward)"] = (
+        times["P2"][0] - stage_ms["gemm_wgmma dxn = d(QKV) . W^T"]
+        - stage_ms["layernorm_bwd_rows, no parameter gradients"])
+    print("P2 by stage, ms:", json.dumps(stage_ms))
+    p3_width_ms = {str(hd): cuda_ms(lambda hd=hd: k_proto.packed4d_attention(qkv, D // hd), 20)
+                   for hd in (32, 128)}
+    p3_width_ms["64"] = times["P3"][0]
+    print("P3 by head width, ms:", json.dumps(p3_width_ms))
     M = B * T
     attn_fwd = 4 * B * D * T * T
     qkv_flops = 2 * M * D * 3 * D
@@ -2549,10 +2689,19 @@ def prototype_phase(lnp, w, b, device) -> tuple:
                "P3 packed4d_attention", [[B, T, 3 * D], n],
                "torch.nn.functional.scaled_dot_product_attention", cmps["P3 tpad 8"]),
     }
+    extra = {
+        "P2": {"sources": [f"federated_multi_modal_tpu_torch/csrc/{f}" for f in (
+            "lnqkv_attention_bwd_dx.cu", "ln_qkv.cuh", "attn_bwd.cuh", "gemm_wgmma.cu",
+            "layernorm_bwd_rows.cu")], "ms_by_stage": stage_ms},
+        "P3": {"key_tiles": {str(hd): k_proto.packed4d_attention_key_tiles(hd, T)
+                             for hd in (32, 64, 128)},
+               "head_width_shapes": [[[B, T, 3 * D], D // hd] for hd in (32, 128)],
+               "ms_by_head_width": p3_width_ms},
+    }
     rows = []
     for key, (name, src, line, tpu_fn, counter, shape, lib_call, cmp) in meta.items():
         ms, plain_ms, lib_ms = times[key]
-        rows.append({
+        rows.append({**extra.get(key, {}),
             "name": name, "route": "cuda",
             "source": f"federated_multi_modal_tpu_torch/csrc/{src}",
             "replaces": f"tools/attn_microbench.py{line}", "tpu_function": tpu_fn,

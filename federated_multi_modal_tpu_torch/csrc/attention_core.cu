@@ -142,13 +142,6 @@ int blocks_per_sm(int kt, int* blocks, int* smem_bytes) {
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-#define FMM_HEAD_DIMS(X) \
-  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
-
-namespace {
-
 int dispatch(const void* qkv, const void* mask, void* out, int B, int T, int D, int H,
              int valid_T, float scale, int key_tiles, void* stream) {
   if (B < 1 || T < 1 || H < 1 || D % H || valid_T < 1 || valid_T > T)

@@ -22,8 +22,10 @@
 // (512, 200, 2304) ~629 MB in and ~472 MB out for ~157 GFLOP; both are
 // bound by memory at 3.35 TB/s (~0.05 ms and ~0.33 ms).
 // Design: FlashAttention-2's backward in three passes, keys streamed, so no
-// T cap; every block is 4 warps over a 64-row tile, 16 rows a warp, every
-// T x T product on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// T cap, for any head width HD that is a multiple of 8 up to 128 (a
+// template parameter, as in the forward); every block is 4 warps over a
+// 64-row tile, 16 rows a warp, every T x T product on the tensor cores
+// through attn_bwd.cuh's tile routines (mma.sync m16n8k16, bf16 in, fp32
 // accumulate) with scores, probabilities and dS in registers, and the
 // streamed tiles in a two-stage cp.async ring (attn_mma.cuh):
 //   1. statistics, one block per (b, h, 64-query tile): streams the K and V
@@ -40,26 +42,38 @@
 // whose 16 x 64 mask tile is all -inf skips it (its probabilities are
 // exactly 0), and so does a warp whose rows all lie past T. Each pass is
 // built with a mask (read straight into the score fragments) and without,
-// so that the vision rows pay no registers for it. Shared memory: 55 KB a
-// block in passes 1 and 3, 56 KB in 2.
+// so that the vision rows pay no registers for it. Shared memory: six
+// 64-row tiles a block (55 KB at head width 64, 104 KB at 128; pass 2 adds
+// 1 KB of lse and delta). Up to head width 64 the dK/dV pass holds its four
+// 16 x 64 fp32 tiles (S^T, dP^T, dK, dV: 128 registers) at three blocks an
+// SM; above 64 it takes each streamed query tile in two halves of 32
+// (attn_bwd.cuh's N8 = 4), so that dK and dV of up to 128 columns fit
+// beside the scores at two blocks an SM.
 #include <limits.h>
 
-#include "attn_mma.cuh"
+#include "attn_bwd.cuh"
 
 namespace {
 
 using fmm::bf16;
 namespace am = fmm::attn_mma;
+namespace ab = fmm::attn_bwd;
 
-constexpr int kHd = 64;  // head width
-constexpr int kLd = kHd + 8;
-constexpr int kKSteps = kHd / 16;
-constexpr int kNt = kHd / 8;
-constexpr int kTileElems = am::kTile * kLd;
-// passes 1 and 3: q and g of the query tile, two stages of k and v
-constexpr size_t kRowPassSmem = 6 * kTileElems * sizeof(bf16);
-// pass 2: k and v of the key tile, two stages of q, g, lse and delta
-constexpr size_t kKeyPassSmem = 6 * kTileElems * sizeof(bf16) + 4 * am::kTile * sizeof(float);
+template <int HD>
+struct Pass {
+  using S = am::Shape<HD>;
+  static constexpr int kE = S::kTileElems;
+  // passes 1 and 3: q and g of the query tile, two stages of k and v
+  static constexpr size_t kRowSmem = 6 * kE * sizeof(bf16);
+  // pass 2: k and v of the key tile, two stages of q, g, lse and delta
+  static constexpr size_t kKeySmem = 6 * kE * sizeof(bf16) + 4 * am::kTile * sizeof(float);
+  // query columns a dK/dV step takes: the whole 64-row tile, or half of it
+  // where dK and dV are wider than 64
+  static constexpr int kKeyN8 = HD <= 64 ? 8 : 4;
+  static constexpr int kKeyMinBlocks = HD <= 64 ? 3 : 2;
+  static constexpr int kQMinBlocks = HD <= 64 ? 4 : 2;
+  static constexpr int kQMinBlocksMasked = HD <= 64 ? 3 : 2;
+};
 
 struct Args {
   const bf16* qkv;
@@ -80,6 +94,7 @@ struct Head {
   int tile0;      // first row of this block's tile
 };
 
+template <int HD>
 __device__ __forceinline__ Head locate(const Args& a) {
   const int tile = blockIdx.x % a.n_tiles;
   const int bh = blockIdx.x / a.n_tiles;
@@ -87,56 +102,26 @@ __device__ __forceinline__ Head locate(const Args& a) {
   const int b = bh / a.H;
   const size_t rs = 3 * static_cast<size_t>(a.D);
   Head hd;
-  hd.q = a.qkv + static_cast<size_t>(b) * a.T * rs + h * kHd;
-  hd.g = a.g + static_cast<size_t>(b) * a.T * a.D + h * kHd;
-  hd.dq = a.dqkv + static_cast<size_t>(b) * a.T * rs + h * kHd;
+  hd.q = a.qkv + static_cast<size_t>(b) * a.T * rs + h * HD;
+  hd.g = a.g + static_cast<size_t>(b) * a.T * a.D + h * HD;
+  hd.dq = a.dqkv + static_cast<size_t>(b) * a.T * rs + h * HD;
   hd.stats = static_cast<size_t>(bh) * a.T;
   hd.tile0 = tile * am::kTile;
   return hd;
 }
 
-__device__ __forceinline__ void scale_tile(float (&s)[8][4], float scale) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] *= scale;
-}
-
-__device__ __forceinline__ void zero_tile(float (&s)[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-}
-
-// A 16 x 64 fp32 block of the warp's rows (row0 + [0, 16)) into a row-major
-// (T, 3D) bf16 output at dst (rows at or past T are not written).
-__device__ __forceinline__ void store_rows(const float (&acc)[kNt][4], bf16* dst, size_t stride,
-                                           int row0, int T) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= T) continue;
-    bf16* p = dst + static_cast<size_t>(row) * stride + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(p + nt * 8) =
-          __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
-  }
-}
-
 // Pass 1: lse and delta of each query row.
-template <bool kMasked>
+template <int HD, bool kMasked>
 __global__ void __launch_bounds__(am::kThreads) attention_core_bwd_stats_kernel(Args a) {
+  using S = am::Shape<HD>;
+  constexpr int E = S::kTileElems;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* gs = qs + kTileElems;
-  bf16* ks = gs + kTileElems;      // two stages
-  bf16* vs = ks + 2 * kTileElems;  // two stages
-  const Head hd = locate(a);
+  bf16* gs = qs + E;
+  bf16* ks = gs + E;      // two stages
+  bf16* vs = ks + 2 * E;  // two stages
+  am::zero_pad_columns<HD, am::kThreads>(qs, 6 * am::kTile);
+  const Head hd = locate<HD>(a);
   const size_t rs = 3 * static_cast<size_t>(a.D);
   const int T = a.T;
   const int warp = threadIdx.x >> 5;
@@ -145,11 +130,11 @@ __global__ void __launch_bounds__(am::kThreads) attention_core_bwd_stats_kernel(
   const int n_kt = (T + am::kTile - 1) / am::kTile;
   auto prefetch = [&](int j) {
     const int st = j & 1;
-    am::load_tile<kHd>(ks + st * kTileElems, kLd, hd.q + a.D, rs, j * am::kTile, T);
-    am::load_tile<kHd>(vs + st * kTileElems, kLd, hd.q + 2 * a.D, rs, j * am::kTile, T);
+    am::load_tile<HD>(ks + st * E, S::kLd, hd.q + a.D, rs, j * am::kTile, T);
+    am::load_tile<HD>(vs + st * E, S::kLd, hd.q + 2 * a.D, rs, j * am::kTile, T);
   };
-  am::load_tile<kHd>(qs, kLd, hd.q, rs, hd.tile0, T);
-  am::load_tile<kHd>(gs, kLd, hd.g, a.D, hd.tile0, T);
+  am::load_tile<HD>(qs, S::kLd, hd.q, rs, hd.tile0, T);
+  am::load_tile<HD>(gs, S::kLd, hd.g, a.D, hd.tile0, T);
   prefetch(0);
   am::cp_async_commit();
 
@@ -163,113 +148,89 @@ __global__ void __launch_bounds__(am::kThreads) attention_core_bwd_stats_kernel(
     am::cp_async_wait<1>();
     __syncthreads();
     const int st = j & 1;
-    float s[8][4], dp[8][4];
-    if (!am::mask_tile<false, kMasked>(s, a.mask, T, row0, j * am::kTile, inv_scale)) {
-      zero_tile(dp);
-      am::mma_abt<kKSteps>(s, qs, kLd, warp * 16, ks + st * kTileElems, kLd);
-      am::mma_abt<kKSteps>(dp, gs, kLd, warp * 16, vs + st * kTileElems, kLd);
-      scale_tile(s, a.scale);
-      am::online_softmax<true>(s, dp, m, l, d);
-    }
+    ab::stats_step<HD, kMasked, 8>(m, l, d, a.mask, T, row0, j * am::kTile, a.scale, inv_scale,
+                                   qs, gs, warp * 16, ks + st * E, vs + st * E);
     __syncthreads();
   }
-
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float lr = am::quad_sum(l[r]);
-    const float dr = am::quad_sum(d[r]);
-    const int row = row0 + (lane >> 2) + 8 * r;
-    if ((lane & 3) == 0 && row < T) {
-      a.lse[hd.stats + row] = m[r] + logf(lr);
-      a.delta[hd.stats + row] = dr / lr;
-    }
-  }
+  ab::stats_rows(m, l, d, row0, T, a.lse + hd.stats, a.delta + hd.stats);
 }
 
-// Pass 2: dK and dV of each key row. Its four 16 x 64 fp32 tiles (S^T, dP^T,
-// dK, dV) take 128 registers a thread; the compiler is held to three blocks
-// an SM (168 registers), which it otherwise overshoots.
-template <bool kMasked>
-__global__ void __launch_bounds__(am::kThreads, 3) attention_core_bwd_dkdv_kernel(Args a) {
+// Pass 2: dK and dV of each key row. Up to head width 64 its four 16 x 64
+// fp32 tiles (S^T, dP^T, dK, dV) take 128 registers a thread; the compiler
+// is held to three blocks an SM (168 registers), which it otherwise
+// overshoots. Wider heads take the query tile in halves, at two blocks.
+template <int HD, bool kMasked>
+__global__ void __launch_bounds__(am::kThreads, Pass<HD>::kKeyMinBlocks)
+    attention_core_bwd_dkdv_kernel(Args a) {
+  using S = am::Shape<HD>;
+  constexpr int E = S::kTileElems;
+  constexpr int N8 = Pass<HD>::kKeyN8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kTileElems;
-  bf16* qs = vs + kTileElems;      // two stages
-  bf16* gs = qs + 2 * kTileElems;  // two stages
-  float* lse_s = reinterpret_cast<float*>(gs + 2 * kTileElems);  // two stages
-  float* delta_s = lse_s + 2 * am::kTile;                        // two stages
-  const Head hd = locate(a);
+  bf16* vs = ks + E;
+  bf16* qs = vs + E;      // two stages
+  bf16* gs = qs + 2 * E;  // two stages
+  float* lse_s = reinterpret_cast<float*>(gs + 2 * E);  // two stages
+  float* delta_s = lse_s + 2 * am::kTile;               // two stages
+  am::zero_pad_columns<HD, am::kThreads>(ks, 6 * am::kTile);
+  const Head hd = locate<HD>(a);
   const size_t rs = 3 * static_cast<size_t>(a.D);
   const int T = a.T;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
   const int row0 = hd.tile0 + warp * 16;  // this warp's keys
 
   const int n_qt = (T + am::kTile - 1) / am::kTile;
   auto prefetch = [&](int i) {
     const int st = i & 1;
-    am::load_tile<kHd>(qs + st * kTileElems, kLd, hd.q, rs, i * am::kTile, T);
-    am::load_tile<kHd>(gs + st * kTileElems, kLd, hd.g, a.D, i * am::kTile, T);
+    am::load_tile<HD>(qs + st * E, S::kLd, hd.q, rs, i * am::kTile, T);
+    am::load_tile<HD>(gs + st * E, S::kLd, hd.g, a.D, i * am::kTile, T);
     am::load_values(lse_s + st * am::kTile, a.lse + hd.stats, i * am::kTile, T);
     am::load_values(delta_s + st * am::kTile, a.delta + hd.stats, i * am::kTile, T);
   };
-  am::load_tile<kHd>(ks, kLd, hd.q + a.D, rs, hd.tile0, T);
-  am::load_tile<kHd>(vs, kLd, hd.q + 2 * a.D, rs, hd.tile0, T);
+  am::load_tile<HD>(ks, S::kLd, hd.q + a.D, rs, hd.tile0, T);
+  am::load_tile<HD>(vs, S::kLd, hd.q + 2 * a.D, rs, hd.tile0, T);
   prefetch(0);
   am::cp_async_commit();
 
   const float inv_scale = 1.f / a.scale;
-  float dk[kNt][4], dv[kNt][4];
-  zero_tile(dk);
-  zero_tile(dv);
+  float dk[S::kNt][4], dv[S::kNt][4];
+  ab::zero_tile(dk);
+  ab::zero_tile(dv);
   for (int i = 0; i < n_qt; ++i) {
     if (i + 1 < n_qt) prefetch(i + 1);
     am::cp_async_commit();
     am::cp_async_wait<1>();
     __syncthreads();
     const int st = i & 1;
-    const bf16* qt = qs + st * kTileElems;
-    const bf16* gt = gs + st * kTileElems;
-    const float* lse_t = lse_s + st * am::kTile;
-    const float* delta_t = delta_s + st * am::kTile;
-    float s[8][4], dp[8][4];
     // rows are this warp's keys, columns the tile's queries: S^T and dP^T
-    if (!am::mask_tile<true, kMasked>(s, a.mask, T, row0, i * am::kTile, inv_scale)) {
-      am::mma_abt<kKSteps>(s, ks, kLd, warp * 16, qt, kLd);
-      zero_tile(dp);
-      am::mma_abt<kKSteps>(dp, vs, kLd, warp * 16, gt, kLd);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          const float p = __expf(s[nt][e] * a.scale - lse_t[col]);
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - delta_t[col]) * a.scale;
-        }
-      }
-      am::mma_pv<kNt>(dv, s, gt, kLd);   // dV += bf16(P)^T g
-      am::mma_pv<kNt>(dk, dp, qt, kLd);  // dK += bf16(dS)^T q
-    }
+    for (int c = 0; c < am::kTile; c += 8 * N8)
+      ab::dkdv_step<HD, kMasked, N8>(dk, dv, a.mask, T, row0, i * am::kTile + c, a.scale,
+                                     inv_scale, ks, vs, warp * 16, qs + st * E + c * S::kLd,
+                                     gs + st * E + c * S::kLd, lse_s + st * am::kTile + c,
+                                     delta_s + st * am::kTile + c);
     __syncthreads();
   }
-  store_rows(dk, hd.dq + a.D, rs, row0, T);
-  store_rows(dv, hd.dq + 2 * a.D, rs, row0, T);
+  ab::store_rows<HD>(dk, hd.dq + a.D, rs, row0, T);
+  ab::store_rows<HD>(dv, hd.dq + 2 * a.D, rs, row0, T);
 }
 
 // Pass 3: dQ of each query row. Its three fp32 tiles (S, dP, dQ) leave room
-// for four blocks an SM, three with a mask (whose loads take registers too).
-template <bool kMasked>
-__global__ void __launch_bounds__(am::kThreads, kMasked ? 3 : 4)
+// for four blocks an SM at head widths up to 64, three with a mask (whose
+// loads take registers too); two above.
+template <int HD, bool kMasked>
+__global__ void __launch_bounds__(am::kThreads,
+                                kMasked ? Pass<HD>::kQMinBlocksMasked : Pass<HD>::kQMinBlocks)
     attention_core_bwd_dq_kernel(Args a) {
+  using S = am::Shape<HD>;
+  constexpr int E = S::kTileElems;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* gs = qs + kTileElems;
-  bf16* ks = gs + kTileElems;      // two stages
-  bf16* vs = ks + 2 * kTileElems;  // two stages
-  const Head hd = locate(a);
+  bf16* gs = qs + E;
+  bf16* ks = gs + E;      // two stages
+  bf16* vs = ks + 2 * E;  // two stages
+  am::zero_pad_columns<HD, am::kThreads>(qs, 6 * am::kTile);
+  const Head hd = locate<HD>(a);
   const size_t rs = 3 * static_cast<size_t>(a.D);
   const int T = a.T;
   const int warp = threadIdx.x >> 5;
@@ -279,11 +240,11 @@ __global__ void __launch_bounds__(am::kThreads, kMasked ? 3 : 4)
   const int n_kt = (T + am::kTile - 1) / am::kTile;
   auto prefetch = [&](int j) {
     const int st = j & 1;
-    am::load_tile<kHd>(ks + st * kTileElems, kLd, hd.q + a.D, rs, j * am::kTile, T);
-    am::load_tile<kHd>(vs + st * kTileElems, kLd, hd.q + 2 * a.D, rs, j * am::kTile, T);
+    am::load_tile<HD>(ks + st * E, S::kLd, hd.q + a.D, rs, j * am::kTile, T);
+    am::load_tile<HD>(vs + st * E, S::kLd, hd.q + 2 * a.D, rs, j * am::kTile, T);
   };
-  am::load_tile<kHd>(qs, kLd, hd.q, rs, hd.tile0, T);
-  am::load_tile<kHd>(gs, kLd, hd.g, a.D, hd.tile0, T);
+  am::load_tile<HD>(qs, S::kLd, hd.q, rs, hd.tile0, T);
+  am::load_tile<HD>(gs, S::kLd, hd.g, a.D, hd.tile0, T);
   prefetch(0);
   am::cp_async_commit();
 
@@ -296,78 +257,66 @@ __global__ void __launch_bounds__(am::kThreads, kMasked ? 3 : 4)
   }
 
   const float inv_scale = 1.f / a.scale;
-  float dq[kNt][4];
-  zero_tile(dq);
+  float dq[S::kNt][4];
+  ab::zero_tile(dq);
   for (int j = 0; j < n_kt; ++j) {
     if (j + 1 < n_kt) prefetch(j + 1);
     am::cp_async_commit();
     am::cp_async_wait<1>();
     __syncthreads();
     const int st = j & 1;
-    const bf16* kt = ks + st * kTileElems;
-    float s[8][4], dp[8][4];
-    if (!am::mask_tile<false, kMasked>(s, a.mask, T, row0, j * am::kTile, inv_scale)) {
-      zero_tile(dp);
-      am::mma_abt<kKSteps>(s, qs, kLd, warp * 16, kt, kLd);
-      am::mma_abt<kKSteps>(dp, gs, kLd, warp * 16, vs + st * kTileElems, kLd);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const float p = __expf(s[nt][e] * a.scale - lse_r[r]);
-          dp[nt][e] = p * (dp[nt][e] - delta_r[r]) * a.scale;
-        }
-      }
-      am::mma_pv<kNt>(dq, dp, kt, kLd);  // dQ += bf16(dS) k
-    }
+    ab::dq_step<HD, kMasked, 8>(dq, a.mask, T, row0, j * am::kTile, a.scale, inv_scale, qs, gs,
+                                warp * 16, ks + st * E, vs + st * E, lse_r, delta_r);
     __syncthreads();
   }
-  store_rows(dq, hd.dq, rs, row0, T);
+  ab::store_rows<HD>(dq, hd.dq, rs, row0, T);
 }
 
-template <bool kMasked>
+template <int HD, bool kMasked>
 cudaError_t allow_smem() {
-  cudaError_t err = cudaFuncSetAttribute(attention_core_bwd_stats_kernel<kMasked>,
+  cudaError_t err = cudaFuncSetAttribute(attention_core_bwd_stats_kernel<HD, kMasked>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kRowPassSmem));
+                                         static_cast<int>(Pass<HD>::kRowSmem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attention_core_bwd_dkdv_kernel<kMasked>,
+    err = cudaFuncSetAttribute(attention_core_bwd_dkdv_kernel<HD, kMasked>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kKeyPassSmem));
+                               static_cast<int>(Pass<HD>::kKeySmem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attention_core_bwd_dq_kernel<kMasked>,
+    err = cudaFuncSetAttribute(attention_core_bwd_dq_kernel<HD, kMasked>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kRowPassSmem));
+                               static_cast<int>(Pass<HD>::kRowSmem));
   return err;
 }
 
-template <bool kMasked>
+template <int HD, bool kMasked>
 int launch(const Args& a, int blocks, cudaStream_t s) {
-  cudaError_t err = allow_smem<kMasked>();
+  cudaError_t err = allow_smem<HD, kMasked>();
   if (err != cudaSuccess) return err;
-  attention_core_bwd_stats_kernel<kMasked><<<blocks, am::kThreads, kRowPassSmem, s>>>(a);
+  attention_core_bwd_stats_kernel<HD, kMasked><<<blocks, am::kThreads, Pass<HD>::kRowSmem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attention_core_bwd_dkdv_kernel<kMasked><<<blocks, am::kThreads, kKeyPassSmem, s>>>(a);
+  attention_core_bwd_dkdv_kernel<HD, kMasked><<<blocks, am::kThreads, Pass<HD>::kKeySmem, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attention_core_bwd_dq_kernel<kMasked><<<blocks, am::kThreads, kRowPassSmem, s>>>(a);
+  attention_core_bwd_dq_kernel<HD, kMasked><<<blocks, am::kThreads, Pass<HD>::kRowSmem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <bool kMasked>
-int blocks_per_sm(int pass, int* blocks) {
-  const cudaError_t err = allow_smem<kMasked>();
+template <int HD, bool kMasked>
+int blocks_per_sm(int pass, int* blocks, int* smem_bytes) {
+  const cudaError_t err = allow_smem<HD, kMasked>();
   if (err != cudaSuccess) return err;
+  *smem_bytes = static_cast<int>(pass == 2 ? Pass<HD>::kKeySmem : Pass<HD>::kRowSmem);
   switch (pass) {
     case 1:
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, attention_core_bwd_stats_kernel<kMasked>, am::kThreads, kRowPassSmem);
+          blocks, attention_core_bwd_stats_kernel<HD, kMasked>, am::kThreads,
+          Pass<HD>::kRowSmem);
     case 2:
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, attention_core_bwd_dkdv_kernel<kMasked>, am::kThreads, kKeyPassSmem);
+          blocks, attention_core_bwd_dkdv_kernel<HD, kMasked>, am::kThreads,
+          Pass<HD>::kKeySmem);
     case 3:
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, attention_core_bwd_dq_kernel<kMasked>, am::kThreads, kRowPassSmem);
+          blocks, attention_core_bwd_dq_kernel<HD, kMasked>, am::kThreads, Pass<HD>::kRowSmem);
     default:
       return cudaErrorInvalidValue;
   }
@@ -377,11 +326,12 @@ int blocks_per_sm(int pass, int* blocks) {
 
 // qkv (B, T, 3D) bf16, g (B, T, D) bf16, mask (T, T) fp32 or null, stats
 // (2, B, H, T) fp32 scratch (lse, then delta), dqkv (B, T, 3D) bf16; all
-// contiguous and 16-byte aligned, D = H * 64. Launches the three passes.
+// contiguous and 16-byte aligned, D = H * head width, the head width a
+// multiple of 8 up to 128. Launches the three passes.
 FMM_EXPORT int fmm_attention_core_bwd(const void* qkv, const void* g, const void* mask,
                                       void* stats, void* dqkv, int B, int T, int D, int H,
                                       float scale, void* stream) {
-  if (T < 1 || D != H * kHd || B < 1) return cudaErrorInvalidValue;
+  if (T < 1 || B < 1 || H < 1 || D % H) return cudaErrorInvalidValue;
   const int n_tiles = (T + am::kTile - 1) / am::kTile;
   const long long blocks = static_cast<long long>(n_tiles) * H * B;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
@@ -391,14 +341,31 @@ FMM_EXPORT int fmm_attention_core_bwd(const void* qkv, const void* g, const void
                static_cast<bf16*>(dqkv), T, D, H, n_tiles, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(blocks);
-  return mask != nullptr ? launch<true>(a, n, s) : launch<false>(a, n, s);
+  switch (D / H) {
+#define FMM_LAUNCH(hd) \
+  case hd:             \
+    return mask != nullptr ? launch<hd, true>(a, n, s) : launch<hd, false>(a, n, s);
+    FMM_HEAD_DIMS(FMM_LAUNCH)
+#undef FMM_LAUNCH
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
-// Resident blocks per SM of pass `pass` (1 statistics, 2 dK/dV, 3 dQ), with
-// a mask or without, into *blocks, its dynamic shared memory into
-// *smem_bytes.
-FMM_EXPORT int fmm_attention_core_bwd_blocks_per_sm(int pass, int masked, int* blocks,
+// Resident blocks per SM of one pass (variant = head width + 256 x pass;
+// pass 1 statistics, 2 dK/dV, 3 dQ), with a mask or without, into *blocks,
+// its dynamic shared memory into *smem_bytes.
+FMM_EXPORT int fmm_attention_core_bwd_blocks_per_sm(int variant, int masked, int* blocks,
                                                     int* smem_bytes) {
-  *smem_bytes = static_cast<int>(pass == 2 ? kKeyPassSmem : kRowPassSmem);
-  return masked ? blocks_per_sm<true>(pass, blocks) : blocks_per_sm<false>(pass, blocks);
+  const int pass = variant >> 8;
+  switch (variant & 255) {
+#define FMM_OCCUPANCY(hd)                                                \
+  case hd:                                                               \
+    return masked ? blocks_per_sm<hd, true>(pass, blocks, smem_bytes)    \
+                  : blocks_per_sm<hd, false>(pass, blocks, smem_bytes);
+    FMM_HEAD_DIMS(FMM_OCCUPANCY)
+#undef FMM_OCCUPANCY
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

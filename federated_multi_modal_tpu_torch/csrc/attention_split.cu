@@ -117,9 +117,6 @@ int blocks_per_sm(int* blocks, int* smem_bytes) {
 
 }  // namespace
 
-#define FMM_HEAD_DIMS(X) \
-  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
-
 // q, k, v (B, T, D) bf16 with row strides q_stride, k_stride, v_stride (in
 // elements; each a multiple of 8, batch stride T * row stride, 16-byte aligned
 // base), mask (T, T) fp32 contiguous or null, out (B, T, D) bf16 contiguous;

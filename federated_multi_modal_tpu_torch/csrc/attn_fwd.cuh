@@ -33,6 +33,11 @@
 //   tile once.
 // attend_resident is the two-pass loop for one warp over K and V already
 // in shared memory (P1, which computes them there).
+//
+// attention_tile serves one head per block (kGroup = 1: K1, K2, K8) or a
+// group of kGroup heads side by side in the columns (P3, a 128-lane head
+// group): the block is 4 kGroup warps, four to each head, and one ring of
+// kGroup-head-wide K and V tiles feeds them all.
 #pragma once
 
 #include "attn_mma.cuh"
@@ -43,22 +48,27 @@ namespace attn_fwd {
 
 namespace am = attn_mma;
 
-template <int HD>
-struct Shape {
-  static constexpr int kHdp = (HD + 15) / 16 * 16;  // Q.K^T contraction, zero-padded
-  static constexpr int kLd = kHdp + 8;              // shared-memory row stride (bf16)
-  static constexpr int kKSteps = kHdp / 16;
-  static constexpr int kNt = HD / 8;  // 8-column tiles of the output
+using am::Shape;
+
+// The tiles of a block that serves kGroup heads of width HD side by side:
+// kCols columns (the heads' columns, zero-padded to kHdp for one head),
+// row stride kLd, 4 kGroup warps.
+template <int HD, int kGroup>
+struct Group {
+  static_assert(kGroup == 1 || HD % 16 == 0, "grouped heads take no column padding");
+  static constexpr int kCols = kGroup * HD;
+  static constexpr int kLd = kGroup == 1 ? Shape<HD>::kLd : kCols + 8;
   static constexpr int kTileElems = am::kTile * kLd;
+  static constexpr int kThreads = am::kThreads * kGroup;
 };
 
 // Shared memory of attention_tile: a Q tile and two ring stages, each of K
 // and V for two passes, of K or V for one pass; and the blocks an SM holds
 // by it (232,448 bytes, 1 KB reserved a block).
-template <int HD, int kKt>
+template <int HD, int kKt, int kGroup = 1>
 struct Smem {
   static constexpr int kTiles = kKt == 0 ? 5 : 3;
-  static constexpr size_t kBytes = kTiles * Shape<HD>::kTileElems * sizeof(bf16);
+  static constexpr size_t kBytes = kTiles * Group<HD, kGroup>::kTileElems * sizeof(bf16);
   static constexpr int kFit = static_cast<int>(232448 / (kBytes + 1024));
   // The blocks per SM the compiler's register budget is set for: up to 4
   // for two passes; one pass holds kKt x 32 fp32 scores a thread.
@@ -66,9 +76,11 @@ struct Smem {
       kKt == 0 ? (kFit < 4 ? kFit : 4) : (kKt <= 2 ? 3 : 2);
 };
 
-// One (b, h) and its 64-query tile. Row t of q, k and v starts at q + t *
-// q_stride (and so on), bf16, 16-byte aligned; the mask is (T, T) fp32 or
-// null; out row t at out + t * out_stride.
+// One (b, h) (or head group) and its 64-query tile. Row t of q, k and v
+// starts at q + t * q_stride (and so on), bf16, 16-byte aligned; the mask
+// is (T, T) fp32 or null; out row t at out + t * out_stride. Rows at or past
+// T read as zeros; keys at or past n_keys take no part (n_keys past T only
+// for P3's planted fault, where the zero rows in [T, n_keys) take part).
 struct Tile {
   const bf16* q;
   const bf16* k;
@@ -78,7 +90,7 @@ struct Tile {
   bf16* out;
   int out_stride;
   int T;       // queries, and the mask's side
-  int n_keys;  // keys [0, n_keys) take part, n_keys <= T
+  int n_keys;  // keys [0, n_keys) take part
   int q0;      // first query of the tile
   float scale;
 };
@@ -91,7 +103,7 @@ template <int HD, bool kMasked, bool kExact>
 __device__ __forceinline__ bool score_tile(float (&s)[8][4], const float* __restrict__ mask,
                                            int T, int n_keys, int row0, int col0,
                                            const bf16* qs, int q_row, const bf16* kt,
-                                           float scale) {
+                                           float scale, int ld = Shape<HD>::kLd) {
   using S = Shape<HD>;
   if constexpr (kExact) {
     if (am::mask_tile<false, kMasked>(s, mask, T, row0, col0, 1.f, n_keys)) return false;
@@ -103,11 +115,11 @@ __device__ __forceinline__ bool score_tile(float (&s)[8][4], const float* __rest
       for (int e = 0; e < 4; ++e) any |= s[nt][e] != -CUDART_INF_F;
       live |= (__any_sync(0xffffffffu, any) ? 1u : 0u) << nt;
     }
-    am::mma_abt_exact<S::kKSteps>(s, qs, S::kLd, q_row, kt, S::kLd, scale, live);
+    am::mma_abt_exact<S::kKSteps>(s, qs, ld, q_row, kt, ld, scale, live);
   } else {
     if (am::mask_tile<false, kMasked>(s, mask, T, row0, col0, 1.f / scale, n_keys))
       return false;
-    am::mma_abt<S::kKSteps>(s, qs, S::kLd, q_row, kt, S::kLd);
+    am::mma_abt<S::kKSteps>(s, qs, ld, q_row, kt, ld);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -137,8 +149,8 @@ __device__ __forceinline__ void normalize(float (&s)[8][4], const float (&m)[2],
 // product is added to o rounded to nearest (am::mma_rn).
 template <int HD, bool kExact>
 __device__ __forceinline__ void pv(float (&o)[Shape<HD>::kNt][4], const float (&p)[8][4],
-                                   const bf16* v_tile) {
-  am::mma_pv<Shape<HD>::kNt, kExact>(o, p, v_tile, Shape<HD>::kLd);
+                                   const bf16* v_tile, int ld = Shape<HD>::kLd) {
+  am::mma_pv<Shape<HD>::kNt, kExact>(o, p, v_tile, ld);
 }
 
 // Rows row0 + [0, 16) of the bf16 output from the fp32 accumulators; rows at
@@ -161,30 +173,29 @@ __device__ __forceinline__ void store_rows(const float (&o)[Shape<HD>::kNt][4], 
   }
 }
 
-// Columns [HD, kHdp) of the first `rows` rows at `tiles` enter Q.K^T as
-// zeros; the copies never write them.
-template <int HD, int kThreads>
-__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int rows) {
-  using S = Shape<HD>;
-  if (S::kHdp != HD) {
-    for (int r = threadIdx.x; r < rows; r += kThreads)
-      *reinterpret_cast<uint4*>(tiles + r * S::kLd + HD) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// One block of am::kThreads: the tile's 64 query rows, 16 per warp, over
-// key tiles streamed through a two-stage cp.async ring in `smem`
-// (Smem<HD, kKt>::kBytes). kKt = 0: two passes; else one pass, for at most
-// kKt key tiles (n_keys <= 64 kKt).
-template <int HD, bool kMasked, int kKt, bool kExact>
+// One block of 4 kGroup warps: the tile's 64 query rows of each of the
+// kGroup heads, 16 per warp, over key tiles streamed through a two-stage
+// cp.async ring in `smem` (Smem<HD, kKt, kGroup>::kBytes). kKt = 0: two
+// passes; else one pass, for at most kKt key tiles (n_keys <= 64 kKt).
+template <int HD, bool kMasked, int kKt, bool kExact, int kGroup = 1>
 __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
   using S = Shape<HD>;
-  constexpr int E = S::kTileElems;
+  using G = Group<HD, kGroup>;
+  constexpr int E = G::kTileElems;
+  constexpr int ld = G::kLd;
   bf16* qs = smem;
   bf16* ring = qs + E;  // stages of K (and V: two passes, at ring + 2E)
   const int warp = threadIdx.x >> 5;
-  const int row0 = a.q0 + warp * 16;
-  zero_pad_columns<HD, am::kThreads>(qs, 3 * am::kTile);  // Q and the two K stages
+  // this warp's head within the group (its columns) and its query rows
+  const int col = kGroup == 1 ? 0 : (warp >> 2) * HD;
+  const int q_row = (kGroup == 1 ? warp : warp & 3) * 16;
+  const int row0 = a.q0 + q_row;
+  if constexpr (kGroup == 1) am::zero_pad_columns<HD, am::kThreads>(qs, 3 * am::kTile);  // Q, 2 K
+  // K and V rows at or past T read as zeros; the scores are masked to keys
+  // below n_keys (T_mask is T unless n_keys runs past it, which only P3's
+  // planted fault asks for: with one head a block, n_keys <= T).
+  const int key_rows = kGroup == 1 || a.n_keys < a.T ? a.n_keys : a.T;
+  const int T_mask = kGroup == 1 || a.n_keys <= a.T ? a.T : a.n_keys;
 
   // Two passes: iterations [0, n_kt) bring K tiles, [n_kt, 2 n_kt) K and V
   // tiles. One pass: [0, n_kt) K tiles, [n_kt, 2 n_kt) V tiles into the same
@@ -196,10 +207,11 @@ __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
     const int j = second ? it - n_kt : it;
     bf16* stage = ring + (it & 1) * E;
     if (kKt == 0 || !second)
-      am::load_tile<HD>(stage, S::kLd, a.k, a.k_stride, j * am::kTile, a.n_keys);
+      am::load_tile<G::kCols, G::kThreads>(stage, ld, a.k, a.k_stride, j * am::kTile, key_rows);
     if (second) {
       bf16* vstage = kKt == 0 ? stage + 2 * E : stage;
-      am::load_tile<HD>(vstage, S::kLd, a.v, a.v_stride, j * am::kTile, a.n_keys);
+      am::load_tile<G::kCols, G::kThreads>(vstage, ld, a.v, a.v_stride, j * am::kTile,
+                                           key_rows);
     }
   };
   // Wait for iteration it's stage, with the next one's copies in flight.
@@ -209,7 +221,7 @@ __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
     am::cp_async_wait<1>();
     __syncthreads();
   };
-  am::load_tile<HD>(qs, S::kLd, a.q, a.q_stride, a.q0, a.T);
+  am::load_tile<G::kCols, G::kThreads>(qs, ld, a.q, a.q_stride, a.q0, a.T);
   prefetch(0);
   am::cp_async_commit();
 
@@ -229,13 +241,13 @@ __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
       const int j = pass2 ? it - n_kt : it;
       const bf16* kt = ring + (it & 1) * E;
       float s[8][4];
-      if (score_tile<HD, kMasked, kExact>(s, a.mask, a.T, a.n_keys, row0, j * am::kTile, qs,
-                                          warp * 16, kt, a.scale)) {
+      if (score_tile<HD, kMasked, kExact>(s, a.mask, T_mask, a.n_keys, row0, j * am::kTile,
+                                          qs + col, q_row, kt + col, a.scale, ld)) {
         if (!pass2) {
           am::online_softmax<false, true>(s, s, m, l, unused);
         } else {
           normalize(s, m, l, r);
-          pv<HD, kExact>(o, s, kt + 2 * E);
+          pv<HD, kExact>(o, s, kt + 2 * E + col, ld);
         }
       }
       if (it == n_kt - 1) {
@@ -254,8 +266,9 @@ __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
     for (int j = 0; j < kKt; ++j) {
       if (j < n_kt) {
         arrive(j);
-        if (score_tile<HD, kMasked, kExact>(s[j], a.mask, a.T, a.n_keys, row0, j * am::kTile,
-                                            qs, warp * 16, ring + (j & 1) * E, a.scale))
+        if (score_tile<HD, kMasked, kExact>(s[j], a.mask, T_mask, a.n_keys, row0, j * am::kTile,
+                                            qs + col, q_row, ring + (j & 1) * E + col, a.scale,
+                                            ld))
           live |= 1u << j;
         __syncthreads();
       }
@@ -301,13 +314,13 @@ __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               s[j][nt][e] = div_by(s[j][nt][e], l[e >> 1], r[e >> 1]);
-          pv<HD, kExact>(o, s[j], ring + ((n_kt + j) & 1) * E);
+          pv<HD, kExact>(o, s[j], ring + ((n_kt + j) & 1) * E + col, ld);
         }
         __syncthreads();
       }
     }
   }
-  store_rows<HD>(o, a.out, a.out_stride, row0, a.T);
+  store_rows<HD>(o, a.out + col, a.out_stride, row0, a.T);
 }
 
 // One warp's query rows [row0, row0 + 16) (the same rows of qs) against

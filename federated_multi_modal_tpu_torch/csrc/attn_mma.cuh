@@ -20,6 +20,10 @@
 // Shared-memory tiles are row-major with a row stride of (width + 8) bf16:
 // the eight rows one ldmatrix reads start 16 bytes apart modulo 128, on
 // eight different groups of four banks.
+//
+// A warp's score tile is 16 rows by 8 N8 columns (N8 = 8: a whole 64-row
+// tile of the other operand; N8 = 4: half of one, where registers are
+// short), held as N8 accumulators.
 #pragma once
 
 #include <limits.h>
@@ -28,6 +32,11 @@
 
 #include "fmm_common.cuh"
 
+// The head widths the attention sources are built for: multiples of 8 up
+// to 128.
+#define FMM_HEAD_DIMS(X) \
+  X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
+
 namespace fmm {
 
 namespace attn_mma {
@@ -35,6 +44,18 @@ namespace attn_mma {
 constexpr int kTile = 64;  // rows of a query or key tile
 constexpr int kWarps = 4;  // 16 rows of a tile each
 constexpr int kThreads = 32 * kWarps;
+
+// One head of width HD in shared-memory tiles: the Q.K^T contraction
+// zero-padded to a multiple of 16 (kHdp), the row stride kLd, and kNt
+// 8-column tiles of an output row.
+template <int HD>
+struct Shape {
+  static constexpr int kHdp = (HD + 15) / 16 * 16;
+  static constexpr int kLd = kHdp + 8;
+  static constexpr int kKSteps = kHdp / 16;
+  static constexpr int kNt = HD / 8;
+  static constexpr int kTileElems = kTile * kLd;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -63,18 +84,30 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [row0, row0 + kTile) of a (T, stride) bf16 matrix at src, its first
-// kCols columns (a multiple of 8), into dst (kTile rows of ld elements);
-// rows at or past T become zero. One copy group's worth: the caller commits.
-template <int kCols>
+// kCols columns (a multiple of 8), into dst (kTile rows of ld elements), by
+// the block's kBlockThreads threads; rows at or past T become zero. One copy
+// group's worth: the caller commits.
+template <int kCols, int kBlockThreads = kThreads>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
                                           size_t stride, int row0, int T) {
   constexpr int kChunks = kCols / 8;
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kBlockThreads) {
     const int r = idx / kChunks;
     const int c = idx - r * kChunks;
     const bool valid = row0 + r < T;
     const bf16* s = valid ? src + static_cast<size_t>(row0 + r) * stride + c * 8 : src;
     cp_async16(dst + r * ld + c * 8, s, valid);
+  }
+}
+
+// Columns [HD, kHdp) of the first `rows` rows at `tiles` enter Q.K^T as
+// zeros; the copies never write them.
+template <int HD, int kThreads>
+__device__ __forceinline__ void zero_pad_columns(bf16* tiles, int rows) {
+  using S = Shape<HD>;
+  if (S::kHdp != HD) {
+    for (int r = threadIdx.x; r < rows; r += kThreads)
+      *reinterpret_cast<uint4*>(tiles + r * S::kLd + HD) = make_uint4(0, 0, 0, 0);
   }
 }
 
@@ -176,19 +209,19 @@ __device__ __forceinline__ void load_b_rows_k_x2(uint32_t (&b)[2], const bf16* t
   ldsm_x2_trans(b, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n0);
 }
 
-// acc (16 x 64, as 8 accumulators) += A (rows [a_row0, a_row0 + 16) of
+// acc (16 x 8 N8, as N8 accumulators) += A (rows [a_row0, a_row0 + 16) of
 // a_tile over columns [0, 16 KS), read from shared memory one 16-column step
-// at a time) times the transpose of the tile's 64 rows over the same
+// at a time) times the transpose of the tile's first 8 N8 rows over the same
 // columns: one warp's block of a Q.K^T-shaped product.
-template <int KS>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* a_tile, int a_ld,
+template <int KS, int N8>
+__device__ __forceinline__ void mma_abt(float (&acc)[N8][4], const bf16* a_tile, int a_ld,
                                         int a_row0, const bf16* tile, int ld) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     uint32_t a[4];
     load_a(a, a_tile, a_ld, a_row0, kk * 16);
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < N8 / 2; ++np) {
       uint32_t b[4];
       load_b_rows_n(b, tile, ld, np * 16, kk * 16);
       mma(acc[2 * np], a, b[0], b[1]);
@@ -197,15 +230,15 @@ __device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* a_tile, 
   }
 }
 
-// out (16 x 8 NT) += bf16(p) (16 x 64, p as 8 accumulators, rounded to bf16
-// here) times the tile's 64 rows over columns [0, 8 NT): one warp's block of
-// a P.V-shaped product. kRn adds each 16-key step's product to out rounded
-// to nearest (mma_rn).
-template <int NT, bool kRn = false>
-__device__ __forceinline__ void mma_pv(float (&out)[NT][4], const float (&p)[8][4],
+// out (16 x 8 NT) += bf16(p) (16 x 8 N8, p as N8 accumulators, rounded to
+// bf16 here) times the tile's first 8 N8 rows over columns [0, 8 NT): one
+// warp's block of a P.V-shaped product. kRn adds each 16-key step's product
+// to out rounded to nearest (mma_rn).
+template <int NT, bool kRn = false, int N8>
+__device__ __forceinline__ void mma_pv(float (&out)[NT][4], const float (&p)[N8][4],
                                        const bf16* tile, int ld) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < N8 / 2; ++kk) {
     uint32_t a[4];
     a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
     a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
@@ -312,8 +345,8 @@ __device__ __forceinline__ void mma_abt_exact(float (&acc)[8][4], const bf16* a_
   }
 }
 
-// One warp's 16 x 64 score tile (rows row0 + [0, 16), columns col0 + [0,
-// 64)) set to its additive mask divided by `scale`, the value its product
+// One warp's 16 x 8 N8 score tile (rows row0 + [0, 16), columns col0 + [0,
+// 8 N8)) set to its additive mask divided by `scale`, the value its product
 // accumulates onto, so that scale * acc is q.k * scale + mask (exactly so
 // for masks of 0 and -inf). Entries whose row lies at or past T, or whose
 // column lies at or past T or col_end (the forward's valid_T: keys past it
@@ -325,8 +358,8 @@ __device__ __forceinline__ void mma_abt_exact(float (&acc)[8][4], const bf16* a_
 // the mask's loads cost the mask-free kernels no registers). Returns whether
 // the whole warp tile is -inf: its probabilities are all exactly 0, so the
 // caller may skip it.
-template <bool kTrans, bool kMasked>
-__device__ __forceinline__ bool mask_tile(float (&acc)[8][4], const float* __restrict__ mask,
+template <bool kTrans, bool kMasked, int N8>
+__device__ __forceinline__ bool mask_tile(float (&acc)[N8][4], const float* __restrict__ mask,
                                           int T, int row0, int col0, float inv_scale,
                                           int col_end = INT_MAX) {
   const int lane = threadIdx.x & 31;
@@ -336,7 +369,7 @@ __device__ __forceinline__ bool mask_tile(float (&acc)[8][4], const float* __res
     // All 32 loads are started before any is used (entries out of range read
     // entry 0 and are dropped below), so that they overlap.
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < N8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + g + 8 * (e >> 1);
@@ -348,7 +381,7 @@ __device__ __forceinline__ bool mask_tile(float (&acc)[8][4], const float* __res
   }
   bool all_masked = true;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < N8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = row0 + g + 8 * (e >> 1);
@@ -373,28 +406,28 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // Online softmax statistics of a warp's two fragment rows (r = 0: row g,
-// r = 1: row g + 8) over one 16 x 64 tile of scores s: m[r] is the running
+// r = 1: row g + 8) over one 16 x 8 N8 tile of scores s: m[r] is the running
 // row max (the same in the four lanes of a quad), l[r] this lane's running
 // sum of exp(s - m) over its own columns and, with kDp, d[r] this lane's
 // running sum of exp(s - m) * dp; the sums are rescaled when m moves. The
 // caller sums l and d over the quad at the end. kExactExp takes expf, as
 // PyTorch's softmax does, where the sum must match it to the last bits (the
 // forward); else the faster __expf.
-template <bool kDp, bool kExactExp = false>
-__device__ __forceinline__ void online_softmax(const float (&s)[8][4], const float (&dp)[8][4],
+template <bool kDp, bool kExactExp = false, int N8>
+__device__ __forceinline__ void online_softmax(const float (&s)[N8][4], const float (&dp)[N8][4],
                                                float (&m)[2], float (&l)[2], float (&d)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = m[r];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+    for (int nt = 0; nt < N8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
     mx = quad_max(mx);
     const float base = mx == -CUDART_INF_F ? 0.f : mx;  // a row with no finite score yet
     const float alpha = kExactExp ? expf(m[r] - base) : __expf(m[r] - base);
     l[r] *= alpha;
     if (kDp) d[r] *= alpha;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < N8; ++nt) {
 #pragma unroll
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
         const float p = kExactExp ? expf(s[nt][e] - base) : __expf(s[nt][e] - base);

@@ -7,7 +7,10 @@
 //   gv = dxn * gamma
 //   dx = dres + rstd * (gv - mean(gv) - x^ * mean(gv * x^))   (dres may be null)
 // written in fp32 or bf16 (and optionally a second bf16 copy), and the
-// per-block partial column sums of dxn * x^ (d gamma) and dxn (d beta).
+// per-block partial column sums of dxn * x^ (d gamma) and dxn (d beta),
+// unless the caller wants none (P2, which returns no parameter gradient:
+// a separate instantiation, so that the kernels with partials stay as they
+// were).
 //
 // Replaces the two LayerNorm backwards and every column reduction of the
 // TPU kernel _train_bwd_kernel
@@ -47,21 +50,23 @@ constexpr int kMaxD = 32 * kPerLane;
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16(v); }
 
-template <typename Tx, typename Tres, typename Tout>
+template <typename Tx, typename Tres, typename Tout, bool kPartials>
 __global__ void __launch_bounds__(kThreads)
     layernorm_bwd_rows_kernel(const Tx* __restrict__ x, const float* __restrict__ dxn,
                               const Tres* __restrict__ dres, const float* __restrict__ gamma,
                               Tout* __restrict__ dx, bf16* __restrict__ dx_copy,
                               float* __restrict__ partial, int rows, int D, int rows_per_block,
                               float eps) {
-  extern __shared__ float acc[];  // [kWarps][2][D]
+  extern __shared__ float acc[];  // [kWarps][2][D], with kPartials
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* acc_g = acc + static_cast<size_t>(warp) * 2 * D;
   float* acc_b = acc_g + D;
-  for (int j = lane; j < D; j += 32) {
-    acc_g[j] = 0.f;
-    acc_b[j] = 0.f;
+  if constexpr (kPartials) {
+    for (int j = lane; j < D; j += 32) {
+      acc_g[j] = 0.f;
+      acc_b[j] = 0.f;
+    }
   }
   const long long row_begin = static_cast<long long>(blockIdx.x) * rows_per_block;
   const long long row_end = min(static_cast<long long>(rows), row_begin + rows_per_block);
@@ -98,8 +103,10 @@ __global__ void __launch_bounds__(kThreads)
         const float gv = dv[t] * gamma[j];
         s1 += gv;
         s2 += gv * xv[t];
-        acc_g[j] += dv[t] * xv[t];
-        acc_b[j] += dv[t];
+        if constexpr (kPartials) {
+          acc_g[j] += dv[t] * xv[t];
+          acc_b[j] += dv[t];
+        }
       }
     }
     const float m1 = fmm::warp_sum(s1) * inv_d;
@@ -118,6 +125,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+  if constexpr (!kPartials) return;
   __syncthreads();
   // The block's partial: its warps' rows summed in warp order.
   for (int j = threadIdx.x; j < 2 * D; j += kThreads) {
@@ -144,11 +152,15 @@ template <typename Tx, typename Tres, typename Tout>
 cudaError_t launch_ln_bwd(const void* x, const void* dxn, const void* dres, const void* gamma,
                           void* dx, void* dx_copy, void* partial, int rows, int D,
                           int rows_per_block, float eps, cudaStream_t stream) {
-  auto kernel = layernorm_bwd_rows_kernel<Tx, Tres, Tout>;
-  const size_t smem = static_cast<size_t>(kWarps) * 2 * D * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  auto kernel = partial != nullptr ? layernorm_bwd_rows_kernel<Tx, Tres, Tout, true>
+                                   : layernorm_bwd_rows_kernel<Tx, Tres, Tout, false>;
+  const size_t smem =
+      partial != nullptr ? static_cast<size_t>(kWarps) * 2 * D * sizeof(float) : 0;
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   const unsigned blocks = static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const Tx*>(x), static_cast<const float*>(dxn), static_cast<const Tres*>(dres),
@@ -171,8 +183,9 @@ cudaError_t dispatch_out(int out_f32, const void* x, const void* dxn, const void
 
 // x (rows, D) bf16 or fp32, dxn (rows, D) fp32, dres (rows, D) bf16 or
 // fp32 or null, gamma (D,) fp32; dx (rows, D) bf16 or fp32, dx_copy (rows, D) bf16
-// or null; partial (ceil(rows / rows_per_block), 2, D) fp32: per block, the
-// sums of dxn * x^ and of dxn over its rows. All contiguous, D <= 1024.
+// or null; partial (ceil(rows / rows_per_block), 2, D) fp32 or null: per
+// block, the sums of dxn * x^ and of dxn over its rows. All contiguous,
+// D <= 1024.
 FMM_EXPORT int fmm_layernorm_bwd_rows(const void* x, int x_f32, const void* dxn, const void* dres,
                                       int dres_f32, const void* gamma, void* dx, int dx_f32,
                                       void* dx_copy, void* partial, int rows, int D,

@@ -62,8 +62,11 @@ _SIGNATURES = {
     "fmm_column_sum": [_P, _I, _P, _L, _L, _I, _L, _P],
     # x, W, bias, gamma, beta, stats scratch, out, B, T, D, H, scale, stream
     "fmm_lnqkv_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, W, bias, gamma, beta, dy, dxn scratch, dx, B, T, D, H, scale, stream
-    "fmm_lnqkv_attention_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, W, bias, gamma, beta, dy, stats scratch, dqkv, B, T, D, H, scale,
+    # stream
+    "fmm_lnqkv_attention_bwd_dqkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # A, B, C, M, N, K, stream
+    "fmm_gemm_nt_f32": [_P, _P, _P, _I, _I, _I, _P],
     # qkv, out, B, T, D, H, valid_T, scale, stream
     "fmm_attention_pair": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
@@ -75,7 +78,9 @@ LAUNCHES = {name: 0 for name in _SIGNATURES}
 # built and its dynamic shared memory (an int naming the variant, an int for
 # masked or not, two int* for the answers).
 _OCCUPANCY = ("fmm_attention_split_blocks_per_sm", "fmm_attention_core_bwd_blocks_per_sm",
-              "fmm_attention_core_blocks_per_sm", "fmm_lnqkv_attention_blocks_per_sm")
+              "fmm_attention_core_blocks_per_sm", "fmm_lnqkv_attention_blocks_per_sm",
+              "fmm_lnqkv_attention_bwd_dqkv_blocks_per_sm", "fmm_gemm_nt_f32_blocks_per_sm",
+              "fmm_attention_pair_blocks_per_sm")
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process, or 0.0 if loaded as built
@@ -109,9 +114,10 @@ def _run_all(cmds):
         for c in cmds
     ]
     outs = [p.communicate()[0] for p in procs]
-    for cmd, proc, out in zip(cmds, procs, outs):
-        if proc.returncode != 0:
-            raise RuntimeError(f"{' '.join(cmd)} failed:\n{out}")
+    failed = [f"{' '.join(cmd)} failed:\n{out}"
+              for cmd, proc, out in zip(cmds, procs, outs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return outs
 
 
@@ -155,8 +161,9 @@ def library():
             fn = getattr(lib, name)
             fn.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
             fn.restype = ctypes.c_int
-        lib.fmm_attention_core_key_tiles.argtypes = [_I, _I]
-        lib.fmm_attention_core_key_tiles.restype = ctypes.c_int
+        for name in ("fmm_attention_core_key_tiles", "fmm_attention_pair_key_tiles"):
+            getattr(lib, name).argtypes = [_I, _I]
+            getattr(lib, name).restype = ctypes.c_int
         lib.fmm_error_string.argtypes = [ctypes.c_int]
         lib.fmm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -177,9 +184,12 @@ def launch(name: str, *args) -> None:
 
 def blocks_per_sm(name: str, variant: int, masked: bool) -> tuple:
     """``(resident blocks per SM, dynamic shared memory bytes)`` of one
-    kernel (``name`` in ``_OCCUPANCY``; ``variant`` its head width, its pass,
-    head width + 256 x key tiles held in registers for ``attention_core``, T
-    for ``lnqkv_attention``; built with a mask or without), from the CUDA
+    kernel (``name`` in ``_OCCUPANCY``; ``variant`` its head width for
+    ``attention_split``, head width + 256 x pass for ``attention_core_bwd``,
+    head width + 256 x key tiles held in registers for ``attention_core`` and
+    ``attention_pair``, T for ``lnqkv_attention`` and
+    ``lnqkv_attention_bwd_dqkv``, unused for ``gemm_nt_f32``; built with a
+    mask or without), from the CUDA
     occupancy calculator with the registers and shared memory it was built
     with."""
     lib = library()

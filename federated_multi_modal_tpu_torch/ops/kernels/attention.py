@@ -30,8 +30,7 @@ device memory: the forward in one pass over the key tiles (rows of up to 256
 keys at head widths up to 64) or two (statistics, then P.V), the backward in
 three (row statistics, dK and dV, dQ) with two fp32 ``(B, H, T)`` scratch
 vectors between them; see the sources for what keeps them off their bounds.
-The forward takes any T and any head width that is a multiple of 8 up to
-128; the backward any T at head width 64.
+Both take any T and any head width that is a multiple of 8 up to 128.
 """
 
 from __future__ import annotations
@@ -42,8 +41,6 @@ import math
 import torch
 
 from federated_multi_modal_tpu_torch.ops.kernels import _build
-
-HEAD_DIM = 64  # the only head width attention_core_bwd.cu is built for
 
 
 @contextlib.contextmanager
@@ -189,9 +186,9 @@ def attention_core_bwd_reference(qkv: torch.Tensor, g: torch.Tensor, n_head: int
 def attention_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
                             mask: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``attention_core_bwd.cu`` on CUDA bf16 ``qkv (B, T, 3D)`` and
-    ``g (B, T, D)``, any T; its row statistics (log-sum-exp and
-    rowsum(dP * P), fp32 ``(B, H, T)`` each) go through scratch allocated
-    here."""
+    ``g (B, T, D)``, any T, head widths that are multiples of 8 up to 128;
+    its row statistics (log-sum-exp and rowsum(dP * P), fp32 ``(B, H, T)``
+    each) go through scratch allocated here."""
     B, T, D3 = qkv.shape
     D = D3 // 3
     for name, t, shape in (("qkv", qkv, (B, T, D3)), ("g", g, (B, T, D))):
@@ -201,10 +198,11 @@ def attention_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
                 f"attention_core_bwd takes a contiguous 16-byte aligned bf16 "
                 f"CUDA {name} of shape {shape}, got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}")
-    if D != n_head * HEAD_DIM:
+    hd = D // n_head
+    if D3 != 3 * D or D != n_head * hd or hd % 8 or hd > 128:
         raise ValueError(
-            f"attention_core_bwd is built for head width {HEAD_DIM}: D={D}, "
-            f"{n_head} heads")
+            f"attention_core_bwd takes head widths that are multiples of 8 up to 128: "
+            f"D={D}, {n_head} heads")
     if mask is not None:
         if mask.shape != (T, T) or mask.device != qkv.device:
             raise ValueError(f"mask must be ({T}, {T}) on {qkv.device}")
@@ -214,7 +212,7 @@ def attention_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
     _build.launch(
         "fmm_attention_core_bwd", qkv.data_ptr(), g.data_ptr(),
         None if mask is None else mask.data_ptr(), stats.data_ptr(), dqkv.data_ptr(),
-        B, T, D, n_head, 1.0 / math.sqrt(HEAD_DIM),
+        B, T, D, n_head, 1.0 / math.sqrt(hd),
     )
     return dqkv
 

@@ -273,14 +273,18 @@ def gemm_tn_cuda(a, b):
 
 
 _LN_ROWS_PER_BLOCK = 256
+_LN_WARPS = 8  # kWarps in layernorm_bwd_rows.cu: one row a warp at a time
 
 
 def layernorm_bwd_rows_cuda(x, dxn, dres, gamma, out_dtype,
-                            copy_bf16: bool = False, eps: float = 1e-5):
+                            copy_bf16: bool = False, eps: float = 1e-5,
+                            param_grads: bool = True):
     """Launch ``layernorm_bwd_rows.cu`` on ``x (rows, D)`` (bf16 or fp32),
     fp32 ``dxn`` and ``dres`` (bf16, fp32 or ``None``); the column sums of
     d gamma and d beta come from the per-block partials through
-    :func:`column_sum_cuda`. Same returns as the plain version."""
+    :func:`column_sum_cuda`. Same returns as the plain version, except that
+    with ``param_grads=False`` the kernel keeps no partials and d gamma and
+    d beta are ``None``."""
     _check_cuda("layernorm_bwd_rows x", x, _BF16_F32)
     _check_cuda("layernorm_bwd_rows dxn", dxn, (torch.float32,))
     if dres is not None:
@@ -296,12 +300,16 @@ def layernorm_bwd_rows_cuda(x, dxn, dres, gamma, out_dtype,
     dx = torch.empty(rows, D, dtype=out_dtype, device=x.device)
     copy = (torch.empty(rows, D, dtype=torch.bfloat16, device=x.device)
             if copy_bf16 else None)
-    blocks = -(-rows // _LN_ROWS_PER_BLOCK)
-    partial = torch.empty(blocks, 2 * D, dtype=torch.float32, device=x.device)
+    # with no partials to keep, one row a warp: more blocks in flight
+    rows_per_block = _LN_ROWS_PER_BLOCK if param_grads else _LN_WARPS
+    partial = (torch.empty(-(-rows // rows_per_block), 2 * D, dtype=torch.float32,
+                           device=x.device) if param_grads else None)
     _build.launch("fmm_layernorm_bwd_rows", x.data_ptr(), _is_f32(x),
                   dxn.data_ptr(), _ptr(dres), _is_f32(dres),
                   gamma.data_ptr(), dx.data_ptr(), _is_f32(dx), _ptr(copy),
-                  partial.data_ptr(), rows, D, _LN_ROWS_PER_BLOCK, eps)
+                  _ptr(partial), rows, D, rows_per_block, eps)
+    if not param_grads:
+        return dx, copy, None, None
     sums = column_sum_cuda(partial)
     return dx, copy, sums[:D], sums[D:]
 

@@ -7,12 +7,17 @@ never call.
   QKV never in device memory, both on the tensor cores
   (``csrc/lnqkv_attention.cu``, after a small launch for the LN moments);
 * P2 :func:`fused_lnqkv_attention_bwd_dx` (``fused_lnqkv_attention_bwd_dx``,
-  :207): dx of P1, recomputed from x alone (``csrc/lnqkv_attention_bwd_dx.cu``);
-  :class:`FusedLnQkvAttention` is P1 forward and P2 backward, the
-  counterpart of ``make_fused_lnqkv_attention_fb``;
+  :207): dx of P1, recomputed from x alone, in three launches: the LN -> QKV
+  recomputation and the attention backward per (row, head) into a packed
+  d(QKV) scratch (``csrc/lnqkv_attention_bwd_dx.cu``, which shares P1's LN
+  -> QKV stage), ``dxn = d(QKV) . W^T`` on the wgmma GEMM
+  (``csrc/gemm_wgmma.cu``), and the LayerNorm backward
+  (``csrc/layernorm_bwd_rows.cu``); :class:`FusedLnQkvAttention` is P1
+  forward and P2 backward, the counterpart of
+  ``make_fused_lnqkv_attention_fb``;
 * P3 :func:`packed4d_attention` (``_build_packed4d``, :351): K2's forward as
-  one unit of work per 128-lane head group, its products on the tensor cores
-  (``csrc/attention_pair.cu``).
+  one unit of work per 128-lane head group (heads of 32, 64 or 128), its
+  products on the tensor cores (``csrc/attention_pair.cu``).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors it
 runs the plain PyTorch version beside it. The plain versions round where the
@@ -32,21 +37,21 @@ import math
 import torch
 
 from federated_multi_modal_tpu_torch.ops.kernels import _build
-from federated_multi_modal_tpu_torch.ops.kernels.attention import (
-    HEAD_DIM,
-    full_fp32_products,
-)
+from federated_multi_modal_tpu_torch.ops.kernels.attention import full_fp32_products
 from federated_multi_modal_tpu_torch.ops.kernels.fused_block import (
     PLAIN_STEPS,
+    layernorm_bwd_rows_cuda,
     ln_attention_backward,
     ln_attention_forward,
 )
+from federated_multi_modal_tpu_torch.ops.kernels.gemm import gemm_nt_f32_cuda
 
-# The longest T each kernel takes (kMaxT in its source): P1's 16 warps of 16
-# query rows; P2's and P3's heads in shared memory.
+# P1 and P2 are built for heads of 64 (ln_qkv.cuh's kHd) and take T up to
+# 256 (kMaxT: 16 warps of 16 rows, q, k and v of one head in shared memory).
+LNQKV_HEAD_DIM = 64
 MAX_TOKENS_LNQKV = 256
-MAX_TOKENS_LNQKV_BWD = 208
-MAX_TOKENS_PAIR = 240
+# P3's head widths: those whose 128-lane groups the kernel's warps split.
+PAIR_HEAD_DIMS = (32, 64, 128)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -67,12 +72,13 @@ def _check_cuda(name: str, t: torch.Tensor, shape, dtype=torch.bfloat16) -> None
                          f"shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_width(name: str, D: int, n_head: int, T: int, max_tokens: int) -> None:
-    if D != n_head * HEAD_DIM or D % 32:
-        raise ValueError(f"{name} is built for head width {HEAD_DIM}: D={D}, {n_head} heads")
-    if T > max_tokens:
-        raise ValueError(f"{name} holds at most {max_tokens} tokens per row in shared memory, "
-                         f"got T={T}")
+def _check_lnqkv_width(name: str, D: int, n_head: int, T: int) -> None:
+    if D != n_head * LNQKV_HEAD_DIM:
+        raise ValueError(f"{name} is built for head width {LNQKV_HEAD_DIM}: D={D}, "
+                         f"{n_head} heads")
+    if T > MAX_TOKENS_LNQKV:
+        raise ValueError(f"{name} holds at most {MAX_TOKENS_LNQKV} tokens per row in shared "
+                         f"memory, got T={T}")
 
 
 def _ln_qkv_operands(x, lnp, w, b):
@@ -104,13 +110,13 @@ def fused_lnqkv_attention_cuda(x, lnp, w, b, n_head: int):
     fp32 ``(B, T, 2)`` scratch for the LN moments of each row."""
     B, T, D = x.shape
     _check_cuda("fused_lnqkv_attention x", x, (B, T, D))
-    _check_width("fused_lnqkv_attention", D, n_head, T, MAX_TOKENS_LNQKV)
+    _check_lnqkv_width("fused_lnqkv_attention", D, n_head, T)
     w, b, gamma, beta = _ln_qkv_operands(x, lnp, w, b)
     stats = torch.empty(B, T, 2, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     _build.launch("fmm_lnqkv_attention", x.data_ptr(), w.data_ptr(), b.data_ptr(),
                   gamma.data_ptr(), beta.data_ptr(), stats.data_ptr(), out.data_ptr(), B, T, D,
-                  n_head, 1.0 / math.sqrt(HEAD_DIM))
+                  n_head, 1.0 / math.sqrt(LNQKV_HEAD_DIM))
     return out
 
 
@@ -140,19 +146,26 @@ def fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, n_head: int, GB: in
 
 
 def fused_lnqkv_attention_bwd_dx_cuda(x, lnp, w, b, dy, n_head: int):
-    """Launch ``lnqkv_attention_bwd_dx.cu`` on CUDA bf16 ``x`` and ``dy``
-    ``(B, T, D)``, with an fp32 ``(B, round16(T), D)`` scratch for dxn."""
+    """P2 on CUDA bf16 ``x`` and ``dy`` ``(B, T, D)`` in three launches:
+    ``lnqkv_attention_bwd_dx.cu`` (the LN moments into an fp32 ``(B, T, 2)``
+    scratch, then per (row, head) q, k and v recomputed and the attention
+    backward, into a bf16 ``(B, T, 3D)`` d(QKV) scratch), ``gemm_wgmma.cu``
+    (``dxn = d(QKV) . W^T``, fp32 ``(B T, D)``) and ``layernorm_bwd_rows.cu``
+    (dx, no parameter gradient)."""
     B, T, D = x.shape
     _check_cuda("fused_lnqkv_attention_bwd_dx x", x, (B, T, D))
     _check_cuda("fused_lnqkv_attention_bwd_dx dy", dy, (B, T, D))
-    _check_width("fused_lnqkv_attention_bwd_dx", D, n_head, T, MAX_TOKENS_LNQKV_BWD)
+    _check_lnqkv_width("fused_lnqkv_attention_bwd_dx", D, n_head, T)
     w, b, gamma, beta = _ln_qkv_operands(x, lnp, w, b)
-    dxn = torch.empty(B, _round_up(T, 16), D, dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    _build.launch("fmm_lnqkv_attention_bwd_dx", x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                  gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), dxn.data_ptr(),
-                  dx.data_ptr(), B, T, D, n_head, 1.0 / math.sqrt(HEAD_DIM))
-    return dx
+    stats = torch.empty(B, T, 2, dtype=torch.float32, device=x.device)
+    dqkv = torch.empty(B, T, 3 * D, dtype=torch.bfloat16, device=x.device)
+    _build.launch("fmm_lnqkv_attention_bwd_dqkv", x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), stats.data_ptr(),
+                  dqkv.data_ptr(), B, T, D, n_head, 1.0 / math.sqrt(LNQKV_HEAD_DIM))
+    dxn = gemm_nt_f32_cuda(dqkv.view(B * T, 3 * D), w)
+    dx = layernorm_bwd_rows_cuda(x.view(B * T, D), dxn, None, gamma, x.dtype,
+                                 param_grads=False)[0]
+    return dx.view(B, T, D)
 
 
 def fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy, n_head: int, GB: int = 4):
@@ -231,27 +244,40 @@ def packed4d_attention_reference(qkv: torch.Tensor, n_head: int, tpad: int = 8):
     return out.transpose(1, 2).reshape(B, Tp, D)[:, :T]
 
 
+def packed4d_attention_key_tiles(head_dim: int, valid_T: int) -> int:
+    """The key tiles ``attention_pair.cu`` holds in registers at this head
+    width and ``valid_T``: 4 (one pass over the key tiles) or 0 (two
+    passes). Launches nothing."""
+    return _build.library().fmm_attention_pair_key_tiles(head_dim, valid_T)
+
+
 def packed4d_attention_cuda(qkv: torch.Tensor, n_head: int, valid_T: int | None = None):
-    """Launch ``attention_pair.cu`` on a CUDA bf16 ``qkv (B, T, 3D)``; keys
-    at or past ``valid_T`` (default T) get ``-inf``."""
+    """Launch ``attention_pair.cu`` on a CUDA bf16 ``qkv (B, T, 3D)``, any
+    T, heads of 32, 64 or 128 filling whole 128-lane groups; keys at or past
+    ``valid_T`` (default T) get ``-inf`` (``valid_T`` past T lets the zero
+    rows in between take part: a planted fault)."""
     B, T, D3 = qkv.shape
     D = D3 // 3
     _check_cuda("packed4d_attention qkv", qkv, (B, T, D3))
-    _check_width("packed4d_attention", D, n_head, T, MAX_TOKENS_PAIR)
-    if D % 128:
-        raise ValueError(f"packed4d_attention runs 128-lane head groups: D={D}")
+    hd = D // n_head
+    if D3 != 3 * D or D != n_head * hd or hd not in PAIR_HEAD_DIMS or D % 128:
+        raise ValueError(f"packed4d_attention runs 128-lane head groups of heads of "
+                         f"{PAIR_HEAD_DIMS}: D={D}, {n_head} heads")
+    valid_T = T if valid_T is None else valid_T
+    if valid_T < 1:
+        raise ValueError(f"valid_T must be at least 1, got {valid_T}")
     out = torch.empty(B, T, D, dtype=qkv.dtype, device=qkv.device)
     _build.launch("fmm_attention_pair", qkv.data_ptr(), out.data_ptr(), B, T, D, n_head,
-                  T if valid_T is None else valid_T, 1.0 / math.sqrt(HEAD_DIM))
+                  valid_T, 1.0 / math.sqrt(hd))
     return out
 
 
 def packed4d_attention(qkv: torch.Tensor, n_head: int, tpad: int = 8):
     """softmax(q.k^T / sqrt(hd)).v per head over a packed ``(B, T, 3D)``
     QKV tensor -> ``(B, T, D)``, one unit of work per 128-lane head group.
-    Forward-only, like the TPU prototype. The kernel pads T to its tile of
-    16 itself; ``tpad`` changes only the plain version's padding, which
-    masks the same keys."""
+    Forward-only, like the TPU prototype. The kernel masks the keys past T
+    itself; ``tpad`` changes only the plain version's padding, which masks
+    the same keys."""
     if qkv.requires_grad:
         raise NotImplementedError("packed4d_attention is forward-only, like the TPU "
                                   "prototype; packed_attention is differentiable")

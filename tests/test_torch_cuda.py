@@ -258,6 +258,54 @@ def test_attention_core_bwd(gen, T, masked):
         assert not _each_within_share_of_max(fault, ref, D, 2 ** -5)
 
 
+def _random_mask(gen, T):
+    """A random fifth of the keys at -inf, the diagonal kept."""
+    mask = torch.where(torch.rand(T, T, generator=gen, device="cuda") < 0.2,
+                       float("-inf"), 0.0)
+    mask.fill_diagonal_(0.0)
+    return mask
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "masked"])
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_attention_core_bwd_every_head_width(gen, hd, masked):
+    """Every head width the backward takes (multiples of 8 up to 128, the
+    set the forward and the routing take), at T = 200 over two heads,
+    against the plain backward at 2**-5 as ``test_attention_core_bwd``:
+    widths off the 16-column step run the contraction zero-padded, widths
+    over 64 the dK/dV pass in halves of 32 queries."""
+    B, T, H = 2, 200, 2
+    qkv = _randn(gen, B, T, 3 * H * hd)
+    g = _randn(gen, B, T, H * hd)
+    mask = _random_mask(gen, T) if masked else None
+    got = k_attn.attention_core_bwd_cuda(qkv, g, H, mask)
+    torch.cuda.synchronize()
+    _assert_close(got, k_attn.attention_core_bwd_reference(qkv, g, H, mask), 2 ** -5)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "masked"])
+@pytest.mark.parametrize("hd", [32, 128])
+def test_attention_core_bwd_head_widths_32_128(gen, hd, masked):
+    """Heads of 32 and 128 (four and two a 128-lane group's worth) at T =
+    600: elementwise at 2**-5, each of dQ, dK and dV within 2**-5 of its own
+    largest value, and the planted last-key-tile fault (dK and dV of the
+    last key tile scaled by exp(-1/8)) must fail that check."""
+    B, T = 2, 600
+    H = 256 // hd
+    qkv = _randn(gen, B, T, 3 * H * hd)
+    g = _randn(gen, B, T, H * hd)
+    mask = _random_mask(gen, T) if masked else None
+    got = k_attn.attention_core_bwd_cuda(qkv, g, H, mask)
+    torch.cuda.synchronize()
+    ref = k_attn.attention_core_bwd_reference(qkv, g, H, mask)
+    _assert_close(got, ref, 2 ** -5)
+    D = H * hd
+    assert _each_within_share_of_max(got, ref, D, 2 ** -5)
+    fault = got.clone()
+    fault[:, (T - 1) // 64 * 64:, D:] *= math.exp(-1 / 8)
+    assert not _each_within_share_of_max(fault, ref, D, 2 ** -5)
+
+
 @pytest.mark.parametrize("P,L", [(6, 64), (5, 24)])
 def test_attention_core_bwd_block_causal(gen, P, L):
     """The block-causal mask of P packed sequences of L tokens: at L = 64
@@ -438,6 +486,10 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         k_attn.attention_core_cuda(_randn(gen, 1, 8, 3 * 2 * 12), 2)  # head width 12
     with pytest.raises(ValueError):
         k_attn.attention_core_cuda(_randn(gen, 1, 8, 3 * 2 * 136), 2)  # head width 136
+    for hd in (12, 136):  # the backward takes the forward's head widths
+        with pytest.raises(ValueError):
+            k_attn.attention_core_bwd_cuda(_randn(gen, 1, 8, 3 * 2 * hd), _randn(gen, 1, 8, 2 * hd),
+                                           2)
     assert k_attn.attention_core_key_tiles(64, 300) == 0  # two passes past 256 keys
     assert k_attn.attention_core_key_tiles(128, 200) == 0  # and past head width 64
     with pytest.raises(RuntimeError):  # one pass forced past 256 keys
@@ -533,6 +585,40 @@ def test_layernorm_bwd_rows_without_residual(gen):
     assert got[1] is None and ref[1] is None
     for i, tol in ((0, 2 ** -7), (2, 1e-4 * 513 ** 0.5), (3, 1e-4 * 513 ** 0.5)):
         _assert_close(got[i], ref[i], tol)
+
+
+def test_layernorm_bwd_rows_without_parameter_gradients(gen):
+    """With ``param_grads=False`` (P2's LayerNorm backward) the kernel keeps
+    no partials and writes the same dx bits as with them."""
+    x = _randn(gen, 513, 768, scale=3.0) + 1.0
+    dxn = _randn(gen, 513, 768, dtype=torch.float32)
+    gamma = _randn(gen, 768, dtype=torch.float32) * 0.1 + 1
+    full = k_block.layernorm_bwd_rows_cuda(x, dxn, None, gamma, torch.bfloat16)
+    bare = k_block.layernorm_bwd_rows_cuda(x, dxn, None, gamma, torch.bfloat16,
+                                           param_grads=False)
+    torch.cuda.synchronize()
+    assert bare[2] is None and bare[3] is None
+    assert torch.equal(bare[0], full[0])
+
+
+@pytest.mark.parametrize("M,N,K", [(300, 136, 72), (1, 8, 8), (129, 768, 2304),
+                                   (1000, 24, 2312), (102400 // 50, 768, 2304)])
+def test_gemm_nt_f32(gen, M, N, K):
+    """The wgmma GEMM against fp32 products of the same bf16 values, at
+    ragged M, N and K (the TMA fills past the edges with zeros; rows and
+    columns past them are not written) and at P2's N and K: fp32 sums in
+    another order, held to 2**-14 of the largest value; two launches give
+    the same bits."""
+    from federated_multi_modal_tpu_torch.ops.kernels import gemm as k_gemm
+
+    a, b = _randn(gen, M, K), _randn(gen, N, K)
+    got = k_gemm.gemm_nt_f32_cuda(a, b)
+    again = k_gemm.gemm_nt_f32_cuda(a, b)
+    torch.cuda.synchronize()
+    ref = k_gemm.gemm_nt_f32_reference(a, b)
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    assert _within_share_of_max(got, ref, 2 ** -14), float((got - ref).abs().max())
+    assert torch.equal(got, again)
 
 
 def test_group_and_split_routes_launch_their_kernels(gen, monkeypatch):
@@ -688,13 +774,14 @@ def _lnqkv_params(gen, D):
 def test_fused_lnqkv_attention_prototypes(gen, B, T, D):
     """P1 (forward) and P2 (dx) against their plain versions, at K7's limits:
     the output at 2**-5 (against K7's plain forward, which P1's plain
-    version returns), dx at 2**-5 of its largest value; through
-    ``make_fused_lnqkv_attention_fb`` one launch of each is counted. T = 32
-    and 48 run two and three warps over fewer than 64 padded tokens, where
-    a warp's 16 x 64 output tile is larger than its score tile. T = 40 and
-    197 are off P1's 32-row GEMM groups and 64-key tiles; 197 is off the
-    TPU prototype's multiple of 8 and 256, P1's largest, past P2's 208, so
-    there P1 is held alone."""
+    version returns), dx at 2**-5 of its largest value (against K7's plain
+    backward, which P2's plain version returns); where the TPU prototype's
+    T % 8 == 0 holds, through ``make_fused_lnqkv_attention_fb`` one launch
+    of each is counted and its dx equals the direct call's bit for bit. T =
+    32 and 48 run two and three warps over fewer than 64 padded tokens,
+    where a warp's 16 x 64 output tile is larger than its score tile. T = 40
+    and 197 are off P1's 32-row GEMM groups and 64-key tiles, and 197 and
+    256 (P1's and P2's largest) off the old P2's 208-token limit."""
     from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
 
     H = D // 64
@@ -704,14 +791,13 @@ def test_fused_lnqkv_attention_prototypes(gen, B, T, D):
     torch.cuda.synchronize()
     ref = k_block.ln_attention_forward(x, lnp, w, b, H, k_block.PLAIN_STEPS)
     _assert_close(got, ref, 2 ** -5)
-    if T % 8 or T > k_proto.MAX_TOKENS_LNQKV_BWD:
-        return
     dy = _randn(gen, B, T, D)
     dx = k_proto.fused_lnqkv_attention_bwd_dx_cuda(x, lnp, w, b, dy, H)
     torch.cuda.synchronize()
-    ref_dx = k_proto.fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, H, GB=2)
-    d = (dx.float() - ref_dx.float()).abs()
-    assert float(d.max()) <= 2 ** -5 * float(ref_dx.float().abs().max()), float(d.max())
+    ref_dx = k_block.ln_attention_backward(x, dy, lnp, w, b, H, k_block.PLAIN_STEPS)[0]
+    assert _within_share_of_max(dx, ref_dx, 2 ** -5), float((dx - ref_dx).float().abs().max())
+    if T % 8:
+        return
 
     before = (k_proto.fused_lnqkv_attention.launches,
               k_proto.fused_lnqkv_attention_bwd_dx.launches)
@@ -724,13 +810,44 @@ def test_fused_lnqkv_attention_prototypes(gen, B, T, D):
     torch.testing.assert_close(dx_fb, dx, rtol=0, atol=0)  # no atomics: bit for bit
 
 
+def test_fused_lnqkv_attention_bwd_dx_catches_a_zeroed_head(gen):
+    """P2's dx at the microbench's width against its plain version, and the
+    same with one head's d(QKV) scratch zeroed before the GEMM, which must
+    fail the 2**-5 share-of-max check (the GEMM's sum over heads sees the
+    scratch as the attention stage left it)."""
+    from federated_multi_modal_tpu_torch.ops.kernels import gemm as k_gemm
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
+
+    B, T, D, H = 2, 200, 768, 12
+    lnp, w, b = _lnqkv_params(gen, D)
+    x, dy = _randn(gen, B, T, D), _randn(gen, B, T, D)
+    ref = k_block.ln_attention_backward(x, dy, lnp, w, b, H, k_block.PLAIN_STEPS)[0]
+    assert _within_share_of_max(k_proto.fused_lnqkv_attention_bwd_dx_cuda(x, lnp, w, b, dy, H),
+                                ref, 2 ** -5)
+    gemm = k_gemm.gemm_nt_f32_cuda
+
+    def zero_head0(a, wt):
+        a = a.clone()
+        a[:, 0:64] = 0
+        a[:, D:D + 64] = 0
+        a[:, 2 * D:2 * D + 64] = 0
+        return gemm(a, wt)
+
+    k_proto.gemm_nt_f32_cuda = zero_head0
+    try:
+        fault = k_proto.fused_lnqkv_attention_bwd_dx_cuda(x, lnp, w, b, dy, H)
+    finally:
+        k_proto.gemm_nt_f32_cuda = gemm
+    torch.cuda.synchronize()
+    assert not _within_share_of_max(fault, ref, 2 ** -5)
+
+
 @pytest.mark.parametrize("T,tpad", [(16, 8), (32, 8), (48, 8), (40, 16), (200, 8), (200, 16),
                                     (13, 16)])
 def test_packed4d_attention(gen, T, tpad):
     """P3 against its plain version (tokens padded to ``tpad``, padded keys
-    at -inf) at K2's 2**-6, one launch counted; T=200 at tpad 16, T=40 and
-    T=13 pad inside the kernel's 16-token tiles; T = 32, 40 and 48 run
-    several warps over fewer than 64 padded tokens."""
+    at -inf) at K2's 2**-6, one launch counted; T = 13 and 40 end inside a
+    64-key tile; T = 32, 40 and 48 run warps over fewer than 64 tokens."""
     from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
 
     B, H = 3, 4
@@ -742,13 +859,49 @@ def test_packed4d_attention(gen, T, tpad):
     _assert_close(got, k_proto.packed4d_attention_reference(qkv, H, tpad), 2 ** -6)
 
 
+@pytest.mark.parametrize("T", [77, 200, 600, 1030])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_packed4d_attention_head_widths(gen, hd, T):
+    """P3 at every head width its 128-lane groups take (4, 2 and 1 heads a
+    group, two groups), within one pass's 256 keys and past them, against
+    its plain version at 2**-6 elementwise and 2**-6 of the output's largest
+    value; past 256 tokens the kernel with its last key tile dropped
+    (``valid_T`` at the tile's first key) must fail the latter."""
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
+
+    B, H = 2, 256 // hd
+    qkv = _randn(gen, B, T, 3 * H * hd)
+    got = k_proto.packed4d_attention_cuda(qkv, H)
+    torch.cuda.synchronize()
+    ref = k_proto.packed4d_attention_reference(qkv, H)
+    _assert_close(got, ref, 2 ** -6)
+    assert _within_share_of_max(got, ref, 2 ** -6)
+    assert k_proto.packed4d_attention_key_tiles(hd, T) == (4 if hd == 64 and T <= 256 else 0)
+    if T > 256:
+        fault = k_proto.packed4d_attention_cuda(qkv, H, valid_T=(T - 1) // 64 * 64)
+        assert not _within_share_of_max(fault, ref, 2 ** -6)
+
+
 def test_prototypes_refuse_what_they_do_not_take(gen):
-    """P3 over its shared-memory limit, P1 with T % 8 != 0, B % GB != 0 or T
-    over its limit, and P2 over its limit raise."""
+    """P1 with T % 8 != 0, B % GB != 0 or T over 256 raises, and so does P2
+    over 256 or at a head width other than 64; P3 raises at head widths its
+    128-lane groups do not split (16), for heads that do not fill whole
+    groups and for valid_T < 1. What the earlier kernels refused and the new
+    ones take is checked beside: P3 at 241 tokens (its old shared-memory
+    limit was 240) and P2 at 216 (its old limit was 208), each against its
+    plain version."""
     from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
 
     with pytest.raises(ValueError):
-        k_proto.packed4d_attention_cuda(_randn(gen, 1, k_proto.MAX_TOKENS_PAIR + 1, 384), 2)
+        k_proto.packed4d_attention_cuda(_randn(gen, 1, 16, 3 * 8 * 16), 8)  # heads of 16
+    with pytest.raises(ValueError):
+        k_proto.packed4d_attention_cuda(_randn(gen, 1, 16, 3 * 3 * 64), 3)  # 192 lanes
+    with pytest.raises(ValueError):
+        k_proto.packed4d_attention_cuda(_randn(gen, 1, 16, 384), 2, valid_T=0)
+    qkv = _randn(gen, 2, 241, 384)
+    _assert_close(k_proto.packed4d_attention_cuda(qkv, 2),
+                  k_proto.packed4d_attention_reference(qkv, 2), 2 ** -6)
+
     lnp, w, b = _lnqkv_params(gen, 128)
     with pytest.raises(ValueError, match="T % 8"):
         k_proto.fused_lnqkv_attention(_randn(gen, 4, 12, 128), lnp, w, b, 2)
@@ -757,6 +910,13 @@ def test_prototypes_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError):
         k_proto.fused_lnqkv_attention(_randn(gen, 4, k_proto.MAX_TOKENS_LNQKV + 8, 128),
                                       lnp, w, b, 2)
-    x = _randn(gen, 4, k_proto.MAX_TOKENS_LNQKV_BWD + 8, 128)
+    x = _randn(gen, 4, k_proto.MAX_TOKENS_LNQKV + 8, 128)
     with pytest.raises(ValueError):
         k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, x, 2)
+    x = _randn(gen, 4, 16, 128)
+    with pytest.raises(ValueError):
+        k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, x, 4)  # heads of 32
+    x, dy = _randn(gen, 2, 216, 128), _randn(gen, 2, 216, 128)
+    assert _within_share_of_max(
+        k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy, 2, GB=2),
+        k_proto.fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, 2, GB=2), 2 ** -5)

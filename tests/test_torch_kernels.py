@@ -207,6 +207,41 @@ def test_packed_attention_masked_bwd_matches_jax(P, Tb, dtype):
     assert _rel_err(got, ref) < TOL_K1B[dtype]
 
 
+# K1b and K2b at the head widths the CUDA backward opened (it was built for
+# 64 only): four heads of 32 and two of 128, whole 128-lane groups as the
+# JAX kernels' ``_packed_hp`` requires, masked (block-causal, three packed
+# prompts of 8 and 10 tokens) and not, T = 24 and 30 (off the multiple of
+# 8: the JAX kernel pads the tokens and masks the padded keys). The port's
+# plain backward through ``packed_attention(_masked)``'s autograd against
+# ``attention_packed_bwd(_masked)`` in interpret mode, at TOL_K1B: the
+# same rounding points, sums in other orders (see TOL_K1B above).
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["K2b", "K1b"])
+@pytest.mark.parametrize("hd", [32, 128])
+def test_packed_attention_bwd_head_widths_32_128_match_jax(hd, masked, dtype):
+    rng = np.random.default_rng(hd + 3 * masked)
+    n_head = 256 // hd
+    P, Tb = (3, 8) if hd == 32 else (3, 10)
+    T = P * Tb
+    qkv = rng.standard_normal((2, T, 3 * 256)).astype(np.float32)
+    g = rng.standard_normal((2, T, 256)).astype(np.float32)
+    if dtype == "bfloat16":
+        qkv, g = _bf16(qkv), _bf16(g)
+    qkv_t = _to_torch(qkv).requires_grad_(True)
+    if masked:
+        mask = build_block_causal_mask(P, Tb)
+        ref = jax_attn.attention_packed_bwd_masked(
+            jnp.asarray(qkv), jnp.asarray(g), jnp.asarray(mask.numpy()), n_head)
+        out = port_attn.packed_attention_masked(qkv_t, mask, n_head)
+    else:
+        ref = jax_attn.attention_packed_bwd(jnp.asarray(qkv), jnp.asarray(g), n_head)
+        out = port_attn.packed_attention(qkv_t, n_head)
+    (got,) = torch.autograd.grad(out, qkv_t, _to_torch(g))
+    assert got.dtype == qkv_t.dtype and got.shape == (2, T, 3 * 256)
+    err = _rel_err(got, ref)
+    assert err < TOL_K1B[dtype], err
+
+
 # K3 and K4, the whole-block train kernels, at D=128, 2 heads, hidden 512:
 # the output, dx and every parameter gradient of the JAX kernel's VJP
 # against the port's plain version, as max |error| over max |value|. fp32

@@ -170,6 +170,27 @@ def test_p3_plain_matches_jax_interpret(T, tpad, monkeypatch):
     np.testing.assert_allclose(_f32(got), np.asarray(ref), atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("hd,T", [(32, 16), (32, 13), (128, 16), (128, 13)])
+def test_p3_plain_matches_jax_interpret_head_widths(hd, T, monkeypatch):
+    """P3's plain version against ``_build_packed4d()`` in interpret mode at
+    head widths 32 and 128 (four heads of 32 or one of 128 to each 128-lane
+    group, two groups), fp32 at 2e-5, the widths the CUDA kernel's warps
+    split a group into. The test supplies ``_pick_gb``'s missing ``hp`` (as
+    above) as ``_packed_hp`` gives it for the width."""
+    n_head = 256 // hd
+    hp = jax_attn._packed_hp(256, n_head)
+    assert hp == 128 // hd
+    pick_gb = jax_attn._pick_gb
+    monkeypatch.setattr(jax_attn, "_pick_gb",
+                        lambda B, Tp, dtype, hp=hp: pick_gb(B, Tp, dtype, hp))
+    r = np.random.default_rng(hd + T)
+    qkv = r.standard_normal((2, T, 3 * 256)).astype(np.float32)
+    ref = jax_bench._build_packed4d()(jnp.asarray(qkv), n_head)
+    got = port_proto.packed4d_attention(torch.from_numpy(qkv), n_head)
+    assert got.shape == (2, T, 256)
+    np.testing.assert_allclose(_f32(got), np.asarray(ref), atol=TOL, rtol=TOL)
+
+
 def test_jax_tool_packed4d_misses_hp():
     """The fault the P3 test works around, pinned so that a repaired JAX tool
     shows here."""
