@@ -97,17 +97,28 @@ What it does, in order (any failure raises and exits non-zero):
    called, no ``FAILED`` line); P1, P2 and P3 against their plain versions
    on the microbench's shapes with ViT-B/16 block 0's ``ln_1`` and QKV
    weights (P2 with the microbench's cotangent and a seeded unit one, bit
-   for bit on repeat; P3 also at head widths 32 and 128), P2's wgmma GEMM
+   for bit on repeat; P3 also at head widths 32 and 128), P2's GEMM
    against its plain version, a planted fault per limit and per P2 stage,
    P1 against K7 and P3 against K2 printed, and times beside their bounds
    and library yardsticks (P2 by stage, P3 by head width);
-17. prints, for the tensor-core attention kernels (``attention_core.cu``,
+17. ``gemm_epilogue.cu`` by product: every product the default train
+   step's vision blocks run (``fused_block.block_gemm_products`` at the
+   step's M = B T, D and hidden), each one's launches in the counted train
+   step of 6. held against the table; each on seeded bf16 inputs against
+   its plain version (bf16 outputs at 2**-7, fp32 at 2**-14 of their
+   largest value), the same bits on a repeat launch, planted faults (the
+   last 64-deep K stage dropped; the epilogue skipped on the last
+   256-column tile; for the weight gradients, the last split's partial
+   unwritten) that must be caught, and its time beside its bound, its
+   launches per step and ``torch.mm`` on the same bf16 operands;
+18. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
-   ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``) and P2's
-   ``gemm_wgmma.cu`` at the shapes the phases gave them, their registers,
-   spills, shared memory, resident blocks per SM and waves;
-18. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+   ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
+   the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
+   their registers, spills, shared memory, resident blocks per SM and
+   waves;
+19. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --step-sweep N`` instead prints the whole-step
 gradient readings of the three train routes on N batches each, for the
@@ -201,6 +212,12 @@ TOL_STEP_GRAD_OTHER = 2.0 ** -3
 # The planted faults drop the last rows of a sum or a write, the usual fault
 # of a kernel's ragged tail: 256 rows, one row block of layernorm_bwd_rows.
 PLANTED_FAULT_ROWS = 256
+# gemm_epilogue by product: bf16 outputs may differ from the plain version
+# by a flipped rounding (2**-7 of the value and absolute, as the card tests
+# hold them); fp32 outputs by sums in another order, held to 2**-14 of their
+# largest value (as test_gemm_nt_f32).
+TOL_GEMM_BF16 = 2.0 ** -7
+TOL_GEMM_F32 = 2.0 ** -14
 # The block-group kernel K9: G blocks chained with the stream in fp32, each
 # block rounding its bf16 intermediates (qkv, attention output, LN outputs,
 # hidden) at the same points as the plain version; a flipped rounding in one
@@ -366,18 +383,20 @@ def forward_variant_ms(qkv, n_head: int, mask, key_tiles: tuple) -> dict:
 
 
 def attention_resources(build_log: str, rows: list) -> dict:
-    """The tensor-core attention kernels and P2's GEMM at the shapes this
-    run's phases gave them (the rows of ``attention_core.cu``,
-    ``attention_split.cu``, ``attention_core_bwd.cu`` (with its head-width
-    line), ``lnqkv_attention.cu``, ``lnqkv_attention_bwd_dx.cu`` (and
-    ``gemm_wgmma.cu``) and ``attention_pair.cu`` in ``rows``): for each
+    """The tensor-core kernels at the shapes this run's phases gave them
+    (the rows of ``attention_core.cu``, ``attention_split.cu``,
+    ``attention_core_bwd.cu`` (with its head-width line),
+    ``lnqkv_attention.cu``, ``lnqkv_attention_bwd_dx.cu`` (and its GEMM,
+    ``gemm_epilogue.cu``'s NT instance), ``attention_pair.cu`` and the
+    ``gemm_epilogue.cu`` product rows in ``rows``): for each
     kernel a shape launches, its registers and spills as ``ptxas -v``
     printed them in this build, its dynamic shared memory and resident
     blocks per SM from the CUDA occupancy calculator, and the waves its grid
     takes on this card's SMs (one block per 64-row tile, head and batch row;
     one per head and batch row for ``lnqkv_attention`` and P2's attention
     stage; one per 64-row tile, 128-lane head group and batch row for
-    ``attention_pair``; one per 128 x 128 tile of the GEMM's output).
+    ``attention_pair``; one per 128 x 256 output tile of a GEMM and split
+    of a weight gradient, on a persistent grid of one block an SM).
     Printed and kept in the summary; none of it is a measured time, so none
     of it goes into the kernels line."""
     import re
@@ -386,6 +405,7 @@ def attention_resources(build_log: str, rows: list) -> dict:
 
     from federated_multi_modal_tpu_torch.ops.kernels import _build
     from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
 
     ptxas, entry = {}, None  # (kernel name, template arguments): registers, spills
     for line in build_log.splitlines():
@@ -393,7 +413,10 @@ def attention_resources(build_log: str, rows: list) -> dict:
             m = re.search(r"(attention_core_bwd_[a-z]+|attention_split|attention_core|"
                           r"attention_pair)_kernelI((?:L[ib]\d+E)+)E", line)
             entry = m and (m[1], tuple(int(v) for v in re.findall(r"L[ib](\d+)E", m[2])))
-            for plain in ("lnqkv_attention_bwd", "lnqkv_attention", "gemm_nt_f32"):
+            g = re.search(r"gemm_epilogue_kernelILi(\d+)ELi(\d+)EE", line)
+            if g:
+                entry = ("gemm_epilogue", (int(g[1]), int(g[2])))
+            for plain in ("lnqkv_attention_bwd", "lnqkv_attention"):
                 if not m and f"{plain}_kernel" in line:
                     entry = (plain, ())
                     break
@@ -463,8 +486,20 @@ def attention_resources(build_log: str, rows: list) -> dict:
                 "lnqkv_attention_bwd": (("lnqkv_attention_bwd", ()),
                                         "fmm_lnqkv_attention_bwd_dqkv_blocks_per_sm", T)})
             shapes[f"{row['name']} GEMM {[B * T, D, 3 * D]}"] = (
-                -(-B * T // 128) * -(-D // 128), False, {
-                    "gemm_nt_f32": (("gemm_nt_f32", ()), "fmm_gemm_nt_f32_blocks_per_sm", 0)})
+                -(-B * T // 128) * -(-D // GEMM_TILE_N), False, {
+                    "gemm_epilogue<NT, 0x100>": (("gemm_epilogue", (1, 0x100)),
+                                                 "fmm_gemm_epilogue_blocks_per_sm",
+                                                 1 * 512 + 0x100)})
+        elif source == "gemm_epilogue.cu" and "product" in row:
+            rows_out, cols, k = row["shape"]
+            layout = GEMM_LAYOUTS.index(row["layout"])
+            splits = (k_block.tn_split_plan(rows_out, cols, k, sms)[0]
+                      if row["layout"] == "TN" else 1)
+            shapes[f"{row['name']} {row['product']}"] = (
+                -(-rows_out // 128) * -(-cols // GEMM_TILE_N) * splits, False, {
+                    f"gemm_epilogue<{row['layout']}, {row['epilogue']:#05x}>": (
+                        ("gemm_epilogue", (layout, row["epilogue"])),
+                        "fmm_gemm_epilogue_blocks_per_sm", layout * 512 + row["epilogue"])})
         elif source == "attention_pair.cu":
             # [qkv shape, heads], and the head-width checks' shapes
             for (B, T, D3), H in [row["shape"]] + row.get("head_width_shapes", []):
@@ -484,7 +519,7 @@ def attention_resources(build_log: str, rows: list) -> dict:
             rec[name] = dict(ptxas.get(key, {}), smem_bytes=smem, blocks_per_sm=per_sm,
                              waves=round(blocks / (per_sm * sms), 2))
         out[label] = rec
-    print("tensor-core attention kernels (ptxas, occupancy, waves):", json.dumps(out))
+    print("tensor-core kernels (ptxas, occupancy, waves):", json.dumps(out))
     return out
 
 
@@ -736,12 +771,14 @@ def kernel_counters() -> dict:
 
 def reset_counts() -> None:
     from federated_multi_modal_tpu_torch.ops.kernels import _build
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
 
     for fn in kernel_counters().values():
         fn.launches = 0
         if hasattr(fn, "backward_launches"):
             fn.backward_launches = 0
     _build.reset_launches()
+    k_block.GEMM_LAUNCHES.clear()
 
 
 def read_counts() -> dict:
@@ -755,7 +792,24 @@ def read_counts() -> dict:
         if hasattr(fn, "backward_launches"):
             counts[name + " (backward)"] = fn.backward_launches
     counts.update(_build.LAUNCHES)
+    counts["gemm_epilogue by product"] = gemm_launches_by_label()
     return counts
+
+
+GEMM_LAYOUTS = ("NN", "NT", "TN")
+
+
+def product_label(key) -> str:
+    """A product's key in ``fused_block.GEMM_LAUNCHES`` as printed: layout,
+    output rows x columns x contraction, epilogue code."""
+    layout, rows, cols, k, code = key
+    return f"{GEMM_LAYOUTS[layout]} {rows}x{cols}x{k} {code:#05x}"
+
+
+def gemm_launches_by_label() -> dict:
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    return {product_label(k): n for k, n in sorted(k_block.GEMM_LAUNCHES.items())}
 
 
 def check_counts(counts: dict, expected: dict, what: str) -> None:
@@ -2431,6 +2485,223 @@ def split_attention_phase(device) -> tuple:
 # -- the attention microbench and its prototypes P1-P3 -------------------------
 
 
+# -- gemm_epilogue.cu by product ------------------------------------------------
+#
+# Every product that the vision blocks of the default train step hand to
+# gemm_epilogue.cu (fused_block.block_gemm_products at the step's own M, D
+# and hidden), each on seeded bf16 inputs: held against its plain version,
+# the same bits on a repeat launch, planted faults, timed beside its bound
+# and torch.matmul on the same operands.
+
+# The line of the TPU kernel's body that computes each product
+# (federated_multi_modal_tpu/ops/pallas/fused_block.py): _block_body32 for
+# the forward, _train_fwd_kernel for K3's fc, _train_bwd_kernel for the rest.
+GEMM_REPLACES = {"qkv": 528, "out_proj": 555, "fc": 569, "fc_save_h": 948,
+                 "fc_h_f32": 1077, "proj": 574, "dh": 1083, "dh_h_f32": 1083,
+                 "dxn2": 1088, "da": 1118, "dyln1": 1169, "dw_qkv": 1175,
+                 "dw_out": 1124, "dw_fc": 1095, "dw_proj": 1101}
+GEMM_STEP = 64  # the kernel's K step (kBK in gemm_epilogue.cu)
+GEMM_TILE_N = 256  # its tile's columns
+
+
+def gemm_step_launches(passes: dict, n_vis: int) -> dict:
+    """Launches of each product in one default train step: vision blocks
+    0 to n_vis - 2 take K3 (forward keeping h, backward), the last K4."""
+    per_step = {}
+    for run, n in (("forward_save_h", n_vis - 1), ("backward", n_vis - 1),
+                   ("forward", 1), ("backward_wgrad", 1)):
+        for prod in passes[run]:
+            per_step[prod] = per_step.get(prod, 0) + n
+    return per_step
+
+
+def gemm_inputs(prod, gen):
+    """Seeded bf16 operands of ``prod`` at unit scale over its contraction,
+    and the keyword arguments of ``gemm_epilogue_cuda`` (``None`` for TN)."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    if prod.layout == k_block._TN:
+        return randn(prod.k, prod.rows), randn(prod.k, prod.cols), None
+    e = k_block.epilogue_fields(prod.code)
+    M, N, K = prod.rows, prod.cols, prod.k
+    a = randn(M, K)
+    w = randn(*((N, K) if prod.layout == k_block._NT else (K, N)), scale=K ** -0.5)
+    kw = {"out_dtype": e["out"], "trans_w": prod.layout == k_block._NT, "gelu": e["gelu"],
+          "pre_dtype": e["pre"]}
+    if e["bias"]:
+        kw["bias"] = randn(N, dtype=torch.float32, scale=0.25)
+    if e["dgelu"]:
+        kw["dgelu_of"] = randn(M, N, dtype=e["dgelu"], scale=2.0)
+    if e["residual"]:
+        kw["residual"] = randn(M, N, dtype=e["residual"])
+    return a, w, kw
+
+
+def gemm_held(got, ref) -> dict:
+    """bf16 outputs at 2**-7 (``compare``), fp32 ones at 2**-14 of their
+    largest value (``compare_scaled``); a dual write's two outputs each."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    cmps = [compare(g, r, TOL_GEMM_BF16) if g.dtype == torch.bfloat16
+            else compare_scaled(g, r, TOL_GEMM_F32) for g, r in zip(got, ref)]
+    worst = max(cmps, key=lambda c: c["max_err_over_tol"])
+    return dict(worst, ok=all(c["ok"] for c in cmps))
+
+
+def gemm_faults(prod, a, w, kw, ref) -> dict:
+    """The planted faults of one product, each ``{"ok": caught}``: the last
+    K stage dropped (the product over all but the last 64-deep step); for a
+    product with an epilogue, the epilogue skipped on its last 256-column
+    tile (the bare product spliced in there); for TN, the last split's
+    partial never written (the product over the other splits' rows)."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    faults = {}
+    K = prod.k
+    if kw is None:
+        dropped = k_block.gemm_tn_cuda(a[:K - GEMM_STEP].contiguous(),
+                                       w[:K - GEMM_STEP].contiguous())
+        faults["last K stage dropped"] = {"ok": not gemm_held(dropped, ref)["ok"]}
+        splits, k_per = k_block.tn_split_plan(
+            prod.rows, prod.cols, K, torch.cuda.get_device_properties(0).multi_processor_count)
+        rows = (splits - 1) * k_per
+        unwritten = k_block.gemm_tn_cuda(a[:rows].contiguous(), w[:rows].contiguous())
+        faults["last split's partial unwritten"] = {"ok": not gemm_held(unwritten, ref)["ok"]}
+        return faults
+    cut = w[:, :K - GEMM_STEP] if kw["trans_w"] else w[:K - GEMM_STEP]
+    dropped = k_block.gemm_epilogue_cuda(a[:, :K - GEMM_STEP].contiguous(), cut.contiguous(),
+                                         **kw)
+    faults["last K stage dropped"] = {"ok": not gemm_held(dropped, ref)["ok"]}
+    if prod.code != k_block.epilogue_code(out=kw["out_dtype"]):
+        got = k_block.gemm_epilogue_cuda(a, w, **kw)
+        got = got[0] if isinstance(got, tuple) else got
+        bare = k_block.gemm_epilogue_cuda(a, w, out_dtype=kw["out_dtype"],
+                                          trans_w=kw["trans_w"])
+        n0 = (prod.cols - 1) // GEMM_TILE_N * GEMM_TILE_N
+        got[:, n0:] = bare[:, n0:]
+        faults["epilogue skipped on the last N tile"] = {
+            "ok": not gemm_held(got, ref[0] if isinstance(ref, tuple) else ref)["ok"]}
+    return faults
+
+
+def library_mm(a, b, f32: bool):
+    """``torch.mm`` of the bf16 operands, with an fp32 output where the
+    product writes fp32 (``out_dtype``, where this PyTorch has it; else the
+    bf16 product, and the row says so)."""
+    import torch
+
+    if f32:
+        try:
+            return torch.mm(a, b, out_dtype=torch.float32), "torch.mm (bf16 in, fp32 out)"
+        except (TypeError, RuntimeError):
+            pass
+    return torch.mm(a, b), "torch.mm (bf16 in, bf16 out)"
+
+
+def gemm_product_phase(gemm_counts: dict, x_shape, hidden: int, n_vis: int) -> tuple:
+    """The products of the default train step's vision blocks at the step's
+    own M = B T, D and hidden: the counted step's launches of each against
+    the table, then each product on seeded inputs against its plain
+    version, the same bits on repeat, its planted faults, and its time
+    beside its bound and the library call's. Returns ``(rows, checks,
+    summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    B, T, D = x_shape
+    M = B * T
+    passes = k_block.block_gemm_products(M, D, hidden)
+    per_step = gemm_step_launches(passes, n_vis)
+    table = {product_label(p.key): n for p, n in per_step.items()}
+    launches_ok = gemm_counts == table
+    print("gemm_epilogue launches by product in the counted train step (got, table):",
+          json.dumps({k: [gemm_counts.get(k, 0), table.get(k, 0)]
+                      for k in sorted(set(gemm_counts) | set(table))}))
+    checks = [("gemm_epilogue products launched in the train step as the table says",
+               {"ok": launches_ok})]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows, summary = [], {}
+    for prod, n in per_step.items():
+        a, w, kw = gemm_inputs(prod, gen)
+        if kw is None:
+            def run(a=a, w=w):
+                return k_block.gemm_tn_cuda(a, w)
+
+            def plain(a=a, w=w):
+                return k_block.gemm_tn_reference(a, w)
+            lib_a, lib_b, f32 = a.T, w, True
+            in_bytes = (a.numel() + w.numel()) * 2
+            out_bytes = prod.rows * prod.cols * 4
+        else:
+            def run(a=a, w=w, kw=kw):
+                return k_block.gemm_epilogue_cuda(a, w, **kw)
+
+            def plain(a=a, w=w, kw=kw):
+                return k_block.gemm_epilogue_reference(a, w, **kw)
+            lib_a, lib_b = a, (w.T if kw["trans_w"] else w)
+            f32 = kw["out_dtype"] == torch.float32
+            in_bytes = (a.numel() + w.numel()) * 2 + sum(
+                kw[k].numel() * kw[k].element_size() for k in ("bias", "dgelu_of", "residual")
+                if k in kw)
+            out_bytes = prod.rows * prod.cols * (kw["out_dtype"].itemsize + (
+                kw["pre_dtype"].itemsize if kw["pre_dtype"] else 0))
+        got, again = run(), run()
+        ref = plain()
+        torch.cuda.synchronize()
+        held = gemm_held(got, ref)
+        same = all(torch.equal(u, v) for u, v in zip(
+            got if isinstance(got, tuple) else (got,), again if isinstance(again, tuple) else (again,)))
+        faults = gemm_faults(prod, a, w, kw, ref)
+        del got, again, ref
+        ms = cuda_ms(run, 10)
+        plain_ms = cuda_ms(plain, 3, 1)
+        lib_call = library_mm(lib_a, lib_b, f32)[1]
+        lib_ms = cuda_ms(lambda: library_mm(lib_a, lib_b, f32), 10)
+        b = bound(in_bytes + out_bytes, prod.flops)
+        label = product_label(prod.key)
+        name = f"gemm_epilogue {prod.name}"
+        print(f"{name} [{label}]: {ms:.4f} ms ({prod.flops / ms / 1e9:.1f} TFLOP/s), bound "
+              f"{b[0]:.4f} ms ({b[1]}), {lib_call} {lib_ms:.4f} ms, plain {plain_ms:.2f} ms, "
+              f"{n} launches a step; vs plain {json.dumps(brief({'': held}))[5:-1]}, same bits "
+              f"{same}, faults caught {json.dumps({k: v['ok'] for k, v in faults.items()})}")
+        checks += [(f"{name} vs plain", held), (f"{name} same bits on repeat", {"ok": same})]
+        checks += [(f"{name} planted fault ({k}) caught", v) for k, v in faults.items()]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "federated_multi_modal_tpu_torch/csrc/gemm_epilogue.cu",
+            "replaces": f"federated_multi_modal_tpu/ops/pallas/fused_block.py:"
+                        f"{GEMM_REPLACES[prod.name]}",
+            "product": label, "layout": GEMM_LAYOUTS[prod.layout],
+            "shape": [prod.rows, prod.cols, prod.k], "epilogue": prod.code,
+            "launches": gemm_counts.get(label, 0), "launches_table": n,
+            "max_abs_err": held["max_abs_err"], "max_err_over_tol": held["max_err_over_tol"],
+            "tol": held["tol"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms, "library_call": lib_call,
+            "tflops": prod.flops / ms / 1e9, "share_of_bound": b[0] / ms,
+        })
+        summary[prod.name] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms,
+                              "launches": n}
+        del a, w, kw
+        torch.cuda.empty_cache()
+    step_ms = sum(r["ms"] * r["launches_table"] for r in rows)
+    step_bound = sum(r["bound_ms"] * r["launches_table"] for r in rows)
+    step_lib = sum(r["library_ms"] * r["launches_table"] for r in rows)
+    print(f"gemm_epilogue by product, one train step's launches: {step_ms:.2f} ms, bound "
+          f"{step_bound:.2f} ms, library {step_lib:.2f} ms")
+    summary["train_step_sum"] = {"ms": step_ms, "bound_ms": step_bound, "library_ms": step_lib}
+    return rows, checks, summary
+
+
 def fault_rows_dropped(fn):
     """A kernel leaves the last rows of its output unwritten (zero)."""
     def faulty(*args, **kwargs):
@@ -2639,7 +2910,7 @@ def prototype_phase(lnp, w, b, device) -> tuple:
     dxn_g = k_gemm.gemm_nt_f32_cuda(a_g, w_g)
     gamma_f = lnp["scale"].float().contiguous()
     stage_ms = {
-        "gemm_wgmma dxn = d(QKV) . W^T": cuda_ms(lambda: k_gemm.gemm_nt_f32_cuda(a_g, w_g), 10),
+        "gemm_epilogue NT dxn = d(QKV) . W^T": cuda_ms(lambda: k_gemm.gemm_nt_f32_cuda(a_g, w_g), 10),
         "torch.matmul, bf16 out": cuda_ms(lambda: torch.matmul(a_g, w_g.T), 10),
         "layernorm_bwd_rows, no parameter gradients": cuda_ms(
             lambda: k_block.layernorm_bwd_rows_cuda(x.view(M, D), dxn_g, None, gamma_f,
@@ -2662,7 +2933,7 @@ def prototype_phase(lnp, w, b, device) -> tuple:
     }
     stage_ms["P2 whole"] = times["P2"][0]
     stage_ms["attention stage (whole less GEMM and LayerNorm backward)"] = (
-        times["P2"][0] - stage_ms["gemm_wgmma dxn = d(QKV) . W^T"]
+        times["P2"][0] - stage_ms["gemm_epilogue NT dxn = d(QKV) . W^T"]
         - stage_ms["layernorm_bwd_rows, no parameter gradients"])
     print("P2 by stage, ms:", json.dumps(stage_ms))
     p3_width_ms = {str(hd): cuda_ms(lambda hd=hd: k_proto.packed4d_attention(qkv, D // hd), 20)
@@ -2691,8 +2962,8 @@ def prototype_phase(lnp, w, b, device) -> tuple:
     }
     extra = {
         "P2": {"sources": [f"federated_multi_modal_tpu_torch/csrc/{f}" for f in (
-            "lnqkv_attention_bwd_dx.cu", "ln_qkv.cuh", "attn_bwd.cuh", "gemm_wgmma.cu",
-            "layernorm_bwd_rows.cu")], "ms_by_stage": stage_ms},
+            "lnqkv_attention_bwd_dx.cu", "ln_qkv.cuh", "attn_bwd.cuh", "gemm_epilogue.cu",
+            "wgmma.cuh", "layernorm_bwd_rows.cu")], "ms_by_stage": stage_ms},
         "P3": {"key_tiles": {str(hd): k_proto.packed4d_attention_key_tiles(hd, T)
                              for hd in (32, 64, 128)},
                "head_width_shapes": [[[B, T, 3 * D], D // hd] for hd in (32, 128)],
@@ -3085,8 +3356,19 @@ def main() -> int:
         launches_zeroshot=summary["zeroshot"]["text_launches"]["K1 packed_attention_masked"],
         zeroshot_shape=zs_k1)
     rows += group_rows + [k8_row] + proto_rows
+    torch.cuda.empty_cache()
+
+    # -- 17. gemm_epilogue.cu by product --------------------------------------
+    t0 = time.perf_counter()
+    k3_row = next(r for r in rows if r["name"] == "fused_block_train")
+    gemm_rows, gemm_checks, summary["gemm_products"] = gemm_product_phase(
+        summary["train_launches"]["gemm_epilogue by product"], k3_row["shape"][0],
+        k3_row["shape"][2], n_vis)
+    summary["gemm_products"]["phase_s"] = time.perf_counter() - t0
+    rows += gemm_rows
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
-    route_checks += group_checks + coop_checks + zs_checks + k8_checks + proto_checks
+    route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
+                     + gemm_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

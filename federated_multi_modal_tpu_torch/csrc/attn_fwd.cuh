@@ -13,12 +13,17 @@
 // kExact (attention_core.cu, P1) sums q.k on the fp64 tensor cores
 // (mma.m8n8k4, am::mma_abt_exact), so each fp32 score is the correctly
 // rounded one, and adds each 16-key step of P.V to the fp32 accumulators
-// rounded to nearest (am::mma_rn). p is rounded to bf16 right after the
-// softmax, and a score's last fp32 bit flips that rounding often enough to
-// move a 16-image train step's gradients past their limit against a plain
-// path with an exact forward (chip_smoke.py): the bf16 tensor cores' sums
-// truncate, and fp32 sums in cuBLAS's order (the plain version's) read past
-// that limit too.
+// rounded to nearest (am::mma_rn); with a mask (K1: the text tower, whose
+// features reach the logits at CLIP's logit scale of 100) each step is
+// summed on the fp64 tensor cores first (am::mma_pv_exact), since the bf16
+// tensor cores' truncation within a step moved a trained 16-image step's
+// vision gradients 2.5x past their limit against an exact forward
+// (chip_smoke.py on an H100; a P.V in fp32 rounded to nearest read 0.36 of
+// it). p is rounded to bf16 right after the softmax, and a score's last
+// fp32 bit flips that rounding often enough to move a 16-image train step's
+// gradients past their limit against a plain path with an exact forward
+// (chip_smoke.py): the bf16 tensor cores' sums truncate, and fp32 sums in
+// cuBLAS's order (the plain version's) read past that limit too.
 // Without kExact (K8, which no train step reaches) both products run on the
 // bf16 tensor cores, each accumulator chained through the steps.
 //
@@ -146,11 +151,16 @@ __device__ __forceinline__ void normalize(float (&s)[8][4], const float (&m)[2],
 }
 
 // o += bf16(p) times the 64 rows of v_tile; with kExact each 16-key step's
-// product is added to o rounded to nearest (am::mma_rn).
-template <int HD, bool kExact>
+// product is added to o rounded to nearest (am::mma_rn), with kExactPv
+// summed on the fp64 tensor cores first (am::mma_pv_exact).
+template <int HD, bool kExact, bool kExactPv = false>
 __device__ __forceinline__ void pv(float (&o)[Shape<HD>::kNt][4], const float (&p)[8][4],
                                    const bf16* v_tile, int ld = Shape<HD>::kLd) {
-  am::mma_pv<Shape<HD>::kNt, kExact>(o, p, v_tile, ld);
+  if constexpr (kExactPv) {
+    am::mma_pv_exact<Shape<HD>::kNt>(o, p, v_tile, ld);
+  } else {
+    am::mma_pv<Shape<HD>::kNt, kExact>(o, p, v_tile, ld);
+  }
 }
 
 // Rows row0 + [0, 16) of the bf16 output from the fp32 accumulators; rows at
@@ -247,7 +257,7 @@ __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
           am::online_softmax<false, true>(s, s, m, l, unused);
         } else {
           normalize(s, m, l, r);
-          pv<HD, kExact>(o, s, kt + 2 * E + col, ld);
+          pv<HD, kExact, kExact && kMasked>(o, s, kt + 2 * E + col, ld);
         }
       }
       if (it == n_kt - 1) {
@@ -314,7 +324,7 @@ __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               s[j][nt][e] = div_by(s[j][nt][e], l[e >> 1], r[e >> 1]);
-          pv<HD, kExact>(o, s[j], ring + ((n_kt + j) & 1) * E + col, ld);
+          pv<HD, kExact, kExact && kMasked>(o, s[j], ring + ((n_kt + j) & 1) * E + col, ld);
         }
         __syncthreads();
       }
@@ -359,7 +369,7 @@ __device__ __forceinline__ void attend_resident(const bf16* qs, const bf16* ks, 
     if (score_tile<HD, kMasked, kExact>(s, mask, T, n_keys, row0, j * am::kTile, qs, row0,
                                         ks + j * S::kTileElems, scale)) {
       normalize(s, m, l, r);
-      pv<HD, kExact>(o, s, vs + j * S::kTileElems);
+      pv<HD, kExact, kExact && kMasked>(o, s, vs + j * S::kTileElems);
     }
   }
   store_rows<HD>(o, out, out_stride, row0, T);

@@ -288,6 +288,49 @@ __device__ __forceinline__ void split_k4(double (&x)[4], uint32_t lo8, uint32_t 
   x[3] = hi_bf16(hi8);
 }
 
+// mma_pv with each 16-key step's product summed on the fp64 tensor cores
+// (the bf16 products are exact in fp64, and so is their sum but for
+// operands ~2^53 apart) and added to out rounded to nearest: no step
+// carries the bf16 tensor cores' truncation toward zero.
+template <int NT, int N8>
+__device__ __forceinline__ void mma_pv_exact(float (&out)[NT][4], const float (&p)[N8][4],
+                                             const bf16* tile, int ld) {
+#pragma unroll
+  for (int kk = 0; kk < N8 / 2; ++kk) {
+    double top[4], bottom[4];  // rows g and g + 8
+    split_k4(top, pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+             pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]));
+    split_k4(bottom, pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+             pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]));
+#pragma unroll
+    for (int np = 0; np < (NT + 1) / 2; ++np) {
+      uint32_t b[4];
+      if (2 * np + 1 < NT) {
+        load_b_rows_k(b, tile, ld, kk * 16, np * 16);
+      } else {
+        uint32_t b2[2];
+        load_b_rows_k_x2(b2, tile, ld, kk * 16, np * 16);
+        b[0] = b2[0];
+        b[1] = b2[1];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (2 * np + i >= NT) break;
+        double bk[4];
+        split_k4(bk, b[2 * i], b[2 * i + 1]);
+        double d[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dmma(d[0], d[1], top[j], bk[j]);
+          dmma(d[2], d[3], bottom[j], bk[j]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[2 * np + i][e] += static_cast<float>(d[e]);
+      }
+    }
+  }
+}
+
 // acc (16 x 64, as 8 accumulators, holding the additive mask or -inf) =
 // fp32(q.k) * scale + acc, where q.k is one warp's Q.K^T-shaped product as
 // in mma_abt, summed on the fp64 tensor cores: the bf16 products are exact

@@ -79,8 +79,8 @@ LAUNCHES = {name: 0 for name in _SIGNATURES}
 # masked or not, two int* for the answers).
 _OCCUPANCY = ("fmm_attention_split_blocks_per_sm", "fmm_attention_core_bwd_blocks_per_sm",
               "fmm_attention_core_blocks_per_sm", "fmm_lnqkv_attention_blocks_per_sm",
-              "fmm_lnqkv_attention_bwd_dqkv_blocks_per_sm", "fmm_gemm_nt_f32_blocks_per_sm",
-              "fmm_attention_pair_blocks_per_sm")
+              "fmm_lnqkv_attention_bwd_dqkv_blocks_per_sm", "fmm_attention_pair_blocks_per_sm",
+              "fmm_gemm_epilogue_blocks_per_sm")
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process, or 0.0 if loaded as built
@@ -188,8 +188,9 @@ def blocks_per_sm(name: str, variant: int, masked: bool) -> tuple:
     ``attention_split``, head width + 256 x pass for ``attention_core_bwd``,
     head width + 256 x key tiles held in registers for ``attention_core`` and
     ``attention_pair``, T for ``lnqkv_attention`` and
-    ``lnqkv_attention_bwd_dqkv``, unused for ``gemm_nt_f32``; built with a
-    mask or without), from the CUDA
+    ``lnqkv_attention_bwd_dqkv``, layout x 512 + the epilogue's code for
+    ``gemm_epilogue`` (``fused_block.GEMM_INSTANCES``; P2's product is NT,
+    code 0x100); built with a mask or without), from the CUDA
     occupancy calculator with the registers and shared memory it was built
     with."""
     lib = library()

@@ -44,6 +44,7 @@ the transposed layouts and gradient epilogues of ``gemm_epilogue``.
 
 from __future__ import annotations
 
+import collections
 import os
 from typing import Callable, NamedTuple
 
@@ -176,12 +177,65 @@ def layernorm_rows_cuda(x, gamma, beta, out_dtype, eps: float = 1e-5):
 
 
 _NN, _NT, _TN = 0, 1, 2
-_BK = 32  # the kernel's K step; a split of the contraction is a multiple
+_BK = 64  # the kernel's K step; a split of the contraction is a multiple
+_TILE_M, _TILE_N = 128, 256  # the kernel's output tile
+_F32, _B16 = torch.float32, torch.bfloat16
+
+
+def _field(dtype):
+    return 0 if dtype is None else 1 if dtype == _B16 else 2
+
+
+def epilogue_code(bias=False, gelu=False, pre=None, dgelu=None, residual=None,
+                  out=_B16) -> int:
+    """The kernel's code of an epilogue (``code`` in ``gemm_epilogue.cu``):
+    ``bias`` and ``gelu`` flags, the dtypes of ``pre`` (the pre-activation
+    copy), ``dgelu`` (h of ``* QuickGELU'(h)``) and ``residual`` (``None``
+    when absent) and of the output."""
+    return (int(bias) | int(gelu) << 1 | _field(pre) << 2 | _field(dgelu) << 4
+            | _field(residual) << 6 | int(out == _F32) << 8)
+
+
+def epilogue_fields(code: int) -> dict:
+    """The epilogue of a code, as :func:`epilogue_code`'s arguments."""
+    def dtype(v):
+        return (None, _B16, _F32)[v]
+
+    return {"bias": bool(code & 1), "gelu": bool(code >> 1 & 1), "pre": dtype(code >> 2 & 3),
+            "dgelu": dtype(code >> 4 & 3), "residual": dtype(code >> 6 & 3),
+            "out": _F32 if code >> 8 & 1 else _B16}
+
+
+# The (layout, epilogue code) instances that gemm_epilogue.cu builds
+# (kInstances there): every product of the blocks and P2, and NN's other
+# plain, bias and QuickGELU forms in either output type.
+GEMM_INSTANCES = frozenset(
+    [(_NN, epilogue_code(bias=b, gelu=g, out=o))
+     for b, g in ((False, False), (True, False), (True, True)) for o in (_B16, _F32)]
+    + [(_NN, epilogue_code(bias=True, residual=r, out=o))
+       for r in (_B16, _F32) for o in (_B16, _F32)]
+    + [(_NN, epilogue_code(bias=True, gelu=True, pre=p)) for p in (_B16, _F32)]
+    + [(_NT, epilogue_code(out=o)) for o in (_B16, _F32)]
+    + [(_NT, epilogue_code(dgelu=h)) for h in (_B16, _F32)]
+    + [(_TN, epilogue_code(out=_F32))])
+
+
+# Launches of gemm_epilogue.cu since the last reset, by product: (layout,
+# output rows, output columns, contraction, epilogue code), as
+# :class:`GemmProduct` has them.
+GEMM_LAUNCHES = collections.Counter()
+
+
+def _dtype(t):
+    return None if t is None else t.dtype
 
 
 def _gemm_launch(a, w, layout, M, N, K, out, splits=1, k_per_split=None,
                  bias=None, pre=None, gelu=False, dgelu_of=None,
                  residual=None):
+    GEMM_LAUNCHES[(layout, M, N, K, epilogue_code(
+        bias is not None, gelu, _dtype(pre), _dtype(dgelu_of), _dtype(residual),
+        out.dtype))] += 1
     _build.launch(
         "fmm_gemm_epilogue", a.data_ptr(), w.data_ptr(), layout, M, N, K,
         splits, k_per_split or -(-K // _BK) * _BK, _ptr(bias), _ptr(pre),
@@ -194,7 +248,8 @@ def gemm_epilogue_cuda(a, w, bias=None, residual=None, gelu=False,
                        pre_dtype=None):
     """Launch ``gemm_epilogue.cu``: ``a (M, K) @ w (K, N)`` (or ``@ w^T``
     for ``w (N, K)`` with ``trans_w``) in bf16 with fp32 accumulation and
-    the fused epilogue of :func:`gemm_epilogue_reference`."""
+    the fused epilogue of :func:`gemm_epilogue_reference`, one of
+    :data:`GEMM_INSTANCES`."""
     out_dtype = out_dtype or a.dtype
     w = w.to(torch.bfloat16).contiguous()
     _check_cuda("gemm_epilogue a", a, (torch.bfloat16,))
@@ -215,11 +270,17 @@ def gemm_epilogue_cuda(a, w, bias=None, residual=None, gelu=False,
                 raise ValueError(f"gemm_epilogue: {name} must be ({M}, {N})")
     if out_dtype not in _BF16_F32 or pre_dtype not in (None, *_BF16_F32):
         raise ValueError(f"gemm_epilogue writes bf16 or fp32, not {out_dtype}")
+    layout = _NT if trans_w else _NN
+    code = epilogue_code(bias is not None, gelu, pre_dtype, _dtype(dgelu_of),
+                         _dtype(residual), out_dtype)
+    if (layout, code) not in GEMM_INSTANCES:
+        raise ValueError(f"gemm_epilogue: no instance built for layout {layout} with "
+                         f"epilogue code {code:#05x} (GEMM_INSTANCES)")
     out = torch.empty(M, N, dtype=out_dtype, device=a.device)
     pre = None if pre_dtype is None else torch.empty(M, N, dtype=pre_dtype,
                                                      device=a.device)
-    _gemm_launch(a, w, _NT if trans_w else _NN, M, N, K, out, bias=bias,
-                 pre=pre, gelu=gelu, dgelu_of=dgelu_of, residual=residual)
+    _gemm_launch(a, w, layout, M, N, K, out, bias=bias, pre=pre, gelu=gelu,
+                 dgelu_of=dgelu_of, residual=residual)
     return out if pre is None else (out, pre)
 
 
@@ -249,11 +310,39 @@ def column_sum_cuda(x):
     return total[0]
 
 
+# Bytes of device-memory traffic that take as long as one SM's 128 x 256 x
+# 64 step of the product, at the H100's data-sheet rates (989 TFLOP/s dense
+# bf16 over 132 SMs, 3.35 TB/s): ~1.9 MB.
+_STEP_BYTES = 2 * _TILE_M * _TILE_N * _BK / (989e12 / 132) * 3.35e12
+
+
+def tn_split_plan(M: int, N: int, K: int, sms: int = 132) -> tuple:
+    """``(splits, k_per_split)`` of ``gemm_tn_cuda``'s contraction over K
+    rows into an ``(M, N)`` output, on a card of ``sms`` SMs (one block
+    each, walking every split of every output tile). Takes the split count
+    whose modelled time is least: the waves of equal tiles times the
+    K steps of one, plus the fp32 partials written and read again (none
+    for one split); the fewest splits among equals. ``k_per_split`` is a
+    multiple of the kernel's K step."""
+    tiles = -(-M // _TILE_M) * -(-N // _TILE_N)
+    steps = -(-K // _BK)
+    best = None
+    for want in range(1, min(steps, 256) + 1):
+        per = -(-steps // want)
+        splits = -(-steps // per)
+        cost = -(-tiles * splits // sms) * per
+        if splits > 1:
+            cost += splits * M * N * 8 / _STEP_BYTES
+        if best is None or cost < best[0]:
+            best = (cost, splits, per * _BK)
+    return best[1], best[2]
+
+
 def gemm_tn_cuda(a, b):
     """Launch ``gemm_epilogue.cu`` in its TN layout: ``a^T @ b`` for bf16
     ``a (K, M)`` and ``b (K, N)`` -> fp32 ``(M, N)``. A long contraction (the
-    batch rows) is split over blocks into fp32 partial products, which
-    :func:`column_sum_cuda` adds up."""
+    batch rows) is split over tiles into fp32 partial products
+    (:func:`tn_split_plan`), which :func:`column_sum_cuda` adds up."""
     _check_cuda("gemm_tn a", a, (torch.bfloat16,))
     _check_cuda("gemm_tn b", b, (torch.bfloat16,))
     K, M = a.shape
@@ -261,10 +350,8 @@ def gemm_tn_cuda(a, b):
     if Kb != K or M % 8 or N % 8:
         raise ValueError(f"gemm_tn: a {tuple(a.shape)}^T @ b {tuple(b.shape)} "
                          "needs matching K, M % 8 == 0 and N % 8 == 0")
-    tiles = -(-M // 128) * -(-N // 128)
-    want = max(1, min(-(-264 // tiles), -(-K // _BK)))
-    k_per = -(-K // (want * _BK)) * _BK
-    splits = -(-K // k_per)
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits, k_per = tn_split_plan(M, N, K, sms)
     out = torch.empty(splits, M, N, dtype=torch.float32, device=a.device)
     _gemm_launch(a, b, _TN, M, N, K, out, splits=splits, k_per_split=k_per)
     if splits == 1:
@@ -686,6 +773,66 @@ CUDA_STEPS = BlockSteps(
     layernorm_rows_cuda, gemm_epilogue_cuda, attention_core_cuda,
     attention_core_bwd_cuda, layernorm_bwd_rows_cuda, gemm_tn_cuda,
     column_sum_cuda)
+
+class GemmProduct(NamedTuple):
+    """One product a block runs through ``gemm_epilogue.cu``: the output's
+    ``rows`` and ``cols``, the contraction ``k``, the layout (``_NN``,
+    ``_NT`` or ``_TN``) and the epilogue's code (:func:`epilogue_code`)."""
+
+    name: str
+    layout: int
+    rows: int
+    cols: int
+    k: int
+    code: int
+
+    @property
+    def key(self) -> tuple:
+        """The product's key in :data:`GEMM_LAUNCHES`."""
+        return (self.layout, self.rows, self.cols, self.k, self.code)
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.rows * self.cols * self.k
+
+
+def block_gemm_products(M: int, D: int, hidden: int, dtype=torch.bfloat16) -> dict:
+    """The products of one pre-LN block over ``M`` rows of width ``D`` with
+    an MLP of ``hidden``, in the storage dtype ``dtype``, by pass, in the
+    order the block runs them: ``forward`` (the eval block K5, and K4's
+    forward), ``forward_save_h`` (K3's, which keeps the fc pre-activation),
+    ``backward`` (K3's) and ``backward_wgrad`` (K4's: y and h recomputed, h
+    in fp32, and the four weight gradients over the ``M`` rows)."""
+    qkv = GemmProduct("qkv", _NN, M, 3 * D, D, epilogue_code(bias=True, out=dtype))
+    out_proj = GemmProduct("out_proj", _NN, M, D, D,
+                           epilogue_code(bias=True, residual=dtype, out=_F32))
+    fc = GemmProduct("fc", _NN, M, hidden, D, epilogue_code(bias=True, gelu=True, out=dtype))
+    proj = GemmProduct("proj", _NN, M, D, hidden,
+                       epilogue_code(bias=True, residual=_F32, out=dtype))
+    dxn2 = GemmProduct("dxn2", _NT, M, D, hidden, epilogue_code(out=_F32))
+    da = GemmProduct("da", _NT, M, D, D, epilogue_code(out=dtype))
+    dyln1 = GemmProduct("dyln1", _NT, M, D, 3 * D, epilogue_code(out=_F32))
+    tn = epilogue_code(out=_F32)
+    return {
+        "forward": [qkv, out_proj, fc, proj],
+        "forward_save_h": [qkv, out_proj, fc._replace(
+            name="fc_save_h", code=epilogue_code(bias=True, gelu=True, pre=dtype, out=dtype)),
+            proj],
+        "backward": [out_proj, GemmProduct("dh", _NT, M, hidden, D,
+                                           epilogue_code(dgelu=dtype, out=dtype)),
+                     dxn2, da, dyln1],
+        "backward_wgrad": [
+            out_proj,
+            fc._replace(name="fc_h_f32",
+                        code=epilogue_code(bias=True, gelu=True, pre=_F32, out=dtype)),
+            GemmProduct("dh_h_f32", _NT, M, hidden, D, epilogue_code(dgelu=_F32, out=dtype)),
+            dxn2, da, dyln1,
+            GemmProduct("dw_qkv", _TN, D, 3 * D, M, tn),
+            GemmProduct("dw_out", _TN, D, D, M, tn),
+            GemmProduct("dw_fc", _TN, D, hidden, M, tn),
+            GemmProduct("dw_proj", _TN, hidden, D, M, tn)],
+    }
+
 
 # The block's leaves in the JAX package's layout, LayerNorms first.
 LN_LEAVES = (("ln_1", "scale"), ("ln_1", "bias"), ("ln_2", "scale"),

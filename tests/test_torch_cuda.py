@@ -621,6 +621,132 @@ def test_gemm_nt_f32(gen, M, N, K):
     assert torch.equal(got, again)
 
 
+# gemm_epilogue.cu's instances (fused_block.GEMM_INSTANCES) at ragged shapes:
+# every M of 1, 127, 129, 300, N of 8, 136, 2304, 3072 and K of 8, 72 and
+# 3072 (K off the kernel's 64-deep step, N off its 256-wide tile).
+GEMM_SHAPES = [(1, 8, 8), (127, 136, 72), (129, 2304, 3072), (300, 3072, 72),
+               (300, 8, 3072), (1, 3072, 3072), (127, 2304, 8), (129, 136, 8)]
+GEMM_NN_NT = sorted(i for i in k_block.GEMM_INSTANCES if i[0] != k_block._TN)
+
+
+def _gemm_case(gen, layout, code, M, N, K):
+    """Seeded inputs of one instance: ``a``, ``w`` and the keyword arguments
+    of ``gemm_epilogue_cuda`` and its plain version."""
+    e = k_block.epilogue_fields(code)
+    a = _randn(gen, M, K)
+    w = _randn(gen, *((N, K) if layout == k_block._NT else (K, N)), scale=K ** -0.5)
+    kw = {"out_dtype": e["out"], "trans_w": layout == k_block._NT, "gelu": e["gelu"],
+          "pre_dtype": e["pre"]}
+    if e["bias"]:
+        kw["bias"] = _randn(gen, N, dtype=torch.float32)
+    if e["dgelu"]:
+        kw["dgelu_of"] = _randn(gen, M, N, dtype=e["dgelu"], scale=2.0)
+    if e["residual"]:
+        kw["residual"] = _randn(gen, M, N, dtype=e["residual"])
+    return a, w, kw
+
+
+def _gemm_held(got, ref) -> bool:
+    """bf16 results at 2**-7 (a flipped rounding), fp32 ones at 2**-14 of
+    their largest value (sums in another order), each output of a dual
+    write on its own."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        d = (g.float() - r.float()).abs()
+        if g.dtype == torch.bfloat16:
+            if not bool((d <= 2 ** -7 + 2 ** -7 * r.float().abs()).all()):
+                return False
+        elif not _within_share_of_max(g, r, 2 ** -14):
+            return False
+    return True
+
+
+def _same_bits(x, y) -> bool:
+    x = x if isinstance(x, tuple) else (x,)
+    y = y if isinstance(y, tuple) else (y,)
+    return all(torch.equal(u, v) for u, v in zip(x, y))
+
+
+@pytest.mark.parametrize("M,N,K", GEMM_SHAPES)
+@pytest.mark.parametrize("layout,code", GEMM_NN_NT,
+                         ids=[f"{('NN', 'NT')[lay]}-{code:#05x}" for lay, code in GEMM_NN_NT])
+def test_gemm_every_instance(gen, layout, code, M, N, K):
+    """Each NN and NT instance, every epilogue and both dtypes of pre_out,
+    h and the residual, against the plain version; two launches give the
+    same bits."""
+    a, w, kw = _gemm_case(gen, layout, code, M, N, K)
+    got = k_block.gemm_epilogue_cuda(a, w, **kw)
+    again = k_block.gemm_epilogue_cuda(a, w, **kw)
+    torch.cuda.synchronize()
+    assert _gemm_held(got, k_block.gemm_epilogue_reference(a, w, **kw))
+    assert _same_bits(got, again)
+
+
+@pytest.mark.parametrize("M,N", [(768, 2304), (3072, 768)])
+@pytest.mark.parametrize("K", [37, 5000, 102400])
+def test_gemm_tn_split(gen, K, M, N):
+    """The weight gradient over K rows with the split the planner picks (one
+    at K = 37 and 5000, seven or nine at 102,400): fp32 at 2**-14 of its
+    largest value, the same bits on repeat."""
+    a, b = _randn(gen, K, M), _randn(gen, K, N)
+    got = k_block.gemm_tn_cuda(a, b)
+    again = k_block.gemm_tn_cuda(a, b)
+    torch.cuda.synchronize()
+    assert _within_share_of_max(got, k_block.gemm_tn_reference(a, b), 2 ** -14)
+    assert torch.equal(got, again)
+
+
+def test_gemm_refuses_what_it_does_not_build(gen):
+    """A combination outside GEMM_INSTANCES raises in the wrapper, and the
+    entry point refuses it too (NN with QuickGELU' is not built)."""
+    a, w = _randn(gen, 8, 16), _randn(gen, 16, 8)
+    h = _randn(gen, 8, 8)
+    with pytest.raises(ValueError, match="no instance"):
+        k_block.gemm_epilogue_cuda(a, w, dgelu_of=h)
+    out = torch.empty(8, 8, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(RuntimeError, match="fmm_gemm_epilogue"):
+        k_block._gemm_launch(a, w, k_block._NN, 8, 8, 16, out, dgelu_of=h)
+
+
+@pytest.mark.parametrize("layout,code", [
+    (k_block._NN, k_block.epilogue_code(bias=True, residual=torch.bfloat16, out=torch.float32)),
+    (k_block._NN, k_block.epilogue_code(bias=True, gelu=True)),
+    (k_block._NT, k_block.epilogue_code(dgelu=torch.float32)),
+    (k_block._NT, k_block.epilogue_code(out=torch.float32))], ids=["out_proj", "fc", "dh", "dxn2"])
+def test_gemm_planted_faults_are_caught(gen, layout, code):
+    """The checks above catch a kernel that drops its last 64-deep K stage,
+    and one that skips the epilogue on its last 256-column tile (the same
+    product with no epilogue spliced in there)."""
+    M, N, K = 300, 2304, 3072
+    a, w, kw = _gemm_case(gen, layout, code, M, N, K)
+    ref = k_block.gemm_epilogue_reference(a, w, **kw)
+    cut = w[:, :K - 64] if layout == k_block._NT else w[:K - 64]
+    dropped = k_block.gemm_epilogue_cuda(a[:, :K - 64].contiguous(), cut.contiguous(), **kw)
+    assert not _gemm_held(dropped, ref)
+    if code != k_block.epilogue_code(out=kw["out_dtype"]):
+        got = k_block.gemm_epilogue_cuda(a, w, **kw)
+        bare = k_block.gemm_epilogue_cuda(a, w, out_dtype=kw["out_dtype"],
+                                          trans_w=kw["trans_w"])
+        got = got[0] if isinstance(got, tuple) else got
+        got[:, (N - 1) // 256 * 256:] = bare[:, (N - 1) // 256 * 256:]
+        assert not _gemm_held(got, ref[0] if isinstance(ref, tuple) else ref)
+
+
+def test_gemm_tn_planted_fault_is_caught(gen):
+    """The TN check catches a last split whose partial is never written
+    (the product over the rows of the other splits only)."""
+    K, M, N = 102400, 768, 768
+    a, b = _randn(gen, K, M), _randn(gen, K, N)
+    splits, k_per = k_block.tn_split_plan(
+        M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert splits > 1
+    rows = (splits - 1) * k_per
+    fault = k_block.gemm_tn_cuda(a[:rows].contiguous(), b[:rows].contiguous())
+    assert not _within_share_of_max(fault, k_block.gemm_tn_reference(a, b), 2 ** -14)
+
+
 def test_group_and_split_routes_launch_their_kernels(gen, monkeypatch):
     """``FMM_TPU_FUSED_NBLK=2`` runs the eval tower through the group kernel
     K9 (groups 0-1 and 2 of Tiny's three blocks, one deep prompt injected

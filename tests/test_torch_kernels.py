@@ -20,6 +20,7 @@ from federated_multi_modal_tpu.ops.pallas import fused_block as jax_fb
 from federated_multi_modal_tpu.ops.primitives import (
     build_block_causal_mask as jax_block_causal_mask,
 )
+from federated_multi_modal_tpu_torch.models.params import tiny_test_config
 from federated_multi_modal_tpu_torch.ops.kernels import _build
 from federated_multi_modal_tpu_torch.ops.kernels import attention as port_attn
 from federated_multi_modal_tpu_torch.ops.kernels import fused_block as port_fb
@@ -671,3 +672,76 @@ def test_fused_attention_refuses_gradients():
         port_attn.fused_attention(q, q, q, 1)
     out = port_attn.fused_attention_diff(q, q, q, 1)
     assert type(out.grad_fn).__name__ == "_FusedAttentionDiffBackward"
+
+
+# The products a block hands to gemm_epilogue.cu: the plain steps with the
+# product recorded as ``GemmProduct.key`` has it, at tiny_test_config()'s
+# vision width (D 128, 2 heads, hidden 512) in bf16, against the table of
+# ``block_gemm_products`` that chip_smoke.py's product phase times at
+# ViT-B/16's widths.
+def _recording_steps(records):
+    def gemm(a, w, bias=None, residual=None, gelu=False, out_dtype=None, trans_w=False,
+             dgelu_of=None, pre_dtype=None):
+        M, K = a.shape
+        N = w.shape[0] if trans_w else w.shape[1]
+        records.append((port_fb._NT if trans_w else port_fb._NN, M, N, K, port_fb.epilogue_code(
+            bias is not None, gelu, pre_dtype, port_fb._dtype(dgelu_of),
+            port_fb._dtype(residual), out_dtype or a.dtype)))
+        return port_fb.gemm_epilogue_reference(a, w, bias, residual, gelu, out_dtype, trans_w,
+                                               dgelu_of, pre_dtype)
+
+    def gemm_tn(a, b):
+        records.append((port_fb._TN, a.shape[1], b.shape[1], a.shape[0],
+                        port_fb.epilogue_code(out=torch.float32)))
+        return port_fb.gemm_tn_reference(a, b)
+
+    return port_fb.PLAIN_STEPS._replace(gemm=gemm, gemm_tn=gemm_tn)
+
+
+@pytest.mark.parametrize("run", ["eval", "forward", "forward_save_h", "backward",
+                                 "backward_wgrad"])
+def test_block_products_are_the_table(run):
+    """Each pass of the block runs exactly the table's products, in order,
+    with its layouts, widths and epilogues; the forward comes to 24 M D^2
+    operations, K3's backward to 26 and K4's to 58 (out-projection and fc
+    recomputed: 2 + 8; dh, dxn2, da, dyln1: 8 + 8 + 2 + 6; the weight
+    gradients: 6 + 2 + 8 + 8); every product is a built instance."""
+    arch = tiny_test_config()
+    D, H, hidden = arch.vision_width, arch.vision_heads, 4 * arch.vision_width
+    B, T = 2, arch.num_patches + 1
+    M = B * T
+    rng = np.random.default_rng(0)
+    p = _map(lambda a: torch.from_numpy(a).to(torch.bfloat16), _block(rng, D))
+    x = torch.from_numpy(rng.standard_normal((B, T, D)).astype(np.float32)).to(torch.bfloat16)
+    dy = torch.from_numpy(rng.standard_normal((B, T, D)).astype(np.float32)).to(torch.bfloat16)
+    records = []
+    steps = _recording_steps(records)
+    if run == "eval":
+        port_fb._block(x, p, H, steps.layernorm, steps.gemm, steps.attention)
+    else:
+        wgrad = run == "backward_wgrad"
+        _, qkv, h = port_fb.block_train_forward(x, p, H, steps,
+                                                save_h=run == "forward_save_h" or run == "backward")
+        if run.startswith("backward"):
+            records.clear()
+            port_fb.block_train_backward(x, dy, p, H, qkv, h, steps, wgrad)
+    table = port_fb.block_gemm_products(M, D, hidden)["forward" if run == "eval" else run]
+    assert records == [prod.key for prod in table]
+    per_md2 = {"eval": 24, "forward": 24, "forward_save_h": 24, "backward": 26,
+               "backward_wgrad": 58}[run]
+    assert sum(prod.flops for prod in table) == per_md2 * M * D * D
+    assert all((prod.layout, prod.code) in port_fb.GEMM_INSTANCES for prod in table)
+
+
+@pytest.mark.parametrize("M,N,K,plan", [
+    (768, 2304, 102400, (7, 14656)), (768, 768, 102400, (7, 14656)),
+    (768, 3072, 102400, (9, 11392)), (3072, 768, 102400, (9, 11392)),
+    (768, 3072, 5000, (1, 5056)), (8, 8, 37, (1, 64)), (136, 264, 1000, (8, 128))])
+def test_tn_split_plan(M, N, K, plan):
+    """The weight gradient's split of its contraction at the kernel's K step
+    of 64: every split but the last is whole steps, the splits cover K and
+    none is empty. The four ViT-B/16 weight gradients (102,400 rows) take 7 and 9 splits
+    on 132 SMs."""
+    splits, k_per = port_fb.tn_split_plan(M, N, K, 132)
+    assert (splits, k_per) == plan
+    assert k_per % port_fb._BK == 0 and splits * k_per >= K > (splits - 1) * k_per
