@@ -111,14 +111,26 @@ What it does, in order (any failure raises and exits non-zero):
    256-column tile; for the weight gradients, the last split's partial
    unwritten) that must be caught, and its time beside its bound, its
    launches per step and ``torch.mm`` on the same bf16 operands;
-18. prints, for the tensor-core kernels (``attention_core.cu``,
+18. ``layernorm_bwd_rows.cu`` by instance: LN2's and LN1's backward (K3,
+   K4), K7's (no residual) and P2's (no parameter gradients) at the step's
+   102,400 rows of 768 on seeded inputs, each one's launches in the
+   counted default step, sublayer step or microbench drive, held against
+   its plain version (each output also to a share of its largest value),
+   the same bits on repeat and dx the same with either way of keeping rows
+   in flight, planted faults (dx's last rows zero, d gamma and d beta
+   without the last rows) that must be caught, and its time with either
+   design beside its byte bound and ``native_layer_norm_backward``, with
+   registers, spills, blocks per SM and waves; ``layernorm_rows.cu`` on
+   its two main-path inputs beside ``F.layer_norm``; ``column_sum`` on
+   three of the step's sums beside ``torch.sum``;
+19. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-19. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+20. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --step-sweep N`` instead prints the whole-step
 gradient readings of the three train routes on N batches each, for the
@@ -210,7 +222,7 @@ TOL_STEP_LOSS = 2.0 ** -8
 TOL_STEP_GRAD_VISION = 2.0 ** -5
 TOL_STEP_GRAD_OTHER = 2.0 ** -3
 # The planted faults drop the last rows of a sum or a write, the usual fault
-# of a kernel's ragged tail: 256 rows, one row block of layernorm_bwd_rows.
+# of a kernel's ragged tail: the last 256 rows.
 PLANTED_FAULT_ROWS = 256
 # gemm_epilogue by product: bf16 outputs may differ from the plain version
 # by a flipped rounding (2**-7 of the value and absolute, as the card tests
@@ -779,6 +791,7 @@ def reset_counts() -> None:
             fn.backward_launches = 0
     _build.reset_launches()
     k_block.GEMM_LAUNCHES.clear()
+    k_block.LN_BWD_LAUNCHES.clear()
 
 
 def read_counts() -> dict:
@@ -793,6 +806,7 @@ def read_counts() -> dict:
             counts[name + " (backward)"] = fn.backward_launches
     counts.update(_build.LAUNCHES)
     counts["gemm_epilogue by product"] = gemm_launches_by_label()
+    counts["layernorm_bwd_rows by instance"] = ln_launches_by_label()
     return counts
 
 
@@ -810,6 +824,20 @@ def gemm_launches_by_label() -> dict:
     from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
 
     return {product_label(k): n for k, n in sorted(k_block.GEMM_LAUNCHES.items())}
+
+
+def ln_instance_label(key) -> str:
+    """A launch's key in ``fused_block.LN_BWD_LAUNCHES`` as printed."""
+    rows, D, x, dres, out, copy, partials = key
+    return (f"{rows}x{D} x {x}, dres {dres}, dx {out}" + (" + bf16 copy" if copy else "")
+            + (", partials" if partials else ""))
+
+
+def ln_launches_by_label() -> dict:
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    return {ln_instance_label(k): n for k, n in sorted(
+        k_block.LN_BWD_LAUNCHES.items(), key=lambda kv: str(kv[0]))}
 
 
 def check_counts(counts: dict, expected: dict, what: str) -> None:
@@ -2089,6 +2117,8 @@ def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
     del layers
     inject_host_us = cuda_ms(lambda: k_block.inject_rows_cuda(stream, prompts[0], extra_s),
                              50) * 1e3
+    inject_plain_us = cuda_ms(lambda: k_block.inject_rows_reference(stream, prompts[0], extra_s),
+                              50) * 1e3
     # device time per launch over twenty launches in one window: a single
     # few-microsecond launch may be missing from the trace, and now and then
     # every launch of the window is, so it is profiled up to three times
@@ -2127,6 +2157,7 @@ def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
         "library_call": f"{G} x torch.nn.TransformerEncoderLayer (bf16, norm_first, QuickGELU)",
         "inject_rows": {"launches": counts["fmm_inject_rows"], "device_us": inject_us,
                         "us_by_events_one_call": inject_host_us,
+                        "plain_us_by_events_one_call": inject_plain_us,
                         "shape": [[B, T + 1, D], list(prompts[0].shape), list(extra_s.shape)],
                         "bound_us": inj_bound[0] * 1e3,
                         "max_abs_err": cmps["inject_rows"]["max_abs_err"]},
@@ -2134,7 +2165,8 @@ def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
     print(f"fused_block_group_residual (G={G}): {k9_ms:.3f} ms, plain {k9_plain_ms:.3f} ms, "
           f"library {k9_lib_ms:.3f} ms, bound {k9_bound[0]:.3f} ms ({k9_bound[1]}); "
           f"inject_rows {inject_us:.2f} us on the device ({inject_host_us:.2f} us between "
-          f"events around one call), bound {inj_bound[0] * 1e3:.2f} us")
+          f"events around one call; its plain version's two copies {inject_plain_us:.2f} us), "
+          f"bound {inj_bound[0] * 1e3:.2f} us")
     return [row], checks, summary
 
 
@@ -2699,6 +2731,267 @@ def gemm_product_phase(gemm_counts: dict, x_shape, hidden: int, n_vis: int) -> t
     print(f"gemm_epilogue by product, one train step's launches: {step_ms:.2f} ms, bound "
           f"{step_bound:.2f} ms, library {step_lib:.2f} ms")
     summary["train_step_sum"] = {"ms": step_ms, "bound_ms": step_bound, "library_ms": step_lib}
+    return rows, checks, summary
+
+
+# The LayerNorm backward's instances at the default train step's 102,400
+# rows of 768: (name, x, dres, dx dtypes, bf16 copy, partials, the TPU
+# kernel's line, the run whose counted launches are the instance's).
+LN_BWD_INSTANCES = (
+    ("LN2 (K3/K4)", "float32", "bfloat16", "float32", True, True,
+     "federated_multi_modal_tpu/ops/pallas/fused_block.py:1107", "default train step"),
+    ("LN1 (K3/K4)", "bfloat16", "float32", "bfloat16", False, True,
+     "federated_multi_modal_tpu/ops/pallas/fused_block.py:1186", "default train step"),
+    ("K7", "bfloat16", None, "bfloat16", False, True,
+     "federated_multi_modal_tpu/ops/pallas/fused_block.py:293", "sublayer train step"),
+    ("P2", "bfloat16", None, "bfloat16", False, False,
+     "tools/attn_microbench.py:202", "microbench drive"),
+)
+LN_BWD_ROWS = BATCH * 200  # the vision tower's B T in the train step
+# The LayerNorm backward against its plain version: the card tests'
+# elementwise limits (bf16 outputs 2**-7, the fp32 dx 1e-4, d gamma and
+# d beta 1e-4 sqrt(rows)), and each output to a share of its own largest
+# value: bf16 outputs 2**-7, fp32 ones 2**-14 (sums in another order).
+TOL_LN_BF16 = 2.0 ** -7
+TOL_LN_F32 = 2.0 ** -14
+
+
+def ln_bwd_held(got, ref, rows: int) -> dict:
+    import torch
+
+    cmps = {}
+    for name, g, r in zip(("dx", "dx bf16 copy", "d gamma", "d beta"), got, ref):
+        if g is None:
+            continue
+        bf = g.dtype == torch.bfloat16
+        cmps[name] = compare(g, r, TOL_LN_BF16 if bf else 1e-4 if name == "dx"
+                             else 1e-4 * rows ** 0.5)
+        cmps[name + ", of its largest"] = compare_scaled(g, r, TOL_LN_BF16 if bf else TOL_LN_F32)
+    return cmps
+
+
+def ln_library_backward(x32, dxn, gamma, partials: bool):
+    """``native_layer_norm_backward`` over fp32 rows with the moments given:
+    the library's LayerNorm backward, without the residual add, the moments
+    and the bf16 copy."""
+    import torch
+
+    mean = x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x32 - mean).square().mean(-1, keepdim=True) + 1e-5)
+    mask = [True, partials, partials]
+    return lambda: torch.ops.aten.native_layer_norm_backward(
+        dxn, x32, [x32.shape[-1]], mean, rstd, gamma, torch.zeros_like(gamma), mask)
+
+
+def kernel_device_us(fn, keys) -> dict:
+    """Device microseconds of one call of ``fn`` by kernel (``short_name``),
+    for the kernels whose short names are in ``keys``."""
+    kernels, _ = device_profile(fn)
+    out = {}
+    for name, us in kernels:
+        key = short_name(name)
+        if key in keys:
+            out[key] = out.get(key, 0.0) + us
+    return out
+
+
+def ln_bwd_ptxas(build_log: str) -> dict:
+    """``(x, dres, dx dtypes, partials, vector width, D's bucket)``: the
+    registers and spill bytes that ``ptxas -v`` printed in this build for
+    each instance of ``layernorm_bwd_rows_kernel`` (a mangled ``S1_`` is the
+    bf16 named before it)."""
+    import re
+
+    out, entry = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"layernorm_bwd_rows_kernelI((?:f|13__nv_bfloat16|S1_){3})"
+                          r"Lb(\d)ELi(\d+)ELi(\d+)EE", line)
+            entry = m and (*("float32" if t == "f" else "bfloat16" for t in re.findall(
+                r"f|13__nv_bfloat16|S1_", m[1])), m[2] == "1", int(m[3]), int(m[4]))
+            continue
+        if not entry:
+            continue
+        rec = out.setdefault(entry, {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            rec["spill_stores"], rec["spill_loads"] = int(spill[1]), int(spill[2])
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            rec["registers"] = int(regs[1])
+    return out
+
+
+def layernorm_bwd_phase(runs: dict) -> tuple:
+    """``layernorm_bwd_rows.cu`` by instance: LN2's and LN1's (K3, K4), K7's
+    and P2's, at the train step's 102,400 rows of 768 on seeded inputs;
+    ``runs`` maps each instance's run to its counted launches by instance
+    and the launches its callers' counters imply (one LN2 and one LN1 a K3
+    or K4 backward, one a K7 backward, one a P2 call), which the counts must
+    equal. Each held against its plain version, the same bits on repeat,
+    the planted faults caught, timed beside its byte bound and the library's
+    backward, with its registers, spills, blocks per SM and waves; then
+    ``layernorm_rows.cu`` on its two main-path inputs beside
+    ``F.layer_norm``, and ``column_sum`` on the step's sums beside
+    ``torch.sum``. Returns ``(rows, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import _build
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    F = torch.nn.functional
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16, None: None}
+    M, D = LN_BWD_ROWS, 768
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    ptxas = ln_bwd_ptxas(_build.build_log)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dtype)
+
+    gamma = randn(D, scale=0.1, shift=1.0)
+    rows, checks, summary = [], [], {}
+    for name, xd, rd, od, copy, partials, replaces, run_name in LN_BWD_INSTANCES:
+        x = randn(M, D, dtype=dt[xd], scale=3.0, shift=1.0)
+        dxn = randn(M, D)
+        dres = None if rd is None else randn(M, D, dtype=dt[rd])
+        out = dt[od]
+
+        def run(x=x, dxn=dxn, dres=dres, out=out, copy=copy, partials=partials):
+            return k_block.layernorm_bwd_rows_cuda(x, dxn, dres, gamma, out, copy,
+                                                   param_grads=partials)
+
+        got, again = run(), run()
+        ref = k_block.layernorm_bwd_rows_reference(x, dxn, dres, gamma, out, copy)
+        if not partials:
+            ref = ref[:2] + (None, None)
+        torch.cuda.synchronize()
+        held = ln_bwd_held(got, ref, M)
+        same = all(torch.equal(g, a) for g, a in zip(got, again) if g is not None)
+        faults = {}
+        if out == torch.bfloat16:
+            faulty = fault_dx_tail_zero(k_block.layernorm_bwd_rows_cuda)(
+                x, dxn, dres, gamma, out, copy)
+        else:  # the fp32 dx (LN2's dyh): its last rows unwritten
+            faulty = tuple(t.clone() if t is not None else None for t in got)
+            faulty[0][-PLANTED_FAULT_ROWS:] = 0
+        faults["dx tail zero"] = not all(c["ok"] for c in ln_bwd_held(
+            faulty[:2] + ((got[2], got[3]) if partials else (None, None)), ref, M).values())
+        if partials:
+            faulty = fault_ln_grad_tail(k_block.layernorm_bwd_rows_cuda)(
+                x, dxn, dres, gamma, out, copy)
+            faults["d gamma, d beta skip the tail"] = not all(
+                c["ok"] for c in ln_bwd_held(faulty, ref, M).values())
+        del got, again, faulty
+        torch.cuda.empty_cache()
+
+        ms = cuda_ms(run, 20)
+        device_us = kernel_device_us(run, ("layernorm_bwd_rows", "column_sum"))
+        plain_ms = cuda_ms(lambda: k_block.layernorm_bwd_rows_reference(
+            x, dxn, dres, gamma, out, copy), 3, 1)
+        library = ln_library_backward(x.float(), dxn, gamma, partials)
+        lib_ms = cuda_ms(library, 20)
+        in_bytes = x.numel() * x.element_size() + dxn.numel() * 4 + D * 4 + (
+            0 if dres is None else dres.numel() * dres.element_size())
+        out_bytes = M * D * (out.itemsize + (2 if copy else 0)) + (2 * D * 4 if partials else 0)
+        b = bound(in_bytes + out_bytes, 0)
+        kernel_ms = device_us.get("layernorm_bwd_rows", 0) / 1e3
+        per_sm, smem = _build.blocks_per_sm(
+            "fmm_layernorm_bwd_rows_blocks_per_sm", k_block.ln_bwd_variant(
+                D, x.dtype, None if dres is None else dres.dtype, out, partials), False)
+        blocks, stride = k_block.ln_bwd_plan(M, sms, per_sm)
+        resources = dict(ptxas.get((xd, rd or "bfloat16", od, partials, 8, -(-D // 256)), {}),
+                         smem_bytes=smem, blocks_per_sm=per_sm, blocks=blocks,
+                         waves=blocks / (per_sm * sms), rows_per_warp=-(-M // stride))
+        key = ln_instance_label(k_block.ln_bwd_instance(x, dres, out, copy, partials))
+        counted, implied = runs[run_name]
+        n = counted.get(key, 0)
+        lib_call = ("torch.ops.aten.native_layer_norm_backward on fp32 x and dxn, mean and "
+                    "rstd given (x converted outside the timing); leaves out the residual "
+                    "add, the moments and the bf16 copy")
+        worst = max(held.values(), key=lambda c: c["max_err_over_tol"])
+        print(f"layernorm_bwd_rows {name} [{key}]: {ms:.4f} ms (kernel {kernel_ms:.4f} ms, "
+              f"column_sum {device_us.get('column_sum', 0) / 1e3:.4f} ms), bound "
+              f"{b[0]:.4f} ms (bytes), share {b[0] / kernel_ms if kernel_ms else 0:.3f} of the "
+              f"kernel, library {lib_ms:.4f} ms, plain {plain_ms:.3f} ms, {n} launches a "
+              f"{run_name} ({implied} implied by its callers); {json.dumps(resources)}; vs "
+              f"plain {json.dumps(brief(held))}, same bits {same}, faults caught "
+              f"{json.dumps(faults)}")
+        label = f"layernorm_bwd_rows {name}"
+        checks += [(f"{label} {k} vs plain", c) for k, c in held.items()]
+        checks += [(f"{label} same bits on repeat", {"ok": same}),
+                   (f"{label} launched in the {run_name} once a caller's backward",
+                    {"ok": n > 0 and n == implied, "launches": n, "implied": implied}),
+                   (f"{label} resources read from this build",
+                    {"ok": "registers" in resources})]
+        checks += [(f"{label} planted fault ({k}) caught", {"ok": v}) for k, v in faults.items()]
+        rows.append({
+            "name": label, "route": "cuda",
+            "source": "federated_multi_modal_tpu_torch/csrc/layernorm_bwd_rows.cu",
+            "replaces": replaces, "instance": key, "shape": [M, D],
+            "launches": n, "launches_in": run_name,
+            "max_abs_err": worst["max_abs_err"], "max_err_over_tol": worst["max_err_over_tol"],
+            "ms": ms, "kernel_ms": kernel_ms,
+            "column_sum_ms": device_us.get("column_sum", 0) / 1e3, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "share_of_bound": b[0] / kernel_ms if kernel_ms else 0.0,
+            "library_ms": lib_ms, "library_call": lib_call, "resources": resources,
+        })
+        summary[name] = {"ms": ms, "kernel_ms": kernel_ms, "bound_ms": b[0],
+                         "library_ms": lib_ms, "launches": n, "resources": resources}
+        del x, dxn, dres, ref, library
+        torch.cuda.empty_cache()
+
+    # layernorm_rows.cu on its main-path inputs (LN1's bf16 x, LN2's fp32 y)
+    beta = randn(D, scale=0.1)
+    for name, xd in (("bf16 in (LN1)", torch.bfloat16), ("fp32 in (LN2)", torch.float32)):
+        x = randn(M, D, dtype=xd, scale=3.0, shift=1.0)
+        got = k_block.layernorm_rows_cuda(x, gamma, beta, torch.bfloat16)
+        held = compare(got, k_block.layernorm_rows_reference(x, gamma, beta, torch.bfloat16),
+                       TOL_LN_BF16)
+        ms = cuda_ms(lambda: k_block.layernorm_rows_cuda(x, gamma, beta, torch.bfloat16), 20)
+        plain_ms = cuda_ms(lambda: k_block.layernorm_rows_reference(
+            x, gamma, beta, torch.bfloat16), 3, 1)
+        try:
+            F.layer_norm(x[:8], (D,), gamma, beta)
+            lg, lb, lib_call = gamma, beta, "F.layer_norm (fp32 gamma and beta)"
+        except RuntimeError:
+            lg, lb, lib_call = gamma.to(xd), beta.to(xd), "F.layer_norm (gamma, beta in x's dtype)"
+        lib_ms = cuda_ms(lambda: F.layer_norm(x, (D,), lg, lb), 20)
+        lib_call += f", writes {str(xd).replace('torch.', '')}"
+        b = bound(x.numel() * x.element_size() + M * D * 2 + 2 * D * 4, 0)
+        print(f"layernorm_rows {name}: {ms:.4f} ms, bound {b[0]:.4f} ms, share "
+              f"{b[0] / ms:.3f}, {lib_call} {lib_ms:.4f} ms, plain {plain_ms:.3f} ms; vs plain "
+              f"{json.dumps(brief({'': held}))[5:-1]}")
+        checks.append((f"layernorm_rows {name} vs plain", held))
+        summary[f"layernorm_rows {name}"] = {
+            "ms": ms, "bound_ms": b[0], "share_of_bound": b[0] / ms, "library_ms": lib_ms,
+            "library_call": lib_call, "plain_ms": plain_ms, "max_abs_err": held["max_abs_err"]}
+        del x, got
+        torch.cuda.empty_cache()
+
+    # column_sum on the step's sums: the LayerNorm partials, a bias gradient
+    # (K4's db_fc over the bf16 dh) and a split weight gradient's partials
+    splits = k_block.tn_split_plan(768, 2304, M, sms)[0]
+    ln_blocks = k_block.ln_bwd_plan(M, sms, k_block.ln_bwd_blocks_per_sm(k_block.ln_bwd_variant(
+        D, torch.bfloat16, torch.float32, torch.bfloat16, True)))[0]
+    for name, shape, xd in (("LayerNorm partials", (ln_blocks, 2 * D), torch.float32),
+                            ("db_fc over dh", (M, 3072), torch.bfloat16),
+                            ("dw_qkv partials", (splits, 768 * 2304), torch.float32)):
+        x = randn(*shape, dtype=xd)
+        got = k_block.column_sum_cuda(x)
+        held = compare(got, k_block.column_sum_reference(x), 1e-5 * shape[0] ** 0.5)
+        ms = cuda_ms(lambda: k_block.column_sum_cuda(x), 20)
+        lib_ms = cuda_ms(lambda: torch.sum(x, 0, dtype=torch.float32), 20)
+        b = bound(x.numel() * x.element_size() + shape[1] * 4, 0)
+        print(f"column_sum {name} {list(shape)}: {ms:.4f} ms, bound {b[0]:.4f} ms, share "
+              f"{b[0] / ms:.3f}, torch.sum {lib_ms:.4f} ms; vs plain "
+              f"{json.dumps(brief({'': held}))[5:-1]}")
+        checks.append((f"column_sum {name} vs plain", held))
+        summary[f"column_sum {name}"] = {"shape": list(shape), "ms": ms, "bound_ms": b[0],
+                                         "library_ms": lib_ms}
+        del x, got
+        torch.cuda.empty_cache()
     return rows, checks, summary
 
 
@@ -3366,9 +3659,25 @@ def main() -> int:
         k3_row["shape"][2], n_vis)
     summary["gemm_products"]["phase_s"] = time.perf_counter() - t0
     rows += gemm_rows
+    torch.cuda.empty_cache()
+
+    # -- 18. layernorm_bwd_rows.cu by instance, layernorm_rows, column_sum -----
+    t0 = time.perf_counter()
+    by_instance = "layernorm_bwd_rows by instance"
+    train = summary["train_launches"]
+    sublayer = summary["sublayer_train"]["train_launches"]
+    drive = summary["prototypes"]["launches"]
+    ln_rows, ln_checks, summary["layernorm_bwd"] = layernorm_bwd_phase({
+        "default train step": (train[by_instance], train["K3 fused_block_train (backward)"]
+                               + train["K4 fused_block_train_dw (backward)"]),
+        "sublayer train step": (sublayer[by_instance],
+                                sublayer["K7 fused_ln_attention (backward)"]),
+        "microbench drive": (drive[by_instance], drive["P2 fused_lnqkv_attention_bwd_dx"])})
+    summary["layernorm_bwd"]["phase_s"] = time.perf_counter() - t0
+    rows += ln_rows
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
-                     + gemm_checks)
+                     + gemm_checks + ln_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

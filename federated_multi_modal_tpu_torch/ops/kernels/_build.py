@@ -55,7 +55,7 @@ _SIGNATURES = {
     # x, x_f32, gamma, beta, out, rows, D, eps, stream
     "fmm_layernorm_rows": [_P, _I, _P, _P, _P, _I, _I, _F, _P],
     # x, x_f32, dxn, dres, dres_f32, gamma, dx, dx_f32, dx_copy, partial,
-    # rows, D, rows_per_block, eps, stream
+    # rows, D, blocks, eps, stream
     "fmm_layernorm_bwd_rows": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,
                                _I, _F, _P],
     # x, x_f32, out, rows, N, splits, rows_per_split, stream
@@ -80,11 +80,11 @@ LAUNCHES = {name: 0 for name in _SIGNATURES}
 _OCCUPANCY = ("fmm_attention_split_blocks_per_sm", "fmm_attention_core_bwd_blocks_per_sm",
               "fmm_attention_core_blocks_per_sm", "fmm_lnqkv_attention_blocks_per_sm",
               "fmm_lnqkv_attention_bwd_dqkv_blocks_per_sm", "fmm_attention_pair_blocks_per_sm",
-              "fmm_gemm_epilogue_blocks_per_sm")
+              "fmm_gemm_epilogue_blocks_per_sm", "fmm_layernorm_bwd_rows_blocks_per_sm")
 
 _lib = None
 build_seconds = None  # wall time of the last build in this process, or 0.0 if loaded as built
-build_log = ""  # nvcc's output (register and shared-memory use per kernel)
+build_log = ""  # nvcc's output for the library in use (registers and spills per kernel)
 
 
 def _sources():
@@ -125,8 +125,10 @@ def build() -> Path:
     """Compile the kernels unless a library of these sources exists."""
     global build_seconds, build_log
     lib_path = BUILD_DIR / f"libfmm_kernels_{_digest()}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
         build_seconds = 0.0
+        build_log = log_path.read_text() if log_path.exists() else ""
         return lib_path
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -140,11 +142,12 @@ def build() -> Path:
     tmp = lib_path.with_suffix(f".{tag}.tmp")
     outs += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                        *map(str, objs)]])
+    build_log = "".join(outs)
+    log_path.write_text(build_log)  # kept for a process that loads the library as built
     os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     for obj in objs:
         obj.unlink()
     build_seconds = time.perf_counter() - t0
-    build_log = "".join(outs)
     return lib_path
 
 
@@ -190,7 +193,8 @@ def blocks_per_sm(name: str, variant: int, masked: bool) -> tuple:
     ``attention_pair``, T for ``lnqkv_attention`` and
     ``lnqkv_attention_bwd_dqkv``, layout x 512 + the epilogue's code for
     ``gemm_epilogue`` (``fused_block.GEMM_INSTANCES``; P2's product is NT,
-    code 0x100); built with a mask or without), from the CUDA
+    code 0x100), ``fused_block.ln_bwd_variant`` for ``layernorm_bwd_rows``
+    (which has no mask); built with a mask or without), from the CUDA
     occupancy calculator with the registers and shared memory it was built
     with."""
     lib = library()

@@ -45,6 +45,7 @@ the transposed layouts and gradient epilogues of ``gemm_epilogue``.
 from __future__ import annotations
 
 import collections
+import functools
 import os
 from typing import Callable, NamedTuple
 
@@ -359,8 +360,46 @@ def gemm_tn_cuda(a, b):
     return column_sum_cuda(out.reshape(splits, M * N)).reshape(M, N)
 
 
-_LN_ROWS_PER_BLOCK = 256
-_LN_WARPS = 8  # kWarps in layernorm_bwd_rows.cu: one row a warp at a time
+_LN_WARPS = 4  # kWarps in layernorm_bwd_rows.cu: one row a warp at a time
+# Launches of layernorm_bwd_rows.cu since the last clear, by instance:
+# (rows, D, x dtype, dres dtype or None, dx dtype, bf16 copy, partials).
+LN_BWD_LAUNCHES = collections.Counter()
+
+
+def ln_bwd_plan(rows: int, sms: int, blocks_per_sm: int) -> tuple:
+    """``(blocks, stride)`` of ``layernorm_bwd_rows.cu``'s persistent grid on
+    a card of ``sms`` SMs where ``blocks_per_sm`` of its blocks fit: one
+    wave of every block that fits, or fewer where the rows do not fill
+    them. Warp ``w`` of the grid's ``blocks * 4`` takes rows ``w, w +
+    stride, ...``; each block writes one partial of d gamma and d beta."""
+    if rows < 1 or sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"ln_bwd_plan: rows {rows}, sms {sms} and blocks per SM "
+                         f"{blocks_per_sm} must be positive")
+    blocks = min(sms * blocks_per_sm, -(-rows // _LN_WARPS))
+    return blocks, blocks * _LN_WARPS
+
+
+def ln_bwd_variant(D: int, x_dtype, dres_dtype, out_dtype, partials: bool) -> int:
+    """The instance of ``layernorm_bwd_rows.cu`` that a launch takes, as its
+    ``fmm_layernorm_bwd_rows_blocks_per_sm`` entry point names it."""
+    f32 = torch.float32
+    return (D | (x_dtype == f32) << 11 | (dres_dtype == f32) << 12
+            | (out_dtype == f32) << 13 | bool(partials) << 14)
+
+
+def ln_bwd_instance(x, dres, out_dtype, copy_bf16: bool, param_grads: bool) -> tuple:
+    """A launch's key in :data:`LN_BWD_LAUNCHES`."""
+    def name(dtype):
+        return None if dtype is None else str(dtype).replace("torch.", "")
+    return (*x.shape, name(x.dtype), name(None if dres is None else dres.dtype),
+            name(out_dtype), bool(copy_bf16), bool(param_grads))
+
+
+@functools.lru_cache(maxsize=None)
+def ln_bwd_blocks_per_sm(variant: int) -> int:
+    """Resident blocks per SM of one instance (:func:`ln_bwd_variant`),
+    read once per process."""
+    return _build.blocks_per_sm("fmm_layernorm_bwd_rows_blocks_per_sm", variant, False)[0]
 
 
 def layernorm_bwd_rows_cuda(x, dxn, dres, gamma, out_dtype,
@@ -387,14 +426,17 @@ def layernorm_bwd_rows_cuda(x, dxn, dres, gamma, out_dtype,
     dx = torch.empty(rows, D, dtype=out_dtype, device=x.device)
     copy = (torch.empty(rows, D, dtype=torch.bfloat16, device=x.device)
             if copy_bf16 else None)
-    # with no partials to keep, one row a warp: more blocks in flight
-    rows_per_block = _LN_ROWS_PER_BLOCK if param_grads else _LN_WARPS
-    partial = (torch.empty(-(-rows // rows_per_block), 2 * D, dtype=torch.float32,
-                           device=x.device) if param_grads else None)
+    variant = ln_bwd_variant(D, x.dtype, None if dres is None else dres.dtype, out_dtype,
+                             param_grads)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks, _ = ln_bwd_plan(rows, sms, ln_bwd_blocks_per_sm(variant))
+    partial = (torch.empty(blocks, 2 * D, dtype=torch.float32, device=x.device)
+               if param_grads else None)
     _build.launch("fmm_layernorm_bwd_rows", x.data_ptr(), _is_f32(x),
                   dxn.data_ptr(), _ptr(dres), _is_f32(dres),
                   gamma.data_ptr(), dx.data_ptr(), _is_f32(dx), _ptr(copy),
-                  _ptr(partial), rows, D, rows_per_block, eps)
+                  _ptr(partial), rows, D, blocks, eps)
+    LN_BWD_LAUNCHES[ln_bwd_instance(x, dres, out_dtype, copy_bf16, param_grads)] += 1
     if not param_grads:
         return dx, copy, None, None
     sums = column_sum_cuda(partial)

@@ -407,7 +407,9 @@ def test_column_sum(gen, rows, N, dtype):
     (torch.bfloat16, torch.float32, torch.bfloat16),  # LN1's backward
     (torch.bfloat16, torch.bfloat16, torch.float32),
 ])
-@pytest.mark.parametrize("rows,D", [(1, 8), (37, 200), (513, 768), (300, 1024)])
+@pytest.mark.parametrize("rows,D", [(1, 8), (37, 200), (513, 768), (300, 1024), (37, 100),
+                                    (1000, 8), (3, 768), (129, 512), (37, 300), (37, 600),
+                                    (300, 1000)])
 def test_layernorm_bwd_rows(gen, rows, D, x_dtype, res_dtype, out_dtype):
     x = _randn(gen, rows, D, dtype=x_dtype, scale=3.0) + 1.0
     dxn = _randn(gen, rows, D, dtype=torch.float32)
@@ -572,6 +574,112 @@ def test_fused_ln_attention(gen, T):
     for g, r in zip(got, ref):
         d = (g.float() - r.float()).abs()
         assert float(d.max()) <= 2 ** -5 * float(r.abs().max()), float(d.max())
+
+
+# The LayerNorm backward's instances on the main path: (x, dres, dx dtypes,
+# bf16 copy, partials) of LN2's and LN1's backward (K3, K4), K7's and P2's.
+LN_BWD_INSTANCES = {
+    "LN2": (torch.float32, torch.bfloat16, torch.float32, True, True),
+    "LN1": (torch.bfloat16, torch.float32, torch.bfloat16, False, True),
+    "K7": (torch.bfloat16, None, torch.bfloat16, False, True),
+    "P2": (torch.bfloat16, None, torch.bfloat16, False, False),
+}
+
+
+def _ln_bwd_case(gen, instance, rows, D=768):
+    x_dtype, res_dtype, out_dtype, copy, partials = LN_BWD_INSTANCES[instance]
+    x = _randn(gen, rows, D, dtype=x_dtype, scale=3.0) + 1.0
+    dxn = _randn(gen, rows, D, dtype=torch.float32)
+    dres = None if res_dtype is None else _randn(gen, rows, D, dtype=res_dtype)
+    gamma = _randn(gen, D, dtype=torch.float32) * 0.1 + 1
+    return (x, dxn, dres, gamma, out_dtype, copy), partials
+
+
+@pytest.mark.parametrize("rows", [3, 102400, 102401])
+@pytest.mark.parametrize("instance", list(LN_BWD_INSTANCES))
+def test_layernorm_bwd_rows_instances(gen, instance, rows):
+    """Each instance at the main path's width: at the step's 102,400 rows,
+    one more (a ragged last pass of the grid) and fewer rows than a block
+    has warps. The card tests' elementwise limits, and from 102,400 rows
+    each output also to a share of its own largest value (bf16 2**-7, fp32
+    sums in another order 2**-14), which a dropped tail of rows fails."""
+    args, partials = _ln_bwd_case(gen, instance, rows)
+    got = k_block.layernorm_bwd_rows_cuda(*args, param_grads=partials)
+    torch.cuda.synchronize()
+    ref = k_block.layernorm_bwd_rows_reference(*args)
+    if not partials:
+        assert got[2] is None and got[3] is None
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g is None:
+            continue
+        assert g.dtype == r.dtype
+        bf = g.dtype == torch.bfloat16
+        _assert_close(g, r, 2 ** -7 if bf else 1e-4 if i == 0 else 1e-4 * rows ** 0.5)
+        if rows >= 102400:
+            assert _within_share_of_max(g, r, 2 ** -7 if bf else 2 ** -14), i
+
+
+@pytest.mark.parametrize("instance", ["LN2", "P2"])
+def test_layernorm_bwd_rows_is_deterministic(gen, instance):
+    """Two launches write the same bits."""
+    args, partials = _ln_bwd_case(gen, instance, 102400)
+    first = k_block.layernorm_bwd_rows_cuda(*args, param_grads=partials)
+    again = k_block.layernorm_bwd_rows_cuda(*args, param_grads=partials)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [100, 1000, 1024])
+@pytest.mark.parametrize("instance", ["LN2", "LN1"])
+def test_layernorm_bwd_rows_dx_without_partials(gen, instance, D):
+    """With a residual branch, at a scalar width of each end of the range
+    and at the largest vector width, the instance with no partials writes
+    the same dx (and bf16 copy) bits as the one with them."""
+    args, _ = _ln_bwd_case(gen, instance, 1001, D)
+    full = k_block.layernorm_bwd_rows_cuda(*args)
+    bare = k_block.layernorm_bwd_rows_cuda(*args, param_grads=False)
+    torch.cuda.synchronize()
+    assert bare[2] is None and bare[3] is None
+    assert torch.equal(bare[0], full[0])
+    assert (bare[1] is None and full[1] is None) or torch.equal(bare[1], full[1])
+
+
+def _ln_bwd_ptxas(build_log: str) -> dict:
+    """``(vector width, D's bucket)``: the spill bytes (stores, loads) that
+    ``ptxas -v`` printed for each ``layernorm_bwd_rows_kernel`` instance."""
+    import re
+
+    out, entry = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"layernorm_bwd_rows_kernelI.*?Lb\dELi(\d+)ELi(\d+)EE", line)
+            entry = m and (int(m[1]), int(m[2]))
+            continue
+        spill = entry and re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out.setdefault(entry, []).append((int(spill[1]), int(spill[2])))
+    return out
+
+
+def test_layernorm_bwd_rows_plan_fills_the_card(gen):
+    """At the main path's shape every instance's grid is one whole wave of
+    the blocks that fit, no instance at D = 768 spills, and a dropped last
+    row fails the comparison."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for x_dtype, res_dtype, out_dtype, _, partials in LN_BWD_INSTANCES.values():
+        per_sm = k_block.ln_bwd_blocks_per_sm(k_block.ln_bwd_variant(
+            768, x_dtype, res_dtype, out_dtype, partials))
+        assert per_sm >= 1
+        blocks, _ = k_block.ln_bwd_plan(102400, sms, per_sm)
+        assert blocks == sms * per_sm
+    spills = _ln_bwd_ptxas(_build.build_log)[(8, 3)]
+    assert len(spills) == 16 and set(spills) == {(0, 0)}, spills
+    args, partials = _ln_bwd_case(gen, "LN1", 102400)
+    got = list(k_block.layernorm_bwd_rows_cuda(*args))
+    ref = k_block.layernorm_bwd_rows_reference(*args)
+    got[0][-1:] = 0
+    assert not _within_share_of_max(got[0], ref[0], 2 ** -7)
 
 
 def test_layernorm_bwd_rows_without_residual(gen):

@@ -745,3 +745,71 @@ def test_tn_split_plan(M, N, K, plan):
     splits, k_per = port_fb.tn_split_plan(M, N, K, 132)
     assert (splits, k_per) == plan
     assert k_per % port_fb._BK == 0 and splits * k_per >= K > (splits - 1) * k_per
+
+
+@pytest.mark.parametrize("rows,sms,per_sm,blocks", [
+    (102400, 132, 2, 264), (102400, 132, 3, 396), (102401, 132, 2, 264), (3, 132, 2, 1),
+    (513, 132, 2, 129), (1, 1, 1, 1), (2000, 7, 5, 35)])
+def test_ln_bwd_plan(rows, sms, per_sm, blocks):
+    """The LayerNorm backward's persistent grid: one wave of every block that
+    fits (whole waves on 132 SMs at the main path's 102,400 rows), fewer
+    where the rows do not fill them; warp w of the grid takes rows w, w +
+    stride, ..., so every row is covered exactly once, and each block
+    writes one partial."""
+    got, stride = port_fb.ln_bwd_plan(rows, sms, per_sm)
+    assert got == blocks and stride == blocks * port_fb._LN_WARPS
+    covered = np.zeros(rows, np.int64)
+    for w in range(stride):
+        covered[w::stride] += 1
+    assert (covered == 1).all()
+    if rows >= sms * per_sm * port_fb._LN_WARPS:
+        assert blocks == sms * per_sm and blocks % sms == 0
+    with pytest.raises(ValueError):
+        port_fb.ln_bwd_plan(rows, sms, 0)
+
+
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "no_residual"])
+@pytest.mark.parametrize("instance", ["LN2", "LN1"])
+def test_layernorm_bwd_rows_reference_matches_jax(instance, residual):
+    """The plain LayerNorm backward against the JAX package's LayerNorm
+    (``ops/primitives.py::layer_norm`` on fp32 x) differentiated by
+    ``jax.vjp``, plus the residual branch: LN2's dtypes (fp32 x, bf16 dres,
+    fp32 dx and its bf16 copy) and LN1's (bf16 x, fp32 dres, bf16 dx). The
+    closed form and autodiff round differently in fp32: 2e-5 on fp32 dx; a
+    bf16 output may flip one rounding (2**-8 relative): 2**-7; d gamma and
+    d beta, sums over the 52 rows, 1e-4."""
+    from federated_multi_modal_tpu.ops.primitives import layer_norm as jax_layer_norm
+
+    rng = np.random.default_rng(7)
+    B, T, D = 4, 13, 128
+    x_bf16 = instance == "LN1"
+    x = rng.standard_normal((B, T, D)).astype(np.float32) * 3 + 1
+    x = _bf16(x) if x_bf16 else x
+    dxn = rng.standard_normal((B, T, D)).astype(np.float32)
+    dres = rng.standard_normal((B, T, D)).astype(np.float32)
+    dres = (dres if x_bf16 else _bf16(dres)) if residual else None
+    gamma = (rng.standard_normal(D) * 0.1 + 1).astype(np.float32)
+    beta = (rng.standard_normal(D) * 0.1).astype(np.float32)
+
+    x32 = jnp.asarray(np.asarray(x, np.float32))
+    _, vjp = jax.vjp(lambda x_, p_: jax_layer_norm(x_, p_), x32,
+                     {"scale": jnp.asarray(gamma), "bias": jnp.asarray(beta)})
+    dx_ref, dp = vjp(jnp.asarray(dxn))
+    dx_ref = np.asarray(dx_ref) + (0 if dres is None else np.asarray(dres, np.float32))
+
+    def to_torch(a):
+        t = torch.from_numpy(np.asarray(a, np.float32)).reshape(B * T, D)
+        return t.to(torch.bfloat16) if a.dtype == ml_dtypes.bfloat16 else t
+
+    out_dtype = torch.bfloat16 if x_bf16 else torch.float32
+    dx, copy, dg, db = port_fb.layernorm_bwd_rows_reference(
+        to_torch(x), to_torch(dxn), None if dres is None else to_torch(dres),
+        torch.from_numpy(gamma), out_dtype, copy_bf16=not x_bf16)
+    assert dx.dtype == out_dtype
+    tol = 2 ** -7 if x_bf16 else 2e-5
+    np.testing.assert_allclose(dx.float().numpy(), dx_ref.reshape(B * T, D), atol=tol, rtol=tol)
+    if not x_bf16:
+        np.testing.assert_allclose(copy.float().numpy(), dx_ref.reshape(B * T, D),
+                                   atol=2 ** -7, rtol=2 ** -7)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(dp["scale"]), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(dp["bias"]), atol=1e-4, rtol=1e-4)
