@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MaPLe eval path and train step, CoOp and zero-shot
-CLIP and the attention microbench on one NVIDIA GPU and hold its hand-written
-CUDA kernels against their plain PyTorch versions.
+CLIP, the attention microbench and the training command line on one NVIDIA
+GPU and hold its hand-written CUDA kernels against their plain PyTorch
+versions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -123,14 +124,28 @@ What it does, in order (any failure raises and exits non-zero):
    registers, spills, blocks per SM and waves; ``layernorm_rows.cu`` on
    its two main-path inputs beside ``F.layer_norm``; ``column_sum`` on
    three of the step's sums beside ``torch.sum``;
-19. prints, for the tensor-core kernels (``attention_core.cu``,
+19. the port's training command line (``python -m
+   federated_multi_modal_tpu_torch.train``) at ViT-B/16 on the Synthetic
+   dataset from a seeded OpenAI-format fp16 state dict
+   (``MODEL.BACKBONE.WEIGHTS_PATH``): MaPLe with its configuration for two
+   epochs through the command line's ``main`` in this process (every
+   step's and every ``test()``'s launches of K1, K1b, K3, K4 and K5 held
+   against what the routing implies; step, epoch, loader-wait, ``test()``
+   and checkpoint times; the decoder used), the same run under
+   ``TPU.ATTENTION_IMPL xla`` (no kernel launched; the first loss within
+   2**-8 of the kernel run's), ``--eval-only --model-dir --load-epoch 2``
+   as a subprocess (the same accuracy as the final ``test()``), CoOp for
+   one epoch and ZeroshotCLIP ``--eval-only`` through ``main``, their
+   launches held the same way (``cli_phase``);
+20. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-20. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+21. prints ``{"kernels": [...]}`` (``paths`` and ``launches_cli`` on the
+   kernels the cli phase launched) and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --step-sweep N`` instead prints the whole-step
 gradient readings of the three train routes on N batches each, for the
@@ -3283,6 +3298,379 @@ def prototype_phase(lnp, w, b, device) -> tuple:
     return rows, checks, summary
 
 
+# -- the port's training command line (the cli phase) ------------------------
+
+CLI_MAPLE_YAML = "configs/trainers/MaPLe/vit_b16_c2_ep5_batch4_2ctx.yaml"
+CLI_COOP_YAML = "configs/trainers/CoOp/vit_b16.yaml"
+CLI_DATASET_YAML = "configs/datasets/synthetic.yaml"
+CLI_EPOCHS = 2
+# CoOp's configuration trains at batch 32, more than Synthetic's 16 training
+# images, and the loader drops the short batch: the phase trains it at 4
+CLI_COOP_OPTS = ["OPTIM.MAX_EPOCH", "1", "DATALOADER.TRAIN_X.BATCH_SIZE", "4"]
+CLI_PATH_KERNELS = ("K1 packed_attention_masked", "K1b packed_attention_masked_bwd",
+                    "K3 fused_block_train", "K4 fused_block_train_dw",
+                    "K5 fused_block_residual")
+
+
+def kernel_counts() -> dict:
+    """Each wrapper's launches (and backward launches) so far, by label."""
+    counts = {}
+    for name, fn in kernel_counters().items():
+        counts[name] = fn.launches
+        if hasattr(fn, "backward_launches"):
+            counts[name + " (backward)"] = fn.backward_launches
+    return counts
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def cli_implied(arch, trainer: str, n_test_batches: int) -> tuple:
+    """``(per train step, per test(), at build)``: the launches the routing
+    implies under the default gates. Each text block launches K1 forward
+    and, where the prompts train, K1b backward; MaPLe's frozen vision
+    blocks K3 and its last one K4 (forward and backward); CoOp's frozen
+    image tower K5 per block; ``test()`` the prompt cache's text once (K1
+    per block; zero-shot CLIP's text features are made at build) and K5 per
+    block and test batch."""
+    n_text, n_vis = arch.transformer_layers, arch.vision_layers
+    zero = {label: 0 for label in kernel_counts()}
+    text_train = {"K1 packed_attention_masked": n_text,
+                  "K1b packed_attention_masked_bwd": n_text}
+    if trainer == "MaPLe":
+        step = dict(zero, **text_train, **{
+            "K3 fused_block_train": n_vis - 1, "K3 fused_block_train (backward)": n_vis - 1,
+            "K4 fused_block_train_dw": 1, "K4 fused_block_train_dw (backward)": 1})
+    else:
+        step = dict(zero, **text_train, **{"K5 fused_block_residual": n_vis})
+    zeroshot = trainer.startswith("ZeroshotCLIP")
+    test = dict(zero, **{"K1 packed_attention_masked": 0 if zeroshot else n_text,
+                         "K5 fused_block_residual": n_vis * n_test_batches})
+    build = dict(zero, **{"K1 packed_attention_masked": n_text if zeroshot else 0})
+    return step, test, build
+
+
+@contextlib.contextmanager
+def cli_instrumented(record: dict):
+    """The port's trainer with each train step and each ``test()``
+    synchronised and timed on the host clock and its launches read before
+    and after (``record["steps"]``: ms, launches, the step's loss;
+    ``record["tests"]``: ms, launches, accuracy), ``save_model`` timed, and
+    the module globals a trainer sets and ``sys.stdout`` (``main`` tees it
+    into ``log.txt``) put back afterwards."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine import trainer as eng
+    from federated_multi_modal_tpu_torch.models import clip_model
+    from federated_multi_modal_tpu_torch.ops import primitives
+
+    def timed(fn, key, read):
+        def run(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            before = kernel_counts()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            after = kernel_counts()
+            entry = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": {k: after[k] - before[k] for k in after}}
+            entry.update(read(self, out))
+            record.setdefault(key, []).append(entry)
+            return out
+        return run
+
+    def step_loss(self, out):
+        pending = self._pending_summaries
+        return {"loss": float(pending[-1][0]) if pending else out["loss"]}
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(primitives, _ATTENTION_IMPL=primitives._ATTENTION_IMPL))
+        stack.enter_context(patched(clip_model, _TEXT_PACK_DEFAULT=clip_model._TEXT_PACK_DEFAULT))
+        stack.enter_context(patched(sys, stdout=sys.stdout))
+        stack.enter_context(patched(eng.FunctionalTrainerMixin, train_step=timed(
+            eng.FunctionalTrainerMixin.train_step, "steps", step_loss)))
+        stack.enter_context(patched(
+            eng.TrainerBase,
+            test=timed(eng.TrainerBase.test, "tests",
+                       lambda self, out: {"accuracy": out["accuracy"]}),
+            save_model=timed(eng.TrainerBase.save_model, "saves", lambda self, out: {})))
+        yield
+
+
+def cli_run(argv: list, label: str) -> dict:
+    """The port's command line's ``main`` on ``argv`` (parsed by its own
+    parser) in this process, every count set to 0 just before and read just
+    after: the counts, the trainer and its per-step and per-test records."""
+    import torch
+
+    from federated_multi_modal_tpu_torch import train as port_cli
+
+    args = port_cli.build_parser().parse_args(argv)
+    record = {"steps": [], "tests": [], "saves": []}
+    reset_counts()
+    t0 = time.perf_counter()
+    with cli_instrumented(record):
+        record["trainer"] = port_cli.main(args)
+    torch.cuda.synchronize()
+    record["wall_s"] = time.perf_counter() - t0
+    record["counts"] = kernel_counts()
+    print(f"cli {label}: launches {json.dumps(nonzero(record['counts']))}, "
+          f"{len(record['steps'])} steps, {len(record['tests'])} test(), "
+          f"main {record['wall_s']:.1f} s")
+    return record
+
+
+def cli_argv(trainer: str, config_file: str, out_dir: str, root: str, opts: list,
+             extra: tuple = ()) -> list:
+    argv = ["--root", root, "--seed", "1", "--trainer", trainer,
+            "--dataset-config-file", CLI_DATASET_YAML, "--output-dir", out_dir, *extra]
+    if config_file:
+        argv += ["--config-file", config_file]
+    return argv + list(opts)
+
+
+def hold_launches(record: dict, implied: tuple, what: str) -> dict:
+    """Each train step's and each ``test()``'s launches equal to the
+    routing's, and the whole run's to their sum plus the build's."""
+    step, test, build = implied
+    wrong = []
+    for kind, expected in (("steps", step), ("tests", test)):
+        for i, entry in enumerate(record[kind]):
+            bad = {k: (entry["launches"][k], v) for k, v in expected.items()
+                   if entry["launches"][k] != v}
+            if bad:
+                wrong.append([f"{kind}[{i}]", bad])
+    total = {k: step[k] * len(record["steps"]) + test[k] * len(record["tests"]) + build[k]
+             for k in step}
+    bad = {k: (record["counts"][k], v) for k, v in total.items() if record["counts"][k] != v}
+    if bad:
+        wrong.append(["run", bad])
+    print(f"  {what}: launches per train step {json.dumps(nonzero(step))}, per test() "
+          f"{json.dumps(nonzero(test))}, at build {json.dumps(nonzero(build))}: "
+          f"{'as the routing implies' if not wrong else json.dumps(wrong)}")
+    return {"ok": not wrong, "wrong": wrong, "implied_run": nonzero(total)}
+
+
+def write_openai_state_dict(path: str, seed: int = 0) -> float:
+    """A seeded ViT-B/16 CLIP in OpenAI's state-dict layout, fp16 as OpenAI
+    ships it, written with ``torch.save``; returns the seconds it took."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.models import params
+
+    t0 = time.perf_counter()
+    arch = params.BACKBONE_CONFIGS["ViT-B/16"]
+    tree = params.init_clip_params(arch, torch.Generator().manual_seed(seed), dtype_policy=False)
+    torch.save(params.export_openai_state_dict(tree, arch, torch.float16), path)
+    return time.perf_counter() - t0
+
+
+def maple_timings(run: dict, out: str) -> dict:
+    """The numbers of a MaPLe run through ``main``: step ms (synchronised,
+    median over the steps after the first), epoch s, the share of each
+    epoch the host waited on the loader, ``test()`` ms, checkpoint save
+    and load ms, per-epoch mean losses, the final accuracy."""
+    trainer = run["trainer"]
+    steps_ms = [s["ms"] for s in run["steps"]]
+    epochs = trainer.epoch_stats
+    return {
+        "batch": trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
+        "steps_per_epoch": [e["steps"] for e in epochs],
+        "step_ms_median": statistics.median(steps_ms[1:]),
+        "step_ms_first": steps_ms[0], "step_ms_all": steps_ms,
+        "epoch_s": [e["epoch_s"] for e in epochs],
+        "loader_wait_share": [e["loader_wait_s"] / e["epoch_s"] for e in epochs],
+        "epoch_mean_losses": [e["mean_loss"] for e in epochs],
+        "first_loss": run["steps"][0]["loss"],
+        "test_ms": [t["ms"] for t in run["tests"]],
+        "final_accuracy": run["tests"][-1]["accuracy"],
+        "checkpoint_save_ms": [s["ms"] for s in run["saves"]],
+        "checkpoint_load_ms": wall_ms(lambda: trainer.load_model(out, epoch=CLI_EPOCHS), 1),
+        "main_s": run["wall_s"],
+    }
+
+
+def cli_phase(card: str) -> tuple:
+    """The port's command line (``python -m federated_multi_modal_tpu_torch.
+    train``) at ViT-B/16 on the Synthetic dataset, from a seeded OpenAI-format
+    state dict (``MODEL.BACKBONE.WEIGHTS_PATH``):
+
+    * MaPLe (``CLI_MAPLE_YAML``, ``OPTIM.MAX_EPOCH 2``: the constant warmup,
+      then cosine; the final ``test()``; the checkpoint of epoch 2) through
+      ``main`` in this process, each step's and each ``test()``'s launches
+      held against the routing, and its times;
+    * the same run under ``TPU.ATTENTION_IMPL xla`` (no kernel launched),
+      its first loss within ``TOL_STEP_LOSS`` of the kernel run's;
+    * ``--eval-only --model-dir --load-epoch 2`` through the command line as
+      a subprocess, its accuracy that of the final ``test()``;
+    * CoOp (one epoch) and ZeroshotCLIP (``--eval-only``) through ``main``,
+      their launches held the same way.
+
+    Returns ``(launches by kernel label over the kernel runs, checks,
+    summary)``."""
+    import re
+    import tempfile
+
+    import torch
+
+    checks, summary, launches = [], {"card": card}, {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="fmm_cli_") as tmp:
+        sd_path = os.path.join(tmp, "vit_b16_openai_fp16.pt")
+        summary["state_dict_write_s"] = write_openai_state_dict(sd_path)
+        root = os.path.join(tmp, "data")
+        weights = ["MODEL.BACKBONE.WEIGHTS_PATH", sd_path]
+        maple_opts = ["OPTIM.MAX_EPOCH", str(CLI_EPOCHS)] + weights
+
+        def add(counts):
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+
+        # -- MaPLe through main, on the kernel routes ---------------------------
+        out = os.path.join(tmp, "maple")
+        run = cli_run(cli_argv("MaPLe", CLI_MAPLE_YAML, out, root, maple_opts), "MaPLe")
+        trainer = run["trainer"]
+        n_test = len(trainer.test_loader)
+        decoder = ("native codec" if getattr(trainer.test_loader.transform, "native", False)
+                   else "PIL (the native codec did not build: "
+                   + (native_build_error() or "disabled") + ")")
+        held = hold_launches(run, cli_implied(trainer.arch, "MaPLe", n_test), "MaPLe")
+        maple = dict(maple_timings(run, out), decoder=decoder, test_batches=n_test,
+                     launches_per_step=nonzero(run["steps"][-1]["launches"]),
+                     launches_per_test=nonzero(run["tests"][-1]["launches"]))
+        # where the time of a step and of a test() goes: one more of each,
+        # after the run, under the profiler
+        batches = iter(trainer.train_loader_x)
+        step_batch = trainer.parse_batch_train(next(batches))
+        batches.close()
+        maple["profile_step"] = profile_by_kernel(lambda: trainer.train_step(step_batch),
+                                                  f"cli MaPLe train step, B=4, on {card}")
+        maple["profile_test"] = profile_by_kernel(trainer.test, f"cli MaPLe test(), on {card}")
+        maple["host_step"] = host_profile(lambda: trainer.train_step(step_batch),
+                                          f"cli MaPLe train step, B=4, on {card}")
+        checks.append(("cli MaPLe launches as the routing implies", held))
+        checks += [(f"cli MaPLe {k} launched", {"ok": run["counts"][k] > 0})
+                   for k in CLI_PATH_KERNELS if k != "K5 fused_block_residual"]
+        checks.append(("cli MaPLe K5 launched",
+                       {"ok": run["counts"]["K5 fused_block_residual"] > 0}))
+        checks.append(("cli MaPLe checkpoint of epoch 2", {"ok": os.path.isfile(os.path.join(
+            out, "MultiModalPromptLearner", f"model.pth.tar-{CLI_EPOCHS}"))}))
+        add(run["counts"])
+        del trainer, run
+        torch.cuda.empty_cache()
+
+        # -- the same run on the plain formulation -------------------------------
+        run = cli_run(cli_argv("MaPLe", CLI_MAPLE_YAML, os.path.join(tmp, "maple-xla"), root,
+                               maple_opts + ["TPU.ATTENTION_IMPL", "xla"]), "MaPLe, xla")
+        xla = maple_timings(run, os.path.join(tmp, "maple-xla"))
+        first_rel = abs(maple["first_loss"] - xla["first_loss"]) / abs(xla["first_loss"])
+        loss_cmp = {"first_loss_rel_err": first_rel, "tol": TOL_STEP_LOSS,
+                    "ok": first_rel <= TOL_STEP_LOSS}
+        checks.append(("cli MaPLe first loss, kernel routes vs xla", loss_cmp))
+        checks.append(("cli MaPLe xla launches no kernel", {"ok": not nonzero(run["counts"])}))
+        summary["maple_xla"] = xla
+        del run
+        torch.cuda.empty_cache()
+
+        # -- --eval-only reload through the command line ---------------------------
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "federated_multi_modal_tpu_torch.train",
+             *cli_argv("MaPLe", CLI_MAPLE_YAML, os.path.join(tmp, "maple-eval"), root,
+                       maple_opts, extra=("--eval-only", "--model-dir", out,
+                                          "--load-epoch", str(CLI_EPOCHS)))],
+            capture_output=True, text=True, timeout=600, cwd=repo)
+        reload_s = time.perf_counter() - t0
+        found = re.findall(r"\* accuracy: ([\d.]+)%", proc.stdout)
+        reload_cmp = {"returncode": proc.returncode, "accuracy": found,
+                      "in_process": f"{maple['final_accuracy']:.2f}", "s": reload_s,
+                      "ok": proc.returncode == 0 and found == [f"{maple['final_accuracy']:.2f}"]}
+        if not reload_cmp["ok"]:
+            print(proc.stdout[-3000:], proc.stderr[-3000:])
+        checks.append(("cli --eval-only reload, same accuracy", reload_cmp))
+        print("cli --eval-only --model-dir --load-epoch reload (subprocess):",
+              json.dumps(reload_cmp))
+
+        # -- CoOp and zero-shot CLIP through main ------------------------------------
+        for trainer_name, yaml, opts, extra in (
+                ("CoOp", CLI_COOP_YAML, CLI_COOP_OPTS + weights, ()),
+                ("ZeroshotCLIP", CLI_COOP_YAML, weights, ("--eval-only",))):
+            run = cli_run(cli_argv(trainer_name, yaml, os.path.join(tmp, trainer_name), root,
+                                   opts, extra), trainer_name)
+            n_test = len(run["trainer"].test_loader)
+            held = hold_launches(run, cli_implied(run["trainer"].arch, trainer_name, n_test),
+                                 trainer_name)
+            checks.append((f"cli {trainer_name} launches as the routing implies", held))
+            checks.append((f"cli {trainer_name} K1 and K5 launched", {"ok": (
+                run["counts"]["K1 packed_attention_masked"] > 0
+                and run["counts"]["K5 fused_block_residual"] > 0)}))
+            summary[trainer_name] = {
+                "steps": len(run["steps"]),
+                "step_ms_median": (statistics.median(s["ms"] for s in run["steps"][1:])
+                                   if len(run["steps"]) > 1 else None),
+                "test_ms": [t["ms"] for t in run["tests"]],
+                "accuracy": run["tests"][-1]["accuracy"], "main_s": run["wall_s"],
+                "launches": nonzero(run["counts"])}
+            add(run["counts"])
+            del run
+            torch.cuda.empty_cache()
+
+    summary["maple"] = maple
+    summary["first_loss_vs_xla"] = loss_cmp
+    print(f"cli MaPLe, ViT-B/16, batch {maple['batch']}, on {card}: step "
+          f"{maple['step_ms_median']:.2f} ms (median of the steps after the first, "
+          f"synchronised; first {maple['step_ms_first']:.1f} ms), epochs "
+          f"{', '.join(f'{s:.3f}' for s in maple['epoch_s'])} s, loader wait "
+          f"{', '.join(f'{w:.1%}' for w in maple['loader_wait_share'])} of the epoch, test() "
+          f"{', '.join(f'{t:.1f}' for t in maple['test_ms'])} ms, checkpoint save "
+          f"{', '.join(f'{t:.1f}' for t in maple['checkpoint_save_ms'])} ms, load "
+          f"{maple['checkpoint_load_ms']:.1f} ms, decoder {maple['decoder']}")
+    print(f"cli MaPLe per-epoch mean losses, kernel routes {json.dumps(maple['epoch_mean_losses'])}"
+          f" and xla {json.dumps(xla['epoch_mean_losses'])}; final accuracy "
+          f"{maple['final_accuracy']:.2f}% and {xla['final_accuracy']:.2f}%; first loss "
+          f"{maple['first_loss']:.6f} and {xla['first_loss']:.6f}, relative "
+          f"{first_rel:.2e} (limit {TOL_STEP_LOSS:.2e}); on {card}")
+    return launches, checks, summary
+
+
+def host_profile(fn, label: str, top: int = 12) -> dict:
+    """One run of ``fn`` under the profiler's CPU activity: the host wall
+    time, the share of it inside PyTorch operators (their self time), the
+    operator calls and kernel launches the host made, and the ``top``
+    operators by self time, printed. Where the device idles, this is where
+    the host's time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    self_ms = {e.key: e.self_cpu_time_total / 1e3 for e in averages}
+    calls = {e.key: e.count for e in averages}
+    launches = sum(n for k, n in calls.items() if "LaunchKernel" in k)
+    ops = sum(n for k, n in calls.items() if k.startswith("aten::"))
+    in_ops = sum(v for k, v in self_ms.items() if k.startswith("aten::"))
+    out = {"wall_ms": wall_ms, "aten_self_ms": in_ops, "aten_calls": ops,
+           "kernel_launch_calls": launches,
+           "top_self_ms": [[k, round(v, 3), calls[k]] for k, v in sorted(
+               self_ms.items(), key=lambda kv: -kv[1])[:top]]}
+    print(f"host of one {label}: wall {wall_ms:.2f} ms, {in_ops:.2f} ms in {ops} aten calls, "
+          f"{launches} kernel-launch calls; top self ms [name, ms, calls]: "
+          f"{json.dumps(out['top_self_ms'])}")
+    return out
+
+
+def native_build_error() -> str:
+    from federated_multi_modal_tpu_torch import native
+
+    return native.build_error.splitlines()[0] if native.build_error else ""
+
+
 STEP_SWEEP_ROUTES = (("default", {}), ("unfused", {"FMM_TPU_FUSED": "0"}),
                      ("sublayer", {"FMM_TPU_FUSED_TRAIN": "1",
                                    "FMM_TPU_FUSED_TRAIN_BLOCK": "0"}))
@@ -3675,9 +4063,21 @@ def main() -> int:
         "microbench drive": (drive[by_instance], drive["P2 fused_lnqkv_attention_bwd_dx"])})
     summary["layernorm_bwd"]["phase_s"] = time.perf_counter() - t0
     rows += ln_rows
+    torch.cuda.empty_cache()
+
+    # -- 19. the port's training command line (the cli phase) -----------------
+    t0 = time.perf_counter()
+    cli_launches, cli_checks, summary["cli"] = cli_phase(card)
+    summary["cli"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        launched = sum(n for label, n in cli_launches.items()
+                       if label.split(" ")[1] == row["name"] and "(backward)" not in label)
+        if launched:
+            row.setdefault("paths", []).append("cli")
+            row["launches_cli"] = launched
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
-                     + gemm_checks + ln_checks)
+                     + gemm_checks + ln_checks + cli_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

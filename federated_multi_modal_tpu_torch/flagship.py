@@ -13,30 +13,23 @@ from federated_multi_modal_tpu_torch.device import resolve_device
 from federated_multi_modal_tpu_torch.engine.optim import build_optimizer
 from federated_multi_modal_tpu_torch.engine.tree import (
     cast_tree,
-    merge_trees,
     split_tree,
     to_device,
 )
-from federated_multi_modal_tpu_torch.models.clip_model import encode_image, encode_text_embedded
 from federated_multi_modal_tpu_torch.models.params import BACKBONE_CONFIGS, init_clip_params
-from federated_multi_modal_tpu_torch.ops.primitives import l2_normalize
 from federated_multi_modal_tpu_torch.tokenizer import tokenize
 from federated_multi_modal_tpu_torch.trainers.common import (
+    DEFAULT_CLASSNAMES,
     build_prompt_constants,
     ctx_init_vectors,
 )
 from federated_multi_modal_tpu_torch.trainers.maple import (
-    caption_tokens_to_extra,
     init_maple_prompt_learner,
-    maple_prompts,
     maple_trainable_predicate,
     make_maple_eval_fns,
+    make_maple_model_fns,
 )
 
-DEFAULT_CLASSNAMES = [
-    "airport", "beach", "bridge", "farmland", "forest",
-    "harbor", "parking lot", "river", "runway", "storage tank",
-]
 
 
 def build_maple_program(
@@ -56,8 +49,9 @@ def build_maple_program(
     ``trainable`` (prompt learner, every LayerNorm, the last block of each
     tower) in fp32, ``frozen`` under the dtype policy, both on ``device``
     (``None`` means ``"cuda"``). ``loss_fn(trainable, frozen, batch) ->
-    (loss, {})`` with ``batch`` holding ``image (B, H, W, 3)``, ``label
-    (B,)`` and optionally ``caption_tokens (B, 77)``: cross-entropy of the
+    (loss, {"acc", "align"})`` (``trainers/maple.py::make_maple_model_fns``)
+    with ``batch`` holding ``image (B, H, W, 3)``, ``label (B,)`` and
+    optionally ``caption_tokens (B, 77)``: cross-entropy of the
     cosine logits plus ``align_lambda`` x (1 - mean cosine between each
     image and its label's text feature), with ``exp(logit_scale)`` clamped
     at 100. ``eval_prepare_fn(trainable, frozen)`` computes the text
@@ -90,37 +84,8 @@ def build_maple_program(
     }
     text_len = const.text_len
 
-    def features(trainable, frozen, images, caption_tokens=None):
-        m = merge_trees(trainable, frozen["model"])
-        pc = frozen["prompt_const"]
-        prompts, shared_ctx, text_deep, vis_deep = maple_prompts(
-            m["prompt_learner"], pc["token_prefix"], pc["token_suffix"], depth)
-        extra = None
-        if caption_tokens is not None and use_captions:
-            extra = caption_tokens_to_extra(
-                m["prompt_learner"], m["clip"]["text"], caption_tokens)
-        txt = encode_text_embedded(
-            m["clip"]["text"], arch, prompts, pc["eot_index"],
-            deep_prompts=text_deep, max_len=text_len)
-        img = encode_image(
-            m["clip"]["visual"], arch, images, shallow_prompts=shared_ctx,
-            deep_prompts=vis_deep, extra_tokens=extra)
-        scale = torch.clamp(torch.exp(m["clip"]["logit_scale"].float()), max=100.0)
-        return l2_normalize(img), l2_normalize(txt), scale
-
-    def logits_fn(trainable, frozen, images):
-        img_n, txt_n, scale = features(trainable, frozen, images)
-        return scale * img_n @ txt_n.T
-
-    def loss_fn(trainable, frozen, batch):
-        img_n, txt_n, scale = features(
-            trainable, frozen, batch["image"], batch.get("caption_tokens"))
-        logits = scale * img_n @ txt_n.T
-        labels = batch["label"].long()
-        loss = torch.nn.functional.cross_entropy(logits, labels)
-        alignment = 1.0 - (img_n * txt_n[labels]).sum(-1).mean()
-        return loss + align_lambda * alignment, {}
-
+    logits_fn, loss_fn = make_maple_model_fns(arch, depth, text_len, use_captions,
+                                              align_lambda)
     eval_prepare_fn, eval_apply_fn = make_maple_eval_fns(arch, depth, text_len)
     return {
         "arch": arch,

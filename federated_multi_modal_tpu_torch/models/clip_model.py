@@ -159,12 +159,12 @@ def encode_image(
 def encode_image_auto(params, cfg: CLIPConfig, images: torch.Tensor, **prompt_kwargs):
     """The image tower of the backbone: :func:`encode_image` for a ViT.
     The ModifiedResNet towers (RN50, RN101) raise: their port
-    (``models/resnet.py``) is ROADMAP module item 11."""
+    (``models/resnet.py``) is ROADMAP module item 6."""
     if cfg.is_vit:
         return encode_image(params, cfg, images, **prompt_kwargs)
     raise NotImplementedError(
         "the ModifiedResNet image tower (models/resnet.py) is not ported yet "
-        "(ROADMAP.md, module item 11)")
+        "(ROADMAP.md, module item 6)")
 
 
 # -- text tower ---------------------------------------------------------------

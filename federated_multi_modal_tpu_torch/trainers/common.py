@@ -16,6 +16,12 @@ from federated_multi_modal_tpu_torch.engine.tree import tree_map_with_path
 from federated_multi_modal_tpu_torch.models.clip_model import embed_tokens
 from federated_multi_modal_tpu_torch.tokenizer import get_tokenizer, tokenize
 
+# the flagship programs' classes (the JAX package's ``flagship.py``)
+DEFAULT_CLASSNAMES = [
+    "airport", "beach", "bridge", "farmland", "forest",
+    "harbor", "parking lot", "river", "runway", "storage tank",
+]
+
 
 @dataclass
 class PromptConstants:

@@ -1,32 +1,67 @@
-"""MaPLe's functional half (port of ``federated_multi_modal_tpu/trainers/
-maple.py``): the unfreeze predicate, the prompt learner's parameters and
-forward, the caption token, and the prompt-cached eval functions.
+"""MaPLe, multi-modal prompt learning (port of
+``federated_multi_modal_tpu/trainers/maple.py``): the unfreeze predicate, the
+prompt learner's parameters and forward, the caption token, the loss, the
+prompt-cached eval functions and the single-site ``MaPLe`` trainer.
 
 The coupled prompt learner alternates: even depths own a text-side prompt
 projected into the vision width, odd depths a vision-side prompt projected
-into the text width. The ``MaPLe`` trainer class is still to port; the loss
-is ``flagship.py``'s.
+into the text width. The loss is cross-entropy (hard labels) or KL (soft
+labels) of the cosine logits, ``exp(logit_scale)`` clamped at 100, plus
+``ALIGN_LAMBDA`` x (1 - mean cosine between each image and its label's
+text); the trainable set is the prompt learner, every LayerNorm and the last
+block of each tower.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import List
 
+import numpy as np
 import torch
 
-from federated_multi_modal_tpu_torch.engine.tree import merge_trees
+from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params, to_numpy, unflatten_into
+from federated_multi_modal_tpu_torch.engine.registry import TRAINER_REGISTRY
+from federated_multi_modal_tpu_torch.engine.trainer import (
+    FunctionalTrainerMixin,
+    TrainerX,
+    count_params,
+)
+from federated_multi_modal_tpu_torch.engine.tree import cast_tree, merge_trees, split_tree, to_device
+from federated_multi_modal_tpu_torch.models.params import load_clip_backbone
 from federated_multi_modal_tpu_torch.models.clip_model import (
     embed_tokens,
     encode_image,
     encode_text_embedded,
 )
 from federated_multi_modal_tpu_torch.ops.primitives import l2_normalize
+from federated_multi_modal_tpu_torch.tokenizer import tokenize
 from federated_multi_modal_tpu_torch.trainers.common import (
     apply_linear,
+    apply_prec,
     assemble_prompts_end,
+    build_prompt_constants,
+    ctx_init_vectors,
     linear_params,
     random_ctx_vectors,
 )
+
+
+@functools.lru_cache(maxsize=65536)
+def _tokenize_caption(caption: str) -> np.ndarray:
+    """Memoized BPE tokenization: the same dataset captions recur every
+    epoch."""
+    return np.asarray(tokenize([caption], truncate=True)[0])
+
+
+def dataset_provides_captions(dm) -> bool:
+    """Whether any item in the manager's train or test split carries a
+    caption (the whole split is scanned)."""
+    for split in (dm.dataset.train_x, dm.dataset.test):
+        if split and any(getattr(d, "caption", "") for d in split):
+            return True
+    return False
 
 
 def maple_trainable_predicate(visual_layers: int, text_layers: int):
@@ -136,3 +171,189 @@ def make_maple_eval_fns(arch, depth: int, text_len: int):
         return prep["scale"] * l2_normalize(img) @ prep["txt_n"].T
 
     return eval_prepare_fn, eval_apply_fn
+
+
+def make_maple_model_fns(arch, depth: int, text_len: int, use_captions: bool,
+                         align_lambda: float):
+    """``(logits_fn, loss_fn)`` of MaPLe over the ``{"model",
+    "prompt_const"}`` frozen layout. ``loss_fn(trainable, frozen, batch) ->
+    (loss, {"acc", "align"})`` for ``batch`` holding ``image (B, H, W, 3)``,
+    ``label (B,)`` and optionally ``caption_tokens (B, 77)`` and
+    ``soft_label (B, n_cls)`` (the KL branch)."""
+
+    def features(trainable, frozen, images, caption_tokens=None):
+        m = merge_trees(trainable, frozen["model"])
+        pc = frozen["prompt_const"]
+        prompts, shared_ctx, text_deep, vis_deep = maple_prompts(
+            m["prompt_learner"], pc["token_prefix"], pc["token_suffix"], depth)
+        extra = None
+        if caption_tokens is not None and use_captions:
+            extra = caption_tokens_to_extra(
+                m["prompt_learner"], m["clip"]["text"], caption_tokens)
+        txt = encode_text_embedded(
+            m["clip"]["text"], arch, prompts, pc["eot_index"],
+            deep_prompts=text_deep, max_len=text_len)
+        img = encode_image(
+            m["clip"]["visual"], arch, images, shallow_prompts=shared_ctx,
+            deep_prompts=vis_deep, extra_tokens=extra)
+        scale = torch.clamp(torch.exp(m["clip"]["logit_scale"].float()), max=100.0)
+        return l2_normalize(img), l2_normalize(txt), scale
+
+    def logits_fn(trainable, frozen, images):
+        img_n, txt_n, scale = features(trainable, frozen, images)
+        return scale * img_n @ txt_n.T
+
+    def loss_fn(trainable, frozen, batch):
+        img_n, txt_n, scale = features(
+            trainable, frozen, batch["image"], batch.get("caption_tokens"))
+        logits = scale * img_n @ txt_n.T
+        labels = batch["label"].long()
+        if "soft_label" in batch:
+            target = torch.clamp(batch["soft_label"], min=1e-8)
+            logp = torch.log_softmax(logits, dim=1)
+            loss = (target * (torch.log(target) - logp)).sum(1).mean()
+            txt_sel = target @ txt_n
+        else:
+            loss = torch.nn.functional.cross_entropy(logits, labels)
+            txt_sel = txt_n[labels]
+        alignment = 1.0 - (img_n * txt_sel).sum(-1).mean()
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss + align_lambda * alignment, {"acc": acc * 100.0, "align": alignment}
+
+    return logits_fn, loss_fn
+
+
+@TRAINER_REGISTRY.register()
+class MaPLe(FunctionalTrainerMixin, TrainerX):
+    """Single-site MaPLe trainer (the federated wrapper waits for ROADMAP
+    module item 4)."""
+
+    # the reference hard-codes clip_grad_norm_(max_norm=1.0) in its
+    # forward_backward: MaPLe is the only trainer that clips
+    GRAD_CLIP_OVERRIDE = 1.0
+
+    def __init__(self, cfg, device=None):
+        super().__init__(cfg, device=device)
+        self.grad_norms = []
+
+    def check_cfg(self, cfg):
+        assert cfg.TRAINER.MAPLE.PREC in ("fp16", "fp32", "amp", "bf16"), (
+            f"Invalid precision setting: {cfg.TRAINER.MAPLE.PREC}"
+        )
+
+    def build_model(self):
+        cfg = self.cfg
+        tcfg = cfg.TRAINER.MAPLE
+        classnames = self.dm.dataset.classnames
+        print(f"# of classnames = {len(classnames)}")
+        print(f"Loading CLIP (backbone: {cfg.MODEL.BACKBONE.NAME})")
+        self.arch, clip_params = load_clip_backbone(cfg.MODEL)
+        arch = self.arch
+        if not arch.is_vit:
+            raise ValueError(
+                "MaPLe requires a ViT backbone (multi-modal prompt injection into "
+                f"transformer blocks); got {cfg.MODEL.BACKBONE.NAME}")
+        clip_params = apply_prec(tcfg.PREC, clip_params)
+        # the reference's CustomCLIP replaces CLIP's logit_scale with a fresh
+        # parameter at ln(1/0.07), which the unfreeze policy leaves frozen
+        clip_params = dict(clip_params)
+        clip_params["logit_scale"] = torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32)
+        n_ctx = tcfg.N_CTX
+        depth = tcfg.PROMPT_DEPTH
+        assert depth >= 1, "For MaPLe, PROMPT_DEPTH should be >= 1"
+        assert cfg.INPUT.SIZE[0] == arch.image_resolution, (
+            f"cfg_imsize ({cfg.INPUT.SIZE[0]}) must equal clip_imsize "
+            f"({arch.image_resolution})")
+        # the caption branch only where the dataset provides captions
+        dataset_has_captions = dataset_provides_captions(self.dm)
+        self.use_captions = bool(tcfg.USE_CAPTIONS) and dataset_has_captions
+        if tcfg.USE_CAPTIONS and not dataset_has_captions:
+            print("Dataset provides no captions; caption branch off")
+        self.align_lambda = float(tcfg.ALIGN_LAMBDA)
+
+        ctx_init = tcfg.CTX_INIT
+        gen = torch.Generator().manual_seed(cfg.SEED if cfg.SEED >= 0 else 0)
+        if ctx_init and n_ctx <= 4:
+            ctx = ctx_init_vectors(clip_params["text"], ctx_init, n_ctx)
+            prompt_prefix = ctx_init.replace("_", " ")
+        else:
+            ctx = random_ctx_vectors(gen, n_ctx, arch.transformer_width)
+            prompt_prefix = " ".join(["X"] * n_ctx)
+        print("MaPLe design: Multi-modal Prompt Learning")
+        print(f'Initial context: "{prompt_prefix}"')
+        print(f"Number of MaPLe context words (tokens): {n_ctx}")
+
+        const = build_prompt_constants(clip_params["text"], classnames, prompt_prefix, n_ctx)
+        self.const = const
+        pl = init_maple_prompt_learner(gen, arch, n_ctx, depth, ctx, self.use_captions)
+        model = {"clip": clip_params, "prompt_learner": pl}
+        pred = maple_trainable_predicate(arch.vision_layers, arch.transformer_layers)
+        trainable, frozen_clip = split_tree(model, pred)
+        self.trainable = to_device(cast_tree(trainable, torch.float32), self.device)
+        self.frozen = to_device({
+            "model": frozen_clip,
+            "prompt_const": {
+                "token_prefix": const.token_prefix,
+                "token_suffix": const.token_suffix,
+                "eot_index": const.eot_index,
+            },
+        }, self.device)
+        self.depth = depth
+
+        self.logits_fn, self.loss_fn = make_maple_model_fns(
+            arch, depth, const.text_len, self.use_captions, self.align_lambda)
+        self.eval_prepare_fn, self.eval_apply_fn = make_maple_eval_fns(
+            arch, depth, const.text_len)
+        self.setup_optimization()
+        self.load_init_weights()
+        print(f"Trainable params: {count_params(self.trainable):,}")
+        self.model_name = "MultiModalPromptLearner"
+        self.register_model(self.model_name, self._get_state, self._set_state)
+
+    # -- state surface ---------------------------------------------------------
+    def _get_state(self):
+        sd = flatten_params(self.trainable)
+        sd["prompt_learner.token_prefix"] = to_numpy(self.const.token_prefix)
+        sd["prompt_learner.token_suffix"] = to_numpy(self.const.token_suffix)
+        return {"state_dict": sd, "optimizer": None, "scheduler": None}
+
+    def _set_state(self, flat):
+        self.invalidate_eval_cache()
+        self.trainable, _ = unflatten_into(self.trainable, flat, strict_shapes=True)
+
+    # -- batches ---------------------------------------------------------------
+    def parse_batch_train(self, batch):
+        images, labels = super().parse_batch_train(batch)
+        step = {"image": images, "label": labels}
+        if self.use_captions:
+            captions = [c or "" for c in batch.get("caption", [])]
+            if len(captions) != images.shape[0]:
+                captions = [""] * images.shape[0]
+            step["caption_tokens"] = torch.from_numpy(
+                np.stack([_tokenize_caption(c) for c in captions])).to(self.device)
+        return step
+
+    def forward_backward(self, batch):
+        summary = self.train_step(self.parse_batch_train(batch))
+        if summary is None:  # deferred mode: checked at drain time
+            return None
+        if not np.isfinite(summary["loss"]):
+            # the reference hard-raises on a NaN/Inf loss
+            raise RuntimeError("NaN/Inf in total loss")
+        self.grad_norms.append(summary.get("grad_norm", 0.0))
+        return summary
+
+    def drain_summaries(self):
+        """The NaN hard-raise and the grad-norm history at the drain point."""
+        drained = super().drain_summaries()
+        for s in drained:
+            if not np.isfinite(s["loss"]):
+                raise RuntimeError("NaN/Inf in total loss")
+            self.grad_norms.append(s.get("grad_norm", 0.0))
+        return drained
+
+    def run_epoch(self):
+        """The base epoch runner, then the LR stepped once per epoch."""
+        loss = TrainerX.run_epoch(self)
+        self.update_lr()
+        return loss

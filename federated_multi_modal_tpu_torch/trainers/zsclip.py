@@ -1,21 +1,28 @@
-"""Zero-shot CLIP (port of the functional half of
-``federated_multi_modal_tpu/trainers/zsclip.py``): class text features from
-hand templates, normalized once, then cosine logits of the frozen image
-tower. One template is ``ZeroshotCLIP``; several (the ImageNet select set)
-are ``ZeroshotCLIP2``'s prompt ensemble. The trainer classes wait for the
-trainer engine (ROADMAP module item 8)."""
+"""Zero-shot CLIP (port of ``federated_multi_modal_tpu/trainers/zsclip.py``):
+class text features from hand templates, normalized once, then cosine
+logits of the frozen image tower. One template (the dataset's) is
+``ZeroshotCLIP``; the ImageNet select set plus the dataset's template is
+``ZeroshotCLIP2``'s prompt ensemble."""
 
 from __future__ import annotations
 
 import torch
 
 from federated_multi_modal_tpu_torch.device import resolve_device
+from federated_multi_modal_tpu_torch.engine.registry import TRAINER_REGISTRY
+from federated_multi_modal_tpu_torch.engine.trainer import TrainerX
+from federated_multi_modal_tpu_torch.engine.tree import to_device
 from federated_multi_modal_tpu_torch.models.clip_model import (
     encode_image_auto,
     encode_text_tokens,
 )
+from federated_multi_modal_tpu_torch.models.params import load_clip_backbone
 from federated_multi_modal_tpu_torch.ops.primitives import l2_normalize
 from federated_multi_modal_tpu_torch.tokenizer import tokenize
+from federated_multi_modal_tpu_torch.trainers.templates import (
+    CUSTOM_TEMPLATES,
+    IMAGENET_TEMPLATES_SELECT,
+)
 
 
 @torch.no_grad()
@@ -49,3 +56,48 @@ def make_zeroshot_infer(arch):
         return scale * img @ text_features.T
 
     return infer
+
+
+@TRAINER_REGISTRY.register()
+class ZeroshotCLIP(TrainerX):
+    """Evaluation only: the dataset's template over the class names."""
+
+    def templates(self, dataset_name: str) -> list:
+        return [CUSTOM_TEMPLATES[dataset_name]]
+
+    def build_model(self):
+        cfg = self.cfg
+        classnames = self.dm.dataset.classnames
+        print(f"Loading CLIP (backbone: {cfg.MODEL.BACKBONE.NAME})")
+        self.arch, clip_params = load_clip_backbone(cfg.MODEL)
+        self.clip_params = to_device(clip_params, self.device)
+        templates = self.templates(cfg.DATASET.NAME)
+        if len(templates) == 1:
+            print(f"Prompts: {[templates[0].format(c.replace('_', ' ')) for c in classnames]}")
+        else:
+            print(f"Prompt ensembling (n={len(templates)})")
+        self.text_features = zeroshot_text_features(
+            self.clip_params, self.arch, classnames, templates, device=self.device)
+        self._infer_fn = make_zeroshot_infer(self.arch)
+
+    def model_inference(self, images):
+        return self._infer_fn(self.clip_params, self.text_features, images)
+
+    def train(self):
+        # zero-shot: evaluation only
+        self.test()
+
+    def forward_backward(self, batch):
+        raise RuntimeError("ZeroshotCLIP is evaluation-only")
+
+
+@TRAINER_REGISTRY.register()
+class ZeroshotCLIP2(ZeroshotCLIP):
+    """Prompt ensembling over the select ImageNet templates, plus the
+    dataset's own template on other datasets."""
+
+    def templates(self, dataset_name: str) -> list:
+        templates = list(IMAGENET_TEMPLATES_SELECT)
+        if dataset_name != "ImageNet":
+            templates.append(CUSTOM_TEMPLATES[dataset_name])
+        return templates

@@ -1154,3 +1154,69 @@ def test_prototypes_refuse_what_they_do_not_take(gen):
     assert _within_share_of_max(
         k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy, 2, GB=2),
         k_proto.fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, 2, GB=2), 2 ** -5)
+
+
+def _cli_maple_tiny(tmp_path, impl):
+    """One epoch of MaPLe through the port's command line at the Tiny width
+    on the card (``TPU.ATTENTION_IMPL`` ``impl``), the module globals and
+    ``sys.stdout`` put back: the first step's loss and the launches of
+    K1, K1b, K3, K4 and K5 over the run."""
+    import sys
+
+    from federated_multi_modal_tpu_torch import train as port_cli
+    from federated_multi_modal_tpu_torch.engine import trainer as eng
+    from federated_multi_modal_tpu_torch.models import clip_model
+    from federated_multi_modal_tpu_torch.ops import primitives
+
+    wrappers = {"K1": k_attn.packed_attention_masked, "K3": k_block.fused_block_train,
+                "K4": k_block.fused_block_train_dw, "K5": k_block.fused_block_residual}
+    for fn in wrappers.values():
+        fn.launches = 0
+    k_attn.packed_attention_masked_bwd.launches = 0
+    losses = []
+    step = eng.FunctionalTrainerMixin.train_step
+
+    def recorded(self, batch):
+        out = step(self, batch)
+        losses.append(float(self._pending_summaries[-1][0]) if out is None else out["loss"])
+        return out
+
+    argv = ["--root", str(tmp_path / "data"), "--seed", "1", "--trainer", "MaPLe",
+            "--dataset-config-file", "configs/datasets/synthetic.yaml",
+            "--config-file", "configs/trainers/MaPLe/vit_b16_c2_ep5_batch4_2ctx.yaml",
+            "--output-dir", str(tmp_path / impl), "MODEL.BACKBONE.NAME", "Tiny",
+            "INPUT.SIZE", "(32, 32)", "INPUT.CANVAS_SIZE", "40",
+            "TRAINER.MAPLE.PROMPT_DEPTH", "3", "OPTIM.MAX_EPOCH", "1",
+            "DATALOADER.TEST.BATCH_SIZE", "8", "TPU.ATTENTION_IMPL", impl]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys, "stdout", sys.stdout)
+        mp.setattr(primitives, "_ATTENTION_IMPL", primitives._ATTENTION_IMPL)
+        mp.setattr(clip_model, "_TEXT_PACK_DEFAULT", clip_model._TEXT_PACK_DEFAULT)
+        mp.setattr(eng.FunctionalTrainerMixin, "train_step", recorded)
+        mp.delenv("FMM_TPU_PLATFORM", raising=False)
+        for gate in ("FMM_TPU_FUSED", "FMM_TPU_FUSED_BLOCK", "FMM_TPU_FUSED_TRAIN",
+                     "FMM_TPU_FUSED_TRAIN_BLOCK", "FMM_TPU_FUSED_TRAIN_DW",
+                     "FMM_TPU_FUSED_NBLK"):
+            mp.delenv(gate, raising=False)
+        trainer = port_cli.main(port_cli.build_parser().parse_args(argv))
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    counts["K1b"] = k_attn.packed_attention_masked_bwd.launches
+    return losses[0], counts, trainer
+
+
+def test_cli_maple_tiny_on_the_card(gen, tmp_path):
+    """MaPLe through the command line for one epoch at the Tiny width (3
+    blocks a tower, 4 steps, 2 test batches): K1 3 a step and 3 in
+    ``test()``, K1b 3 a step, K3 2 and K4 1 a step, K5 3 a test batch; the
+    first loss within 2**-8 of the same run on the plain formulation
+    (``TPU.ATTENTION_IMPL xla``), which launches no kernel."""
+    loss, counts, trainer = _cli_maple_tiny(tmp_path, "pallas")
+    assert trainer.device.type == "cuda"
+    steps = trainer.epoch_stats[0]["steps"]
+    tests = len(trainer.test_loader)
+    assert (steps, tests) == (4, 2)
+    assert counts == {"K1": 3 * steps + 3, "K1b": 3 * steps, "K3": 2 * steps,
+                      "K4": steps, "K5": 3 * tests}, counts
+    loss_xla, counts_xla, _ = _cli_maple_tiny(tmp_path, "xla")
+    assert not any(counts_xla.values()), counts_xla
+    assert abs(loss - loss_xla) <= 2.0 ** -8 * abs(loss_xla), (loss, loss_xla)
