@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MaPLe eval path and train step, CoOp and zero-shot
-CLIP, the attention microbench and the training command line on one NVIDIA
-GPU and hold its hand-written CUDA kernels against their plain PyTorch
-versions.
+CLIP, the attention microbench, the training command line and federated
+MaPLe on one NVIDIA GPU and hold its hand-written CUDA kernels against
+their plain PyTorch versions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -137,15 +137,28 @@ What it does, in order (any failure raises and exits non-zero):
    as a subprocess (the same accuracy as the final ``test()``), CoOp for
    one epoch and ZeroshotCLIP ``--eval-only`` through ``main``, their
    launches held the same way (``cli_phase``);
-20. prints, for the tensor-core kernels (``attention_core.cu``,
+20. federated MaPLe through the command line (``--trainer MaPLeFederated``
+   with its configuration) at ViT-B/16 from a seeded OpenAI-format state
+   dict, on seeded stand-ins of PatternNet and UC Merced (the clients) and
+   EuroSAT (class names only) in their own layout and image sizes, two
+   rounds of one local epoch: no failed client or skipped round, every
+   local step's and ``test()``'s launches held against the routing, the
+   clients' frozen tower one storage, each FedAvg against the fp64 host
+   mean, each round checkpoint read back bit for bit, each client's first
+   loss within 2**-8 of one round under ``TPU.ATTENTION_IMPL xla``, a NaN
+   planted in client 1's weights caught by the validity gate, the peak
+   memory beside one client, and the round, epoch, step, FedAvg,
+   broadcast, checkpoint and ``test()`` times (``fed_phase``);
+21. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-21. prints ``{"kernels": [...]}`` (``paths`` and ``launches_cli`` on the
-   kernels the cli phase launched) and, last, ``{"ok": true, "device": ...}``.
+22. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli`` and
+   ``launches_fed`` on the kernels the cli and fed phases launched) and,
+   last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --step-sweep N`` instead prints the whole-step
 gradient readings of the three train routes on N batches each, for the
@@ -3374,7 +3387,8 @@ def cli_instrumented(record: dict):
             torch.cuda.synchronize()
             after = kernel_counts()
             entry = {"ms": (time.perf_counter() - t0) * 1e3,
-                     "launches": {k: after[k] - before[k] for k in after}}
+                     "launches": {k: after[k] - before[k] for k in after},
+                     "client": getattr(self, "client_id", None)}
             entry.update(read(self, out))
             record.setdefault(key, []).append(entry)
             return out
@@ -3631,6 +3645,361 @@ def cli_phase(card: str) -> tuple:
           f"{maple['final_accuracy']:.2f}% and {xla['final_accuracy']:.2f}%; first loss "
           f"{maple['first_loss']:.6f} and {xla['first_loss']:.6f}, relative "
           f"{first_rel:.2e} (limit {TOL_STEP_LOSS:.2e}); on {card}")
+    return launches, checks, summary
+
+
+# -- federated MaPLe through the command line (the fed phase) ----------------
+
+FED_YAML = "configs/trainers/MaPLeFederated/vit_b16_c2_ep5_batch4_2ctx_cross_datasets.yaml"
+# the configuration runs 30 rounds of 10 local epochs; the phase cuts both
+FED_ROUNDS, FED_LOCAL_EPOCHS = 2, 1
+# images a class of the seeded stand-in trees (EuroSAT's splitter needs 4
+# for a non-empty test split); PatternNet's 50/20/30 split is in order over
+# the flat list, so its clients train on the first half of its classes
+FED_PER_CLASS = {"PatternNet": 3, "Ucmerced": 3, "EuroSAT": 4}
+# FedAvg of two fp32 trees: one rounding of the sum, times 1/2
+TOL_FEDAVG = 2.0 ** -23
+
+
+@contextlib.contextmanager
+def fed_instrumented(record: dict, plant_nan: bool = False):
+    """``MaPLeFederated``'s round loop with each round's seconds and
+    launches, each FedAvg (timed, its output held against the fp64 host mean
+    of its inputs), each broadcast (timed) and each round checkpoint (timed,
+    read back and held against the global weights bit for bit) recorded in
+    ``record``; with ``plant_nan``, client 1's trainable tree gets a NaN
+    after its round-0 epoch."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine.checkpoint import (
+        flatten_params,
+        load_checkpoint,
+    )
+    from federated_multi_modal_tpu_torch.trainers import maple, maple_fed
+
+    fed_cls = maple_fed.MaPLeFederated
+    average, save_round = maple_fed.safe_average_trees, fed_cls._save_round
+    broadcast, resume = fed_cls.broadcast_weights, fed_cls._resume_round
+    run_epoch = maple.MaPLe.run_epoch
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def resume_rec(self):
+        record["fed"] = self
+        torch.cuda.synchronize()
+        record["round_marks"] = [(time.perf_counter(), kernel_counts())]
+        return resume(self)
+
+    def average_rec(trees):
+        fed = record["fed"]
+        inputs = [flatten_params(t) for t in trees]
+        out, ms = synced(lambda: average(trees))
+        got = flatten_params(out)
+        worst = 0.0
+        for name, value in got.items():
+            mean = np.mean([np.asarray(t[name], np.float64) for t in inputs], axis=0)
+            err = np.abs(value.astype(np.float64) - mean)
+            worst = max(worst, float((err / np.maximum(np.abs(mean), 1e-30)).max()))
+        # a client whose weights failed the gate was reset to the global ones
+        reset = []
+        if len(trees) < len(fed.clients):
+            held = flatten_params(fed.global_weights)
+            reset = [i for i, c in enumerate(fed.clients) if all(
+                np.array_equal(v, held[k]) for k, v in flatten_params(c.trainable).items())]
+        record.setdefault("fedavg", []).append({
+            "ms": ms, "clients": len(trees), "max_rel_err_vs_fp64_mean": worst,
+            "tol": TOL_FEDAVG, "ok": worst <= TOL_FEDAVG, "reset_to_global": reset})
+        return out
+
+    def broadcast_rec(self, global_tree, round_idx=0, advance=False):
+        _, ms = synced(lambda: broadcast(self, global_tree, round_idx, advance))
+        record.setdefault("broadcast_ms", []).append(ms)
+
+    def save_round_rec(self, round_idx):
+        _, ms = synced(lambda: save_round(self, round_idx))
+        path = os.path.join(self.cfg.OUTPUT_DIR, maple_fed.AGGREGATOR_DIR,
+                            f"model.pth.tar-round{round_idx + 1}")
+        saved = load_checkpoint(path)["state_dict"]
+        held = flatten_params(self.global_weights)
+        same = saved.keys() == held.keys() and all(
+            saved[k].dtype == held[k].dtype and np.array_equal(saved[k], held[k]) for k in held)
+        record.setdefault("round_checkpoints", []).append({"ms": ms, "bit_equal": same})
+        record["round_marks"].append((time.perf_counter(), kernel_counts()))
+
+    def run_epoch_planted(self, epoch=None):
+        out = run_epoch(self, epoch)
+        if self.client_id == 1 and epoch == 0:
+            ctx = self.trainable["prompt_learner"]["ctx"].clone()
+            ctx[0, 0] = float("nan")
+            self.trainable["prompt_learner"]["ctx"] = ctx
+        return out
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(maple_fed, safe_average_trees=average_rec))
+        stack.enter_context(patched(fed_cls, _save_round=save_round_rec,
+                                    broadcast_weights=broadcast_rec, _resume_round=resume_rec))
+        if plant_nan:
+            stack.enter_context(patched(maple.MaPLe, run_epoch=run_epoch_planted))
+        yield
+
+
+def fed_run(argv: list, label: str, plant_nan: bool = False) -> dict:
+    """``MaPLeFederated`` through the port's ``main`` on ``argv`` in this
+    process, every count set to 0 just before and read just after, under
+    :func:`cli_instrumented` and :func:`fed_instrumented`: the record, with
+    the peak device memory the run allocated above what was allocated
+    before it (the trainers of earlier runs collected first: they hold
+    reference cycles)."""
+    import gc
+
+    import torch
+
+    from federated_multi_modal_tpu_torch import train as port_cli
+
+    args = port_cli.build_parser().parse_args(argv)
+    record = {"steps": [], "tests": [], "saves": []}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    with cli_instrumented(record), fed_instrumented(record, plant_nan):
+        record["trainer"] = port_cli.main(args)
+    torch.cuda.synchronize()
+    record["wall_s"] = time.perf_counter() - t0
+    record["counts"] = kernel_counts()
+    record["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    record["allocated_before_gib"] = base / 2 ** 30
+    marks = record["round_marks"]
+    record["round_s"] = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    record["round_launches"] = [nonzero({k: b[1][k] - a[1][k] for k in b[1]})
+                                for a, b in zip(marks, marks[1:])]
+    print(f"fed {label}: launches {json.dumps(nonzero(record['counts']))}, "
+          f"{len(record['steps'])} steps, {len(record['tests'])} test(), "
+          f"main {record['wall_s']:.1f} s, peak {record['peak_gib']:.2f} GiB above the "
+          f"{record['allocated_before_gib']:.2f} allocated before, "
+          f"nan_stats {json.dumps(record['trainer'].nan_stats)}")
+    return record
+
+
+def fed_launches_held(run: dict) -> dict:
+    """Each local step's and each ``test()``'s launches equal to the
+    routing's (a ``test()`` runs the text once and K5 per block and test
+    batch of its client's split), and the run's to their sum."""
+    fed = run["trainer"]
+    arch = fed.clients[0].arch
+    n_test = {c.client_id: len(c.test_loader) for c in fed.clients}
+    step = cli_implied(arch, "MaPLe", 0)[0]
+    wrong, total = [], dict.fromkeys(step, 0)
+    for kind in ("steps", "tests"):
+        for i, entry in enumerate(run[kind]):
+            expected = step if kind == "steps" else cli_implied(
+                arch, "MaPLe", n_test[entry["client"]])[1]
+            bad = {k: (entry["launches"][k], v) for k, v in expected.items()
+                   if entry["launches"][k] != v}
+            if bad:
+                wrong.append([f"{kind}[{i}] client {entry['client']}", bad])
+            for k, v in expected.items():
+                total[k] += v
+    bad = {k: (run["counts"][k], v) for k, v in total.items() if run["counts"][k] != v}
+    if bad:
+        wrong.append(["run", bad])
+    print(f"  fed launches per local step {json.dumps(nonzero(step))}, per test() K1 "
+          f"{arch.transformer_layers} and K5 {arch.vision_layers} a test batch "
+          f"(test batches by client {json.dumps(n_test)}): "
+          f"{'as the routing implies' if not wrong else json.dumps(wrong[:4])}")
+    return {"ok": not wrong, "wrong": wrong, "implied_run": nonzero(total)}
+
+
+def shared_tower(fed) -> dict:
+    """Whether the clients' frozen CLIP leaves are the same storage and
+    their trainable leaves are not."""
+    from federated_multi_modal_tpu_torch.engine.tree import flatten
+
+    frozen = [flatten(c.frozen["model"]) for c in fed.clients]
+    trainable = [{t.data_ptr() for t in flatten(c.trainable).values()} for c in fed.clients]
+    shared = all(f.keys() == frozen[0].keys() and all(
+        f[k].data_ptr() == frozen[0][k].data_ptr() for k in f) for f in frozen)
+    disjoint = all(not (a & b) for i, a in enumerate(trainable) for b in trainable[i + 1:])
+    out = {"frozen_leaves": len(frozen[0]), "frozen_shared": shared,
+           "trainable_disjoint": disjoint, "ok": shared and disjoint and len(frozen) > 1}
+    print("  fed clients' frozen tower:", json.dumps(out))
+    return out
+
+
+def first_losses(run: dict) -> dict:
+    return {str(c): next(s["loss"] for s in run["steps"] if s["client"] == c)
+            for c in sorted({s["client"] for s in run["steps"]})}
+
+
+def fed_phase(card: str, opts: tuple = ()) -> tuple:
+    """Federated MaPLe (``python -m federated_multi_modal_tpu_torch.train
+    --trainer MaPLeFederated``, ``FED_YAML``) at ViT-B/16 from a seeded
+    OpenAI-format state dict, on seeded stand-ins of its datasets in their
+    own layout and published image sizes: PatternNet and Ucmerced clients,
+    EuroSAT's class names, 51 unified classes. ``FED_ROUNDS`` rounds of
+    ``FED_LOCAL_EPOCHS`` local epoch:
+
+    * the run through ``main``: no failed client or skipped round, an
+      update a round; each local step's and each ``test()``'s launches
+      held against the routing; the clients' frozen tower one storage;
+      each FedAvg against the fp64 host mean of its inputs; each round
+      checkpoint read back bit for bit; its times; then one local step and
+      one ``test()`` of client 0 under the profiler;
+    * one round under ``TPU.ATTENTION_IMPL xla``: each client's first loss
+      within ``TOL_STEP_LOSS`` of the kernel run's;
+    * the run with a NaN planted in client 1's weights after its round-0
+      epoch: client 1 reset to the global weights, round 0 averaged from
+      client 0 alone, the accounting as the JAX package's NaN-gate case;
+    * one round with one client, for the peak device memory beside two.
+
+    ``opts`` are appended to every run's configuration options. Returns
+    ``(launches by kernel label of the first run, checks, summary)``."""
+    import tempfile
+
+    import torch
+
+    from federated_multi_modal_tpu_torch.data.seeded_trees import write_seeded_tree
+
+    checks, summary = [], {"card": card}
+    cuts = {"FED.NUM_ROUNDS": [FED_ROUNDS, 30], "FED.LOCAL_EPOCHS": [FED_LOCAL_EPOCHS, 10],
+            "images a class (stand-in trees)": FED_PER_CLASS}
+    print(f"fed cuts [this phase, the configuration]: {json.dumps(cuts)}")
+    with tempfile.TemporaryDirectory(prefix="fmm_fed_") as tmp:
+        sd_path = os.path.join(tmp, "vit_b16_openai_fp16.pt")
+        summary["state_dict_write_s"] = write_openai_state_dict(sd_path)
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        for name, n in FED_PER_CLASS.items():
+            write_seeded_tree(root, name, n, seed=0)
+        summary["tree_write_s"] = time.perf_counter() - t0
+        common = ["MODEL.BACKBONE.WEIGHTS_PATH", sd_path,
+                  "FED.NUM_ROUNDS", str(FED_ROUNDS), "FED.LOCAL_EPOCHS", str(FED_LOCAL_EPOCHS),
+                  "FED.CHECKPOINT_EVERY_ROUND", "True", *opts]
+
+        def argv(out, *opts):
+            return ["--root", root, "--seed", "1", "--trainer", "MaPLeFederated",
+                    "--dataset-config-file", "configs/datasets/PatternNet.yaml",
+                    "--config-file", FED_YAML, "--output-dir", os.path.join(tmp, out),
+                    *common, *opts]
+
+        # -- the run, on the kernel routes ------------------------------------------
+        run = fed_run(argv("fed"), "MaPLeFederated")
+        fed = run["trainer"]
+        stats = fed.nan_stats
+        checks.append(("fed no failed client or skipped round, an update a round", {
+            "ok": stats == {"total_updates": FED_ROUNDS, "failed_clients": [],
+                            "skipped_rounds": 0}, "nan_stats": stats}))
+        checks.append(("fed launches as the routing implies", fed_launches_held(run)))
+        checks += [(f"fed {k} launched", {"ok": run["counts"][k] > 0}) for k in CLI_PATH_KERNELS]
+        checks.append(("fed clients share one frozen tower", shared_tower(fed)))
+        checks.append(("fed FedAvg against the fp64 host mean", {
+            "ok": len(run["fedavg"]) == FED_ROUNDS and all(a["ok"] for a in run["fedavg"]),
+            "rounds": run["fedavg"]}))
+        checks.append(("fed round checkpoints read back bit for bit", {
+            "ok": len(run["round_checkpoints"]) == FED_ROUNDS
+            and all(c["bit_equal"] for c in run["round_checkpoints"]),
+            "rounds": run["round_checkpoints"]}))
+        print("  fed FedAvg by round (ms, clients, max relative error against the fp64 host "
+              "mean):", json.dumps([[round(a["ms"], 3), a["clients"],
+                                     a["max_rel_err_vs_fp64_mean"]] for a in run["fedavg"]]),
+              "; round checkpoints (ms, bit-equal):",
+              json.dumps([[round(c["ms"], 1), c["bit_equal"]] for c in run["round_checkpoints"]]))
+        agg = os.path.join(tmp, "fed", "MultiModalPromptLearner_Aggregator",
+                           f"model.pth.tar-{fed.cfg.OPTIM.MAX_EPOCH}")
+        checks.append(("fed aggregator checkpoint written", {"ok": os.path.isfile(agg)}))
+        steps = [s["ms"] for s in run["steps"]]
+        client0 = fed.clients[0]
+        batches = iter(client0.train_loader_x)
+        step_batch = client0.parse_batch_train(next(batches))
+        batches.close()
+        fed_summary = {
+            "backbone": fed.cfg.MODEL.BACKBONE.NAME, "unified_classes": fed.num_classes,
+            "train_images": [len(dm.dataset.train_x) for dm in fed.client_data_managers],
+            "test_images": [len(dm.dataset.test) for dm in fed.client_data_managers],
+            "steps_per_epoch": [[e["steps"] for e in c.epoch_stats] for c in fed.clients],
+            "round_s": run["round_s"],
+            "client_epoch_s": [[e["epoch_s"] for e in c.epoch_stats] for c in fed.clients],
+            "step_ms_median": statistics.median(steps[1:]), "step_ms_first": steps[0],
+            "fedavg_ms": [a["ms"] for a in run["fedavg"]],
+            "broadcast_ms": run["broadcast_ms"],
+            "round_checkpoint_save_ms": [c["ms"] for c in run["round_checkpoints"]],
+            "test_ms": [t["ms"] for t in run["tests"]],
+            "round_launches": run["round_launches"],
+            "first_losses": first_losses(run),
+            "final_accuracy": run["tests"][-1]["accuracy"],
+            "peak_gib_two_clients": run["peak_gib"], "main_s": run["wall_s"],
+            "profile_step": profile_by_kernel(lambda: client0.train_step(step_batch),
+                                              f"fed client-0 local step, B=4, on {card}"),
+            "profile_test": profile_by_kernel(client0.test, f"fed client-0 test(), on {card}"),
+        }
+        launches = run["counts"]
+        del fed, client0, run, step_batch
+        torch.cuda.empty_cache()
+
+        # -- one round on the plain formulation ---------------------------------------
+        run = fed_run(argv("fed-xla", "FED.NUM_ROUNDS", "1", "TPU.ATTENTION_IMPL", "xla"),
+                      "MaPLeFederated, xla, one round")
+        xla_first = first_losses(run)
+        rel = {c: abs(fed_summary["first_losses"][c] - v) / abs(v) for c, v in xla_first.items()}
+        loss_cmp = {"first_loss_rel_err": rel, "tol": TOL_STEP_LOSS,
+                    "ok": len(rel) == 2 and max(rel.values()) <= TOL_STEP_LOSS}
+        checks.append(("fed first losses, kernel routes vs xla", loss_cmp))
+        checks.append(("fed xla launches no kernel", {"ok": not nonzero(run["counts"])}))
+        fed_summary["first_losses_xla"] = xla_first
+        fed_summary["step_ms_median_xla"] = statistics.median(s["ms"] for s in run["steps"][1:])
+        del run
+        torch.cuda.empty_cache()
+
+        # -- a NaN planted in client 1's weights after its round-0 epoch ---------------
+        run = fed_run(argv("fed-nan"), "MaPLeFederated, NaN planted in client 1", plant_nan=True)
+        with open(os.path.join(tmp, "fed-nan", "log.txt")) as f:
+            log = f.read()
+        planted = {
+            "nan_stats": run["trainer"].nan_stats,
+            "fedavg_clients": [a["clients"] for a in run["fedavg"]],
+            "reset_to_global": [a["reset_to_global"] for a in run["fedavg"]],
+            "logged": "Client 1 produced invalid weights, skipping aggregation" in log}
+        planted["ok"] = (planted["nan_stats"] == {"total_updates": FED_ROUNDS,
+                                                  "failed_clients": [], "skipped_rounds": 0}
+                         and planted["fedavg_clients"] == [1] + [2] * (FED_ROUNDS - 1)
+                         and planted["reset_to_global"][0] == [1] and planted["logged"]
+                         and all(a["ok"] for a in run["fedavg"]))
+        print("  fed planted NaN in client 1:", json.dumps(planted))
+        checks.append(("fed planted NaN caught by the validity gate", planted))
+        del run
+        torch.cuda.empty_cache()
+
+        # -- one client, one round: the memory beside two clients ---------------------
+        run = fed_run(argv("fed-one", "FED.NUM_CLIENTS", "1", "FED.NUM_ROUNDS", "1"),
+                      "MaPLeFederated, one client, one round")
+        fed_summary["peak_gib_one_client"] = run["peak_gib"]
+        del run
+        torch.cuda.empty_cache()
+
+    summary.update(fed_summary, first_loss_vs_xla=loss_cmp, planted_nan=planted)
+    s = fed_summary
+    print(f"fed MaPLeFederated, {s['backbone']}, {s['unified_classes']} unified classes, clients "
+          f"PatternNet and Ucmerced ({s['train_images']} train, {s['test_images']} test "
+          f"images), batch 4, on {card}: rounds {', '.join(f'{r:.2f}' for r in s['round_s'])} s;"
+          f" client epochs {json.dumps([[round(e, 3) for e in c] for c in s['client_epoch_s']])}"
+          f" s; local step {s['step_ms_median']:.2f} ms (median after the first, synchronised; "
+          f"first {s['step_ms_first']:.1f}; xla {s['step_ms_median_xla']:.2f}); FedAvg "
+          f"{', '.join(f'{t:.2f}' for t in s['fedavg_ms'])} ms; broadcast "
+          f"{', '.join(f'{t:.2f}' for t in s['broadcast_ms'])} ms; round checkpoint save "
+          f"{', '.join(f'{t:.1f}' for t in s['round_checkpoint_save_ms'])} ms; test() "
+          f"{', '.join(f'{t:.1f}' for t in s['test_ms'])} ms")
+    print(f"fed launches per round {json.dumps(s['round_launches'])}; peak device memory "
+          f"above the run's start {s['peak_gib_two_clients']:.2f} GiB with two clients, "
+          f"{s['peak_gib_one_client']:.2f} GiB with one; first losses {json.dumps(s['first_losses'])}"
+          f" and xla {json.dumps(s['first_losses_xla'])}; final accuracy "
+          f"{s['final_accuracy']:.2f}%; on {card}")
     return launches, checks, summary
 
 
@@ -4075,9 +4444,21 @@ def main() -> int:
         if launched:
             row.setdefault("paths", []).append("cli")
             row["launches_cli"] = launched
+    torch.cuda.empty_cache()
+
+    # -- 20. federated MaPLe through the command line (the fed phase) ---------
+    t0 = time.perf_counter()
+    fed_launches, fed_checks, summary["fed"] = fed_phase(card)
+    summary["fed"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        launched = sum(n for label, n in fed_launches.items()
+                       if label.split(" ")[1] == row["name"] and "(backward)" not in label)
+        if launched:
+            row.setdefault("paths", []).append("fed")
+            row["launches_fed"] = launched
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
-                     + gemm_checks + ln_checks + cli_checks)
+                     + gemm_checks + ln_checks + cli_checks + fed_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

@@ -2,12 +2,20 @@
 
 ``DataManager`` — Dassl-equivalent: builds the registered dataset from cfg
 and the train/val/test loaders (reference call sites
-``trainers/maple_fed.py:62-77``). The federated ``ClientDataManager`` waits
-for the federated slice (ROADMAP module item 4).
+``trainers/maple_fed.py:62-77``).
+
+``ClientDataManager`` — the federated per-client manager over
+pre-partitioned Datum lists (``trainers/client_datamanager.py:10-156``):
+validates labels, builds loaders, exposes a ``.dataset`` namespace and a
+lazy ``lab2cname`` over every split.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+from typing import List
+
+from federated_multi_modal_tpu_torch.data.datum import Datum
 from federated_multi_modal_tpu_torch.data.loader import DataLoader
 from federated_multi_modal_tpu_torch.data.transforms import build_transform
 from federated_multi_modal_tpu_torch.engine.registry import build_dataset
@@ -105,3 +113,81 @@ class DataManager:
         if self.dataset.val:
             print(f"  # val: {len(self.dataset.val):,}")
         print(f"  # test: {len(self.dataset.test):,}")
+
+
+class ClientDataManager:
+    """Per-client manager over already-partitioned Datum lists."""
+
+    def __init__(self, train_x: List[Datum], val: List[Datum], test: List[Datum], cfg):
+        self.cfg = cfg
+        self._validate_labels(train_x, "train_x")
+        self._validate_labels(val, "val")
+        self._validate_labels(test, "test")
+
+        tfm_train = build_transform(cfg, is_train=True)
+        tfm_test = build_transform(cfg, is_train=False)
+
+        self.train_loader = build_data_loader(
+            cfg,
+            sampler_type=cfg.DATALOADER.TRAIN_X.SAMPLER,
+            data_source=train_x,
+            batch_size=cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
+            n_domain=cfg.DATALOADER.TRAIN_X.N_DOMAIN,
+            n_ins=cfg.DATALOADER.TRAIN_X.N_INS,
+            tfm=tfm_train,
+            is_train=True,
+        )
+        self.val_loader = (
+            build_data_loader(
+                cfg,
+                sampler_type=cfg.DATALOADER.TEST.SAMPLER,
+                data_source=val,
+                batch_size=cfg.DATALOADER.TEST.BATCH_SIZE,
+                tfm=tfm_test,
+                is_train=False,
+            )
+            if val
+            else None
+        )
+        self.test_loader = build_data_loader(
+            cfg,
+            sampler_type=cfg.DATALOADER.TEST.SAMPLER,
+            data_source=test,
+            batch_size=cfg.DATALOADER.TEST.BATCH_SIZE,
+            tfm=tfm_test,
+            is_train=False,
+        )
+
+        # a `.dataset` namespace like the reference's
+        # (trainers/client_datamanager.py:120-143)
+        self.dataset = SimpleNamespace(train_x=train_x, val=val, test=test)
+        self._lab2cname = None
+
+    @staticmethod
+    def _validate_labels(data, name):
+        """The label gate (``trainers/client_datamanager.py:105-118``)."""
+        for item in data:
+            if not isinstance(item.label, int) or item.label < 0:
+                raise ValueError(
+                    f"Invalid label {item.label!r} in {name} "
+                    f"(impath={item.impath})"
+                )
+
+    @property
+    def train_loader_x(self):
+        return self.train_loader
+
+    @property
+    def lab2cname(self):
+        if self._lab2cname is None:
+            mapping = {}
+            for split in (self.dataset.train_x, self.dataset.val, self.dataset.test):
+                if split:
+                    for item in split:
+                        mapping.setdefault(item.label, item.classname)
+            self._lab2cname = dict(sorted(mapping.items()))
+        return self._lab2cname
+
+    @property
+    def num_classes(self):
+        return max(self.lab2cname) + 1 if self.lab2cname else 0

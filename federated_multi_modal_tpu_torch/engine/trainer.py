@@ -112,6 +112,17 @@ def make_train_step(loss_fn, tx):
     return train_step
 
 
+def tree_finite(tree) -> bool:
+    """The validity gate over a tree (reference ``check_weights_valid``,
+    ``trainers/maple_fed.py:317-325``): every element of every non-None
+    leaf finite (as on the leaf cast to fp32: the cast is exact), read back
+    to the host in one transfer."""
+    flags = [torch.isfinite(x).all() for x in leaves(tree)]
+    if not flags:
+        return True
+    return bool(torch.stack(flags).all())
+
+
 # --------------------------------------------------------------------------
 # settings that wait for a later item
 # --------------------------------------------------------------------------
@@ -130,6 +141,10 @@ def check_ported_settings(cfg, device: torch.device) -> None:
     if tuple(cfg.TPU.MESH_SHAPE):
         raise NotImplementedError(
             "TPU.MESH_SHAPE: parallel/mesh.py is not ported yet (ROADMAP.md module item 7)")
+    if cfg.TRAIN.CHECKPOINT_BACKEND == "orbax":
+        raise NotImplementedError(
+            "TRAIN.CHECKPOINT_BACKEND orbax: engine/checkpoint_orbax.py is not ported yet "
+            "(ROADMAP.md module item 7); use pickle")
     if (cfg.TPU.DATA_PARALLEL and device.type == "cuda"
             and torch.cuda.device_count() > 1):
         raise NotImplementedError(
@@ -275,10 +290,15 @@ class TrainerBase:
         elapsed = round(time.time() - self.time_start)
         print(f"Elapsed: {datetime.timedelta(seconds=elapsed)}")
 
-    def run_epoch(self):
+    def run_epoch(self, progress: bool = True):
+        """One epoch; returns the mean loss. ``progress`` False (an
+        aggregator's local epoch): no per-batch lines, and deferred
+        summaries drained only every ``TRAIN.PRINT_FREQ`` steps and at the
+        end."""
         self.set_model_mode("train")
         losses = []
         self.num_batches = len(self.train_loader_x)
+        freq = max(1, self.cfg.TRAIN.PRINT_FREQ)
         # deferred dispatch: no host<->device round trip per batch; drain
         # summaries in one transfer at each print boundary
         defer = hasattr(self, "drain_summaries")
@@ -298,8 +318,8 @@ class TrainerBase:
                 self.batch_idx += 1
                 loss_summary = self.forward_backward(batch)
                 boundary = (
-                    (self.batch_idx + 1) % self.cfg.TRAIN.PRINT_FREQ == 0
-                    or self.num_batches < self.cfg.TRAIN.PRINT_FREQ
+                    (self.batch_idx + 1) % freq == 0
+                    or (progress and self.num_batches < freq)
                     or (self.batch_idx + 1) == self.num_batches
                 )
                 if defer and boundary:
@@ -308,7 +328,7 @@ class TrainerBase:
                     loss_summary = drained[-1] if drained else None
                 elif not defer:
                     losses.append(loss_summary.get("loss", 0.0))
-                if boundary and loss_summary is not None:
+                if progress and boundary and loss_summary is not None:
                     info = " ".join(
                         f"{k} {v:.4f}" for k, v in loss_summary.items()
                     )

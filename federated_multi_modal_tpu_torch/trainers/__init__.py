@@ -1,4 +1,4 @@
 """The port's trainers; importing the package registers them
-(``MaPLe``, ``CoOp``, ``ZeroshotCLIP``, ``ZeroshotCLIP2``)."""
+(``MaPLe``, ``MaPLeFederated``, ``CoOp``, ``ZeroshotCLIP``, ``ZeroshotCLIP2``)."""
 
-from federated_multi_modal_tpu_torch.trainers import coop, maple, zsclip  # noqa: F401
+from federated_multi_modal_tpu_torch.trainers import coop, maple, maple_fed, zsclip  # noqa: F401

@@ -1,7 +1,8 @@
 """MaPLe, multi-modal prompt learning (port of
 ``federated_multi_modal_tpu/trainers/maple.py``): the unfreeze predicate, the
 prompt learner's parameters and forward, the caption token, the loss, the
-prompt-cached eval functions and the single-site ``MaPLe`` trainer.
+prompt-cached eval functions and the ``MaPLe`` trainer, standalone or as
+a client of ``trainers/maple_fed.py::MaPLeFederated``.
 
 The coupled prompt learner alternates: even depths own a text-side prompt
 projected into the vision width, odd depths a vision-side prompt projected
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -28,7 +29,12 @@ from federated_multi_modal_tpu_torch.engine.trainer import (
     TrainerX,
     count_params,
 )
-from federated_multi_modal_tpu_torch.engine.tree import cast_tree, merge_trees, split_tree, to_device
+from federated_multi_modal_tpu_torch.engine.tree import (
+    merge_trees,
+    split_tree,
+    to_device,
+    tree_map_with_path,
+)
 from federated_multi_modal_tpu_torch.models.params import load_clip_backbone
 from federated_multi_modal_tpu_torch.models.clip_model import (
     embed_tokens,
@@ -62,6 +68,18 @@ def dataset_provides_captions(dm) -> bool:
         if split and any(getattr(d, "caption", "") for d in split):
             return True
     return False
+
+
+def maple_clip_params(prec: str, clip_params, device):
+    """CLIP's weights as MaPLe holds them, on ``device``: under
+    ``TRAINER.MAPLE.PREC``, with ``logit_scale`` pinned at ln(1/0.07) (the
+    reference's CustomCLIP replaces CLIP's with a fresh parameter, which the
+    unfreeze policy leaves frozen). The federated aggregator makes this tree
+    once and its clients share it."""
+    clip_params = dict(to_device(apply_prec(prec, clip_params), device))
+    clip_params["logit_scale"] = torch.tensor(
+        math.log(1.0 / 0.07), dtype=torch.float32, device=device)
+    return clip_params
 
 
 def maple_trainable_predicate(visual_layers: int, text_layers: int):
@@ -225,14 +243,29 @@ def make_maple_model_fns(arch, depth: int, text_len: int, use_captions: bool,
 
 @TRAINER_REGISTRY.register()
 class MaPLe(FunctionalTrainerMixin, TrainerX):
-    """Single-site MaPLe trainer (the federated wrapper waits for ROADMAP
-    module item 4)."""
+    """MaPLe trainer, standalone or a client of ``MaPLeFederated``, which
+    injects a ``ClientDataManager``, the unified classnames, one shared
+    frozen tower and one caption decision for every client
+    (``trainers/maple_fed.py:164-176``)."""
 
     # the reference hard-codes clip_grad_norm_(max_norm=1.0) in its
     # forward_backward: MaPLe is the only trainer that clips
     GRAD_CLIP_OVERRIDE = 1.0
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, client_id: Optional[int] = None,
+                 classnames: Optional[List[str]] = None, dm=None,
+                 shared_clip=None, use_captions_override: Optional[bool] = None,
+                 device=None):
+        self.client_id = client_id
+        self.classnames_override = classnames
+        self._injected_dm = dm
+        # the aggregator's one decision for all clients, so that every
+        # client's trainable tree has the same structure for FedAvg
+        self._use_captions_override = use_captions_override
+        # (arch, MaPLe's CLIP tree on the device, from maple_clip_params):
+        # the frozen tower is the same for every client, so the clients hold
+        # one copy of it instead of the reference's N model replicas
+        self._shared_clip = shared_clip
         super().__init__(cfg, device=device)
         self.grad_norms = []
 
@@ -241,34 +274,51 @@ class MaPLe(FunctionalTrainerMixin, TrainerX):
             f"Invalid precision setting: {cfg.TRAINER.MAPLE.PREC}"
         )
 
+    def build_data_loader(self):
+        if self._injected_dm is None:
+            return super().build_data_loader()
+        self.dm = self._injected_dm
+        self.train_loader_x = self.dm.train_loader
+        self.val_loader = self.dm.val_loader
+        self.test_loader = self.dm.test_loader
+        self.num_classes = self.dm.num_classes
+
+    @property
+    def _tag(self):
+        return f"[Client {self.client_id}] " if self.client_id is not None else ""
+
     def build_model(self):
         cfg = self.cfg
         tcfg = cfg.TRAINER.MAPLE
-        classnames = self.dm.dataset.classnames
-        print(f"# of classnames = {len(classnames)}")
-        print(f"Loading CLIP (backbone: {cfg.MODEL.BACKBONE.NAME})")
-        self.arch, clip_params = load_clip_backbone(cfg.MODEL)
+        classnames = self.classnames_override or self.dm.dataset.classnames
+        print(f"{self._tag}# of classnames = {len(classnames)}")
+        if self._shared_clip is not None:
+            self.arch, clip_params = self._shared_clip
+        else:
+            print(f"{self._tag}Loading CLIP (backbone: {cfg.MODEL.BACKBONE.NAME})")
+            self.arch, clip_params = load_clip_backbone(cfg.MODEL)
         arch = self.arch
         if not arch.is_vit:
             raise ValueError(
                 "MaPLe requires a ViT backbone (multi-modal prompt injection into "
                 f"transformer blocks); got {cfg.MODEL.BACKBONE.NAME}")
-        clip_params = apply_prec(tcfg.PREC, clip_params)
-        # the reference's CustomCLIP replaces CLIP's logit_scale with a fresh
-        # parameter at ln(1/0.07), which the unfreeze policy leaves frozen
-        clip_params = dict(clip_params)
-        clip_params["logit_scale"] = torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32)
+        if self._shared_clip is None:
+            clip_params = maple_clip_params(tcfg.PREC, clip_params, self.device)
         n_ctx = tcfg.N_CTX
         depth = tcfg.PROMPT_DEPTH
         assert depth >= 1, "For MaPLe, PROMPT_DEPTH should be >= 1"
         assert cfg.INPUT.SIZE[0] == arch.image_resolution, (
             f"cfg_imsize ({cfg.INPUT.SIZE[0]}) must equal clip_imsize "
             f"({arch.image_resolution})")
-        # the caption branch only where the dataset provides captions
-        dataset_has_captions = dataset_provides_captions(self.dm)
-        self.use_captions = bool(tcfg.USE_CAPTIONS) and dataset_has_captions
-        if tcfg.USE_CAPTIONS and not dataset_has_captions:
-            print("Dataset provides no captions; caption branch off")
+        # the caption branch only where the dataset provides captions (or
+        # as the aggregator decided for every client)
+        if self._use_captions_override is not None:
+            self.use_captions = bool(tcfg.USE_CAPTIONS) and bool(self._use_captions_override)
+        else:
+            dataset_has_captions = dataset_provides_captions(self.dm)
+            self.use_captions = bool(tcfg.USE_CAPTIONS) and dataset_has_captions
+            if tcfg.USE_CAPTIONS and not dataset_has_captions:
+                print(f"{self._tag}Dataset provides no captions; caption branch off")
         self.align_lambda = float(tcfg.ALIGN_LAMBDA)
 
         ctx_init = tcfg.CTX_INIT
@@ -289,7 +339,9 @@ class MaPLe(FunctionalTrainerMixin, TrainerX):
         model = {"clip": clip_params, "prompt_learner": pl}
         pred = maple_trainable_predicate(arch.vision_layers, arch.transformer_layers)
         trainable, frozen_clip = split_tree(model, pred)
-        self.trainable = to_device(cast_tree(trainable, torch.float32), self.device)
+        # fp32 copies: no trainable leaf shares a tensor with a shared tower
+        self.trainable = tree_map_with_path(
+            lambda _, t: t.to(self.device, torch.float32, copy=True), trainable)
         self.frozen = to_device({
             "model": frozen_clip,
             "prompt_const": {
@@ -306,8 +358,9 @@ class MaPLe(FunctionalTrainerMixin, TrainerX):
             arch, depth, const.text_len)
         self.setup_optimization()
         self.load_init_weights()
-        print(f"Trainable params: {count_params(self.trainable):,}")
-        self.model_name = "MultiModalPromptLearner"
+        print(f"{self._tag}Trainable params: {count_params(self.trainable):,}")
+        self.model_name = ("MultiModalPromptLearner" if self.client_id is None
+                           else f"MultiModalPromptLearner_{self.client_id}")
         self.register_model(self.model_name, self._get_state, self._set_state)
 
     # -- state surface ---------------------------------------------------------
@@ -352,8 +405,23 @@ class MaPLe(FunctionalTrainerMixin, TrainerX):
             self.grad_norms.append(s.get("grad_norm", 0.0))
         return drained
 
-    def run_epoch(self):
-        """The base epoch runner, then the LR stepped once per epoch."""
-        loss = TrainerX.run_epoch(self)
+    def run_epoch(self, epoch=None):
+        """Standalone (``epoch`` None): the base epoch runner, then the LR
+        stepped once per epoch. Driven by the aggregator
+        (``trainers/maple.py:629-653``): one local epoch with the summaries
+        drained every ``TRAIN.PRINT_FREQ`` steps (a non-finite loss raises
+        ``RuntimeError`` there), then ``epoch`` set to the global epoch, the
+        LR stepped to its successor's, a ``test()``; returns ``{"avg_loss"}``."""
+        if epoch is None:
+            loss = TrainerX.run_epoch(self)
+            self.update_lr()
+            return loss
+        avg_loss = TrainerX.run_epoch(self, progress=False)
+        self.epoch_stats[-1]["epoch"] = epoch
+        self.epoch = epoch
         self.update_lr()
-        return loss
+        local = self.test()
+        print(f"{self._tag}Epoch {epoch} done. Loss={avg_loss:.4f}, "
+              f"Acc={local['accuracy']:.2f}%")
+        return {"avg_loss": avg_loss}
+

@@ -1220,3 +1220,49 @@ def test_cli_maple_tiny_on_the_card(gen, tmp_path):
     loss_xla, counts_xla, _ = _cli_maple_tiny(tmp_path, "xla")
     assert not any(counts_xla.values()), counts_xla
     assert abs(loss - loss_xla) <= 2.0 ** -8 * abs(loss_xla), (loss, loss_xla)
+
+
+def test_federated_round_tiny_on_the_card(gen, tmp_path):
+    """One federated round of ``MaPLeFederated`` through the command line at
+    the Tiny width on the card, two Synthetic clients of one local epoch
+    each: no failed client or skipped round, one update, and the launches
+    the routing implies: per client step K1 3, K1b 3, K3 2, K4 1; per
+    ``test()`` (one after each client's epoch, the round's and the final
+    one on client 0) K1 3 and K5 3 a test batch."""
+    import sys
+
+    from federated_multi_modal_tpu_torch import train as port_cli
+    from federated_multi_modal_tpu_torch.models import clip_model
+    from federated_multi_modal_tpu_torch.ops import primitives
+
+    wrappers = {"K1": k_attn.packed_attention_masked, "K1b": k_attn.packed_attention_masked_bwd,
+                "K3": k_block.fused_block_train, "K4": k_block.fused_block_train_dw,
+                "K5": k_block.fused_block_residual}
+    for fn in wrappers.values():
+        fn.launches = 0
+    argv = ["--root", str(tmp_path / "data"), "--seed", "1", "--trainer", "MaPLeFederated",
+            "--dataset-config-file", "configs/datasets/synthetic.yaml", "--config-file",
+            "configs/trainers/MaPLeFederated/vit_b16_c2_ep5_batch4_2ctx_cross_datasets.yaml",
+            "--output-dir", str(tmp_path / "fed"), "MODEL.BACKBONE.NAME", "Tiny",
+            "INPUT.SIZE", "(32, 32)", "INPUT.CANVAS_SIZE", "40",
+            "TRAINER.MAPLE.PROMPT_DEPTH", "3", "FED.NUM_ROUNDS", "1", "FED.LOCAL_EPOCHS", "1",
+            "FED.DATASETS", "('Synthetic', 'Synthetic')", "FED.CLASSNAME_ONLY_DATASETS", "()",
+            "DATALOADER.TEST.BATCH_SIZE", "8"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys, "stdout", sys.stdout)
+        mp.setattr(primitives, "_ATTENTION_IMPL", primitives._ATTENTION_IMPL)
+        mp.setattr(clip_model, "_TEXT_PACK_DEFAULT", clip_model._TEXT_PACK_DEFAULT)
+        mp.delenv("FMM_TPU_PLATFORM", raising=False)
+        for gate in ("FMM_TPU_FUSED", "FMM_TPU_FUSED_BLOCK", "FMM_TPU_FUSED_TRAIN",
+                     "FMM_TPU_FUSED_TRAIN_BLOCK", "FMM_TPU_FUSED_TRAIN_DW",
+                     "FMM_TPU_FUSED_NBLK"):
+            mp.delenv(gate, raising=False)
+        fed = port_cli.main(port_cli.build_parser().parse_args(argv))
+    assert fed.device.type == "cuda"
+    assert fed.nan_stats == {"total_updates": 1, "failed_clients": [], "skipped_rounds": 0}
+    steps = sum(c.epoch_stats[0]["steps"] for c in fed.clients)
+    tests, batches = 4, len(fed.clients[0].test_loader)
+    assert (steps, batches) == (8, 2)
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    assert counts == {"K1": 3 * steps + 3 * tests, "K1b": 3 * steps, "K3": 2 * steps,
+                      "K4": steps, "K5": 3 * batches * tests}, counts
