@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MaPLe eval path and train step, CoOp and zero-shot
-CLIP, the attention microbench, the training command line and federated
-MaPLe on one NVIDIA GPU and hold its hand-written CUDA kernels against
-their plain PyTorch versions.
+CLIP, the attention microbench, the training command line, federated MaPLe
+and VPT, IVLP and CoCoOp base to novel on one NVIDIA GPU and hold its
+hand-written CUDA kernels against their plain PyTorch versions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -149,16 +149,29 @@ What it does, in order (any failure raises and exits non-zero):
    planted in client 1's weights caught by the validity gate, the peak
    memory beside one client, and the round, epoch, step, FedAvg,
    broadcast, checkpoint and ``test()`` times (``fed_phase``);
-21. prints, for the tensor-core kernels (``attention_core.cu``,
+21. VPT, IVLP and CoCoOp base to novel through the command line, each with
+   its configuration (``B2N_CONFIGS``) at ViT-B/16 from a seeded
+   OpenAI-format state dict, on a seeded stand-in of Caltech101 in its own
+   layout (102 folders, ~300 x 200 JPEG; 2 shots, one epoch): trained on
+   the 50 base classes with every step's, ``test()``'s and the build's
+   launches held against the routing (all 12 vision blocks through K3 in
+   VPT's and IVLP's step, no K4), one whole 16-image step against the plain
+   path with the vision prompts at the vision limit and planted faults, the
+   first loss within 2**-8 of the ``xla`` route's, then ``--eval-only`` on
+   the 50 novel classes from the base checkpoint (class-conditioned buffers
+   dropped, every other leaf loaded, finite logits); step, ``test()`` and
+   novel-eval times, a profiled step, peak memory, CoCoOp's text rows
+   (``b2n_phase``);
+22. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-22. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli`` and
-   ``launches_fed`` on the kernels the cli and fed phases launched) and,
-   last, ``{"ok": true, "device": ...}``.
+23. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
+   ``launches_fed`` and ``launches_b2n`` on the kernels the cli, fed and b2n
+   phases launched) and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --step-sweep N`` instead prints the whole-step
 gradient readings of the three train routes on N batches each, for the
@@ -1027,11 +1040,17 @@ def step_loss_and_grads(loss_fn, trainable, frozen, batch):
     return float(loss.detach()), {k: g for k, g in zip(flat, grads) if g is not None}
 
 
-def hold_step(got, ref, loss_ref=None) -> dict:
+def vision_tower_leaf(name: str) -> bool:
+    """MaPLe's and CoOp's vision-limit leaves: the vision tower's weights."""
+    return ".visual." in name
+
+
+def hold_step(got, ref, loss_ref=None, vision_leaf=vision_tower_leaf) -> dict:
     """One whole step's ``(loss, grads)`` against another's: the loss
     relative error (against ``loss_ref`` if given) and, for each gradient,
-    max |err| over max |value|, the vision tower's leaves at
-    ``TOL_STEP_GRAD_VISION``, the rest at ``TOL_STEP_GRAD_OTHER``."""
+    max |err| over max |value|, the leaves ``vision_leaf`` names (those the
+    vision kernels K3 and K4 produce) at ``TOL_STEP_GRAD_VISION``, the rest
+    at ``TOL_STEP_GRAD_OTHER``; a limit with no leaf is left out."""
     (loss, grads), (r_loss, r_grads) = got, ref
     r_loss = r_loss if loss_ref is None else loss_ref
     assert grads.keys() == r_grads.keys(), grads.keys() ^ r_grads.keys()
@@ -1041,15 +1060,17 @@ def hold_step(got, ref, loss_ref=None) -> dict:
     out = {"loss_rel_err": loss_rel, "loss_tol": TOL_STEP_LOSS,
            "ok": loss_rel <= TOL_STEP_LOSS, "grads": len(errs)}
     for part, tol, names in (
-            ("vision", TOL_STEP_GRAD_VISION, [k for k in errs if ".visual." in k]),
-            ("other", TOL_STEP_GRAD_OTHER, [k for k in errs if ".visual." not in k])):
+            ("vision", TOL_STEP_GRAD_VISION, [k for k in errs if vision_leaf(k)]),
+            ("other", TOL_STEP_GRAD_OTHER, [k for k in errs if not vision_leaf(k)])):
+        if not names:
+            continue
         worst = max(names, key=errs.get)
         out[part] = {"leaves": len(names), "worst": worst,
                      "worst_err_over_max": errs[worst], "tol_of_max": tol,
                      "max_err_over_tol": errs[worst] / tol, "ok": errs[worst] <= tol}
         out["ok"] &= out[part]["ok"]
-    out["max_err_over_tol"] = max(out["vision"]["max_err_over_tol"],
-                                  out["other"]["max_err_over_tol"])
+    out["max_err_over_tol"] = max(out[part]["max_err_over_tol"]
+                                  for part in ("vision", "other") if part in out)
     out["errs"] = errs
     return out
 
@@ -1059,7 +1080,8 @@ def brief_step(c: dict) -> dict:
     worst leaf, its error over max |value| and that over the limit."""
     return {"loss_rel_err": c["loss_rel_err"], **{
         part: [c[part]["worst"], float(f"{c[part]['worst_err_over_max']:.4g}"),
-               float(f"{c[part]['max_err_over_tol']:.4g}")] for part in ("vision", "other")}}
+               float(f"{c[part]['max_err_over_tol']:.4g}")]
+        for part in ("vision", "other") if part in c}}
 
 
 def library_block_ms(blk, n_head: int, x, dy, weights_grad: bool) -> tuple:
@@ -1182,17 +1204,21 @@ def drive_train(prog, canvas, recorders: dict, label: str = "") -> dict:
 
 
 def whole_step_vs_plain(loss_fn, tr, frozen, small, vision_fault, other_fault,
-                        label: str = "") -> list:
+                        label: str = "", vision_leaf=vision_tower_leaf) -> list:
     """One whole ``STEP_IMAGES``-image step on the kernel path: its loss
     against the fully plain path, every trainable gradient against the
     plain path with an exactly rounded attention forward
     (``plain_path(exact_attention_forward)``), with the noise floor of the
     comparison and two planted faults, each given as ``(module, {attribute:
-    stand-in})``: one the vision limit must catch, one the other limit.
-    Printed beside: the kernel path against the fully plain path, and the
-    fully plain path against the same reference (the control: the plain
-    forward's fp32 sums against exact ones). Returns the checks."""
+    stand-in})``: one the vision limit must catch, one the other limit (a
+    limit with no leaf, ``vision_leaf`` naming none or all of them, takes
+    ``None``). Printed beside: the kernel path against the fully plain path,
+    and the fully plain path against the same reference (the control: the
+    plain forward's fp32 sums against exact ones). Returns the checks."""
     import torch
+
+    def hold(got, ref, loss_ref=None):
+        return hold_step(got, ref, loss_ref, vision_leaf)
 
     kernel_step = step_loss_and_grads(loss_fn, tr, frozen, small)
     with plain_path():
@@ -1206,15 +1232,18 @@ def whole_step_vs_plain(loss_fn, tr, frozen, small, vision_fault, other_fault,
         nudged["image"][px] = (small["image"][px].float() * (1 + 2 ** -7)).to(
             small["image"].dtype)
         noise_step = step_loss_and_grads(loss_fn, tr, frozen, nudged)
-    step_cmp = hold_step(kernel_step, ref_step, loss_ref=full_plain_step[0])
-    noise = hold_step(noise_step, ref_step)
-    full_plain = hold_step(kernel_step, full_plain_step)
-    control = hold_step(full_plain_step, ref_step)
+    step_cmp = hold(kernel_step, ref_step, loss_ref=full_plain_step[0])
+    noise = hold(noise_step, ref_step)
+    full_plain = hold(kernel_step, full_plain_step)
+    control = hold(full_plain_step, ref_step)
+    planted = [(limit, fault) for limit, fault in (("vision", vision_fault),
+                                                   ("other", other_fault)) if fault]
+    assert [limit for limit, _ in planted] == [p for p in ("vision", "other")
+                                               if p in step_cmp], (planted, step_cmp.keys())
     faults = []
-    for module, attrs in (vision_fault, other_fault):
+    for _, (module, attrs) in planted:
         with patched(module, **attrs):
-            faults.append(hold_step(step_loss_and_grads(loss_fn, tr, frozen, small),
-                                    ref_step))
+            faults.append(hold(step_loss_and_grads(loss_fn, tr, frozen, small), ref_step))
     errs = step_cmp.pop("errs")
     for c in (noise, full_plain, control, *faults):
         del c["errs"]
@@ -1229,15 +1258,13 @@ def whole_step_vs_plain(loss_fn, tr, frozen, small, vision_fault, other_fault,
                       "control": step_cmp["control_fully_plain_vs_reference"]}))
     print("  max |err| over max |value| of each trainable gradient:",
           json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
-    for (module, attrs), fault, limit in zip((vision_fault, other_fault), faults,
-                                             ("vision", "other")):
+    checks = [(f"whole step{label}", step_cmp)]
+    for (limit, (module, attrs)), fault in zip(planted, faults):
         print(f"  planted fault for the {limit} limit ({', '.join(attrs)} of "
               f"{module.__name__.rsplit('.', 1)[-1]}):", json.dumps(fault))
-    return [(f"whole step{label}", step_cmp),
-            (f"whole step{label} planted fault caught by the vision limit",
-             {"ok": not faults[0]["vision"]["ok"]}),
-            (f"whole step{label} planted fault caught by the other limit",
-             {"ok": not faults[1]["other"]["ok"]})]
+        checks.append((f"whole step{label} planted fault caught by the {limit} limit",
+                       {"ok": not fault[limit]["ok"]}))
+    return checks
 
 
 def unpacked_text_step(prog, canvas, packed_ms: float) -> dict:
@@ -3343,24 +3370,34 @@ def cli_implied(arch, trainer: str, n_test_batches: int) -> tuple:
     """``(per train step, per test(), at build)``: the launches the routing
     implies under the default gates. Each text block launches K1 forward
     and, where the prompts train, K1b backward; MaPLe's frozen vision
-    blocks K3 and its last one K4 (forward and backward); CoOp's frozen
-    image tower K5 per block; ``test()`` the prompt cache's text once (K1
-    per block; zero-shot CLIP's text features are made at build) and K5 per
-    block and test batch."""
+    blocks K3 and its last one K4 (forward and backward); VPT's and IVLP's
+    vision blocks, all frozen, K3 forward and backward; CoOp's and CoCoOp's
+    frozen image tower K5 per block. ``test()`` runs the prompt cache's text
+    once (K1 per block; zero-shot CLIP's and VPT's fixed text features are
+    made at build) and K5 per block and test batch; CoCoOp, whose text
+    depends on the image, runs K1 per block and test batch."""
     n_text, n_vis = arch.transformer_layers, arch.vision_layers
     zero = {label: 0 for label in kernel_counts()}
     text_train = {"K1 packed_attention_masked": n_text,
                   "K1b packed_attention_masked_bwd": n_text}
+    frozen_vision = {"K3 fused_block_train": n_vis, "K3 fused_block_train (backward)": n_vis}
     if trainer == "MaPLe":
         step = dict(zero, **text_train, **{
             "K3 fused_block_train": n_vis - 1, "K3 fused_block_train (backward)": n_vis - 1,
             "K4 fused_block_train_dw": 1, "K4 fused_block_train_dw (backward)": 1})
+    elif trainer == "VPT":
+        step = dict(zero, **frozen_vision)
+    elif trainer == "IVLP":
+        step = dict(zero, **text_train, **frozen_vision)
     else:
         step = dict(zero, **text_train, **{"K5 fused_block_residual": n_vis})
-    zeroshot = trainer.startswith("ZeroshotCLIP")
-    test = dict(zero, **{"K1 packed_attention_masked": 0 if zeroshot else n_text,
+    fixed_text = trainer.startswith("ZeroshotCLIP") or trainer == "VPT"
+    text_per_test = 0 if fixed_text else n_text
+    if trainer == "CoCoOp":
+        text_per_test = n_text * n_test_batches
+    test = dict(zero, **{"K1 packed_attention_masked": text_per_test,
                          "K5 fused_block_residual": n_vis * n_test_batches})
-    build = dict(zero, **{"K1 packed_attention_masked": n_text if zeroshot else 0})
+    build = dict(zero, **{"K1 packed_attention_masked": n_text if fixed_text else 0})
     return step, test, build
 
 
@@ -4003,6 +4040,265 @@ def fed_phase(card: str, opts: tuple = ()) -> tuple:
     return launches, checks, summary
 
 
+# -- base-to-novel: VPT, IVLP and CoCoOp through the command line (the b2n phase)
+
+B2N_CONFIGS = {"VPT": "configs/trainers/VPT/vit_b16_c2_ep5_batch4_4.yaml",
+               "IVLP": "configs/trainers/IVLP/vit_b16_c2_ep5_batch4_2+2ctx.yaml",
+               "CoCoOp": "configs/trainers/CoCoOp/vit_b16_c4_ep10_batch1.yaml"}
+B2N_DATASET_YAML = "configs/datasets/caltech101.yaml"
+# the base-to-novel runs take 16 shots for 5 epochs (VPT, IVLP) or 10
+# (CoCoOp); the phase cuts both
+B2N_SHOTS, B2N_EPOCHS = 2, 1
+# images a class of the seeded Caltech101 stand-in: 4 train, 1 val and 2 test
+# after its 50/20/30 split, so each half's test split is one batch of 100
+B2N_PER_CLASS = 7
+# the registered model each trainer checkpoints under
+B2N_MODEL_NAME = {"VPT": "prompt_learner", "IVLP": "VLPromptLearner",
+                  "CoCoOp": "prompt_learner"}
+
+
+def vision_prompt_leaf(name: str) -> bool:
+    """VPT's and IVLP's vision-limit leaves: the vision prompts, whose
+    gradient reaches them only through K3's dx."""
+    return name.startswith("vpt.")
+
+
+def b2n_run(argv: list, label: str) -> dict:
+    """:func:`cli_run`, with the peak device memory the run allocated
+    above what was allocated before it."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run = cli_run(argv, label)
+    run["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return run
+
+
+def b2n_batch(trainer, n: int) -> dict:
+    """``n`` images and labels of the trainer's training split, through its
+    loader and ``parse_batch_train`` (random crops), as one batch."""
+    import torch
+
+    images, labels = [], []
+    batches = iter(trainer.train_loader_x)
+    while sum(len(x) for x in labels) < n:
+        x, y = trainer.parse_batch_train(next(batches))
+        images.append(x)
+        labels.append(y)
+    batches.close()
+    return {"image": torch.cat(images)[:n], "label": torch.cat(labels)[:n]}
+
+
+def text_rows(n_prompts: int, text_len: int) -> dict:
+    """The text tower's rows for ``n_prompts`` prompts of ``text_len``
+    tokens, as ``encode_text_embedded`` packs them."""
+    from federated_multi_modal_tpu_torch.models.clip_model import text_pack_layout
+
+    per_row, rows = text_pack_layout(n_prompts, text_len)
+    return {"prompts": n_prompts, "packed_rows": rows, "row_tokens": per_row * text_len}
+
+
+def b2n_phase(card: str, opts: tuple = ()) -> tuple:
+    """VPT, IVLP and CoCoOp (``python -m federated_multi_modal_tpu_torch.train
+    --trainer X``, each with its configuration in ``B2N_CONFIGS``) at
+    ViT-B/16 from a seeded OpenAI-format state dict, on a seeded stand-in of
+    Caltech101 in its own layout (102 folders, ~300 x 200 JPEG), trained on
+    the 50 base classes and evaluated on the 50 novel ones. Per trainer:
+
+    * the run through ``main`` on the base classes: each step's, each
+      ``test()``'s and the build's launches held against the routing (no
+      K4); its times; one more step under the profiler;
+    * one whole ``STEP_IMAGES``-image step of the trained state against the
+      plain path (``whole_step_vs_plain``; the vision prompts at the vision
+      limit, every other leaf at the other), with K3's dx tail zeroed
+      (vision) and K1b's mask dropped (other) as planted faults;
+    * the same run under ``TPU.ATTENTION_IMPL xla``: the first loss within
+      ``TOL_STEP_LOSS`` of the kernel run's, no kernel launched;
+    * ``--eval-only --load-epoch`` on the novel classes from the kernel
+      run's checkpoint: the class-conditioned buffers dropped, every other
+      leaf loaded, finite logits, launches held.
+
+    ``opts`` are appended to every run's configuration options. Returns
+    ``(launches by kernel label over the kernel runs, checks, summary)``."""
+    import tempfile
+
+    import torch
+
+    from federated_multi_modal_tpu_torch.data.seeded_trees import write_caltech101_tree
+    from federated_multi_modal_tpu_torch.engine.checkpoint import (
+        drop_class_conditioned,
+        load_checkpoint,
+    )
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    checks, summary, launches = [], {"card": card}, {}
+    cuts = {"DATASET.NUM_SHOTS": [B2N_SHOTS, 16],
+            "OPTIM.MAX_EPOCH": [B2N_EPOCHS, "5 (VPT, IVLP), 10 (CoCoOp)"],
+            "images a class (stand-in tree)": B2N_PER_CLASS}
+    print(f"b2n cuts [this phase, the base-to-novel runs]: {json.dumps(cuts)}")
+    vision_fault = (k_block, {"CUDA_STEPS": k_block.CUDA_STEPS._replace(
+        layernorm_bwd=fault_dx_tail_zero(k_block.layernorm_bwd_rows_cuda))})
+    other_fault = (k_attn, {"attention_core_bwd_cuda": fault_mask_dropped(
+        k_attn.attention_core_bwd_cuda)})
+    with tempfile.TemporaryDirectory(prefix="fmm_b2n_") as tmp:
+        sd_path = os.path.join(tmp, "vit_b16_openai_fp16.pt")
+        summary["state_dict_write_s"] = write_openai_state_dict(sd_path)
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_caltech101_tree(root, B2N_PER_CLASS, seed=0)
+        summary["tree_write_s"] = time.perf_counter() - t0
+
+        for name, yaml in B2N_CONFIGS.items():
+            t_trainer = time.perf_counter()
+
+            def argv(out, subsample, *extra, cfg=()):
+                return ["--root", root, "--seed", "1", "--trainer", name,
+                        "--dataset-config-file", B2N_DATASET_YAML, "--config-file", yaml,
+                        "--output-dir", os.path.join(tmp, out), *extra,
+                        "MODEL.BACKBONE.WEIGHTS_PATH", sd_path,
+                        "DATASET.NUM_SHOTS", str(B2N_SHOTS), "OPTIM.MAX_EPOCH", str(B2N_EPOCHS),
+                        "DATASET.SUBSAMPLE_CLASSES", subsample, *cfg, *opts]
+
+            # -- the base classes, on the kernel routes ----------------------------
+            run = b2n_run(argv(name, "base"), f"b2n {name}, base classes")
+            trainer = run["trainer"]
+            n_test = len(trainer.test_loader)
+            held = hold_launches(run, cli_implied(trainer.arch, name, n_test), f"b2n {name}")
+            checks.append((f"b2n {name} launches as the routing implies", held))
+            no_k4 = {k: run["counts"][k] for k in ("K4 fused_block_train_dw",
+                                                   "K4 fused_block_train_dw (backward)")}
+            checks.append((f"b2n {name} launches no K4", {"ok": not any(no_k4.values()),
+                                                          **no_k4}))
+            steps = [s["ms"] for s in run["steps"]]
+            n_cls = len(trainer.dm.dataset.classnames)
+            batch = trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+            test_batch = trainer.cfg.DATALOADER.TEST.BATCH_SIZE
+            rec = {
+                "base_classes": n_cls, "train_images": len(trainer.dm.dataset.train_x),
+                "test_images": len(trainer.dm.dataset.test), "batch": batch,
+                "steps": len(steps), "step_ms_median": statistics.median(steps[1:]),
+                "step_ms_first": steps[0], "epoch_s": [e["epoch_s"] for e in trainer.epoch_stats],
+                "loader_wait_share": [e["loader_wait_s"] / e["epoch_s"]
+                                      for e in trainer.epoch_stats],
+                "first_loss": run["steps"][0]["loss"], "test_ms": [t["ms"] for t in run["tests"]],
+                "accuracy": run["tests"][-1]["accuracy"], "test_batches": n_test,
+                "launches_per_step": nonzero(run["steps"][-1]["launches"]),
+                "launches_per_test": nonzero(run["tests"][-1]["launches"]),
+                "launches_run": nonzero(run["counts"]), "peak_gib": run["peak_gib"],
+                "main_s": run["wall_s"],
+            }
+            if name in ("IVLP", "CoCoOp"):
+                text_len = trainer.const.text_len
+                conditioned = name == "CoCoOp"
+                rec["text_rows_per_step"] = text_rows(n_cls * (batch if conditioned else 1),
+                                                      text_len)
+                rec["text_rows_per_test_batch"] = text_rows(
+                    n_cls * (test_batch if conditioned else 1), text_len)
+            step_batch = trainer.parse_batch_train(next(iter(trainer.train_loader_x)))
+            rec["profile_step"] = profile_by_kernel(
+                lambda: trainer.train_step({"image": step_batch[0], "label": step_batch[1]}),
+                f"b2n {name} train step, B={batch}, on {card}")
+            rec["profile_test"] = profile_by_kernel(
+                trainer.test, f"b2n {name} test(), {n_test} batch of {test_batch}, on {card}")
+            checks += whole_step_vs_plain(
+                trainer.loss_fn, trainer.trainable, trainer.frozen,
+                b2n_batch(trainer, STEP_IMAGES),
+                vision_fault if name != "CoCoOp" else None,
+                other_fault if name != "VPT" else None,
+                f" (b2n {name})", vision_leaf=vision_prompt_leaf)
+            for k, v in run["counts"].items():
+                launches[k] = launches.get(k, 0) + v
+            base_classes = list(trainer.dm.dataset.classnames)
+            del trainer, run, step_batch
+            torch.cuda.empty_cache()
+
+            # -- the same run on the plain formulation -------------------------------
+            # (its final test() skipped: only its steps are read)
+            run = b2n_run(argv(f"{name}-xla", "base",
+                               cfg=("TPU.ATTENTION_IMPL", "xla", "TEST.NO_TEST", "True")),
+                          f"b2n {name}, base classes, xla")
+            rel = abs(rec["first_loss"] - run["steps"][0]["loss"]) / abs(run["steps"][0]["loss"])
+            rec["first_loss_xla"] = run["steps"][0]["loss"]
+            rec["step_ms_median_xla"] = statistics.median(s["ms"] for s in run["steps"][1:])
+            checks.append((f"b2n {name} first loss, kernel routes vs xla", {
+                "first_loss_rel_err": rel, "tol": TOL_STEP_LOSS, "ok": rel <= TOL_STEP_LOSS}))
+            checks.append((f"b2n {name} xla launches no kernel",
+                           {"ok": not nonzero(run["counts"])}))
+            del run
+            torch.cuda.empty_cache()
+
+            # -- the novel classes, from the base run's checkpoint --------------------
+            ckpt_dir = os.path.join(tmp, name)
+            run = b2n_run(argv(f"{name}-new", "new", "--eval-only", "--model-dir", ckpt_dir,
+                               "--load-epoch", str(B2N_EPOCHS)),
+                          f"b2n {name}, novel classes from the base checkpoint")
+            novel = run["trainer"]
+            held = hold_launches(run, cli_implied(novel.arch, name, len(novel.test_loader)),
+                                 f"b2n {name} novel eval")
+            checks.append((f"b2n {name} novel eval launches as the routing implies", held))
+            state = load_checkpoint(os.path.join(ckpt_dir, B2N_MODEL_NAME[name],
+                                                 f"model.pth.tar-{B2N_EPOCHS}"))["state_dict"]
+            # the checkpoint's every leaf but the class-conditioned ones, read
+            # back through the novel trainer's own state surface
+            saved = drop_class_conditioned(state)
+            loaded = drop_class_conditioned(
+                novel._models[B2N_MODEL_NAME[name]]["get"]()["state_dict"])
+            with torch.no_grad():
+                eval_batch = next(iter(novel.test_loader))
+                logits = novel.model_inference(novel.parse_batch_images(eval_batch))
+            reload = {
+                "dropped": sorted(set(state) - set(drop_class_conditioned(state))),
+                "loaded_leaves": len(loaded),
+                "every_leaf_loaded": loaded.keys() == saved.keys() and all(
+                    np.array_equal(loaded[k], saved[k]) for k in loaded),
+                "novel_classes": len(novel.dm.dataset.classnames),
+                "disjoint_from_base": not set(novel.dm.dataset.classnames) & set(base_classes),
+                "logits": list(logits.shape), "logits_finite": bool(torch.isfinite(logits).all()),
+                "accuracy": run["tests"][-1]["accuracy"], "test_ms": run["tests"][-1]["ms"],
+                "main_s": run["wall_s"]}
+            reload["ok"] = (reload["dropped"] == ([] if name == "VPT"
+                                                  else ["token_prefix", "token_suffix"])
+                            and reload["every_leaf_loaded"] and reload["disjoint_from_base"]
+                            and reload["novel_classes"] == rec["base_classes"]
+                            and reload["logits_finite"]
+                            and reload["logits"] == [len(eval_batch["label"]),
+                                                     reload["novel_classes"]])
+            print(f"  b2n {name} novel eval from the base checkpoint:", json.dumps(reload))
+            checks.append((f"b2n {name} novel eval loads the base checkpoint", reload))
+            rec["novel_eval"] = reload
+            for k, v in run["counts"].items():
+                launches[k] = launches.get(k, 0) + v
+            del run, novel, logits
+            torch.cuda.empty_cache()
+            rec["trainer_s"] = time.perf_counter() - t_trainer
+            summary[name] = rec
+            print(f"b2n {name}, ViT-B/16, Caltech101 stand-in, {rec['base_classes']} base classes "
+                  f"({rec['train_images']} train, {rec['test_images']} test images), batch "
+                  f"{batch}, on {card}: step {rec['step_ms_median']:.2f} ms (median of "
+                  f"{rec['steps'] - 1} after the first, synchronised; first "
+                  f"{rec['step_ms_first']:.1f}; xla {rec['step_ms_median_xla']:.2f}), test() "
+                  f"{', '.join(f'{t:.1f}' for t in rec['test_ms'])} ms, novel eval test() "
+                  f"{reload['test_ms']:.1f} ms, profiled step wall "
+                  f"{rec['profile_step']['wall_ms']:.2f} ms, device busy "
+                  f"{rec['profile_step']['device_busy_ms']:.2f} ms, idle "
+                  f"{rec['profile_step']['idle_share']:.3f}, profiled test() wall "
+                  f"{rec['profile_test']['wall_ms']:.2f} ms, idle "
+                  f"{rec['profile_test']['idle_share']:.3f}, peak {rec['peak_gib']:.2f} GiB; "
+                  f"launches per step {json.dumps(rec['launches_per_step'])}, per test() "
+                  f"{json.dumps(rec['launches_per_test'])}"
+                  + (f"; text rows per step {json.dumps(rec['text_rows_per_step'])}, per test "
+                     f"batch {json.dumps(rec['text_rows_per_test_batch'])}"
+                     if "text_rows_per_step" in rec else "")
+                  + f"; first loss {rec['first_loss']:.6f}, xla {rec['first_loss_xla']:.6f}")
+    return launches, checks, summary
+
+
 def host_profile(fn, label: str, top: int = 12) -> dict:
     """One run of ``fn`` under the profiler's CPU activity: the host wall
     time, the share of it inside PyTorch operators (their self time), the
@@ -4456,9 +4752,21 @@ def main() -> int:
         if launched:
             row.setdefault("paths", []).append("fed")
             row["launches_fed"] = launched
+    torch.cuda.empty_cache()
+
+    # -- 21. VPT, IVLP and CoCoOp base to novel (the b2n phase) ---------------
+    t0 = time.perf_counter()
+    b2n_launches, b2n_checks, summary["b2n"] = b2n_phase(card)
+    summary["b2n"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        launched = sum(n for label, n in b2n_launches.items()
+                       if label.split(" ")[1] == row["name"] and "(backward)" not in label)
+        if launched:
+            row.setdefault("paths", []).append("b2n")
+            row["launches_b2n"] = launched
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
-                     + gemm_checks + ln_checks + cli_checks + fed_checks)
+                     + gemm_checks + ln_checks + cli_checks + fed_checks + b2n_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

@@ -20,6 +20,36 @@ from typing import Dict, List, Optional, Sequence
 from federated_multi_modal_tpu_torch.data.datum import Datum
 from federated_multi_modal_tpu_torch.utils.io import mkdir_if_missing, read_json, write_json
 
+# The JAX package is this package's name without its suffix; its caches hold
+# its own Datum, which this package reads as its own.
+_PORT = __name__.split(".")[0]
+_REFERENCE = _PORT.removesuffix("_torch")
+_REFERENCE_DATUM = (f"{_REFERENCE}.data.datum", "Datum")
+# packages whose classes a cache may name but this package never imports
+_REFUSED = (_REFERENCE, "dassl")
+
+
+class CacheUnpickler(pickle.Unpickler):
+    """Reads a dataset cache (a few-shot ``shot_{n}-seed_{s}.pkl``, ImageNet's
+    ``preprocessed.pkl``) without importing the package that wrote it. The
+    JAX package's ``Datum`` becomes this package's (the same fields); any
+    other class of the JAX package or of Dassl raises
+    ``pickle.UnpicklingError``, so that the caller regenerates the cache."""
+
+    def find_class(self, module, name):
+        if (module, name) == _REFERENCE_DATUM:
+            return Datum
+        if module.split(".")[0] in _REFUSED:
+            raise pickle.UnpicklingError(
+                f"cache names {module}.{name}, a class of another package")
+        return super().find_class(module, name)
+
+
+def load_cache(path: str):
+    """Unpickle the dataset cache at ``path`` with :class:`CacheUnpickler`."""
+    with open(path, "rb") as f:
+        return CacheUnpickler(f).load()
+
 
 class DatasetBase:
     dataset_dir = ""
@@ -296,8 +326,7 @@ def fewshot_with_cache(cfg, split_fewshot_dir: str, train, val=None):
     if os.path.exists(preprocessed):
         print(f"Loading preprocessed few-shot data from {preprocessed}")
         try:
-            with open(preprocessed, "rb") as f:
-                data = pickle.load(f)
+            data = load_cache(preprocessed)
             return data["train"], data.get("val", val)
         except (ModuleNotFoundError, AttributeError, pickle.UnpicklingError,
                 KeyError) as e:

@@ -192,6 +192,23 @@ def set_text_pack(enabled: bool) -> None:
     _TEXT_PACK_DEFAULT = bool(enabled)
 
 
+def text_pack_layout(n_prompts: int, T: int, pack: Optional[bool] = None) -> tuple:
+    """``(P, G)``: :func:`encode_text_embedded` puts ``n_prompts`` prompts of
+    ``T`` tokens ``P`` to a row in ``G`` rows; ``(1, n_prompts)`` unpacked
+    (``pack`` off, or fewer than two prompts fit a row). ``pack=None`` is
+    the module default (:func:`set_text_pack`)."""
+    use_pack = _TEXT_PACK_DEFAULT if pack is None else pack
+    P = TEXT_PACK_TARGET // T if use_pack else 1
+    if P < 2:
+        return 1, n_prompts
+    G = -(-n_prompts // P)
+    if G >= 8:
+        # the JAX package rounds the packed-row count to a multiple of 4
+        # for its 4-row kernel steps; kept so both run the same shapes
+        G = -(-G // 4) * 4
+    return P, G
+
+
 def encode_text_embedded(
     params,
     cfg: CLIPConfig,
@@ -219,15 +236,9 @@ def encode_text_embedded(
     x = prompts.to(dtype) + pos.to(dtype)[None]
 
     N, T, d = x.shape
-    use_pack = _TEXT_PACK_DEFAULT if pack is None else pack
-    P = TEXT_PACK_TARGET // T if use_pack else 1
+    P, G = text_pack_layout(N, T, pack)
     deep_prompts = deep_prompts or []
     if P >= 2:
-        G = -(-N // P)
-        if G >= 8:
-            # the JAX package rounds the packed-row count to a multiple of 4
-            # for its 4-row kernel steps; kept so both run the same shapes
-            G = -(-G // 4) * 4
         n_pad = G * P
         if n_pad != N:
             x = torch.cat([x, x.new_zeros(n_pad - N, T, d)], dim=0)

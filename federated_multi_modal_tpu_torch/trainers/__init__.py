@@ -1,4 +1,13 @@
 """The port's trainers; importing the package registers them
-(``MaPLe``, ``MaPLeFederated``, ``CoOp``, ``ZeroshotCLIP``, ``ZeroshotCLIP2``)."""
+(``MaPLe``, ``MaPLeFederated``, ``CoOp``, ``CoCoOp``, ``VPT``, ``IVLP``,
+``ZeroshotCLIP``, ``ZeroshotCLIP2``)."""
 
-from federated_multi_modal_tpu_torch.trainers import coop, maple, maple_fed, zsclip  # noqa: F401
+from federated_multi_modal_tpu_torch.trainers import (  # noqa: F401
+    cocoop,
+    coop,
+    ivlp,
+    maple,
+    maple_fed,
+    vpt,
+    zsclip,
+)

@@ -1266,3 +1266,75 @@ def test_federated_round_tiny_on_the_card(gen, tmp_path):
     counts = {k: fn.launches for k, fn in wrappers.items()}
     assert counts == {"K1": 3 * steps + 3 * tests, "K1b": 3 * steps, "K3": 2 * steps,
                       "K4": steps, "K5": 3 * batches * tests}, counts
+
+
+# -- the base-to-novel trainers' shapes (VPT, IVLP, CoCoOp) ---------------------------
+
+
+@pytest.mark.parametrize("T,n_ctx", [(205, 8), (199, 2)], ids=["VPT", "IVLP"])
+def test_fused_block_train_vision_prompt_rows(gen, T, n_ctx, monkeypatch):
+    """K3 at VPT's ``(4, 205, 768)`` (8 vision prompts) and IVLP's ``(4, 199,
+    768)`` (2), ViT-B/16's 12 heads of 64 with frozen bf16 weights: the
+    output and dx against the plain version at the block's 2**-5, and the
+    trailing prompt rows, whose dx is all the prompts' gradient there is,
+    held to 2**-5 of their largest value, per image and summed over the
+    batch as the shared prompt's gradient. A planted fault that leaves those
+    rows of the last image unwritten (zero) in LN1's backward must fail that
+    check."""
+    B, D, H = 4, 768, 12
+    p = _block_params(gen, D, torch.bfloat16, False)
+    x = _randn(gen, B, T, D).requires_grad_(True)
+    dy = _randn(gen, B, T, D)
+    before = (k_block.fused_block_train.launches, k_block.fused_block_train.backward_launches)
+    out = k_block.fused_block_train(x, p, H)
+    (dx,) = torch.autograd.grad(out, [x], dy)
+    torch.cuda.synchronize()
+    assert (k_block.fused_block_train.launches,
+            k_block.fused_block_train.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref_out = k_block.fused_block_train_reference(x, p, H)
+    (ref_dx,) = torch.autograd.grad(ref_out, [x], dy)
+    _assert_close(out, ref_out, 2 ** -5)
+    _assert_close(dx, ref_dx, 2 ** -5)
+    tail, ref_tail = dx[:, T - n_ctx:], ref_dx[:, T - n_ctx:]
+    assert _within_share_of_max(tail, ref_tail, 2 ** -5)
+    assert _within_share_of_max(tail.float().sum(0), ref_tail.float().sum(0), 2 ** -5)
+
+    layernorm_bwd = k_block.CUDA_STEPS.layernorm_bwd
+
+    def tail_unwritten(x2, dxn, dres, gamma, out_dtype, copy_bf16=False):
+        dx2, copy, dg, db = layernorm_bwd(x2, dxn, dres, gamma, out_dtype, copy_bf16)
+        if out_dtype != torch.float32:  # LN1's, writing the block's dx
+            dx2[-n_ctx:] = 0
+        return dx2, copy, dg, db
+
+    monkeypatch.setattr(k_block, "CUDA_STEPS",
+                        k_block.CUDA_STEPS._replace(layernorm_bwd=tail_unwritten))
+    (fault,) = torch.autograd.grad(k_block.fused_block_train(x, p, H), [x], dy)
+    assert not _within_share_of_max(fault[:, T - n_ctx:], ref_tail, 2 ** -5)
+
+
+def test_packed_attention_masked_cocoop_rows(gen):
+    """K1 and K1b over CoCoOp's packed text rows at ViT-B/16's text width (8
+    heads of 64) and the Caltech101 prompts' 24 tokens, five prompts a
+    120-token row under the block-causal mask: the forward over a test
+    batch's 100 x 50 = 5,000 prompts (1,000 rows) at K1's 2**-6, and forward
+    and d(QKV) over a 16-image step's 800 (160 rows), d(QKV) at K1b's 2**-5
+    and each of dQ, dK and dV within 2**-5 of its largest value."""
+    H, D = 8, 512
+    mask = build_block_causal_mask(5, 24, device="cuda")
+    qkv = _randn(gen, 1000, 120, 3 * D)
+    _assert_close(k_attn.packed_attention_masked(qkv, mask, H),
+                  k_attn.packed_attention_masked_reference(qkv, mask, H), 2 ** -6)
+    del qkv
+    qkv = _randn(gen, 160, 120, 3 * D).requires_grad_(True)
+    g = _randn(gen, 160, 120, D)
+    before = k_attn.packed_attention_masked_bwd.launches
+    out = k_attn.packed_attention_masked(qkv, mask, H)
+    (got,) = torch.autograd.grad(out, [qkv], g)
+    torch.cuda.synchronize()
+    assert k_attn.packed_attention_masked_bwd.launches == before + 1
+    ref_out = k_attn.packed_attention_masked_reference(qkv, mask, H)
+    (ref,) = torch.autograd.grad(ref_out, [qkv], g)
+    _assert_close(out, ref_out, 2 ** -6)
+    _assert_close(got, ref, 2 ** -5)
+    assert _each_within_share_of_max(got, ref, D, 2 ** -5)

@@ -88,7 +88,7 @@ def test_trainer_and_cli_refuse_to_run_on_the_cpu_unasked(monkeypatch, tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(sys, "stdout", sys.stdout)  # main() tees it into log.txt
     monkeypatch.delenv("FMM_TPU_PLATFORM", raising=False)
-    for trainer in ("MaPLe", "CoOp", "ZeroshotCLIP", "ZeroshotCLIP2"):
+    for trainer in ("MaPLe", "CoOp", "CoCoOp", "VPT", "IVLP", "ZeroshotCLIP", "ZeroshotCLIP2"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_trainer(_cfg_for(trainer))
     args = port_cli.build_parser().parse_args(
