@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MaPLe eval path and train step, CoOp and zero-shot
-CLIP, the attention microbench, the training command line, federated MaPLe
-and VPT, IVLP and CoCoOp base to novel on one NVIDIA GPU and hold its
-hand-written CUDA kernels against their plain PyTorch versions.
+CLIP, the attention microbench, the training command line, federated MaPLe,
+VPT, IVLP and CoCoOp base to novel and the ModifiedResNet backbones on one
+NVIDIA GPU and hold its hand-written CUDA kernels against their plain
+PyTorch versions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -162,16 +163,36 @@ What it does, in order (any failure raises and exits non-zero):
    dropped, every other leaf loaded, finite logits); step, ``test()`` and
    novel-eval times, a profiled step, peak memory, CoCoOp's text rows
    (``b2n_phase``);
-22. prints, for the tensor-core kernels (``attention_core.cu``,
+22. the ModifiedResNet backbones (``rn_phase``), each from a seeded
+   OpenAI-format fp16 state dict with calibrated BatchNorms: the RN50 tower
+   through ``clip_api.load`` on the card (the inferred config equal to the
+   catalog's; 16 seeded images under the bf16 policy against the port's
+   fp32 run of the same weights on the CPU, each feature row's relative L2
+   error within ``TOL_RN_TOWER``, the attention pool's mean token dropped
+   as a planted fault; the TF32 flags left as they were; the launches of
+   one forward; its ms at batch 32 and 100); CoOp
+   with ``rn50.yaml`` through the command line on the Caltech101 stand-in
+   (100 classes, 2 shots, one epoch at batch 32: K1 and K1b 12 a step and
+   no vision kernel, held against the routing; a profiled step; a whole
+   16-image step against the plain path with K1b's mask dropped as a
+   planted fault; the first loss within 2**-8 of the ``xla`` route's, which
+   launches no kernel); ``ZeroshotCLIP --eval-only`` on the same stand-in
+   (100 class prompts, 200 test images at the config's test batch of 100)
+   for RN50, RN101, RN50x4 (288) and RN50x16 (384): launches held, finite
+   logits, K1 at each text shape (10 and 12 heads at RN50x4 and RN50x16)
+   against its plain version with a planted fault and beside SDPA, the
+   tower's ms, ``test()`` ms and peak memory;
+23. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-23. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
-   ``launches_fed`` and ``launches_b2n`` on the kernels the cli, fed and b2n
-   phases launched) and, last, ``{"ok": true, "device": ...}``.
+24. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
+   ``launches_fed``, ``launches_b2n`` and ``launches_rn`` on the kernels the
+   cli, fed, b2n and rn phases launched; K1's row also ``rn_text_shapes``)
+   and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --step-sweep N`` instead prints the whole-step
 gradient readings of the three train routes on N batches each, for the
@@ -3375,8 +3396,11 @@ def cli_implied(arch, trainer: str, n_test_batches: int) -> tuple:
     frozen image tower K5 per block. ``test()`` runs the prompt cache's text
     once (K1 per block; zero-shot CLIP's and VPT's fixed text features are
     made at build) and K5 per block and test batch; CoCoOp, whose text
-    depends on the image, runs K1 per block and test batch."""
-    n_text, n_vis = arch.transformer_layers, arch.vision_layers
+    depends on the image, runs K1 per block and test batch. A ModifiedResNet
+    image tower (cuDNN's convolutions and plain PyTorch) launches no kernel
+    of the port."""
+    n_text = arch.transformer_layers
+    n_vis = arch.vision_layers if arch.is_vit else 0
     zero = {label: 0 for label in kernel_counts()}
     text_train = {"K1 packed_attention_masked": n_text,
                   "K1b packed_attention_masked_bwd": n_text}
@@ -3503,16 +3527,75 @@ def hold_launches(record: dict, implied: tuple, what: str) -> dict:
     return {"ok": not wrong, "wrong": wrong, "implied_run": nonzero(total)}
 
 
-def write_openai_state_dict(path: str, seed: int = 0) -> float:
-    """A seeded ViT-B/16 CLIP in OpenAI's state-dict layout, fp16 as OpenAI
-    ships it, written with ``torch.save``; returns the seconds it took."""
+# the last BatchNorm of each residual branch scaled down, as a trained
+# tower's are (the branches small beside the identity paths); at full scale
+# the random tower with calibrated statistics is chaotic: bf16 rounding
+# alone moves RN50's features about as far as other images do
+RN_RESIDUAL_GAIN = 0.2
+
+
+def calibrate_batchnorms(visual, arch, seed: int = 0, images: int = 8) -> None:
+    """Give a ModifiedResNet tree's frozen BatchNorms (fp32, in place) what
+    a trained tower has: seeded affines (scale 1 + 0.1 N(0, 1), times
+    ``RN_RESIDUAL_GAIN`` for each branch's ``bn3``; bias 0.1 N(0, 1)) and
+    the statistics of their inputs, each taken in one fp32 forward of
+    ``images`` seeded images on the tree's device after the BNs before it
+    are set. A random init's unit BNs do not normalise: the activations grow
+    block by block (RN50's features reach norms of ~1e4) and the features
+    hardly depend on the images."""
     import torch
 
+    from federated_multi_modal_tpu_torch.models import resnet
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def seed_affine(p, gain=1.0):
+        c = p["scale"].shape[0]
+        with torch.no_grad():
+            p["scale"].copy_((1.0 + 0.1 * torch.randn(c, generator=gen)) * gain)
+            p["bias"].copy_(0.1 * torch.randn(c, generator=gen))
+
+    for i in (1, 2, 3):
+        seed_affine(visual["stem"][f"bn{i}"])
+    for blocks in visual["layers"]:
+        for blk in blocks:
+            seed_affine(blk["bn1"])
+            seed_affine(blk["bn2"])
+            seed_affine(blk["bn3"], RN_RESIDUAL_GAIN)
+            if "downsample" in blk:
+                seed_affine(blk["downsample"]["bn"])
+
+    real_bn = resnet.bn
+
+    def calibrating_bn(x, p, relu=False):
+        with torch.no_grad():
+            flat = x.float().reshape(-1, x.shape[-1])
+            p["mean"].copy_(flat.mean(0))
+            p["var"].copy_(flat.var(0, unbiased=False))
+        return real_bn(x, p, relu)
+
+    res = arch.image_resolution
+    x = torch.randn((images, res, res, 3), generator=gen).to(visual["stem"]["conv1"]["w"].device)
+    with torch.no_grad(), patched(resnet, bn=calibrating_bn):
+        resnet.encode_image_resnet(visual, arch.resnet_config(), x)
+
+
+def write_openai_state_dict(path: str, seed: int = 0, backbone: str = "ViT-B/16") -> float:
+    """A seeded CLIP of the catalog's ``backbone`` in OpenAI's state-dict
+    layout, fp16 as OpenAI ships it, written with ``torch.save``; a
+    ModifiedResNet's BatchNorms calibrated first (:func:`calibrate_batchnorms`,
+    on the card). Returns the seconds it took."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine.tree import to_device
     from federated_multi_modal_tpu_torch.models import params
 
     t0 = time.perf_counter()
-    arch = params.BACKBONE_CONFIGS["ViT-B/16"]
+    arch = params.BACKBONE_CONFIGS[backbone]
     tree = params.init_clip_params(arch, torch.Generator().manual_seed(seed), dtype_policy=False)
+    if not arch.is_vit:
+        tree["visual"] = to_device(tree["visual"], "cuda")
+        calibrate_batchnorms(tree["visual"], arch, seed)
     torch.save(params.export_openai_state_dict(tree, arch, torch.float16), path)
     return time.perf_counter() - t0
 
@@ -4299,6 +4382,342 @@ def b2n_phase(card: str, opts: tuple = ()) -> tuple:
     return launches, checks, summary
 
 
+RN_COOP_YAML = "configs/trainers/CoOp/rn50.yaml"
+# the catalog's ModifiedResNets and the input size each is built for
+RN_ZEROSHOT = (("RN50", 224), ("RN101", 224), ("RN50x4", 288), ("RN50x16", 384))
+RN_TOWER_BATCHES = (32, 100)  # CoOp rn50.yaml's train and test batches
+# The RN50 tower on the card (bf16 policy) against the port's fp32 run of the
+# same weights on the CPU, 16 seeded images, BatchNorms calibrated
+# (``calibrate_batchnorms``): the largest relative L2 error of a feature row.
+# The phase also reads the port's own bf16 run on the CPU and other images.
+# On an H100 (700 W) the card read 0.0098, the CPU's bf16 run 0.0097, other
+# images 0.26 and the mean token dropped from the attention pool (the
+# planted fault) 0.113: the card's bf16 differs from the CPU's in its sums'
+# order and cuDNN's algorithms only. The limit sits about 3x from the sound
+# and the faulty run.
+TOL_RN_TOWER = 2.0 ** -5
+
+
+def feature_gap(got, ref) -> dict:
+    """The largest relative L2 error of a feature row (``max_rel_l2``, the
+    one held), with the max |difference| of the L2-normalised rows and the
+    least cosine (compared in fp32 on the CPU)."""
+    import torch
+
+    g, r = got.detach().float().cpu(), ref.detach().float().cpu()
+    a, b = torch.nn.functional.normalize(g, dim=-1), torch.nn.functional.normalize(r, dim=-1)
+    return {"max_rel_l2": float(((g - r).norm(dim=-1) / r.norm(dim=-1)).max()),
+            "normalised_max_abs_err": float((a - b).abs().max()),
+            "min_cosine": float((a * b).sum(-1).min())}
+
+
+def fault_mean_token_dropped(tokens):
+    """The attention pool's mean token replaced by the first spatial one."""
+    return tokens[:, :1]
+
+
+def rn_tower_phase(card: str, sd_path: str) -> tuple:
+    """The RN50 tower from a seeded OpenAI-format state dict through
+    ``clip_api.load`` on the card: the inferred config against the catalog's,
+    16 seeded images under the bf16 policy (cuDNN, channels-last) against the
+    port's fp32 run of the same weights on the CPU (``TOL_RN_TOWER``), the
+    mean token dropped as a planted fault, the TF32 flags before and after,
+    the launches of one forward with the derived weights built and kept,
+    and the forward's ms at ``RN_TOWER_BATCHES``. Returns ``(checks,
+    summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch import clip_api
+    from federated_multi_modal_tpu_torch.engine.tree import tree_map_with_path
+    from federated_multi_modal_tpu_torch.models import params, resnet
+    from federated_multi_modal_tpu_torch.models.clip_model import encode_image_auto
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    arch, tree = clip_api.load(sd_path)
+    visual = tree["visual"]
+    same_config = arch == params.BACKBONE_CONFIGS["RN50"]
+    checks = [("rn RN50 config inferred from the state dict equals the catalog's",
+               {"ok": same_config})]
+    res = arch.image_resolution
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.standard_normal((16, res, res, 3)).astype(np.float32))
+
+    def forward(x):
+        with torch.no_grad():
+            return encode_image_auto(visual, arch, x, inference=True)
+
+    images_card = images.cuda()
+    feats = forward(images_card)
+    t0 = time.perf_counter()
+    visual_cpu = tree_map_with_path(lambda _, t: t.detach().cpu().float(), visual)
+    ref = encode_image_auto(visual_cpu, arch, images)
+    ref_s = time.perf_counter() - t0
+    gap = feature_gap(feats, ref)
+    with patched(resnet, mean_token=fault_mean_token_dropped):
+        fault = feature_gap(forward(images_card), ref)
+    # what the limit sits between: the CPU's own bf16 run, and other images
+    cpu_bf16 = feature_gap(encode_image_auto(
+        tree_map_with_path(lambda _, t: t.detach().cpu(), visual), arch, images), ref)
+    other_images = feature_gap(forward(torch.from_numpy(
+        rng.standard_normal((16, res, res, 3)).astype(np.float32)).cuda()), ref)
+    tower = dict(gap, tol=TOL_RN_TOWER, ok=gap["max_rel_l2"] <= TOL_RN_TOWER
+                 and feats.shape == (16, arch.embed_dim) and feats.dtype == torch.float32
+                 and bool(torch.isfinite(feats).all()))
+    checks += [("rn RN50 tower on the card vs fp32 on the CPU", tower),
+               ("rn RN50 tower planted fault (mean token dropped) caught",
+                {"ok": fault["max_rel_l2"] > TOL_RN_TOWER})]
+    print(f"rn RN50 tower, 16 images, bf16 on the card vs fp32 on the CPU (relative L2 "
+          f"error of a feature row): {json.dumps(tower)}; planted fault (mean token "
+          f"dropped): {json.dumps(fault)}; the CPU's bf16 run: {json.dumps(cpu_bf16)}; other "
+          f"images: {json.dumps(other_images)}; CPU fp32 run {ref_s:.1f} s")
+
+    resnet._DERIVED.clear()
+    first_kernels, _ = device_profile(lambda: forward(images_card))
+    kernels, wall_us = device_profile(lambda: forward(images_card))
+    by_kind = {}
+    for name, _ in kernels:
+        by_kind[short_name(name)] = by_kind.get(short_name(name), 0) + 1
+    summary = {
+        "config_equal_catalog": same_config, "tower_vs_cpu_fp32": tower, "planted_fault": fault,
+        "cpu_bf16_vs_cpu_fp32": cpu_bf16, "other_images_vs_cpu_fp32": other_images,
+        "conv_dtype": str(visual["stem"]["conv1"]["w"].dtype),
+        "bn_dtype": str(visual["stem"]["bn1"]["scale"].dtype),
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "tf32_flags_unchanged": flags == (torch.backends.cudnn.allow_tf32,
+                                          torch.backends.cuda.matmul.allow_tf32),
+        "launches_first_forward": len(first_kernels), "launches_forward": len(kernels),
+        "launches_by_kernel": by_kind, "forward_16_wall_ms": wall_us / 1e3,
+        "forward_16_device_ms": sum(us for _, us in kernels) / 1e3,
+        "cpu_fp32_reference_s": ref_s,
+    }
+    checks.append(("rn the port leaves the TF32 flags as it found them",
+                   {"ok": summary["tf32_flags_unchanged"]}))
+    for batch in RN_TOWER_BATCHES:
+        x = torch.from_numpy(rng.standard_normal((batch, res, res, 3)).astype(np.float32)).cuda()
+        summary[f"forward_ms_b{batch}"] = cuda_ms(lambda: forward(x), 10)
+    print(f"rn RN50 tower on {card}: one forward of 16 launches {len(kernels)} kernels "
+          f"({len(first_kernels)} with the derived weights built), by kernel "
+          f"{json.dumps(by_kind)}; wall {wall_us / 1e3:.2f} ms, device "
+          f"{summary['forward_16_device_ms']:.2f} ms; forward ms at batch "
+          + ", ".join(f"{b}: {summary[f'forward_ms_b{b}']:.2f}" for b in RN_TOWER_BATCHES)
+          + f"; convs in {summary['conv_dtype']}, BN in {summary['bn_dtype']}, "
+          f"cudnn.allow_tf32 {summary['cudnn_allow_tf32']} (a bf16 conv takes no TF32), "
+          f"flags unchanged {summary['tf32_flags_unchanged']}")
+    return checks, summary
+
+
+def rn_zeroshot_k1(first: dict, name: str) -> tuple:
+    """K1 at a zero-shot text shape (the first text block's qkv and mask
+    that the run handed it) against its plain version, with the mask
+    dropped as a planted fault, timed beside SDPA."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+
+    qkv, mask, n = first["args"]
+    ref = k_attn.packed_attention_masked_reference(qkv, mask, n)
+    held = compare(k_attn.packed_attention_masked(qkv, mask, n), ref, TOL_K1)
+    with patched(k_attn, attention_core_cuda=fault_forward_mask_dropped(
+            k_attn.attention_core_cuda)):
+        fault = compare(k_attn.packed_attention_masked(qkv, mask, n), ref, TOL_K1)
+    B1, T1, D3 = qkv.shape
+    hd = D3 // 3 // n
+    q, k, v = (t.reshape(B1, T1, n, hd).transpose(1, 2) for t in qkv.split(D3 // 3, dim=-1))
+    b = bound(qkv.numel() * 2 + mask.numel() * 4 + B1 * T1 * D3 // 3 * 2,
+              4 * B1 * n * hd * int(torch.isfinite(mask).sum()))
+    row = {"shape": [list(qkv.shape), list(mask.shape), n], "heads": n, "head_width": hd,
+           "max_abs_err": held["max_abs_err"], "tol": held["tol"],
+           "ms": cuda_ms(lambda: k_attn.packed_attention_masked(qkv, mask, n), 20),
+           "plain_ms": cuda_ms(lambda: k_attn.packed_attention_masked_reference(qkv, mask, n),
+                               5, 1),
+           "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, is_causal=True), 20),
+           "library_call": "scaled_dot_product_attention(is_causal=True)",
+           "bound_ms": b[0], "bound_by": b[1]}
+    print(f"  rn {name} K1 at {row['shape']}: {json.dumps(held)}; planted fault (mask "
+          f"dropped) [max |err|, err/tol] {json.dumps(brief({'K1': fault}))}; "
+          f"{json.dumps({k: row[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')})}")
+    return row, [(f"rn {name} K1 at its text shape", held),
+                 (f"rn {name} K1 planted fault (mask dropped) caught", {"ok": not fault["ok"]})]
+
+
+def rn_phase(card: str, opts: tuple = (), zeroshot=RN_ZEROSHOT) -> tuple:
+    """The ModifiedResNet backbones (``models/resnet.py``, ``clip_api.py``),
+    each from a seeded OpenAI-format fp16 state dict written here:
+
+    * the RN50 tower (:func:`rn_tower_phase`);
+    * CoOp with ``rn50.yaml`` through ``main`` on the seeded Caltech101
+      stand-in, all 100 classes, 2 shots, one epoch at the config's batch of
+      32: each step's, ``test()``'s and the build's launches held against the
+      routing (K1 and K1b per text block a step, no vision kernel), one more
+      step profiled, a whole ``STEP_IMAGES``-image step against the plain
+      path with K1b's mask dropped as a planted fault, the same run under
+      ``TPU.ATTENTION_IMPL xla`` (first loss within ``TOL_STEP_LOSS``, no
+      kernel launched);
+    * ``ZeroshotCLIP --eval-only`` on the same stand-in (all 100 class
+      prompts, the config's test batch) for each of ``zeroshot`` (name,
+      input size): launches held, finite logits, K1 at the text shape
+      against its plain version with a planted fault and beside SDPA, the
+      tower's forward ms, ``test()`` ms and peak memory.
+
+    ``opts`` are appended to every run's options. Returns ``(launches by
+    kernel label over the kernel runs, checks, summary, K1 rows by
+    backbone)``."""
+    import tempfile
+
+    import torch
+
+    from federated_multi_modal_tpu_torch.data.seeded_trees import write_caltech101_tree
+    from federated_multi_modal_tpu_torch.models.clip_model import encode_image_auto
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+
+    checks, summary, launches, k1_rows = [], {"card": card}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="fmm_rn_") as tmp:
+        sd_path = os.path.join(tmp, "rn50_openai_fp16.pt")
+        summary["state_dict_write_s"] = write_openai_state_dict(sd_path, backbone="RN50")
+        tower_checks, summary["tower"] = rn_tower_phase(card, sd_path)
+        checks += tower_checks
+        torch.cuda.empty_cache()
+
+        # -- CoOp RN50 through the command line --------------------------------
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_caltech101_tree(root, B2N_PER_CLASS, seed=0)
+        summary["tree_write_s"] = time.perf_counter() - t0
+
+        def argv(out, *cfg):
+            return ["--root", root, "--seed", "1", "--trainer", "CoOp",
+                    "--dataset-config-file", B2N_DATASET_YAML, "--config-file", RN_COOP_YAML,
+                    "--output-dir", os.path.join(tmp, out),
+                    "MODEL.BACKBONE.WEIGHTS_PATH", sd_path, "DATASET.NUM_SHOTS", str(B2N_SHOTS),
+                    "OPTIM.MAX_EPOCH", "1", *cfg, *opts]
+
+        run = b2n_run(argv("coop"), "rn CoOp RN50")
+        trainer = run["trainer"]
+        n_test = len(trainer.test_loader)
+        checks.append(("rn CoOp RN50 launches as the routing implies",
+                       hold_launches(run, cli_implied(trainer.arch, "CoOp", n_test),
+                                     "rn CoOp RN50")))
+        steps = [s["ms"] for s in run["steps"]]
+        batch = trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+        step_batch = trainer.parse_batch_train(next(iter(trainer.train_loader_x)))
+        coop = {
+            "classes": len(trainer.dm.dataset.classnames),
+            "train_images": len(trainer.dm.dataset.train_x),
+            "test_images": len(trainer.dm.dataset.test), "batch": batch,
+            "test_batches": n_test, "steps": len(steps),
+            "step_ms_median": statistics.median(steps[1:]), "step_ms_first": steps[0],
+            "step_ms_all": steps, "test_ms": [t["ms"] for t in run["tests"]],
+            "first_loss": run["steps"][0]["loss"], "accuracy": run["tests"][-1]["accuracy"],
+            "epoch_s": [e["epoch_s"] for e in trainer.epoch_stats],
+            "loader_wait_share": [e["loader_wait_s"] / e["epoch_s"]
+                                  for e in trainer.epoch_stats],
+            "launches_per_step": nonzero(run["steps"][-1]["launches"]),
+            "launches_per_test": nonzero(run["tests"][-1]["launches"]),
+            "peak_gib": run["peak_gib"], "main_s": run["wall_s"],
+            "text_rows_per_step": text_rows(len(trainer.dm.dataset.classnames),
+                                            trainer.const.text_len),
+            "profile_step": profile_by_kernel(
+                lambda: trainer.train_step({"image": step_batch[0], "label": step_batch[1]}),
+                f"rn CoOp RN50 train step, B={batch}, on {card}", top=14),
+            "profile_test": profile_by_kernel(
+                trainer.test, f"rn CoOp RN50 test(), {n_test} batches, on {card}"),
+        }
+        checks += whole_step_vs_plain(
+            trainer.loss_fn, trainer.trainable, trainer.frozen, b2n_batch(trainer, STEP_IMAGES),
+            None, (k_attn, {"attention_core_bwd_cuda": fault_mask_dropped(
+                k_attn.attention_core_bwd_cuda)}), " (rn CoOp RN50)")
+        add(run["counts"])
+        del trainer, run, step_batch
+        torch.cuda.empty_cache()
+
+        run = b2n_run(argv("coop-xla", "TPU.ATTENTION_IMPL", "xla", "TEST.NO_TEST", "True"),
+                      "rn CoOp RN50, xla")
+        rel = abs(coop["first_loss"] - run["steps"][0]["loss"]) / abs(run["steps"][0]["loss"])
+        coop["first_loss_xla"] = run["steps"][0]["loss"]
+        coop["step_ms_median_xla"] = statistics.median(s["ms"] for s in run["steps"][1:])
+        checks += [("rn CoOp RN50 first loss, kernel routes vs xla",
+                    {"first_loss_rel_err": rel, "tol": TOL_STEP_LOSS, "ok": rel <= TOL_STEP_LOSS}),
+                   ("rn CoOp RN50 xla launches no kernel", {"ok": not nonzero(run["counts"])})]
+        del run
+        torch.cuda.empty_cache()
+        summary["coop_rn50"] = coop
+        print(f"rn CoOp RN50, Caltech101 stand-in, {coop['classes']} classes "
+              f"({coop['train_images']} train, {coop['test_images']} test images), batch "
+              f"{batch}, on {card}: step {coop['step_ms_median']:.2f} ms (median of "
+              f"{coop['steps'] - 1} after the first, synchronised; first "
+              f"{coop['step_ms_first']:.1f}; xla {coop['step_ms_median_xla']:.2f}), test() "
+              f"{', '.join(f'{t:.1f}' for t in coop['test_ms'])} ms, profiled step wall "
+              f"{coop['profile_step']['wall_ms']:.2f} ms, device busy "
+              f"{coop['profile_step']['device_busy_ms']:.2f} ms, idle "
+              f"{coop['profile_step']['idle_share']:.3f}, peak {coop['peak_gib']:.2f} GiB; "
+              f"launches per step {json.dumps(coop['launches_per_step'])}, per test() "
+              f"{json.dumps(coop['launches_per_test'])}; first loss {coop['first_loss']:.6f}, "
+              f"xla {coop['first_loss_xla']:.6f}")
+
+        # -- zero-shot CLIP on each catalog ResNet --------------------------------
+        for name, size in zeroshot:
+            path = os.path.join(tmp, f"{name}_openai_fp16.pt")
+            write_s = write_openai_state_dict(path, backbone=name)
+            first = {}
+            with patched(primitives, _attn_kernels=overlay(
+                    k_attn, packed_attention_masked=cotangent_recorder(
+                        first, "k1", k_attn.packed_attention_masked))):
+                run = b2n_run(
+                    ["--root", root, "--seed", "1", "--trainer", "ZeroshotCLIP",
+                     "--dataset-config-file", B2N_DATASET_YAML, "--config-file", RN_COOP_YAML,
+                     "--output-dir", os.path.join(tmp, f"zs-{name}"), "--eval-only",
+                     "MODEL.BACKBONE.NAME", name, "MODEL.BACKBONE.WEIGHTS_PATH", path,
+                     "DATASET.NUM_SHOTS", str(B2N_SHOTS), "INPUT.SIZE", f"({size}, {size})",
+                     *opts],
+                    f"rn ZeroshotCLIP {name}")
+            trainer = run["trainer"]
+            arch = trainer.arch
+            n_test = len(trainer.test_loader)
+            rec = {"state_dict_write_s": write_s, "input_size": size,
+                   "text": {"width": arch.transformer_width, "heads": arch.transformer_heads},
+                   "test_ms": [t["ms"] for t in run["tests"]],
+                   "accuracy": run["tests"][-1]["accuracy"], "peak_gib": run["peak_gib"],
+                   "launches_run": nonzero(run["counts"]), "main_s": run["wall_s"]}
+            checks.append((f"rn ZeroshotCLIP {name} launches as the routing implies",
+                           hold_launches(run, cli_implied(arch, "ZeroshotCLIP", n_test),
+                                         f"rn ZeroshotCLIP {name}")))
+            with torch.no_grad():
+                eval_batch = next(iter(trainer.test_loader))
+                logits = trainer.model_inference(trainer.parse_batch_images(eval_batch))
+            rec["logits"] = list(logits.shape)
+            checks.append((f"rn ZeroshotCLIP {name} logits finite", {
+                "ok": bool(torch.isfinite(logits).all())
+                and rec["logits"] == [len(eval_batch["label"]), len(trainer.dm.dataset.classnames)]}))
+            images = torch.from_numpy(np.random.default_rng(1).standard_normal(
+                (RN_TOWER_BATCHES[0], size, size, 3)).astype(np.float32)).cuda()
+            visual = trainer.clip_params["visual"]
+            with torch.no_grad():
+                rec["tower_forward_ms_b32"] = cuda_ms(
+                    lambda: encode_image_auto(visual, arch, images, inference=True), 5)
+            row, k1_checks = rn_zeroshot_k1(first["k1"], name)
+            checks += k1_checks
+            k1_rows[name] = row
+            rec["k1"] = row
+            summary[f"zeroshot_{name}"] = rec
+            add(run["counts"])
+            print(f"rn ZeroshotCLIP {name} ({size} x {size}, text {arch.transformer_width} wide, "
+                  f"{arch.transformer_heads} heads) on {card}: test() "
+                  f"{', '.join(f'{t:.1f}' for t in rec['test_ms'])} ms, tower forward at batch "
+                  f"{RN_TOWER_BATCHES[0]} {rec['tower_forward_ms_b32']:.2f} ms, peak "
+                  f"{rec['peak_gib']:.2f} GiB, launches {json.dumps(rec['launches_run'])}")
+            del trainer, run, logits, images, visual, first
+            torch.cuda.empty_cache()
+    return launches, checks, summary, k1_rows
+
+
 def host_profile(fn, label: str, top: int = 12) -> dict:
     """One run of ``fn`` under the profiler's CPU activity: the host wall
     time, the share of it inside PyTorch operators (their self time), the
@@ -4764,9 +5183,23 @@ def main() -> int:
         if launched:
             row.setdefault("paths", []).append("b2n")
             row["launches_b2n"] = launched
+    torch.cuda.empty_cache()
+
+    # -- 22. the ModifiedResNet backbones (the rn phase) ----------------------
+    t0 = time.perf_counter()
+    rn_launches, rn_checks, summary["rn"], rn_k1 = rn_phase(card)
+    summary["rn"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        launched = sum(n for label, n in rn_launches.items()
+                       if label.split(" ")[1] == row["name"] and "(backward)" not in label)
+        if launched:
+            row.setdefault("paths", []).append("rn")
+            row["launches_rn"] = launched
+    rows[0]["rn_text_shapes"] = rn_k1
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
-                     + gemm_checks + ln_checks + cli_checks + fed_checks + b2n_checks)
+                     + gemm_checks + ln_checks + cli_checks + fed_checks + b2n_checks
+                     + rn_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

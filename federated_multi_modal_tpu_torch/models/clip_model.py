@@ -17,7 +17,9 @@ runs every block through ``fused_block_residual`` with ``inference=True``
 ``fused_block_group_residual``, with the deep prompts injected inside, as
 the JAX package's eval tower does), and through ``fused_block_train`` or
 ``fused_block_train_dw`` in training, unless the JAX package's routing gates
-pick another kernel (``ops/primitives.py``).
+pick another kernel (``ops/primitives.py``). A ModifiedResNet backbone's
+image tower is ``models/resnet.py`` (cuDNN's convolutions, no kernel of the
+port).
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 from federated_multi_modal_tpu_torch.models.params import CLIPConfig
+from federated_multi_modal_tpu_torch.models.resnet import encode_image_resnet
 from federated_multi_modal_tpu_torch.ops.kernels.fused_block import (
     fused_block_group_eligible,
     fused_block_group_size,
@@ -157,14 +161,23 @@ def encode_image(
 
 
 def encode_image_auto(params, cfg: CLIPConfig, images: torch.Tensor, **prompt_kwargs):
-    """The image tower of the backbone: :func:`encode_image` for a ViT.
-    The ModifiedResNet towers (RN50, RN101) raise: their port
-    (``models/resnet.py``) is ROADMAP module item 6."""
+    """The image tower of the backbone: :func:`encode_image` for a ViT,
+    :func:`~federated_multi_modal_tpu_torch.models.resnet.encode_image_resnet`
+    for a ModifiedResNet. Prompts are a ViT feature: on a ResNet any prompt
+    raises ``ValueError``, ``inference`` (a kernel hint of the transformer
+    blocks) has no effect, and ``remat`` recomputes the tower in the
+    backward (``torch.utils.checkpoint``), as the JAX package's
+    ``jax.checkpoint``."""
     if cfg.is_vit:
         return encode_image(params, cfg, images, **prompt_kwargs)
-    raise NotImplementedError(
-        "the ModifiedResNet image tower (models/resnet.py) is not ported yet "
-        "(ROADMAP.md, module item 6)")
+    prompts = {k: v for k, v in prompt_kwargs.items() if k not in ("remat", "inference")}
+    if any(v is not None for v in prompts.values()):
+        raise ValueError("Visual prompting requires a ViT backbone")
+    rcfg = cfg.resnet_config()
+    if prompt_kwargs.get("remat"):
+        return torch.utils.checkpoint.checkpoint(
+            encode_image_resnet, params, rcfg, images, use_reentrant=False)
+    return encode_image_resnet(params, rcfg, images)
 
 
 # -- text tower ---------------------------------------------------------------

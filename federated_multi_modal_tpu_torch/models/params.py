@@ -2,7 +2,7 @@
 ``federated_multi_modal_tpu/models/params.py``): architecture config, random
 init in CLIP's scheme from a ``torch.Generator``, the dtype policy, the
 weight bridge from the JAX package's flat checkpoint format, and the loading
-of an OpenAI CLIP (ViT) state dict (``load_clip_backbone``).
+of an OpenAI CLIP state dict, ViT or ModifiedResNet (``load_clip_backbone``).
 
 Parameters are nested dicts and lists of tensors with the JAX tree's layout
 and names (weights input-major ``(d_in, d_out)``), so a dotted name such as
@@ -18,6 +18,12 @@ import numpy as np
 import torch
 
 from federated_multi_modal_tpu_torch.engine.tree import tree_map_with_path, unflatten
+from federated_multi_modal_tpu_torch.models.resnet import (
+    ResNetConfig,
+    convert_torch_resnet,
+    export_torch_resnet,
+    init_resnet_params,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +57,14 @@ class CLIPConfig:
     def num_patches(self) -> int:
         return self.grid_size ** 2
 
+    def resnet_config(self) -> ResNetConfig:
+        return ResNetConfig(
+            layers=tuple(self.vision_layers),
+            output_dim=self.embed_dim,
+            width=self.vision_width,
+            input_resolution=self.image_resolution,
+        )
+
 
 def tiny_test_config() -> CLIPConfig:
     """A miniature CLIP for fast CPU tests (head width 64, as CLIP)."""
@@ -68,11 +82,30 @@ def tiny_test_config() -> CLIPConfig:
     )
 
 
-# The ViT backbones of the JAX package's table; the ResNet ones wait for
-# models/resnet.py's port.
+# The JAX package's table: OpenAI's backbones and the miniature one.
 BACKBONE_CONFIGS = {
     "ViT-B/16": CLIPConfig(),
     "ViT-B/32": CLIPConfig(vision_patch_size=32),
+    "RN50": CLIPConfig(
+        embed_dim=1024, vision_layers=(3, 4, 6, 3), vision_width=64,
+        vision_patch_size=0,
+    ),
+    "RN101": CLIPConfig(
+        embed_dim=512, vision_layers=(3, 4, 23, 3), vision_width=64,
+        vision_patch_size=0,
+    ),
+    # the EfficientNet-style scaled ResNets
+    "RN50x4": CLIPConfig(
+        embed_dim=640, image_resolution=288,
+        vision_layers=(4, 6, 10, 6), vision_width=80, vision_patch_size=0,
+        transformer_width=640, transformer_heads=10,
+    ),
+    "RN50x16": CLIPConfig(
+        embed_dim=768, image_resolution=384,
+        vision_layers=(6, 8, 18, 8), vision_width=96, vision_patch_size=0,
+        transformer_width=768, transformer_heads=12,
+    ),
+    "Tiny": tiny_test_config(),
     "ViT-L/14": CLIPConfig(
         embed_dim=768,
         vision_layers=24,
@@ -82,12 +115,7 @@ BACKBONE_CONFIGS = {
         transformer_heads=12,
         transformer_layers=12,
     ),
-    "Tiny": tiny_test_config(),
 }
-
-
-_RESNET_NOT_PORTED = ("ResNet backbones are not ported yet (models/resnet.py, "
-                      "ROADMAP.md module item 6)")
 
 
 # -- dtype policy ------------------------------------------------------------
@@ -97,12 +125,20 @@ COMPUTE_DTYPE = torch.bfloat16
 _NORM_NAMES = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final")
 
 
+def _is_norm_name(name: str) -> bool:
+    """A LayerNorm leaf, or a ResNet BatchNorm one (a path segment starting
+    with ``bn``: ``bn1``-``bn3``, ``downsample.bn``)."""
+    if any(n in name for n in _NORM_NAMES):
+        return True
+    return any(seg.startswith("bn") for seg in name.split("."))
+
+
 def apply_dtype_policy(params, compute_dtype=COMPUTE_DTYPE):
-    """Matmul weights to ``compute_dtype``; LayerNorm params and the logit
-    scale stay fp32."""
+    """Matmul and conv weights to ``compute_dtype``; LayerNorm and
+    BatchNorm params and the logit scale stay fp32."""
 
     def cast(name, leaf):
-        if any(n in name for n in _NORM_NAMES) or "logit_scale" in name:
+        if _is_norm_name(name) or "logit_scale" in name:
             return leaf.to(torch.float32)
         return leaf.to(compute_dtype)
 
@@ -141,26 +177,27 @@ def _init_block(gen, width: int, n_layers: int) -> dict:
 
 def init_clip_params(cfg: CLIPConfig, generator: torch.Generator = None,
                      dtype_policy: bool = True) -> dict:
-    """Random CLIP-shaped ViT parameters on the CPU (the numbers follow
-    ``CLIP.initialize_parameters``; a ``torch.Generator`` does not give
-    ``jax.random``'s numbers, so tests carry weights across with
-    :func:`load_jax_params`)."""
-    if not cfg.is_vit:
-        raise NotImplementedError(_RESNET_NOT_PORTED)
+    """Random CLIP-shaped parameters on the CPU, ViT or ModifiedResNet
+    (the numbers follow ``CLIP.initialize_parameters``; a
+    ``torch.Generator`` does not give ``jax.random``'s numbers, so tests
+    carry weights across with :func:`load_jax_params`)."""
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
-    w = cfg.vision_width
-    scale = w ** -0.5
-    patch_dim = cfg.vision_patch_size ** 2 * 3
-    visual = {
-        "conv1": {"w": _normal(gen, (patch_dim, w), patch_dim ** -0.5)},
-        "class_embedding": _normal(gen, (w,), scale),
-        "positional_embedding": _normal(gen, (cfg.num_patches + 1, w), scale),
-        "ln_pre": {"scale": torch.ones(w), "bias": torch.zeros(w)},
-        "blocks": [_init_block(gen, w, cfg.vision_layers)
-                   for _ in range(cfg.vision_layers)],
-        "ln_post": {"scale": torch.ones(w), "bias": torch.zeros(w)},
-        "proj": _normal(gen, (w, cfg.embed_dim), scale),
-    }
+    if cfg.is_vit:
+        w = cfg.vision_width
+        scale = w ** -0.5
+        patch_dim = cfg.vision_patch_size ** 2 * 3
+        visual = {
+            "conv1": {"w": _normal(gen, (patch_dim, w), patch_dim ** -0.5)},
+            "class_embedding": _normal(gen, (w,), scale),
+            "positional_embedding": _normal(gen, (cfg.num_patches + 1, w), scale),
+            "ln_pre": {"scale": torch.ones(w), "bias": torch.zeros(w)},
+            "blocks": [_init_block(gen, w, cfg.vision_layers)
+                       for _ in range(cfg.vision_layers)],
+            "ln_post": {"scale": torch.ones(w), "bias": torch.zeros(w)},
+            "proj": _normal(gen, (w, cfg.embed_dim), scale),
+        }
+    else:
+        visual = init_resnet_params(cfg.resnet_config(), gen)
     d = cfg.transformer_width
     text = {
         "token_embedding": _normal(gen, (cfg.vocab_size, d), 0.02),
@@ -206,20 +243,27 @@ def load_jax_params(flat, device=None):
 
 
 def infer_config_from_state_dict(sd) -> CLIPConfig:
-    """The architecture of an OpenAI CLIP (ViT) state dict, from its shapes
-    (``clip.build_model``). A ModifiedResNet state dict raises until
-    ``models/resnet.py`` is ported."""
-    if "visual.proj" not in sd:
-        raise NotImplementedError(_RESNET_NOT_PORTED)
-    vision_width = sd["visual.conv1.weight"].shape[0]
-    vision_layers = len(
-        [k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")])
-    vision_patch_size = sd["visual.conv1.weight"].shape[-1]
-    grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+    """The architecture of an OpenAI CLIP state dict, ViT or ModifiedResNet,
+    from its shapes (``clip.build_model``)."""
+    if "visual.proj" in sd:
+        vision_width = sd["visual.conv1.weight"].shape[0]
+        vision_layers = len(
+            [k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")])
+        vision_patch_size = sd["visual.conv1.weight"].shape[-1]
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = vision_patch_size * grid
+    else:
+        vision_layers = tuple(
+            len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}")})
+            for b in (1, 2, 3, 4))
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        out_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        vision_patch_size = 0
+        image_resolution = out_width * 32
     transformer_width = sd["ln_final.weight"].shape[0]
     return CLIPConfig(
         embed_dim=sd["text_projection"].shape[1],
-        image_resolution=vision_patch_size * grid,
+        image_resolution=image_resolution,
         vision_layers=vision_layers,
         vision_width=vision_width,
         vision_patch_size=vision_patch_size,
@@ -261,28 +305,31 @@ def _convert_block(sd, prefix: str) -> dict:
 
 
 def convert_torch_state_dict(sd, cfg: CLIPConfig = None, dtype_policy: bool = True) -> dict:
-    """An OpenAI CLIP (ViT) state dict as the port's parameter tree, on the
-    CPU: every tensor read as fp32, linear weights transposed to input-major,
-    the patchify conv ``(O, 3, P, P)`` reshaped to the ``(P * P * 3, O)``
-    matmul kernel in ``(ky, kx, channel)`` order; then the dtype policy."""
+    """An OpenAI CLIP state dict as the port's parameter tree, on the CPU:
+    every tensor read as fp32, linear weights transposed to input-major;
+    for a ViT the patchify conv ``(O, 3, P, P)`` reshaped to the ``(P * P *
+    3, O)`` matmul kernel in ``(ky, kx, channel)`` order, for a
+    ModifiedResNet :func:`~federated_multi_modal_tpu_torch.models.resnet.convert_torch_resnet`;
+    then the dtype policy."""
     if cfg is None:
         cfg = infer_config_from_state_dict(sd)
-    if not cfg.is_vit:
-        raise NotImplementedError(_RESNET_NOT_PORTED)
-    conv_w = _f32(sd["visual.conv1.weight"])  # (O, I, kH, kW)
-    conv_w = conv_w.permute(2, 3, 1, 0).reshape(-1, conv_w.shape[0]).contiguous()
-    visual = {
-        "conv1": {"w": conv_w},
-        "class_embedding": _f32(sd["visual.class_embedding"]),
-        "positional_embedding": _f32(sd["visual.positional_embedding"]),
-        "ln_pre": {"scale": _f32(sd["visual.ln_pre.weight"]),
-                   "bias": _f32(sd["visual.ln_pre.bias"])},
-        "blocks": [_convert_block(sd, f"visual.transformer.resblocks.{i}")
-                   for i in range(cfg.vision_layers)],
-        "ln_post": {"scale": _f32(sd["visual.ln_post.weight"]),
-                    "bias": _f32(sd["visual.ln_post.bias"])},
-        "proj": _f32(sd["visual.proj"]),
-    }
+    if cfg.is_vit:
+        conv_w = _f32(sd["visual.conv1.weight"])  # (O, I, kH, kW)
+        conv_w = conv_w.permute(2, 3, 1, 0).reshape(-1, conv_w.shape[0]).contiguous()
+        visual = {
+            "conv1": {"w": conv_w},
+            "class_embedding": _f32(sd["visual.class_embedding"]),
+            "positional_embedding": _f32(sd["visual.positional_embedding"]),
+            "ln_pre": {"scale": _f32(sd["visual.ln_pre.weight"]),
+                       "bias": _f32(sd["visual.ln_pre.bias"])},
+            "blocks": [_convert_block(sd, f"visual.transformer.resblocks.{i}")
+                       for i in range(cfg.vision_layers)],
+            "ln_post": {"scale": _f32(sd["visual.ln_post.weight"]),
+                        "bias": _f32(sd["visual.ln_post.bias"])},
+            "proj": _f32(sd["visual.proj"]),
+        }
+    else:
+        visual = convert_torch_resnet(sd, cfg.resnet_config())
     text = {
         "token_embedding": _f32(sd["token_embedding.weight"]),
         "positional_embedding": _f32(sd["positional_embedding"]),
@@ -316,31 +363,35 @@ def _export_block(block: dict, prefix: str) -> dict:
 
 
 def export_openai_state_dict(params, cfg: CLIPConfig, dtype=torch.float16) -> dict:
-    """The inverse of :func:`convert_torch_state_dict`: a ViT parameter tree
-    of the port as an OpenAI CLIP state dict (OpenAI's key layout, every
-    tensor in ``dtype``, fp16 as OpenAI ships it; contiguous, on the CPU)."""
-    if not cfg.is_vit:
-        raise NotImplementedError(_RESNET_NOT_PORTED)
+    """The inverse of :func:`convert_torch_state_dict`: a parameter tree of
+    the port, ViT or ModifiedResNet, as an OpenAI CLIP state dict (OpenAI's
+    key layout, every tensor in ``dtype``, fp16 as OpenAI ships it;
+    contiguous, on the CPU)."""
     v, t = params["visual"], params["text"]
-    P = cfg.vision_patch_size
-    sd = {
-        "visual.conv1.weight": v["conv1"]["w"].reshape(P, P, 3, -1).permute(3, 2, 0, 1),
-        "visual.class_embedding": v["class_embedding"],
-        "visual.positional_embedding": v["positional_embedding"],
-        "visual.ln_pre.weight": v["ln_pre"]["scale"],
-        "visual.ln_pre.bias": v["ln_pre"]["bias"],
-        "visual.ln_post.weight": v["ln_post"]["scale"],
-        "visual.ln_post.bias": v["ln_post"]["bias"],
-        "visual.proj": v["proj"],
+    if cfg.is_vit:
+        P = cfg.vision_patch_size
+        sd = {
+            "visual.conv1.weight": v["conv1"]["w"].reshape(P, P, 3, -1).permute(3, 2, 0, 1),
+            "visual.class_embedding": v["class_embedding"],
+            "visual.positional_embedding": v["positional_embedding"],
+            "visual.ln_pre.weight": v["ln_pre"]["scale"],
+            "visual.ln_pre.bias": v["ln_pre"]["bias"],
+            "visual.ln_post.weight": v["ln_post"]["scale"],
+            "visual.ln_post.bias": v["ln_post"]["bias"],
+            "visual.proj": v["proj"],
+        }
+        for i, block in enumerate(v["blocks"]):
+            sd.update(_export_block(block, f"visual.transformer.resblocks.{i}"))
+    else:
+        sd = export_torch_resnet(v)
+    sd.update({
         "token_embedding.weight": t["token_embedding"],
         "positional_embedding": t["positional_embedding"],
         "ln_final.weight": t["ln_final"]["scale"],
         "ln_final.bias": t["ln_final"]["bias"],
         "text_projection": t["text_projection"],
         "logit_scale": params["logit_scale"],
-    }
-    for i, block in enumerate(v["blocks"]):
-        sd.update(_export_block(block, f"visual.transformer.resblocks.{i}"))
+    })
     for i, block in enumerate(t["blocks"]):
         sd.update(_export_block(block, f"transformer.resblocks.{i}"))
     return {k: x.detach().cpu().to(dtype).contiguous() for k, x in sd.items()}
@@ -371,8 +422,6 @@ def load_clip_backbone(cfg_model, generator: torch.Generator = None):
         arch = infer_config_from_state_dict(sd)
         return arch, convert_torch_state_dict(sd, arch)
     if name not in BACKBONE_CONFIGS:
-        if name in ("RN50", "RN101", "RN50x4", "RN50x16"):
-            raise NotImplementedError(_RESNET_NOT_PORTED)
         raise KeyError(
             f"Unknown backbone {name!r}; known: {sorted(BACKBONE_CONFIGS)} "
             "(or set MODEL.BACKBONE.WEIGHTS_PATH)")

@@ -1338,3 +1338,62 @@ def test_packed_attention_masked_cocoop_rows(gen):
     _assert_close(out, ref_out, 2 ** -6)
     _assert_close(got, ref, 2 ** -5)
     assert _each_within_share_of_max(got, ref, D, 2 ** -5)
+
+
+@pytest.mark.parametrize("T,P", [(77, 1), (32, 4)], ids=["zeroshot-77", "coop-4x32"])
+@pytest.mark.parametrize("H", [10, 12], ids=["RN50x4", "RN50x16"])
+def test_packed_attention_masked_scaled_resnet_text(gen, H, T, P):
+    """K1 and K1b at the scaled ResNets' text widths, 10 heads of 64
+    (RN50x4, width 640) and 12 (RN50x16, 768): zero-shot's 77 tokens under
+    the causal mask, and CoOp's rows of four 32-token prompts under the
+    block-causal mask. The forward at K1's 2**-6, d(QKV) at K1b's 2**-5 and
+    each of dQ, dK and dV within 2**-5 of its largest value; the forward
+    with its mask dropped (a planted fault) must fail its limit."""
+    D = H * 64
+    L = T * P
+    mask = _forward_mask(gen, T, True) if P == 1 else build_block_causal_mask(P, T, device="cuda")
+    qkv = _randn(gen, 48, L, 3 * D).requires_grad_(True)
+    g = _randn(gen, 48, L, D)
+    out = k_attn.packed_attention_masked(qkv, mask, H)
+    (got,) = torch.autograd.grad(out, [qkv], g)
+    torch.cuda.synchronize()
+    ref_out = k_attn.packed_attention_masked_reference(qkv, mask, H)
+    (ref,) = torch.autograd.grad(ref_out, [qkv], g)
+    _assert_close(out, ref_out, 2 ** -6)
+    _assert_close(got, ref, 2 ** -5)
+    assert _each_within_share_of_max(got, ref, D, 2 ** -5)
+    fault = k_attn.attention_core_cuda(qkv.detach(), H, None)
+    d = (fault.float() - ref_out.float()).abs()
+    assert not bool((d <= 2 ** -6 + 2 ** -6 * ref_out.float().abs()).all())
+
+
+def test_rn50_tower_against_the_cpu_fp32_run(gen, monkeypatch):
+    """The RN50 image tower on the card (bf16 policy, cuDNN on channels-last
+    views) against the port's fp32 run of the same weights on the CPU, 16
+    seeded images, BatchNorms calibrated as chip_smoke.py's
+    ``calibrate_batchnorms`` does: each feature row's relative L2 error
+    within 2**-5 (``TOL_RN_TOWER``; chip_smoke.py's rn phase reads ~0.0098
+    on an H100). The attention pool's mean token replaced by the first
+    spatial token (a planted fault, ~0.11 there) must fail that limit."""
+    from chip_smoke import TOL_RN_TOWER, calibrate_batchnorms, feature_gap
+    from federated_multi_modal_tpu_torch.engine.tree import to_device, tree_map_with_path
+    from federated_multi_modal_tpu_torch.models import params, resnet
+    from federated_multi_modal_tpu_torch.models.clip_model import encode_image_auto
+
+    arch = params.BACKBONE_CONFIGS["RN50"]
+    tree = params.init_clip_params(arch, torch.Generator().manual_seed(0), dtype_policy=False)
+    calibrate_batchnorms(tree["visual"], arch)
+    visual = params.apply_dtype_policy(tree)["visual"]
+    images = torch.randn((16, 224, 224, 3), generator=torch.Generator().manual_seed(1))
+    ref = encode_image_auto(tree_map_with_path(lambda _, t: t.float(), visual), arch, images)
+    on_card = to_device(visual, "cuda")
+
+    def gap():
+        with torch.no_grad():
+            got = encode_image_auto(on_card, arch, images.cuda(), inference=True)
+        assert got.dtype == torch.float32 and got.shape == (16, arch.embed_dim)
+        return feature_gap(got, ref)["max_rel_l2"]
+
+    assert gap() <= TOL_RN_TOWER
+    monkeypatch.setattr(resnet, "mean_token", lambda tokens: tokens[:, :1])
+    assert gap() > TOL_RN_TOWER

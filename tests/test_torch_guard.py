@@ -56,17 +56,41 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
                                       ["a photo of a {}."])
 
 
-def test_resnet_towers_raise_until_ported():
-    """The ModifiedResNet image towers (RN50, RN101) raise on every device
-    until ``models/resnet.py`` is ported (ROADMAP module item 6)."""
-    import dataclasses
+def test_clip_api_load_refuses_to_run_on_the_cpu_unasked(monkeypatch, tmp_path):
+    """``clip_api.load`` with ``device=None`` raises without CUDA, for a
+    local file and for a catalog name, before it reads or downloads
+    anything."""
+    from federated_multi_modal_tpu_torch import clip_api
 
+    def no_download(url, root=None):
+        raise AssertionError("load tried to download")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(clip_api, "_download", no_download)
+    path = tmp_path / "missing.pt"
+    path.write_bytes(b"not a checkpoint")
+    for name in (str(path), "RN50", "Tiny"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            clip_api.load(name)
+
+
+def test_resnet_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
+    """The ResNet backbones' entry points run on the card: without CUDA,
+    CoOp's program on RN50 and the zero-shot text features of a ResNet
+    CLIP raise; asked for the CPU, the ResNet tower runs."""
     from federated_multi_modal_tpu_torch.models.clip_model import encode_image_auto
 
-    rn50 = dataclasses.replace(params.CLIPConfig(), vision_layers=(3, 4, 6, 3))
-    assert not rn50.is_vit
-    with pytest.raises(NotImplementedError, match="models/resnet.py"):
-        encode_image_auto({}, rn50, torch.zeros(1, 224, 224, 3), inference=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        coop.build_coop_program(backbone="RN50", n_ctx=4)
+    arch = params.CLIPConfig(embed_dim=64, vision_layers=(1, 1, 1, 1), vision_width=16,
+                             vision_patch_size=0, image_resolution=64, transformer_width=128,
+                             transformer_heads=2, transformer_layers=2)
+    tree = params.init_clip_params(arch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zsclip.zeroshot_text_features(tree, arch, ["cat"], ["a photo of a {}."])
+    feats = encode_image_auto(tree["visual"], arch, torch.zeros(1, 64, 64, 3), inference=True)
+    assert feats.shape == (1, 64) and feats.dtype == torch.float32
 
 
 def _cfg_for(trainer: str):
@@ -135,11 +159,14 @@ def test_port_names_no_file_of_the_jax_package():
     assert not _JAX_PATH.search("federated_multi_modal_tpu_torch/build/")
 
 
-def test_resnet_state_dict_raises_until_ported():
-    """An OpenAI ModifiedResNet state dict raises as the random init does
-    (ROADMAP module item 6)."""
-    sd = {"visual.layer1.0.conv1.weight": torch.zeros(64, 64, 1, 1)}
-    with pytest.raises(NotImplementedError, match="models/resnet.py"):
-        params.infer_config_from_state_dict(sd)
-    with pytest.raises(NotImplementedError, match="models/resnet.py"):
-        params.init_clip_params(params.CLIPConfig(vision_layers=(3, 4, 6, 3)))
+def test_import_scan_sees_the_resnet_tower_and_the_clip_api():
+    """The scans of this file read ``models/resnet.py`` and ``clip_api.py``,
+    and would see a JAX import or a JAX package path in them."""
+    package = ROOT / "federated_multi_modal_tpu_torch"
+    scanned = set(package.rglob("*.py"))
+    for name in ("models/resnet.py", "clip_api.py"):
+        path = package / name
+        assert path in scanned, name
+        assert not {m.split(".")[0] for m in _imported_modules(path)} & set(FORBIDDEN), name
+        assert not [t for _, t in _code_strings(path) if _JAX_PATH.search(t)], name
+    assert "torch" in set(_imported_modules(package / "models/resnet.py"))
