@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MaPLe eval path and train step, CoOp and zero-shot
-CLIP, the attention microbench, the training command line, federated MaPLe,
-VPT, IVLP and CoCoOp base to novel and the ModifiedResNet backbones on one
-NVIDIA GPU and hold its hand-written CUDA kernels against their plain
-PyTorch versions.
+CLIP, the attention microbench, the training command line, federated MaPLe
+(sequential and parallel rounds), VPT, IVLP and CoCoOp base to novel, the
+ModifiedResNet backbones and the distributed layer on one NVIDIA GPU and
+hold its hand-written CUDA kernels against their plain PyTorch versions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
@@ -182,16 +182,35 @@ What it does, in order (any failure raises and exits non-zero):
    logits, K1 at each text shape (10 and 12 heads at RN50x4 and RN50x16)
    against its plain version with a planted fault and beside SDPA, the
    tower's ms, ``test()`` ms and peak memory;
-23. prints, for the tensor-core kernels (``attention_core.cu``,
+23. the distributed layer (``dist_phase``): ``--trainer MaPLeFederated``
+   through the command line with ``FED.PARALLEL_CLIENTS`` at
+   ``FED.NUM_CLIENTS`` 1 (the ``{client: 1, data: 1}`` mesh, the JAX
+   package's parallel case on one chip) at ViT-B/16 on the fed phase's
+   PatternNet stand-in, one round: its mesh line, every step's and
+   ``test()``'s launches held against the routing, FedAvg over the one
+   client bit for bit its input, the round checkpoint read back bit for
+   bit, the first loss within 2**-8 of the ``xla`` route's, a NaN planted in
+   the stacked weights caught by the validity gate, the sequential loop
+   resuming the parallel round bit for bit, times and a profiled step's
+   idle share beside the fed phase's sequential step; MaPLe's B = 512 step
+   with ``remat`` against the step without (whole-step limits, each
+   forward kernel launched twice, peak memory and ms of both);
+   ``TPU.DATA_PARALLEL_MULTIHOST`` in two processes on the card (Gloo),
+   each on half of a MaPLe batch, against this process's step over the
+   same halves and beside the whole batch's, then NCCL in a world of one;
+   one command-line epoch under ``TRAIN.PROFILE_DIR``, its trace holding
+   the port's kernels;
+24. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-24. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
-   ``launches_fed``, ``launches_b2n`` and ``launches_rn`` on the kernels the
-   cli, fed, b2n and rn phases launched; K1's row also ``rn_text_shapes``)
+25. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
+   ``launches_fed``, ``launches_b2n``, ``launches_rn`` and
+   ``launches_fedpar`` on the kernels the cli, fed, b2n, rn and dist phases
+   launched; K1's row also ``rn_text_shapes``)
    and, last, ``{"ok": true, "device": ...}``.
 
 ``python3 chip_smoke.py --step-sweep N`` instead prints the whole-step
@@ -204,6 +223,7 @@ The script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import statistics
@@ -3868,13 +3888,14 @@ def fed_instrumented(record: dict, plant_nan: bool = False):
         yield
 
 
-def fed_run(argv: list, label: str, plant_nan: bool = False) -> dict:
+def fed_run(argv: list, label: str, plant_nan: bool = False, instrument=None) -> dict:
     """``MaPLeFederated`` through the port's ``main`` on ``argv`` in this
     process, every count set to 0 just before and read just after, under
-    :func:`cli_instrumented` and :func:`fed_instrumented`: the record, with
-    the peak device memory the run allocated above what was allocated
-    before it (the trainers of earlier runs collected first: they hold
-    reference cycles)."""
+    :func:`cli_instrumented`, :func:`fed_instrumented` and
+    ``instrument(record)`` where given: the record, with the peak device
+    memory the run allocated above what was allocated before it (the
+    trainers of earlier runs collected first: they hold reference
+    cycles)."""
     import gc
 
     import torch
@@ -3889,7 +3910,8 @@ def fed_run(argv: list, label: str, plant_nan: bool = False) -> dict:
     base = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
-    with cli_instrumented(record), fed_instrumented(record, plant_nan):
+    with cli_instrumented(record), fed_instrumented(record, plant_nan), (
+            instrument(record) if instrument else contextlib.nullcontext()):
         record["trainer"] = port_cli.main(args)
     torch.cuda.synchronize()
     record["wall_s"] = time.perf_counter() - t0
@@ -4718,6 +4740,578 @@ def rn_phase(card: str, opts: tuple = (), zeroshot=RN_ZEROSHOT) -> tuple:
     return launches, checks, summary, k1_rows
 
 
+# -- the distributed layer: the parallel round loop, remat, multi-process DP,
+#    profiling (the dist phase)
+
+# FED.NUM_CLIENTS 1 on one card: the JAX package's own parallel case there
+DIST_CLIENTS = 1
+# the multi-process data-parallel step: two processes on halves of a batch
+# of 8 (each the MaPLe configuration's batch of 4)
+DIST_DP_BATCH = 8
+DIST_CHILD_TIMEOUT_S = 300
+# the all-reduced update against one process's over the same two halves:
+# the same two fp32 gradients added in another place
+DIST_DP_TOL = 2.0 ** -20
+# a whole B = 512 step with remat against one without: the same kernels on
+# the same inputs, held at the whole-step limits (hold_step)
+DIST_REMAT_STEPS = 3
+
+DIST_CHILD = """
+import json, os, sys
+import torch
+from federated_multi_modal_tpu_torch.parallel import multihost
+
+spec = json.loads(os.environ["DIST_SPEC"])
+out = {"initialized": multihost.initialize_multihost(backend=spec["backend"])}
+rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+out.update(rank=rank, world=world, backend=torch.distributed.get_backend(),
+           device=str(torch.device("cuda", torch.cuda.current_device()))
+           if spec["device"] == "cuda" else spec["device"])
+if spec["mode"] == "nccl":
+    from federated_multi_modal_tpu_torch.engine.trainer import all_reduce_mean
+    x = torch.arange(6, dtype=torch.float32, device="cuda").reshape(2, 3) + 1
+    torch.distributed.all_reduce(x)
+    tree = {"a": torch.full((3,), 2.0, device="cuda"), "b": torch.tensor(4.0, device="cuda")}
+    got = all_reduce_mean(tree)
+    multihost.sync_hosts("nccl")
+    out["all_reduce_sum"] = x.cpu().tolist()
+    out["all_reduce_mean"] = {k: v.cpu().tolist() for k, v in got.items()}
+else:
+    import federated_multi_modal_tpu_torch.trainers  # noqa: F401
+    from federated_multi_modal_tpu_torch.config import get_cfg_default
+    from federated_multi_modal_tpu_torch.engine import build_trainer
+    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
+
+    cfg = get_cfg_default()
+    for f in spec["config_files"]:
+        cfg.merge_from_file(f)
+    cfg.merge_from_list(spec["opts"])
+    cfg.OUTPUT_DIR = os.path.join(spec["dir"], f"rank{rank}")
+    cfg.freeze()
+    trainer = build_trainer(cfg, device=spec["device"])
+    out["dp_multihost"] = trainer._dp_multihost
+    full = torch.load(spec["batch"])
+    n = len(full["label"]) // world
+    half = {k: v[rank * n:(rank + 1) * n].to(spec["device"]) for k, v in full.items()}
+    summary = trainer.train_step(half)
+    out.update(loss=summary["loss"], grad_norm=summary["grad_norm"], shard=n)
+    import numpy as np
+    np.savez(os.path.join(spec["dir"], f"trained{rank}.npz"), **flatten_params(trainer.trainable))
+multihost.sync_hosts("done")
+out["imported_jax"] = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "optax", "federated_multi_modal_tpu"))
+with open(os.path.join(spec["dir"], f"result{rank}.json"), "w") as f:
+    json.dump(out, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def dist_children(spec: dict, world: int, tmp: str) -> list:
+    """``DIST_CHILD`` in ``world`` processes on this card, meeting through a
+    ``file://`` store under ``tmp``; each one's JSON result. A child that
+    fails or outlives ``DIST_CHILD_TIMEOUT_S`` fails the phase (every child
+    is killed first)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    store = os.path.join(tmp, f"store_{spec['mode']}")
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                   JAX_COORDINATOR_ADDRESS=f"file://{store}", JAX_NUM_PROCESSES=str(world),
+                   JAX_PROCESS_ID=str(rank), DIST_SPEC=json.dumps(spec))
+        procs.append(subprocess.Popen([sys.executable, "-c", DIST_CHILD], env=env, cwd=here,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_CHILD_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"dist {spec['mode']} children failed:\n" + "\n---\n".join(
+            o[-4000:] for o in outs))
+    results = []
+    for r in range(world):
+        with open(os.path.join(spec["dir"], f"result{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+@contextlib.contextmanager
+def fedpar_instrumented(record: dict, plant_nan: bool = False):
+    """The parallel round loop with each step synchronised, timed and its
+    launches read (``record["steps"]``, as :func:`cli_instrumented` records
+    a sequential step; the step, its last arguments and output kept for a
+    profiled replay), each FedAvg over the client axis timed and held bit
+    for bit against its one client's input, and the resumed global weights
+    kept (``record["resumed"]``). With ``plant_nan``, a NaN is written into
+    the stacked weights the round's last step returns."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
+    from federated_multi_modal_tpu_torch.engine.tree import flatten
+    from federated_multi_modal_tpu_torch.trainers import maple_fed
+
+    build, fedavg = maple_fed.build_parallel_fed_step, maple_fed.fedavg_over_clients
+    fed_cls = maple_fed.MaPLeFederated
+    resume = fed_cls._resume_round
+
+    def build_rec(*args, **kwargs):
+        step = build(*args, **kwargs)
+
+        def step_rec(stacked, frozen, opt, batch):
+            torch.cuda.synchronize()
+            before = kernel_counts()
+            t0 = time.perf_counter()
+            out = step(stacked, frozen, opt, batch)
+            torch.cuda.synchronize()
+            after = kernel_counts()
+            record["steps"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                                    "launches": {k: after[k] - before[k] for k in after},
+                                    "client": 0, "loss": float(out[2][0]),
+                                    "batch": list(batch["image"].shape)})
+            record["step_fn"], record["step_args"] = step, (stacked, frozen, opt, batch)
+            fed = record["fed"]
+            if plant_nan and len(record["steps"]) == len(fed.clients[0].train_loader_x):
+                out[0]["prompt_learner"]["ctx"][0, 0, 0] = float("nan")
+            return out
+
+        return step_rec
+
+    def fedavg_rec(stacked):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fedavg(stacked)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got, held = flatten(out), flatten(stacked)
+        record.setdefault("fedavg", []).append({
+            "ms": ms, "clients": int(next(iter(held.values())).shape[0]),
+            "bit_equal_to_input": all(torch.equal(got[k], held[k]) for k in held)})
+        return out
+
+    def resume_rec(self):
+        rnd = resume(self)
+        record["resumed"] = (rnd, flatten_params(self.global_weights))
+        return rnd
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(maple_fed, build_parallel_fed_step=build_rec,
+                                    fedavg_over_clients=fedavg_rec))
+        stack.enter_context(patched(fed_cls, _resume_round=resume_rec))
+        yield
+
+
+def remat_step_phase(card: str, backbone: str = "ViT-B/16", device: str = "cuda") -> tuple:
+    """The flagship MaPLe step at ViT-B/16, batch ``BATCH``, with ``remat``
+    (every block of both towers under ``torch.utils.checkpoint``) against
+    the same step without: the loss and every trainable gradient held at
+    the whole-step limits (``hold_step``), the launches (each forward
+    kernel twice, each backward once), peak memory and step ms of both."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine.trainer import make_train_step
+    from federated_multi_modal_tpu_torch.flagship import build_fed_optimizer, build_maple_program
+    from federated_multi_modal_tpu_torch.ops.preprocess import (
+        crop_resize_flip_normalize,
+        sample_rrc_boxes_torch,
+    )
+    from federated_multi_modal_tpu_torch.tokenizer import tokenize
+    from federated_multi_modal_tpu_torch.trainers.maple import make_maple_model_fns
+
+    prog = build_maple_program(backbone, classnames=[f"class {i}" for i in range(N_CLASSES)],
+                               n_ctx=2, depth=9, use_captions=True, seed=0, device=device)
+    arch, tr, fr = prog["arch"], prog["trainable"], prog["frozen"]
+    _, remat_loss = make_maple_model_fns(arch, min(9, arch.vision_layers), prog["text_len"],
+                                         True, 0.5, remat=True)
+    losses = {"plain": prog["loss_fn"], "remat": remat_loss}
+    rng = np.random.default_rng(5)
+    canvas = torch.from_numpy(rng.integers(0, 255, (BATCH, 256, 256, 3), np.uint8)).cuda()
+    gen = torch.Generator(device=canvas.device).manual_seed(6)
+    boxes, flips = sample_rrc_boxes_torch(gen, BATCH, 256)
+    batch = {"image": crop_resize_flip_normalize(canvas, boxes, flips,
+                                                 out_size=arch.image_resolution),
+             "label": torch.from_numpy(rng.integers(0, N_CLASSES, BATCH)).cuda(),
+             "caption_tokens": torch.from_numpy(
+                 tokenize(["a satellite photo of a scene"] * BATCH)).cuda()}
+    del canvas
+    out, counts, checks = {}, {}, []
+    for name, loss_fn in losses.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        out[name] = step_loss_and_grads(loss_fn, tr, fr, batch)
+        torch.cuda.synchronize()
+        counts[name] = {k: v for k, v in read_counts().items()
+                        if k.split(" ")[0] in ("K1", "K1b", "K3", "K4")}
+    held = hold_step(out["remat"], out["plain"])
+    print("remat whole step vs without, B=512:", json.dumps(brief_step(held)))
+    checks.append(("remat whole B=512 step vs without", held))
+    implied = {k: v * (2 if "(backward)" not in k and k.split(" ")[0] != "K1b" else 1)
+               for k, v in counts["plain"].items()}
+    launches = {"counts": counts, "implied_remat": implied, "ok": counts["remat"] == implied
+                and counts["plain"]["K3 fused_block_train"] == arch.vision_layers - 1}
+    print("remat launches (each forward kernel twice):", json.dumps(launches))
+    checks.append(("remat launches: every forward kernel twice", launches))
+    del out
+    timing = {}
+    for name, loss_fn in losses.items():
+        tx = build_fed_optimizer()
+        step = make_train_step(loss_fn, tx)
+        state = [tr, tx.init(tr)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(DIST_REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state[0], state[1], loss, _ = step(state[0], fr, state[1], batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        timing[name] = {"step_ms": ms, "step_ms_median": statistics.median(ms),
+                        "peak_gib_above_start": (torch.cuda.max_memory_allocated() - base)
+                        / 2 ** 30, "loss": float(loss)}
+        del state
+    print(f"remat train step B={BATCH} on {card}: remat "
+          f"{timing['remat']['step_ms_median']:.2f} ms, peak "
+          f"{timing['remat']['peak_gib_above_start']:.2f} GiB; without "
+          f"{timing['plain']['step_ms_median']:.2f} ms, peak "
+          f"{timing['plain']['peak_gib_above_start']:.2f} GiB")
+    del prog, tr, fr, batch
+    torch.cuda.empty_cache()
+    return checks, {"whole_step": brief_step(held), "launches": counts, "timing": timing}
+
+
+def update_errs(got: dict, ref: dict, initial: dict) -> dict:
+    """Each trainable leaf's update (new - initial) in ``got`` against
+    ``ref``'s, as max |difference| over max |ref's update|."""
+    errs = {}
+    for k, r in ref.items():
+        d_ref = r.astype(np.float64) - initial[k]
+        d_got = got[k].astype(np.float64) - initial[k]
+        errs[k] = float(np.abs(d_got - d_ref).max() / max(np.abs(d_ref).max(), 1e-30))
+    return errs
+
+
+def worst(errs: dict) -> list:
+    name = max(errs, key=errs.get)
+    return [name, errs[name]]
+
+
+def dist_dp_phase(card: str, tmp: str, sd_path: str, opts: tuple = (),
+                  device: str = "cuda") -> tuple:
+    """``TPU.DATA_PARALLEL_MULTIHOST`` in two processes on this one card
+    (Gloo: NCCL refuses two ranks on one device), each on its half of a
+    MaPLe batch of ``DIST_DP_BATCH`` at ViT-B/16 (the cli phase's
+    configuration, Synthetic), from the same weights as this process's
+    steps over the whole batch:
+
+    * the all-reduced update against this process's step over the same two
+      halves, their gradients, losses and aux averaged here
+      (``DIST_DP_TOL`` of each leaf's update: the all-reduce adds the same
+      two fp32 values), both processes bit for bit alike, the all-reduced
+      loss against the whole batch's at ``TOL_STEP_LOSS``;
+    * printed beside it, its distance from the step over the whole batch,
+      and that of the one-process two-halves step (the control: under the
+      bf16 policy a batch split moves the text tower's gradients by bf16
+      rounding);
+    * then a world of one through NCCL: its ``all_reduce`` and
+      :func:`~engine.trainer.all_reduce_mean` on card tensors."""
+    import torch
+
+    import federated_multi_modal_tpu_torch.trainers  # noqa: F401
+    from federated_multi_modal_tpu_torch.config import get_cfg_default
+    from federated_multi_modal_tpu_torch.engine import build_trainer
+    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
+    from federated_multi_modal_tpu_torch.engine.trainer import (
+        loss_grads_and_aux,
+        make_train_step_with_aux,
+    )
+    from federated_multi_modal_tpu_torch.parallel.mesh import mean_over_devices
+
+    checks = []
+    opts = ["DATASET.ROOT", os.path.join(tmp, "dp-data"), "MODEL.BACKBONE.WEIGHTS_PATH", sd_path,
+            "DATALOADER.TRAIN_X.BATCH_SIZE", str(DIST_DP_BATCH), "SEED", "1", "VERBOSE", "False",
+            "TRAINER.NAME", "MaPLe", *opts]
+    files = [CLI_DATASET_YAML, CLI_MAPLE_YAML]
+    cfg = get_cfg_default()
+    for f in files:
+        cfg.merge_from_file(f)
+    cfg.merge_from_list(opts + ["TPU.DATA_PARALLEL_MULTIHOST", "False"])
+    cfg.OUTPUT_DIR = os.path.join(tmp, "dp-one")
+    cfg.freeze()
+    trainer = build_trainer(cfg, device=device)
+    batches = iter(trainer.train_loader_x)
+    batch = trainer.parse_batch_train(next(batches))
+    batches.close()
+    torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(tmp, "dp-batch.pt"))
+    n = len(batch["label"]) // 2
+
+    def halves(tr, frozen, b):
+        outs = [loss_grads_and_aux(trainer.loss_fn, tr, frozen,
+                                   {k: v[i * n:(i + 1) * n] for k, v in b.items()})
+                for i in range(2)]
+        return tuple(mean_over_devices([o[i] for o in outs], trainer.device) for i in range(3))
+
+    initial = flatten_params(trainer.trainable)
+    ref = {}
+    for name, grad_fn in (("whole", None), ("halves", halves)):
+        step = make_train_step_with_aux(trainer.loss_fn, trainer.tx, grad_fn)
+        tr, _, loss, gnorm, _ = step(trainer.trainable, trainer.frozen, trainer.opt_state, batch)
+        ref[name] = {"loss": float(loss), "grad_norm": float(gnorm),
+                     "params": flatten_params(tr)}
+    del trainer, batch, tr
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    spec = {"mode": "dp", "backend": "gloo", "dir": tmp, "config_files": files, "device": device,
+            "opts": opts + ["TPU.DATA_PARALLEL_MULTIHOST", "True"],
+            "batch": os.path.join(tmp, "dp-batch.pt")}
+    children = dist_children(spec, 2, tmp)
+    dp_s = time.perf_counter() - t0
+    trained = [dict(np.load(os.path.join(tmp, f"trained{r}.npz"))) for r in range(2)]
+    errs = update_errs(trained[0], ref["halves"]["params"], initial)
+    loss_halves = abs(children[0]["loss"] - ref["halves"]["loss"]) / abs(ref["halves"]["loss"])
+    loss_whole = abs(children[0]["loss"] - ref["whole"]["loss"]) / abs(ref["whole"]["loss"])
+    held = {
+        "update_vs_halves_worst": worst(errs), "tol": DIST_DP_TOL,
+        "loss_rel_err_vs_halves": loss_halves,
+        "loss_rel_err_vs_whole": loss_whole, "loss_tol": TOL_STEP_LOSS,
+        "ranks_bit_equal": all(np.array_equal(trained[0][k], trained[1][k])
+                               for k in ref["whole"]["params"]),
+        "update_vs_whole_worst": worst(update_errs(trained[0], ref["whole"]["params"], initial)),
+        "control_halves_vs_whole_worst": worst(update_errs(
+            ref["halves"]["params"], ref["whole"]["params"], initial)),
+        "children": [{k: c[k] for k in ("rank", "world", "backend", "device", "dp_multihost",
+                                        "loss", "grad_norm", "shard", "imported_jax")}
+                     for c in children],
+        "one_process": {k: {"loss": v["loss"], "grad_norm": v["grad_norm"]}
+                        for k, v in ref.items()},
+        "seconds": dp_s,
+    }
+    held["ok"] = (held["update_vs_halves_worst"][1] <= DIST_DP_TOL
+                  and loss_halves <= DIST_DP_TOL and loss_whole <= TOL_STEP_LOSS
+                  and held["ranks_bit_equal"]
+                  and all(c["dp_multihost"] and c["world"] == 2 and c["backend"] == "gloo"
+                          and c["shard"] == n and not c["imported_jax"] for c in children))
+    print(f"dist two-process DP (Gloo, one card, halves of {DIST_DP_BATCH}) vs one process, on "
+          f"{card}:", json.dumps(held))
+    checks.append(("dist two-process DP step vs one process's step over the same halves", held))
+
+    spec = {"mode": "nccl", "backend": "nccl", "dir": os.path.join(tmp, "nccl"),
+            "device": "cuda"}
+    os.makedirs(spec["dir"], exist_ok=True)
+    nccl = dist_children(spec, 1, tmp)[0]
+    nccl["ok"] = (nccl["backend"] == "nccl" and nccl["world"] == 1
+                  and nccl["all_reduce_sum"] == [[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]]
+                  and nccl["all_reduce_mean"] == {"a": [2.0, 2.0, 2.0], "b": 4.0})
+    print("dist NCCL world of one:", json.dumps(nccl))
+    checks.append(("dist NCCL starts and all-reduces", nccl))
+    return checks, {"dp": held, "nccl": nccl}
+
+
+def profile_dir_phase(card: str, tmp: str, sd_path: str, opts: tuple = ()) -> tuple:
+    """One epoch of MaPLe through the command line (the cli phase's
+    configuration, Synthetic, ViT-B/16) with ``TRAIN.PROFILE_DIR``: the
+    trace it writes, and the port's kernels among its CUDA events."""
+    trace_dir = os.path.join(tmp, "trace")
+    opts = ["MODEL.BACKBONE.WEIGHTS_PATH", sd_path, "OPTIM.MAX_EPOCH", "1",
+            "TRAIN.PROFILE_DIR", trace_dir, *opts]
+    run = cli_run(cli_argv("MaPLe", CLI_MAPLE_YAML, os.path.join(tmp, "profiled"),
+                           os.path.join(tmp, "profile-data"), opts), "MaPLe, TRAIN.PROFILE_DIR")
+    files = sorted(glob.glob(os.path.join(trace_dir, "*.pt.trace.json")))
+    names = []
+    for path in files:
+        with open(path) as f:
+            names += [e.get("name", "") for e in json.load(f).get("traceEvents", [])
+                      if e.get("cat") == "kernel"]
+    want = ("attention_core", "attention_core_bwd", "gemm_epilogue", "layernorm_rows",
+            "layernorm_bwd_rows", "column_sum")
+    out = {"files": [os.path.basename(p) for p in files],
+           "mb": [round(os.path.getsize(p) / 2 ** 20, 1) for p in files],
+           "steps": len(run["steps"]),
+           "port_kernel_events": {k: sum(short_name(n) == k or short_name(n).startswith(k + "<")
+                                         for n in names) for k in want},
+           "kernel_events": len(names)}
+    out["ok"] = len(files) == 1 and all(out["port_kernel_events"].values())
+    print(f"dist TRAIN.PROFILE_DIR, one epoch on {card}:", json.dumps(out))
+    return [("dist TRAIN.PROFILE_DIR trace names the port's kernels", out)], out
+
+
+def dist_phase(card: str, opts: tuple = (), sequential_profile: dict = None,
+               backbone: str = "ViT-B/16", device: str = "cuda") -> tuple:
+    """The distributed layer on the card. The card's machine has one card,
+    so the parallel round loop runs as the JAX package runs it on one chip:
+    ``FED.NUM_CLIENTS`` 1 on a ``{client: 1, data: 1}`` mesh.
+
+    * ``--trainer MaPLeFederated`` through ``main`` with
+      ``FED.PARALLEL_CLIENTS`` (``FED_YAML``, ViT-B/16 from a seeded
+      OpenAI-format state dict, the fed phase's PatternNet stand-in, batch
+      4, one round of one local epoch): the mesh line; every step's and
+      ``test()``'s launches against the routing; FedAvg over the one
+      client bit for bit its input; the round checkpoint read back bit for
+      bit; the step, FedAvg, round and ``test()`` ms, the peak memory and a
+      profiled step's idle share beside the fed phase's sequential step;
+    * the same round under ``TPU.ATTENTION_IMPL xla``: the first loss within
+      ``TOL_STEP_LOSS``, no kernel launched;
+    * the round with a NaN planted in the stacked weights after the last
+      step: the validity gate's per-client fallback reverts to the global
+      weights;
+    * the sequential loop resuming (``--resume``) from the parallel round's
+      checkpoint, bit for bit, and training round 2;
+    * :func:`remat_step_phase`, :func:`dist_dp_phase` and
+      :func:`profile_dir_phase`.
+
+    Returns ``(launches by kernel label of the parallel run, checks,
+    summary)``."""
+    import tempfile
+
+    import torch
+
+    from federated_multi_modal_tpu_torch.data.seeded_trees import write_seeded_tree
+    from federated_multi_modal_tpu_torch.engine.checkpoint import load_checkpoint
+
+    checks, summary = [], {"card": card}
+    with tempfile.TemporaryDirectory(prefix="fmm_dist_") as tmp:
+        sd_path = os.path.join(tmp, "vit_b16_openai_fp16.pt")
+        summary["state_dict_write_s"] = write_openai_state_dict(sd_path)
+        root = os.path.join(tmp, "data")
+        for name, n in FED_PER_CLASS.items():
+            write_seeded_tree(root, name, n, seed=0)
+
+        def argv(out, *more, flags=()):
+            return ["--root", root, "--seed", "1", "--trainer", "MaPLeFederated",
+                    "--dataset-config-file", "configs/datasets/PatternNet.yaml",
+                    "--config-file", FED_YAML, "--output-dir", os.path.join(tmp, out), *flags,
+                    "MODEL.BACKBONE.WEIGHTS_PATH", sd_path, "FED.NUM_CLIENTS", str(DIST_CLIENTS),
+                    "FED.NUM_ROUNDS", "1", "FED.LOCAL_EPOCHS", "1",
+                    "FED.CHECKPOINT_EVERY_ROUND", "True", "FED.PARALLEL_CLIENTS", "True",
+                    *opts, *more]
+
+        def log_of(out):
+            with open(os.path.join(tmp, out, "log.txt")) as f:
+                return f.read()
+
+        # -- the parallel round loop on the kernel routes -----------------------
+        run = fed_run(argv("par"), "MaPLeFederated, parallel clients",
+                      instrument=fedpar_instrumented)
+        fed = run["trainer"]
+        log = log_of("par")
+        mesh_line = "[FED] parallel clients over mesh {'client': 1, 'data': 1}"
+        checks.append(("dist parallel loop over the {client: 1, data: 1} mesh", {
+            "ok": mesh_line in log and "falling back" not in log
+            and fed.nan_stats == {"total_updates": 1, "failed_clients": [], "skipped_rounds": 0},
+            "nan_stats": fed.nan_stats}))
+        checks.append(("dist launches as the routing implies", fed_launches_held(run)))
+        checks += [(f"dist {k} launched", {"ok": run["counts"][k] > 0}) for k in CLI_PATH_KERNELS]
+        checks.append(("dist FedAvg over one client is its input bit for bit", {
+            "ok": len(run["fedavg"]) == 1 and run["fedavg"][0]["bit_equal_to_input"]
+            and run["fedavg"][0]["clients"] == 1, "fedavg": run["fedavg"]}))
+        checks.append(("dist round checkpoint read back bit for bit", {
+            "ok": len(run["round_checkpoints"]) == 1 and run["round_checkpoints"][0]["bit_equal"],
+            "rounds": run["round_checkpoints"]}))
+        steps = [s["ms"] for s in run["steps"]]
+        step_fn, step_args = run["step_fn"], run["step_args"]
+        par = {
+            "mesh_line": mesh_line in log, "steps": len(steps), "batch": run["steps"][0]["batch"],
+            "step_ms_median": statistics.median(steps[1:]), "step_ms_first": steps[0],
+            "fedavg_ms": [a["ms"] for a in run["fedavg"]], "round_s": run["round_s"],
+            "round_checkpoint_save_ms": [c["ms"] for c in run["round_checkpoints"]],
+            "test_ms": [t["ms"] for t in run["tests"]], "peak_gib": run["peak_gib"],
+            "first_loss": run["steps"][0]["loss"], "round_launches": run["round_launches"],
+            "profile_step": profile_by_kernel(lambda: step_fn(*step_args),
+                                              f"dist parallel step, C=1, B=4, on {card}"),
+        }
+        if sequential_profile:
+            par["sequential_step_idle_share"] = sequential_profile["idle_share"]
+        launches = run["counts"]
+        ckpt_dir = os.path.join(tmp, "par")
+        del fed, run, step_fn, step_args
+        torch.cuda.empty_cache()
+
+        # -- the same round on the plain formulation ------------------------------
+        run = fed_run(argv("par-xla", "TPU.ATTENTION_IMPL", "xla"),
+                      "MaPLeFederated, parallel clients, xla", instrument=fedpar_instrumented)
+        rel = abs(par["first_loss"] - run["steps"][0]["loss"]) / abs(run["steps"][0]["loss"])
+        loss_cmp = {"first_loss_rel_err": rel, "tol": TOL_STEP_LOSS, "ok": rel <= TOL_STEP_LOSS,
+                    "kernel": par["first_loss"], "xla": run["steps"][0]["loss"]}
+        checks.append(("dist first loss, kernel routes vs xla", loss_cmp))
+        checks.append(("dist xla launches no kernel", {"ok": not nonzero(run["counts"])}))
+        par["step_ms_median_xla"] = statistics.median(s["ms"] for s in run["steps"][1:])
+        del run
+        torch.cuda.empty_cache()
+
+        # -- a NaN planted in the stacked weights ---------------------------------
+        run = fed_run(argv("par-nan"), "MaPLeFederated, parallel clients, NaN planted",
+                      instrument=lambda record: fedpar_instrumented(record, plant_nan=True))
+        log = log_of("par-nan")
+        reverted = load_checkpoint(os.path.join(
+            tmp, "par-nan", "MultiModalPromptLearner_Aggregator", "model.pth.tar-round1"))
+        reverted = reverted["state_dict"]
+        trained = load_checkpoint(os.path.join(
+            ckpt_dir, "MultiModalPromptLearner_Aggregator", "model.pth.tar-round1"))["state_dict"]
+        planted = {
+            "nan_stats": run["trainer"].nan_stats, "fedavg_runs": len(run.get("fedavg", [])),
+            "logged": "Client 0 produced invalid weights, skipping aggregation" in log
+            and "All clients failed! Reverting to previous global model." in log,
+            "round_checkpoint_finite": all(np.isfinite(v).all() for v in reverted.values()),
+            "reverted_differs_from_trained": any(
+                not np.array_equal(reverted[k], trained[k]) for k in reverted)}
+        planted["ok"] = (planted["nan_stats"] == {"total_updates": 0, "failed_clients": [],
+                                                  "skipped_rounds": 1}
+                         and planted["fedavg_runs"] == 0 and planted["logged"]
+                         and planted["round_checkpoint_finite"]
+                         and planted["reverted_differs_from_trained"])
+        print("  dist planted NaN in the stacked weights:", json.dumps(planted))
+        checks.append(("dist planted NaN caught by the validity gate", planted))
+        del run
+        torch.cuda.empty_cache()
+
+        # -- the sequential loop resumes from the parallel round's checkpoint ------
+        run = fed_run(argv("par-resumed", "FED.NUM_ROUNDS", "2", "FED.PARALLEL_CLIENTS", "False",
+                           flags=("--resume", ckpt_dir)),
+                      "MaPLeFederated, sequential, resumed from the parallel round",
+                      instrument=fedpar_instrumented)
+        rnd, resumed = run["resumed"]
+        resume = {"round": rnd, "nan_stats": run["trainer"].nan_stats,
+                  "bit_equal": resumed.keys() == trained.keys() and all(
+                      resumed[k].dtype == trained[k].dtype and np.array_equal(resumed[k], trained[k])
+                      for k in trained), "steps": len(run["steps"])}
+        resume["ok"] = (rnd == 1 and resume["bit_equal"] and resume["steps"] > 0
+                        and resume["nan_stats"]["total_updates"] == 1)
+        print("  dist sequential resume from the parallel round:", json.dumps(resume))
+        checks.append(("dist sequential loop resumes the parallel round bit for bit", resume))
+        del run
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        remat_checks, summary["remat"] = remat_step_phase(card, backbone, device)
+        summary["remat"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dp_checks, summary["multiprocess"] = dist_dp_phase(card, tmp, sd_path, opts, device)
+        summary["multiprocess"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prof_checks, summary["profile_dir"] = profile_dir_phase(card, tmp, sd_path, opts)
+        summary["profile_dir"]["phase_s"] = time.perf_counter() - t0
+        checks += remat_checks + dp_checks + prof_checks
+
+    summary.update(parallel=par, first_loss_vs_xla=loss_cmp, planted_nan=planted, resume=resume)
+    p = par
+    print(f"dist MaPLeFederated, parallel clients over {{client: 1, data: 1}}, batch 4, on "
+          f"{card}: step {p['step_ms_median']:.2f} ms (median after the first; first "
+          f"{p['step_ms_first']:.1f}; xla {p['step_ms_median_xla']:.2f}); FedAvg "
+          f"{', '.join(f'{t:.3f}' for t in p['fedavg_ms'])} ms; round "
+          f"{', '.join(f'{t:.2f}' for t in p['round_s'])} s; test() "
+          f"{', '.join(f'{t:.1f}' for t in p['test_ms'])} ms; peak {p['peak_gib']:.2f} GiB; "
+          f"profiled step idle share {p['profile_step']['idle_share']:.3f} (the fed phase's "
+          f"sequential step: {p.get('sequential_step_idle_share', float('nan')):.3f})")
+    return launches, checks, summary
+
+
 def host_profile(fn, label: str, top: int = 12) -> dict:
     """One run of ``fn`` under the profiler's CPU activity: the host wall
     time, the share of it inside PyTorch operators (their self time), the
@@ -5196,10 +5790,23 @@ def main() -> int:
             row.setdefault("paths", []).append("rn")
             row["launches_rn"] = launched
     rows[0]["rn_text_shapes"] = rn_k1
+    torch.cuda.empty_cache()
+
+    # -- 23. the distributed layer (the dist phase) ---------------------------
+    t0 = time.perf_counter()
+    dist_launches, dist_checks, summary["dist"] = dist_phase(
+        card, sequential_profile=summary["fed"]["profile_step"])
+    summary["dist"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        launched = sum(n for label, n in dist_launches.items()
+                       if label.split(" ")[1] == row["name"] and "(backward)" not in label)
+        if launched:
+            row.setdefault("paths", []).append("fedpar")
+            row["launches_fedpar"] = launched
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
                      + gemm_checks + ln_checks + cli_checks + fed_checks + b2n_checks
-                     + rn_checks)
+                     + rn_checks + dist_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

@@ -15,14 +15,26 @@ their names and reads them so:
 * ``TPU.ATTENTION_IMPL``: ``"auto"`` is the kernel routes (``"pallas"``) on
   CUDA and the plain formulation (``"xla"``) on the CPU;
 * ``TPU.TEXT_PACK``, ``TPU.PREFETCH_DEPTH``: as in the JAX package;
-* ``TPU.DATA_PARALLEL``: nothing to do on one device; with more than one
-  visible device it raises ``NotImplementedError`` (ROADMAP module item 7),
-  as ``TPU.DATA_PARALLEL_MULTIHOST``, ``TPU.MESH_SHAPE`` and
-  ``TRAIN.PROFILE_DIR`` do when set;
+* ``TPU.REMAT``: MaPLe runs each block of both towers under
+  ``torch.utils.checkpoint`` (recomputed in the backward), as the JAX
+  package's ``jax.checkpoint``;
+* ``TPU.DATA_PARALLEL``: with more than one visible device, the batch is
+  split over them and the gradients averaged on the trainer's device (the
+  reference's ``nn.DataParallel``); nothing to do on one device;
+* ``TPU.DATA_PARALLEL_MULTIHOST``: under ``torch.distributed`` with more
+  than one process, each process's batch is its shard and the gradients are
+  all-reduced (``engine/trainer.py``); without it such processes train
+  alone, as in the JAX package;
+* ``TPU.MESH_SHAPE``, ``TPU.MESH_AXES``: the client mesh of
+  ``FED.PARALLEL_CLIENTS`` (``parallel/mesh.py``); ``TPU.FED_STEP_IMPL``
+  (``auto``, ``vmap``, ``shard_map``): how its step spreads a client over
+  its group's devices (``parallel/fedavg.py``);
+* ``TRAIN.PROFILE_DIR``: each epoch traced with ``torch.profiler`` into it
+  (``utils/profiling.py``);
+* ``TRAIN.CHECKPOINT_BACKEND orbax``: as the JAX package where orbax is not
+  importable (``trainers/maple_fed.py``); the single-site trainers ignore it;
 * ``TPU.DONATE_BUFFERS``: nothing to do; the port's functional step makes
-  new parameter and optimizer tensors each step and drops the old ones;
-* ``TPU.REMAT``, ``TPU.MESH_AXES``, ``TPU.FED_STEP_IMPL``: not read by the
-  single-site trainers.
+  new parameter and optimizer tensors each step and drops the old ones.
 """
 
 from federated_multi_modal_tpu_torch.config.cfgnode import CfgNode as CN

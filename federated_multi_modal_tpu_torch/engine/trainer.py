@@ -27,6 +27,7 @@ in one transfer at each print boundary (the deferred mode).
 from __future__ import annotations
 
 import datetime
+import os
 import os.path as osp
 import time
 from typing import Callable, Dict, Optional
@@ -56,11 +57,20 @@ from federated_multi_modal_tpu_torch.engine.registry import build_evaluator
 from federated_multi_modal_tpu_torch.engine.tree import (
     flatten,
     leaves,
+    to_device,
     tree_map_multi,
     tree_map_with_path,
 )
 from federated_multi_modal_tpu_torch.models.params import COMPUTE_DTYPE
 from federated_multi_modal_tpu_torch.ops.preprocess import crop_resize_flip_normalize
+from federated_multi_modal_tpu_torch.parallel import mesh as _mesh
+from federated_multi_modal_tpu_torch.parallel.mesh import mean_over_devices, replicate
+from federated_multi_modal_tpu_torch.parallel.multihost import (
+    is_main_process,
+    process_count,
+    sync_hosts,
+)
+from federated_multi_modal_tpu_torch.utils.profiling import trace
 
 
 # --------------------------------------------------------------------------
@@ -68,7 +78,22 @@ from federated_multi_modal_tpu_torch.ops.preprocess import crop_resize_flip_norm
 # --------------------------------------------------------------------------
 
 
-def make_train_step_with_aux(loss_fn, tx):
+def loss_grads_and_aux(loss_fn, trainable, frozen, batch):
+    """``(loss, grads, aux)`` of ``loss_fn(trainable, frozen, batch) ->
+    (loss, aux)``: the gradient of every leaf of ``trainable`` (zeros where
+    the loss does not reach it), the loss and the aux's 0-d tensors
+    detached."""
+    tr = tree_map_with_path(lambda _, t: t.detach().requires_grad_(True), trainable)
+    flat = flatten(tr)
+    loss, aux = loss_fn(tr, frozen, batch)
+    got = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+    by_name = {name: torch.zeros_like(leaf) if g is None else g
+               for (name, leaf), g in zip(flat.items(), got)}
+    grads = tree_map_with_path(lambda name, _: by_name[name], tr)
+    return loss.detach(), grads, {k: v.detach() for k, v in aux.items()}
+
+
+def make_train_step_with_aux(loss_fn, tx, grad_fn=None):
     """``train_step(trainable, frozen, opt_state, batch) -> (trainable,
     opt_state, loss, gnorm, aux)`` for ``loss_fn(trainable, frozen, batch)
     -> (loss, aux)`` and an optimizer ``tx`` (``engine/optim.py``).
@@ -78,17 +103,15 @@ def make_train_step_with_aux(loss_fn, tx):
     clipping; ``aux`` is the loss's dict of 0-d tensors, detached. When
     ``gnorm`` or the loss is not finite, the step leaves the params *and*
     the optimizer state as they were (the reference zeroes the gradients
-    and skips the batch). Nothing is read back to the host."""
+    and skips the batch). Nothing is read back to the host. ``grad_fn``
+    replaces :func:`loss_grads_and_aux` (the data-parallel steps of
+    :meth:`FunctionalTrainerMixin._setup_data_parallel`)."""
+    if grad_fn is None:
+        def grad_fn(trainable, frozen, batch):
+            return loss_grads_and_aux(loss_fn, trainable, frozen, batch)
 
     def train_step(trainable, frozen, opt_state, batch):
-        tr = tree_map_with_path(lambda _, t: t.detach().requires_grad_(True), trainable)
-        flat = flatten(tr)
-        loss, aux = loss_fn(tr, frozen, batch)
-        got = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
-        by_name = {name: torch.zeros_like(leaf) if g is None else g
-                   for (name, leaf), g in zip(flat.items(), got)}
-        grads = tree_map_with_path(lambda name, _: by_name[name], tr)
-        loss = loss.detach()
+        loss, grads, aux = grad_fn(trainable, frozen, batch)
         gnorm = global_norm(grads)
         finite = torch.isfinite(gnorm) & torch.isfinite(loss)
         updates, new_state = tx.update(grads, opt_state, trainable)
@@ -96,7 +119,7 @@ def make_train_step_with_aux(loss_fn, tx):
                                    trainable, updates)
         opt_state = tree_map_multi(lambda new, old: torch.where(finite, new, old),
                                    new_state, opt_state)
-        return trainable, opt_state, loss, gnorm, {k: v.detach() for k, v in aux.items()}
+        return trainable, opt_state, loss, gnorm, aux
 
     return train_step
 
@@ -112,6 +135,52 @@ def make_train_step(loss_fn, tx):
     return train_step
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices name the same device (``cuda`` is the current
+    card)."""
+    def index(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+
+    return torch.device(a).type == torch.device(b).type and index(a) == index(b)
+
+
+def _collective_device() -> torch.device:
+    """Where a ``torch.distributed`` collective's tensors live: the current
+    card under NCCL, the CPU under Gloo."""
+    if torch.distributed.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def all_gather_scalar(value: float) -> np.ndarray:
+    """``value`` from every process, in process order (fp64)."""
+    device = _collective_device()
+    mine = torch.tensor([value], dtype=torch.float64, device=device)
+    out = [torch.empty_like(mine) for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(out, mine)
+    return torch.cat(out).cpu().numpy()
+
+
+def all_reduce_mean(tree):
+    """The mean over processes of every leaf of ``tree`` (each on its own
+    device, any float dtype): one ``all_reduce`` of the leaves flattened
+    into one fp32 buffer, divided by the number of processes."""
+    flat = flatten(tree)
+    values = list(flat.values())
+    device = values[0].device
+    buf = torch.cat([v.detach().float().reshape(-1).to(device) for v in values])
+    torch.distributed.all_reduce(buf)
+    buf = buf / torch.distributed.get_world_size()
+    out, i = {}, 0
+    for name, v in flat.items():
+        out[name] = buf[i:i + v.numel()].reshape(v.shape).to(v.dtype).to(v.device)
+        i += v.numel()
+    return tree_map_with_path(lambda name, _: out[name], tree)
+
+
 def tree_finite(tree) -> bool:
     """The validity gate over a tree (reference ``check_weights_valid``,
     ``trainers/maple_fed.py:317-325``): every element of every non-None
@@ -121,36 +190,6 @@ def tree_finite(tree) -> bool:
     if not flags:
         return True
     return bool(torch.stack(flags).all())
-
-
-# --------------------------------------------------------------------------
-# settings that wait for a later item
-# --------------------------------------------------------------------------
-
-
-def check_ported_settings(cfg, device: torch.device) -> None:
-    """Raise ``NotImplementedError`` for a setting whose module the port
-    does not have yet, rather than ignore it."""
-    if cfg.TRAIN.PROFILE_DIR:
-        raise NotImplementedError(
-            "TRAIN.PROFILE_DIR: utils/profiling.py is not ported yet (ROADMAP.md module item 7)")
-    if cfg.TPU.DATA_PARALLEL_MULTIHOST:
-        raise NotImplementedError(
-            "TPU.DATA_PARALLEL_MULTIHOST: parallel/multihost.py is not ported yet "
-            "(ROADMAP.md module item 7)")
-    if tuple(cfg.TPU.MESH_SHAPE):
-        raise NotImplementedError(
-            "TPU.MESH_SHAPE: parallel/mesh.py is not ported yet (ROADMAP.md module item 7)")
-    if cfg.TRAIN.CHECKPOINT_BACKEND == "orbax":
-        raise NotImplementedError(
-            "TRAIN.CHECKPOINT_BACKEND orbax: engine/checkpoint_orbax.py is not ported yet "
-            "(ROADMAP.md module item 7); use pickle")
-    if (cfg.TPU.DATA_PARALLEL and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"TPU.DATA_PARALLEL over {torch.cuda.device_count()} visible devices: data "
-            "parallelism is not ported yet (ROADMAP.md module item 7); set "
-            "TPU.DATA_PARALLEL False or make one device visible")
 
 
 def resolve_attention_impl(cfg, device: torch.device) -> str:
@@ -175,7 +214,6 @@ class TrainerBase:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.check_cfg(cfg)
-        check_ported_settings(cfg, self.device)
 
         # module globals of the port, set before any model runs (as the JAX
         # package sets its own before tracing)
@@ -284,6 +322,7 @@ class TrainerBase:
         if not self.cfg.TEST.NO_TEST:
             if self.cfg.TEST.FINAL_MODEL == "best_val":
                 print("Deploy the model with the best val performance")
+                sync_hosts("best-val-checkpoint")  # process 0 wrote it
                 self.load_model(self.output_dir)
             self.test()
         self.save_model(self.epoch)
@@ -294,7 +333,12 @@ class TrainerBase:
         """One epoch; returns the mean loss. ``progress`` False (an
         aggregator's local epoch): no per-batch lines, and deferred
         summaries drained only every ``TRAIN.PRINT_FREQ`` steps and at the
-        end."""
+        end. Under ``TRAIN.PROFILE_DIR`` the epoch is traced into it
+        (``utils/profiling.py``)."""
+        with trace(self.cfg.TRAIN.PROFILE_DIR):
+            return self._run_epoch_inner(progress)
+
+    def _run_epoch_inner(self, progress: bool):
         self.set_model_mode("train")
         losses = []
         self.num_batches = len(self.train_loader_x)
@@ -406,6 +450,8 @@ class TrainerBase:
 
     # -- checkpointing ------------------------------------------------------------
     def save_model(self, epoch=None, directory="", is_best=False, val_result=None):
+        if not is_main_process():  # one writer across processes
+            return
         if not directory:
             directory = self.output_dir
         epoch = self.epoch if epoch is None else epoch
@@ -447,6 +493,7 @@ class TrainerBase:
             self._models[name]["set"](state_dict)
 
     def resume_model_if_exist(self, directory) -> int:
+        sync_hosts("resume-checkpoint")  # written by process 0
         start = 0
         for name in self.get_model_names():
             fpath = find_resume_checkpoint(osp.join(directory, name))
@@ -533,7 +580,9 @@ class FunctionalTrainerMixin:
         # stay on the device and drain in one transfer at print boundaries
         self._sync_steps = True
         self._pending_summaries = []
-        self._train_step = make_train_step_with_aux(self.loss_fn, self.tx)
+        self._setup_data_parallel(self.cfg)
+        self._train_step = make_train_step_with_aux(self.loss_fn, self.tx,
+                                                    self._dp_grad_fn())
 
         # optional eval fast path: eval_prepare_fn(trainable, frozen) ->
         # prepared (the image-free work, once per eval) and
@@ -541,6 +590,112 @@ class FunctionalTrainerMixin:
         self._eval_cache = None
         self._eval_prepare = getattr(self, "eval_prepare_fn", None)
         self._eval_apply = getattr(self, "eval_apply_fn", None)
+
+    # -- data parallelism ----------------------------------------------------
+    def _setup_data_parallel(self, cfg):
+        """``TPU.DATA_PARALLEL``, the reference's ``nn.DataParallel``
+        (``trainers/maple.py:510-514``) over the devices a step can use.
+
+        One process: with more than one visible device, the trainable and
+        frozen trees are replicated on each (the frozen copies made once per
+        source tensor), the batch is split along axis 0 where it divides
+        and replicated otherwise, and the shards' gradients, losses and aux
+        are averaged on the trainer's device before the clip and the
+        optimizer (:meth:`_dp_grad_fn`). Several processes
+        (``torch.distributed`` initialised with more than one, one card
+        each): only with ``TPU.DATA_PARALLEL_MULTIHOST``, opt-in as in the
+        JAX package because the federated trainers have their own
+        cross-process rules; each process's batch is its shard of the
+        global batch, and the gradients, loss and aux go through one
+        ``all_reduce`` and are divided by the number of processes."""
+        self._dp_devices = None
+        self._dp_multihost = False
+        if not getattr(cfg.TPU, "DATA_PARALLEL", True):
+            return
+        if process_count() > 1:
+            if not getattr(cfg.TPU, "DATA_PARALLEL_MULTIHOST", False):
+                return
+            self._dp_multihost = True
+            self._dp_verify_scalars = os.environ.get(
+                "FMM_TPU_MULTIHOST_VERIFY_SCALARS", "0").lower() not in ("0", "", "false", "off")
+            # the knob gates a collective in _dp_shard: a partial enable would
+            # leave the processes that skip it waiting there; checked once here
+            # (this gather runs on every process)
+            flags = all_gather_scalar(float(self._dp_verify_scalars))
+            if not np.all(flags == flags[0]):
+                raise ValueError(
+                    "FMM_TPU_MULTIHOST_VERIFY_SCALARS is set on some processes but not "
+                    f"others (per-process values {flags.astype(int).tolist()}); it gates a "
+                    "collective and must be identical on every process")
+            return
+        device = self.device
+        devices = _mesh.visible_devices(device)
+        if len(devices) <= 1:
+            return
+        # the trainer's device first: the shards' gradients meet there
+        i = next((i for i, d in enumerate(devices) if _same_device(d, device)), None)
+        if i is None:
+            raise ValueError(f"the trainer's device {device} is not one of the visible "
+                             f"devices {devices}")
+        self._dp_devices = [devices[i]] + devices[:i] + devices[i + 1:]
+
+    def _dp_shard(self, tree) -> list:
+        """``[(device, shard of tree)]``: single-process DP splits each leaf
+        whose axis 0 the devices divide and replicates the others (one
+        entry on the trainer's device when no leaf divides); multi-process
+        DP checks that this process's batch can be its shard (every leaf
+        with axis 0, non-empty; 0-d leaves are replicated and, with
+        ``FMM_TPU_MULTIHOST_VERIFY_SCALARS``, held equal across
+        processes)."""
+        device = self.device
+        if self._dp_multihost:
+            for name, x in flatten(tree).items():
+                if x.ndim >= 1 and x.shape[0] == 0:
+                    raise ValueError(
+                        f"multi-host DP requires every batch leaf's axis 0 ({x.shape[0]}) "
+                        "to be divisible by the local device count (1); pad the batch or "
+                        "change DATALOADER.*.BATCH_SIZE")
+                if x.ndim == 0 and self._dp_verify_scalars:
+                    gathered = all_gather_scalar(float(x))
+                    same = (gathered == gathered[0]) | (np.isnan(gathered)
+                                                       & np.isnan(gathered[0]))
+                    if not np.all(same):
+                        raise ValueError(
+                            f"0-d batch leaf {name} differs across processes (per-process "
+                            f"values {gathered}); multi-host DP replicates scalars and "
+                            "requires them identical everywhere")
+            return [(device, to_device(tree, device))]
+        devices = self._dp_devices or [device]
+        n = len(devices)
+
+        def divides(x):
+            return x.ndim >= 1 and x.shape[0] > 0 and x.shape[0] % n == 0
+
+        if n == 1 or not any(divides(x) for x in leaves(tree)):
+            return [(device, to_device(tree, device))]
+        return [(d, tree_map_with_path(
+            lambda _, x, j=j, d=d: (x.chunk(n)[j] if divides(x) else x).to(d), tree))
+            for j, d in enumerate(devices)]
+
+    def _dp_grad_fn(self):
+        """The gradient function of the data-parallel step, or ``None``
+        (the plain one) without data parallelism."""
+        if self._dp_devices is None and not self._dp_multihost:
+            return None
+        loss_fn = self.loss_fn
+
+        def grad_fn(trainable, frozen, batch):
+            home = self.device
+            shards = self._dp_shard(batch)
+            outs = [loss_grads_and_aux(loss_fn, to_device(trainable, d), replicate(frozen, d), b)
+                    for d, b in shards]
+            loss, grads, aux = (mean_over_devices([o[i] for o in outs], home)
+                                for i in range(3))
+            if self._dp_multihost:
+                loss, grads, aux = all_reduce_mean((loss, grads, aux))
+            return loss, grads, aux
+
+        return grad_fn
 
     def load_init_weights(self):
         """``cfg.MODEL.INIT_WEIGHTS``: load a checkpoint file into the
@@ -611,11 +766,25 @@ class FunctionalTrainerMixin:
 
     @torch.no_grad()
     def model_inference(self, images):
+        """The logits of ``images``. Under single-process DP the images are
+        split over the devices as a train batch is, and the logits gathered
+        on the trainer's device; under multi-process DP the eval is
+        process-local (each process evaluates its own loader's batches; the
+        trained state is the same in every process)."""
+        if self._eval_prepare is not None and self._eval_cache is None:
+            self._eval_cache = self._eval_prepare(self.trainable, self.frozen)
+        if getattr(self, "_dp_devices", None) is None:
+            return self._logits(self.trainable, self.frozen, images, self._eval_cache)
+        logits = [self._logits(to_device(self.trainable, d), replicate(self.frozen, d), imgs,
+                               None if self._eval_cache is None
+                               else to_device(self._eval_cache, d)).to(self.device)
+                  for d, imgs in self._dp_shard(images)]
+        return torch.cat(logits)
+
+    def _logits(self, trainable, frozen, images, prepared):
         if self._eval_prepare is not None:
-            if self._eval_cache is None:
-                self._eval_cache = self._eval_prepare(self.trainable, self.frozen)
-            return self._eval_apply(self.trainable, self.frozen, images, self._eval_cache)
-        return self.logits_fn(self.trainable, self.frozen, images)
+            return self._eval_apply(trainable, frozen, images, prepared)
+        return self.logits_fn(trainable, frozen, images)
 
     # -- LR schedule ----------------------------------------------------------
     def update_lr(self):

@@ -40,6 +40,7 @@ def build_maple_program(
     use_captions: bool = True,
     seed: int = 0,
     align_lambda: float = 0.5,
+    remat: bool = False,
     device=None,
 ):
     """Random-init MaPLe state, its loss and its eval functions.
@@ -56,7 +57,8 @@ def build_maple_program(
     image and its label's text feature), with ``exp(logit_scale)`` clamped
     at 100. ``eval_prepare_fn(trainable, frozen)`` computes the text
     features once; ``eval_apply_fn(trainable, frozen, images, prep)`` gives
-    the logits of an image batch.
+    the logits of an image batch. ``remat`` recomputes each block of both
+    towers in the loss's backward (``bench.py --remat``, ``TPU.REMAT``).
     """
     device = resolve_device(device)
     classnames = classnames or DEFAULT_CLASSNAMES
@@ -85,7 +87,7 @@ def build_maple_program(
     text_len = const.text_len
 
     logits_fn, loss_fn = make_maple_model_fns(arch, depth, text_len, use_captions,
-                                              align_lambda)
+                                              align_lambda, remat)
     eval_prepare_fn, eval_apply_fn = make_maple_eval_fns(arch, depth, text_len)
     return {
         "arch": arch,

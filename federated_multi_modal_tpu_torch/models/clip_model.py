@@ -68,6 +68,20 @@ def _broadcast_prompt(p: torch.Tensor, batch: int, dtype) -> torch.Tensor:
     return p
 
 
+def block_forward(x, blk, n_head: int, mask=None, remat: bool = False,
+                  inference: bool = False):
+    """One residual block (``ops/primitives.py::residual_block``); with
+    ``remat`` it runs under ``torch.utils.checkpoint`` (non-reentrant), as
+    the JAX package wraps each block in ``jax.checkpoint``
+    (``_block_fn``): its activations, the kernels' saved tensors included,
+    are dropped after the forward and recomputed in the backward, so the
+    block's forward kernels launch twice in a training step."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            residual_block, x, blk, n_head, mask, inference=inference, use_reentrant=False)
+    return residual_block(x, blk, n_head, mask, inference=inference)
+
+
 def encode_image(
     params,
     cfg: CLIPConfig,
@@ -75,6 +89,7 @@ def encode_image(
     shallow_prompts: Optional[torch.Tensor] = None,
     deep_prompts: Optional[Sequence[torch.Tensor]] = None,
     extra_tokens: Optional[torch.Tensor] = None,
+    remat: bool = False,
     inference: bool = False,
 ) -> torch.Tensor:
     """Vision transformer forward with prompt injection.
@@ -90,6 +105,8 @@ def encode_image(
         extra_tokens: ``(B, k, width)`` per-image conditioning tokens (the
             caption token), appended after the shallow prompts and
             re-injected after every deep prompt.
+        remat: each block's activations are recomputed in the backward
+            instead of kept (:func:`block_forward`).
         inference: no gradient flows into this tower; every block then
             takes the whole-block inference kernel (else a train kernel).
 
@@ -153,7 +170,7 @@ def encode_image(
                 if extra_tokens is not None:
                     tail.append(extra_tokens)
                 x = torch.cat([x[:, : x.shape[1] - n_tail], *tail], dim=1)
-            x = residual_block(x, blk, cfg.vision_heads, inference=inference)
+            x = block_forward(x, blk, cfg.vision_heads, remat=remat, inference=inference)
 
     pooled = layer_norm(x[:, 0, :], params["ln_post"])
     # fp32 products of the storage dtype's values, fp32 result
@@ -228,6 +245,7 @@ def encode_text_embedded(
     prompts: torch.Tensor,
     eot_index: torch.Tensor,
     deep_prompts: Optional[Sequence[torch.Tensor]] = None,
+    remat: bool = False,
     max_len: Optional[int] = None,
     pack: Optional[bool] = None,
 ) -> torch.Tensor:
@@ -241,7 +259,8 @@ def encode_text_embedded(
     and ``128 // T >= 2``, that many sequences share one row under a
     block-causal mask (the same per-sequence math, in attention-sized
     rows); with it off, every sequence is its own row under a causal
-    mask."""
+    mask. ``remat`` recomputes each block in the backward
+    (:func:`block_forward`)."""
     if max_len is not None and prompts.shape[1] > max_len:
         prompts = prompts[:, :max_len]
     dtype = params["text_projection"].dtype
@@ -271,7 +290,7 @@ def encode_text_embedded(
             xs = x.reshape(n_pad, T, d)
             xs = torch.cat([xs[:, :1], p, xs[:, 1 + n_ctx:]], dim=1)
             x = xs.reshape(x.shape)
-        x = residual_block(x, blk, cfg.transformer_heads, mask)
+        x = block_forward(x, blk, cfg.transformer_heads, mask, remat=remat)
 
     x = x.reshape(n_pad, T, d)[:N]
     x = layer_norm(x, params["ln_final"])

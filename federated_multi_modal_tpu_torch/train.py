@@ -8,7 +8,12 @@ flags -> freeform opts; the same ``log.txt`` under ``--output-dir``, the
 same checkpoints and the same printed lines.
 
 It runs on the card; ``FMM_TPU_PLATFORM=cpu`` (the variable the JAX
-package's ``train.py`` reads) asks for the CPU instead.
+package's ``train.py`` reads) asks for the CPU instead. A multi-process run
+(one process per card, ``TPU.DATA_PARALLEL_MULTIHOST True``) is started by
+``torchrun --nproc-per-node N -m federated_multi_modal_tpu_torch.train ...``
+or by setting ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+``JAX_PROCESS_ID`` in each process (``parallel/multihost.py``); process 0
+alone writes ``log.txt`` and the checkpoints.
 """
 
 from __future__ import annotations
@@ -18,6 +23,11 @@ import os
 
 from federated_multi_modal_tpu_torch.config import get_cfg_default
 from federated_multi_modal_tpu_torch.engine import build_trainer
+from federated_multi_modal_tpu_torch.parallel import (
+    initialize_multihost,
+    is_main_process,
+    process_count,
+)
 from federated_multi_modal_tpu_torch.utils import (
     collect_env_info,
     set_random_seed,
@@ -89,10 +99,16 @@ def platform_device():
 def main(args):
     """Build the trainer and train, or evaluate a checkpoint; returns the
     trainer."""
+    # a multi-process run's process group before anything else; a no-op
+    # for one process
+    multihost = initialize_multihost(backend="gloo" if platform_device() == "cpu" else None)
     cfg = setup_cfg(args)
     # the log.txt tee first, so the seed and environment land in the file
-    # tools/parse_test_res.py reads
-    setup_logger(cfg.OUTPUT_DIR)
+    # tools/parse_test_res.py reads; one writer across processes
+    if is_main_process():
+        setup_logger(cfg.OUTPUT_DIR)
+    if multihost:
+        print(f"Multi-host run: {process_count()} processes")
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
         set_random_seed(cfg.SEED)

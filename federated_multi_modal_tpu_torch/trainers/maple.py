@@ -192,9 +192,10 @@ def make_maple_eval_fns(arch, depth: int, text_len: int):
 
 
 def make_maple_model_fns(arch, depth: int, text_len: int, use_captions: bool,
-                         align_lambda: float):
+                         align_lambda: float, remat: bool = False):
     """``(logits_fn, loss_fn)`` of MaPLe over the ``{"model",
-    "prompt_const"}`` frozen layout. ``loss_fn(trainable, frozen, batch) ->
+    "prompt_const"}`` frozen layout; ``remat`` recomputes each block of both
+    towers in the backward (``TPU.REMAT``). ``loss_fn(trainable, frozen, batch) ->
     (loss, {"acc", "align"})`` for ``batch`` holding ``image (B, H, W, 3)``,
     ``label (B,)`` and optionally ``caption_tokens (B, 77)`` and
     ``soft_label (B, n_cls)`` (the KL branch)."""
@@ -210,10 +211,10 @@ def make_maple_model_fns(arch, depth: int, text_len: int, use_captions: bool,
                 m["prompt_learner"], m["clip"]["text"], caption_tokens)
         txt = encode_text_embedded(
             m["clip"]["text"], arch, prompts, pc["eot_index"],
-            deep_prompts=text_deep, max_len=text_len)
+            deep_prompts=text_deep, remat=remat, max_len=text_len)
         img = encode_image(
             m["clip"]["visual"], arch, images, shallow_prompts=shared_ctx,
-            deep_prompts=vis_deep, extra_tokens=extra)
+            deep_prompts=vis_deep, extra_tokens=extra, remat=remat)
         scale = torch.clamp(torch.exp(m["clip"]["logit_scale"].float()), max=100.0)
         return l2_normalize(img), l2_normalize(txt), scale
 
@@ -320,6 +321,7 @@ class MaPLe(FunctionalTrainerMixin, TrainerX):
             if tcfg.USE_CAPTIONS and not dataset_has_captions:
                 print(f"{self._tag}Dataset provides no captions; caption branch off")
         self.align_lambda = float(tcfg.ALIGN_LAMBDA)
+        remat = bool(cfg.TPU.REMAT)
 
         ctx_init = tcfg.CTX_INIT
         gen = torch.Generator().manual_seed(cfg.SEED if cfg.SEED >= 0 else 0)
@@ -353,7 +355,7 @@ class MaPLe(FunctionalTrainerMixin, TrainerX):
         self.depth = depth
 
         self.logits_fn, self.loss_fn = make_maple_model_fns(
-            arch, depth, const.text_len, self.use_captions, self.align_lambda)
+            arch, depth, const.text_len, self.use_captions, self.align_lambda, remat)
         self.eval_prepare_fn, self.eval_apply_fn = make_maple_eval_fns(
             arch, depth, const.text_len)
         self.setup_optimization()

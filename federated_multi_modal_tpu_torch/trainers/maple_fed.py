@@ -17,10 +17,14 @@ As in the JAX package, the clients share one frozen CLIP tower on the
 device (its leaves are the same tensors in every client) and FedAvg averages
 only the trainable trees, which equals the reference's full-state average
 since the frozen leaves are equal across clients; master weights are fp32.
-The JAX package's parallel round loop (``FED.PARALLEL_CLIENTS`` over a
-client mesh) is not ported (ROADMAP module item 7): where it would run,
-the port raises; where it falls back to the sequential rounds, so does the
-port, with the same line (:meth:`MaPLeFederated.parallel_would_run`).
+
+With ``FED.PARALLEL_CLIENTS``, where the visible devices tile the clients
+(:meth:`MaPLeFederated.parallel_would_run`; one card at ``FED.NUM_CLIENTS``
+1), the clients run in lockstep on a client mesh (``parallel/mesh.py``,
+``parallel/fedavg.py::build_parallel_fed_step``) and FedAvg is one mean
+over the stacked client axis; elsewhere the sequential rounds run, with the
+JAX package's line. ``TRAIN.CHECKPOINT_BACKEND orbax`` behaves as in the
+JAX package where orbax is not importable (:meth:`MaPLeFederated._resume_round`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import os
 import os.path as osp
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 from federated_multi_modal_tpu_torch.data.datasets.ucmerced import UCMERCED_RENAME_MAP
@@ -47,10 +52,13 @@ from federated_multi_modal_tpu_torch.engine.trainer import TrainerX, tree_finite
 from federated_multi_modal_tpu_torch.engine.tree import tree_map_with_path
 from federated_multi_modal_tpu_torch.models.params import load_clip_backbone
 from federated_multi_modal_tpu_torch.parallel import (
+    build_parallel_fed_step,
     fedavg_over_clients,
     stack_client_trees,
     unstack_client_trees,
 )
+from federated_multi_modal_tpu_torch.parallel import mesh as _mesh
+from federated_multi_modal_tpu_torch.parallel.multihost import process_count
 from federated_multi_modal_tpu_torch.trainers.maple import (
     MaPLe,
     dataset_provides_captions,
@@ -65,12 +73,6 @@ def safe_average_trees(trees):
     ``trainers/maple_fed.py:309-315``): stack, scrub and average in fp32
     over the clients (``parallel/fedavg.py``)."""
     return unstack_client_trees(fedavg_over_clients(stack_client_trees(list(trees))), 1)[0]
-
-
-def device_count(device: torch.device) -> int:
-    """The devices of ``device``'s kind a run could spread over: the visible
-    CUDA cards, or one CPU."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def copy_tree(tree):
@@ -95,20 +97,10 @@ class MaPLeFederated(TrainerX):
         super().__init__(cfg, device=device)
 
     def parallel_would_run(self, n_dev: int) -> bool:
-        """Whether the JAX package takes its parallel round loop over
-        ``n_dev`` devices (``trainers/maple_fed.py:251-260``): only where
+        """Whether the parallel round loop runs over ``n_dev`` devices
+        (``trainers/maple_fed.py:251-260`` of the JAX package): only where
         they tile the clients."""
         return n_dev >= self.num_clients and n_dev % max(1, self.num_clients) == 0
-
-    def check_cfg(self, cfg):
-        """``FED.PARALLEL_CLIENTS`` where the JAX package would run its
-        parallel round loop raises (the client mesh, ROADMAP item 7)."""
-        n_dev = device_count(self.device)
-        if cfg.FED.PARALLEL_CLIENTS and self.parallel_would_run(n_dev):
-            raise NotImplementedError(
-                f"FED.PARALLEL_CLIENTS with {self.num_clients} client(s) over {n_dev} "
-                "device(s): build_parallel_fed_step and the parallel round loop are not "
-                "ported yet (ROADMAP.md module item 7); set FED.PARALLEL_CLIENTS False")
 
     # ------------------------------------------------------------------
     # A) unified data loading (reference :48-159)
@@ -229,18 +221,22 @@ class MaPLeFederated(TrainerX):
     # C) federated round loop (reference :228-303)
     # ------------------------------------------------------------------
     def train(self):
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
+        # both round loops broadcast, average and checkpoint trees that live
+        # in this process: under several processes each would train its own
+        # aggregator and write the same files
+        if process_count() > 1:
             raise RuntimeError(
                 "MaPLeFederated.train() is single-process by design (like the "
-                "reference aggregator): the round loop broadcasts, averages and "
-                "checkpoints trees that live in this process. Run federated "
-                "training as ONE process; the parallel client mesh "
-                "(FED.PARALLEL_CLIENTS) is not ported yet (ROADMAP.md module item 7)."
-            )
+                "reference aggregator): the round loops broadcast, average and "
+                "checkpoint trees that live in this process. Run federated training "
+                "as ONE process; several devices are used in-process through the "
+                "client mesh (FED.PARALLEL_CLIENTS). Multi-process data parallelism "
+                "exists only for the single-site trainers (TPU.DATA_PARALLEL_MULTIHOST, "
+                "engine/trainer.py).")
         if self.cfg.FED.PARALLEL_CLIENTS:
-            self.check_cfg(self.cfg)
-            n_dev = device_count(self.device)
+            n_dev = len(_mesh.visible_devices(self.device))
+            if self.parallel_would_run(n_dev):
+                return self._train_parallel()
             print(
                 f"[FED] PARALLEL_CLIENTS requested but {n_dev} device(s) "
                 f"don't tile {self.num_clients} clients; falling back to "
@@ -250,9 +246,26 @@ class MaPLeFederated(TrainerX):
 
     def _resume_round(self) -> int:
         """Resume from the newest round checkpoint under ``RESUME``
-        (written with ``FED.CHECKPOINT_EVERY_ROUND``)."""
+        (written with ``FED.CHECKPOINT_EVERY_ROUND``). Under
+        ``TRAIN.CHECKPOINT_BACKEND orbax``, ``round-*.orbax`` directories
+        there raise (orbax is not available to the port) rather than
+        restart from round 0; without them the pickle rounds are read."""
         if not self.cfg.RESUME:
             return 0
+        if self.cfg.TRAIN.CHECKPOINT_BACKEND == "orbax":
+            # orbax-checkpoint is a JAX library and its tensorstore format
+            # needs JAX to read; the port imports neither, so it takes the
+            # JAX package's path for an orbax that is not importable: round
+            # checkpoints are written in the pickle format (_save_round) and
+            # orbax rounds found here are refused, never skipped.
+            found = glob.glob(osp.join(self.cfg.RESUME, AGGREGATOR_DIR, "round-*.orbax"))
+            rounds = [p for p in found
+                      if osp.basename(p)[len("round-"):-len(".orbax")].isdigit()]
+            if rounds:
+                raise RuntimeError(
+                    f"found {len(rounds)} orbax round checkpoint(s) under "
+                    f"{self.cfg.RESUME} but orbax-checkpoint is not importable — "
+                    "refusing to silently restart from round 0")
         rounds = []
         for path in glob.glob(osp.join(self.cfg.RESUME, AGGREGATOR_DIR, "model.pth.tar-round*")):
             try:
@@ -271,6 +284,8 @@ class MaPLeFederated(TrainerX):
     def _save_round(self, round_idx: int):
         if not self.cfg.FED.CHECKPOINT_EVERY_ROUND:
             return
+        if self.cfg.TRAIN.CHECKPOINT_BACKEND == "orbax":
+            print("[FED] orbax-checkpoint unavailable; falling back to pickle")
         checkpoint = {
             "epoch": (round_idx + 1) * self.local_epochs,
             "state_dict": flatten_params(self.global_weights),
@@ -348,6 +363,147 @@ class MaPLeFederated(TrainerX):
 
             self._save_round(round_idx)
 
+        self.finalize_training()
+
+    # ------------------------------------------------------------------
+    # C') the parallel round loop: clients in lockstep on a client mesh
+    #     (reference's sequential loop, the JAX package's SPMD loop)
+    # ------------------------------------------------------------------
+    def _train_parallel(self):
+        C = self.num_clients
+        mesh = _mesh.make_mesh_from_cfg(self.cfg, C, _mesh.visible_devices(self.device))
+        print(f"[FED] parallel clients over mesh {dict(mesh.shape)}")
+        client0 = self.clients[0]
+        tx = client0.tx
+        sched = client0.sched_fn
+        step = build_parallel_fed_step(client0.loss_fn, tx, mesh,
+                                       impl=getattr(self.cfg.TPU, "FED_STEP_IMPL", "auto"))
+        frozen = client0.frozen
+        global_tree = self.global_weights
+
+        def lr_of(epoch):
+            return torch.full((C,), sched(epoch), dtype=torch.float32, device=self.device)
+
+        def broadcast(global_tree):
+            # the sequential broadcast's schedule quirk: the first local
+            # epoch of each round runs at sched(0) whatever the global epoch
+            stacked = stack_client_trees([global_tree] * C)
+            opt = stack_client_trees([tx.init(global_tree)] * C)
+            opt["lr"] = lr_of(0)
+            return stacked, opt
+
+        def cycled(loader, n_steps):
+            """Exactly ``n_steps`` batches, the loader restarted (a fresh
+            shuffle) when it runs dry: the lockstep runs every client for
+            the largest client's epoch instead of truncating to the
+            smallest (the sequential loop runs each client's own epoch)."""
+            done = 0
+            while done < n_steps:
+                progressed = False
+                for b in loader:
+                    progressed = True
+                    yield b
+                    done += 1
+                    if done == n_steps:
+                        return
+                if not progressed:
+                    raise ValueError(
+                        "a client realizes zero train batches (shard smaller than "
+                        "DATALOADER.TRAIN_X.BATCH_SIZE with drop_last) — shrink the "
+                        "batch size or use the sequential round loop")
+
+        def stacked_batches(epoch_loaders_steps):
+            """The clients' batches of each step stacked to ``(C, B, ...)``."""
+            for steps in zip(*epoch_loaders_steps):
+                parsed = [trainer.parse_batch_train(b) for trainer, b in zip(self.clients, steps)]
+                keys = set(parsed[0])
+                for ci, p in enumerate(parsed[1:], 1):
+                    if set(p) != keys:
+                        raise ValueError(
+                            "FED.PARALLEL_CLIENTS requires homogeneous batch structure "
+                            f"across clients (client 0 has {sorted(keys)}, client {ci} has "
+                            f"{sorted(p)} — e.g. caption availability differs). Use the "
+                            "sequential round loop (FED.PARALLEL_CLIENTS False) for "
+                            "heterogeneous clients.")
+                yield {k: torch.stack([p[k] for p in parsed]) for k in parsed[0]}
+
+        start_round = self._resume_round()
+        if start_round:
+            global_tree = self.global_weights
+        lens = [len(t.train_loader_x) for t in self.clients]
+        steps_per_epoch = max(lens)
+        if len(set(lens)) > 1:
+            print(f"[FED] client epoch lengths differ {lens}; shorter clients cycle "
+                  f"(reshuffled) to {steps_per_epoch} steps so the SPMD lockstep covers "
+                  "every client's full epoch")
+
+        for round_idx in range(start_round, self.num_rounds):
+            print(f"\n--- Federated Round {round_idx + 1}/{self.num_rounds} (parallel) ---")
+            if not self.check_weights_valid(global_tree):
+                print("Invalid global weights detected! Skipping round.")
+                self.nan_stats["skipped_rounds"] += 1
+                continue
+
+            epoch0 = round_idx * self.local_epochs
+            stacked, opt = broadcast(global_tree)
+
+            # one program computes every client's step, so a runtime error
+            # mid-round is not one client's: the round fails loudly (no
+            # failed_clients accounting) and points at the sequential loop;
+            # invalid weights are still handled per client by the gate below
+            try:
+                losses = None
+                for le in range(self.local_epochs):
+                    loaders = [cycled(t.train_loader_x, steps_per_epoch) for t in self.clients]
+                    for batch in stacked_batches(loaders):
+                        stacked, opt, losses = step(stacked, frozen, opt, batch)
+                    # the per-epoch cosine step at the global epoch
+                    opt["lr"] = lr_of(epoch0 + le + 1)
+                if losses is not None:
+                    # the read is where an asynchronous CUDA error of the
+                    # steps above surfaces: inside the contract's region
+                    loss_vals = losses.cpu().numpy()
+                    print(f"[Round {round_idx + 1}] last-step losses per client = "
+                          f"{np.round(loss_vals, 4).tolist()}")
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"parallel federated round {round_idx + 1} failed mid-round; the "
+                    "SPMD lockstep cannot attribute a runtime error to one client — use "
+                    "FED.PARALLEL_CLIENTS False for per-client failure isolation") from e
+
+            # the validity gate, then FedAvg over the client axis
+            if self.check_weights_valid(stacked):
+                global_tree = unstack_client_trees(fedavg_over_clients(stacked), 1)[0]
+                self.nan_stats["total_updates"] += 1
+            else:
+                # per client, as the sequential gate: an invalid client is
+                # left out (not counted failed: that list is for exceptions)
+                valid = []
+                for ci, t in enumerate(unstack_client_trees(stacked, C)):
+                    if self.check_weights_valid(t):
+                        valid.append(t)
+                    else:
+                        print(f"Client {ci} produced invalid weights, skipping aggregation")
+                if valid:
+                    global_tree = safe_average_trees(valid)
+                    self.nan_stats["total_updates"] += 1
+                else:
+                    print("All clients failed! Reverting to previous global model.")
+                    self.nan_stats["skipped_rounds"] += 1
+
+            # the round's test on client 0 and its checkpoint, as the
+            # sequential loop does
+            self.global_weights = copy_tree(global_tree)
+            if self.check_weights_valid(global_tree):
+                self.broadcast_weights(self.global_weights, round_idx, advance=True)
+                test_res = self.clients[0].test()
+                print(f"[Round {round_idx + 1}] Test accuracy (client 0) = "
+                      f"{test_res['accuracy']:.2f}%")
+            else:
+                print("Global weights invalid after aggregation, skipping test.")
+            self._save_round(round_idx)
+
+        self.global_weights = copy_tree(global_tree)
         self.finalize_training()
 
     # ------------------------------------------------------------------

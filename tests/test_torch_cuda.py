@@ -1397,3 +1397,72 @@ def test_rn50_tower_against_the_cpu_fp32_run(gen, monkeypatch):
     assert gap() <= TOL_RN_TOWER
     monkeypatch.setattr(resnet, "mean_token", lambda tokens: tokens[:, :1])
     assert gap() > TOL_RN_TOWER
+
+
+# -- the distributed layer: remat and the parallel federated step --------------------
+
+
+@pytest.mark.parametrize("wgrad", [False, True], ids=["K3", "K4"])
+def test_fused_block_train_under_checkpoint(gen, wgrad):
+    """K3 and K4 inside ``torch.utils.checkpoint`` (non-reentrant, as
+    ``TPU.REMAT`` runs them): the same output and gradients, bit for bit, as
+    the same call without it; the forward launches twice (once more where
+    the backward recomputes it) and the backward once."""
+    B, T, D, H = 3, 200, 128, 2
+    p = _block_params(gen, D, torch.float32 if wgrad else torch.bfloat16, wgrad)
+    x = _randn(gen, B, T, D).requires_grad_(True)
+    dy = _randn(gen, B, T, D)
+    kernel = k_block.fused_block_train_dw if wgrad else k_block.fused_block_train
+    leaves = [x] + [p[a][b] for a, b in k_block.BLOCK_LEAVES if p[a][b].requires_grad]
+    out = kernel(x, p, H)
+    got = torch.autograd.grad(out, leaves, dy)
+    before = (kernel.launches, kernel.backward_launches)
+    out_c = torch.utils.checkpoint.checkpoint(kernel, x, p, H, use_reentrant=False)
+    got_c = torch.autograd.grad(out_c, leaves, dy)
+    torch.cuda.synchronize()
+    assert (kernel.launches - before[0], kernel.backward_launches - before[1]) == (2, 1)
+    assert torch.equal(out_c, out)
+    for g, r in zip(got_c, got):
+        assert torch.equal(g, r)
+
+
+def test_parallel_fed_step_one_client_on_the_card(gen):
+    """``build_parallel_fed_step`` on one card at one client (the mesh
+    ``{client: 1, data: 1}``): the plain local step, launching per step the
+    routing's kernels (Tiny: K1 and K1b 3, K3 2, K4 1), its loss within
+    2**-8 of the same step under ``TPU.ATTENTION_IMPL xla``, which launches
+    none; the parameters move and stay finite."""
+    from federated_multi_modal_tpu_torch import flagship
+    from federated_multi_modal_tpu_torch.engine.tree import leaves as tree_leaves
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.parallel import (
+        build_parallel_fed_step,
+        make_client_mesh,
+        stack_client_trees,
+    )
+
+    wrappers = {"K1": k_attn.packed_attention_masked, "K1b": k_attn.packed_attention_masked_bwd,
+                "K3": k_block.fused_block_train, "K4": k_block.fused_block_train_dw}
+    out = {}
+    for impl in ("pallas", "xla"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(primitives, "_ATTENTION_IMPL", impl)
+            prog = flagship.build_maple_program("Tiny", depth=3, seed=0, device="cuda")
+            mesh = make_client_mesh(1)
+            assert mesh.shape == {"client": 1, "data": 1}
+            tx = flagship.build_fed_optimizer()
+            step = build_parallel_fed_step(prog["loss_fn"], tx, mesh)
+            stacked = stack_client_trees([prog["trainable"]])
+            opt = stack_client_trees([tx.init(prog["trainable"])])
+            batch = {k: v[None] for k, v in
+                     flagship.example_batch(prog["arch"], 4, prog["n_cls"], device="cuda").items()}
+            for fn in wrappers.values():
+                fn.launches = 0
+            new, _, losses = step(stacked, prog["frozen"], opt, batch)
+            torch.cuda.synchronize()
+            out[impl] = (float(losses[0]), {k: fn.launches for k, fn in wrappers.items()})
+            assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(new))
+            assert not torch.equal(new["prompt_learner"]["ctx"], stacked["prompt_learner"]["ctx"])
+    assert out["pallas"][1] == {"K1": 3, "K1b": 3, "K3": 2, "K4": 1}, out["pallas"][1]
+    assert not any(out["xla"][1].values()), out["xla"][1]
+    assert abs(out["pallas"][0] - out["xla"][0]) <= 2.0 ** -8 * abs(out["xla"][0]), out

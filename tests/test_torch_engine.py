@@ -243,32 +243,64 @@ def test_unflatten_strict_shapes_raises():
     assert kept["a"] is tree["a"] and not used
 
 
-UNPORTED = [
-    ("TRAIN", "PROFILE_DIR", "/tmp/trace", "utils/profiling.py"),
+DIST_SETTINGS = [
+    ("TRAIN", "PROFILE_DIR", "trace", "utils/profiling.py"),
     ("TPU", "DATA_PARALLEL_MULTIHOST", True, "parallel/multihost.py"),
     ("TPU", "MESH_SHAPE", (2, 2), "parallel/mesh.py"),
 ]
 
 
-@pytest.mark.parametrize("section,key,value,module", UNPORTED,
-                         ids=[u[1] for u in UNPORTED])
-def test_settings_of_a_later_item_raise(section, key, value, module):
+@pytest.mark.parametrize("section,key,value,module", DIST_SETTINGS,
+                         ids=[u[1] for u in DIST_SETTINGS])
+def test_settings_of_a_later_item_raise(section, key, value, module, tmp_path, monkeypatch):
+    """(Named for what it held before these settings were ported; nothing
+    raises now.) The settings that raised until their module was ported
+    are read:
+    ``TRAIN.PROFILE_DIR`` traces into its directory, ``TPU.DATA_PARALLEL_
+    MULTIHOST`` leaves one process alone (no data parallelism without a
+    process group, as in the JAX package), ``TPU.MESH_SHAPE`` lays out the
+    client mesh."""
+    from federated_multi_modal_tpu_torch.parallel import mesh
+    from federated_multi_modal_tpu_torch.utils import profiling
+
     cfg = get_cfg_default()
-    cfg[section][key] = value
-    with pytest.raises(NotImplementedError, match=module):
-        port_trainer.check_ported_settings(cfg, torch.device("cpu"))
+    cfg[section][key] = str(tmp_path / value) if key == "PROFILE_DIR" else value
+    if key == "PROFILE_DIR":
+        with profiling.trace(cfg.TRAIN.PROFILE_DIR):
+            torch.ones(4).sum()
+        assert list(tmp_path.glob("trace/*.pt.trace.json")), module
+    elif key == "DATA_PARALLEL_MULTIHOST":
+        monkeypatch.setattr(mesh, "visible_devices", lambda device=None: [torch.device("cpu")])
+        t = port_trainer.FunctionalTrainerMixin.__new__(port_trainer.FunctionalTrainerMixin)
+        t.device = torch.device("cpu")
+        t._setup_data_parallel(cfg)
+        assert t._dp_devices is None and not t._dp_multihost, module
+    else:
+        got = mesh.make_mesh_from_cfg(cfg, 2, [torch.device("cpu")] * 4)
+        assert got.shape == {"client": 2, "data": 2}, module
 
 
 def test_data_parallel_over_devices_raises(monkeypatch):
-    """``TPU.DATA_PARALLEL`` has nothing to do on one device and raises
-    over more than one; off, it raises on none."""
+    """(Named for what it held before data parallelism was ported; nothing
+    raises now.) ``TPU.DATA_PARALLEL`` has nothing to do on one device and splits the
+    batch over more than one (the trainer's device first); off, it uses
+    none."""
+    from federated_multi_modal_tpu_torch.parallel import mesh
+
     cfg = get_cfg_default()
-    port_trainer.check_ported_settings(cfg, torch.device("cpu"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="DATA_PARALLEL"):
-        port_trainer.check_ported_settings(cfg, torch.device("cuda"))
+    t = port_trainer.FunctionalTrainerMixin.__new__(port_trainer.FunctionalTrainerMixin)
+    t.device = torch.device("cpu")
+    t._setup_data_parallel(cfg)
+    assert t._dp_devices is None
+    monkeypatch.setattr(mesh, "visible_devices", lambda device=None: [torch.device("cpu")] * 2)
+    t._setup_data_parallel(cfg)
+    assert t._dp_devices == [torch.device("cpu")] * 2
+    shards = t._dp_shard({"image": torch.arange(6.0).reshape(2, 3), "w": torch.tensor(1.0)})
+    assert [s["image"].tolist() for _, s in shards] == [[[0.0, 1.0, 2.0]], [[3.0, 4.0, 5.0]]]
+    assert all(float(s["w"]) == 1.0 for _, s in shards)
     cfg.TPU.DATA_PARALLEL = False
-    port_trainer.check_ported_settings(cfg, torch.device("cuda"))
+    t._setup_data_parallel(cfg)
+    assert t._dp_devices is None
 
 
 def test_attention_impl_auto_is_the_jax_rule():

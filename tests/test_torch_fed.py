@@ -39,7 +39,6 @@ from federated_multi_modal_tpu.ops import primitives as jax_prim
 from federated_multi_modal_tpu.trainers import maple_fed as jax_fed
 from federated_multi_modal_tpu_torch.config import get_cfg_default
 from federated_multi_modal_tpu_torch.engine import build_trainer
-from federated_multi_modal_tpu_torch.engine import trainer as port_trainer
 from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params, load_checkpoint
 from federated_multi_modal_tpu_torch.models import clip_model as port_clip
 from federated_multi_modal_tpu_torch.models import params as port_params
@@ -341,11 +340,12 @@ def test_a_non_runtime_error_propagates(feds, tmp_path):
 
 @pytest.mark.parametrize("n_dev,clients", [(1, 2), (8, 3), (8, 2), (1, 1), (4, 4)])
 def test_parallel_clients_setting(n_dev, clients, feds, monkeypatch, capsys):
-    """``FED.PARALLEL_CLIENTS`` over ``n_dev`` devices: where the JAX
-    package falls back to the sequential rounds, the port prints its line
-    and runs them; where it would run its parallel loop (the client mesh,
-    ROADMAP item 7), the port's settings check raises."""
-    sequential = []
+    """``FED.PARALLEL_CLIENTS`` over ``n_dev`` devices: both packages take
+    their parallel round loop where the devices tile the clients and
+    otherwise print the same line and run the sequential rounds."""
+    from federated_multi_modal_tpu_torch.parallel import mesh
+
+    choices = []
     for fed in (feds["jax"], feds["port"]):
         cfg = fed.cfg.clone()
         cfg.defrost()
@@ -355,31 +355,32 @@ def test_parallel_clients_setting(n_dev, clients, feds, monkeypatch, capsys):
         monkeypatch.setattr(fed, "cfg", cfg)
         monkeypatch.setattr(fed, "num_clients", clients)
         monkeypatch.setattr(fed, "_train_sequential", lambda: "sequential")
-    monkeypatch.setattr(feds["jax"], "_train_parallel", lambda: "parallel")
+        monkeypatch.setattr(fed, "_train_parallel", lambda: "parallel")
     monkeypatch.setattr(jax, "device_count", lambda: n_dev)
+    monkeypatch.setattr(mesh, "visible_devices", lambda device=None: [torch.device("cpu")] * n_dev)
     jax_choice = feds["jax"].train()
     jax_log = capsys.readouterr().out
-    monkeypatch.setattr(port_fed, "device_count", lambda device: n_dev)
-    if jax_choice == "parallel":
-        with pytest.raises(NotImplementedError, match="module item 7"):
-            feds["port"].check_cfg(feds["port"].cfg)
-        with pytest.raises(NotImplementedError, match="module item 7"):
-            feds["port"].train()
-        return
-    feds["port"].check_cfg(feds["port"].cfg)
-    sequential.append(feds["port"].train())
-    assert sequential == ["sequential"]
+    port_choice = feds["port"].train()
+    assert port_choice == jax_choice
     assert capsys.readouterr().out == jax_log
-    assert "falling back to sequential rounds" in jax_log
+    assert ("falling back to sequential rounds" in jax_log) == (jax_choice == "sequential")
 
 
-def test_orbax_backend_and_multiprocess_refused(feds, monkeypatch):
-    cfg = get_cfg_default()
+def test_orbax_backend_and_multiprocess_refused(feds, monkeypatch, tmp_path):
+    """Under ``TRAIN.CHECKPOINT_BACKEND orbax`` the port, which has no
+    orbax, refuses to resume from orbax round directories (rather than
+    restart from round 0); ``MaPLeFederated.train()`` refuses to run under
+    several processes."""
+    (tmp_path / AGG / "round-1.orbax").mkdir(parents=True)
+    cfg = feds["port"].cfg.clone()
+    cfg.defrost()
     cfg.TRAIN.CHECKPOINT_BACKEND = "orbax"
-    with pytest.raises(NotImplementedError, match="checkpoint_orbax"):
-        port_trainer.check_ported_settings(cfg, torch.device("cpu"))
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    cfg.RESUME = str(tmp_path)
+    cfg.freeze()
+    monkeypatch.setattr(feds["port"], "cfg", cfg)
+    with pytest.raises(RuntimeError, match="refusing to silently restart from round 0"):
+        feds["port"]._resume_round()
+    monkeypatch.setattr(port_fed, "process_count", lambda: 2)
     with pytest.raises(RuntimeError, match="single-process"):
         feds["port"].train()
 
