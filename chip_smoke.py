@@ -511,7 +511,7 @@ def attention_resources(build_log: str, rows: list) -> dict:
             if g:
                 entry = ("gemm_epilogue", (int(g[1]), int(g[2])))
             for plain in ("lnqkv_attention_bwd", "lnqkv_attention"):
-                if not m and f"{plain}_kernel" in line:
+                if not m and f"{plain}_kernelILi64E" in line:  # the microbench's width
                     entry = (plain, ())
                     break
             continue
@@ -5412,6 +5412,341 @@ def step_sweep(n_batches: int) -> None:
         print(f"  {key}: {min(values):.2f}-{max(values):.2f}")
 
 
+
+# -- the shapes the JAX package's kernels take (the limits phase) --------------
+#
+# Each shape where the JAX function runs its kernel and the port's CUDA
+# wrapper raised before PR 16, through the routed wrappers a caller reaches:
+# K1/K1b and K2/K2b at head widths 1, 2 and 4 (padded to 8), K8 at widths off
+# the multiple of 8 and past 128, P1/P2 at other head widths and past 256
+# tokens, P3 at heads of 8 and 16. Each against its plain version, a planted
+# fault that must fail the same check, the kernel's ms beside the plain
+# version's, SDPA's (with LayerNorm and the QKV product for P1 and P2) and
+# the bound. The main path runs none of these shapes: no backbone of the
+# repository has such heads.
+
+LIMIT_K1 = (200, 120, 128)  # MaPLe's packed text rows (5 prompts of 24), 128 columns
+LIMIT_K2 = (64, 200, 128)  # vision rows, 128 columns
+LIMIT_SMALL_HEADS = (1, 2, 4)
+LIMIT_K8 = (64, 257, 4)  # B, T, heads
+LIMIT_SPLIT_WIDTHS = (12, 30, 80, 96, 160, 272)
+LIMIT_LNQKV = ((16, 200), (30, 200), (32, 200), (128, 200), (160, 200), (64, 264))
+LIMIT_LNQKV_BATCH, LIMIT_LNQKV_HEADS = 64, 4
+LIMIT_P3 = (64, 200, 256)
+LIMIT_PAIR_HEADS = (8, 16)
+TOL_LIMIT_FWD = 2.0 ** -6  # K1's and K2's forward limit (elementwise)
+TOL_LIMIT_BWD = 2.0 ** -5  # the backward's, of the largest value
+TOL_LIMIT_LNQKV = 2.0 ** -5  # K7's limits, which P1 and P2 are held to
+
+
+def limits_phase(device) -> tuple:
+    """Every shape of the list above on seeded inputs. Returns ``(rows'
+    limit_shapes by row name, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=device).manual_seed(16)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    def heads(t, H):
+        B, T, D = t.shape
+        return t.reshape(B, T, H, D // H).transpose(1, 2)
+
+    shapes, checks = {}, []
+
+    def record(row, label, rec, held, fault):
+        checks.append((f"limits {label}", held))
+        checks.append((f"limits {label} planted fault caught", {"ok": not fault["ok"]}))
+        shapes.setdefault(row, []).append(dict(
+            rec, shape=label, max_abs_err=held["max_abs_err"], ok=held["ok"],
+            fault_max_err_over_tol=fault["max_err_over_tol"]))
+        print(f"limits {label}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+              f"err/tol {held['max_err_over_tol']:.3g}, fault {fault['max_err_over_tol']:.3g}")
+
+    def timed(fn, plain, lib, b, reps=10):
+        return {"ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain, 3, 1),
+                "library_ms": cuda_ms(lib, reps), "bound_ms": b[0], "bound_by": b[1]}
+
+    # K1/K1b (block-causal) and K2/K2b (no mask) at heads of 1, 2 and 4
+    for masked, (B, T, D) in ((True, LIMIT_K1), (False, LIMIT_K2)):
+        mask = primitives.build_block_causal_mask(5, 24, device=device) if masked else None
+        fwd_name, bwd_name = (("packed_attention_masked", "packed_attention_masked_bwd")
+                              if masked else ("packed_attention", "packed_attention_bwd"))
+        fwd = getattr(k_attn, fwd_name)
+        bwd = getattr(k_attn, bwd_name)
+        pairs = int(torch.isfinite(mask).sum()) if masked else T * T
+        for hd in LIMIT_SMALL_HEADS:
+            H = D // hd
+            qkv, g = randn(B, T, 3 * D), randn(B, T, D)
+            args = (qkv, mask, H) if masked else (qkv, H)
+            bargs = (qkv, g, mask, H) if masked else (qkv, g, H)
+            with torch.no_grad():
+                out = fwd(*args)
+            ref = k_attn.attention_core_reference(qkv, H, mask)
+            held = compare(out, ref, TOL_LIMIT_FWD)
+            # the kernel at the padded width's scale, not the true one's
+            fault = compare(k_attn.unpad_heads(k_attn.attention_core_cuda(
+                k_attn.pad_heads(qkv, H, 8), H, mask), H, hd, parts=1), ref, TOL_LIMIT_FWD)
+            q, k, v = (heads(t, H) for t in qkv.split(D, dim=-1))
+            sdpa_mask = None if mask is None else mask.to(qkv.dtype)
+
+            def sdpa(q=q, k=k, v=v, m=sdpa_mask):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+            with torch.no_grad():
+                rec = timed(lambda: fwd(*args),
+                            lambda: k_attn.attention_core_reference(qkv, H, mask), sdpa,
+                            bound(qkv.numel() * 2 + B * T * D * 2 + (T * T * 4 if masked else 0),
+                                  4 * B * H * hd * pairs))
+            record(fwd_name, f"{fwd_name} {[B, T, 3 * D]}, {H} heads of {hd}", rec, held, fault)
+
+            dqkv = bwd(*bargs)
+            ref_b = k_attn.attention_core_bwd_reference(qkv, g, H, mask)
+            held_b = compare_scaled(dqkv, ref_b, TOL_LIMIT_BWD)
+            fault_b = compare_scaled(k_attn.unpad_heads(k_attn.attention_core_bwd_cuda(
+                k_attn.pad_heads(qkv, H, 8), k_attn.pad_heads(g, H, 8, parts=1), H, mask),
+                H, hd), ref_b, TOL_LIMIT_BWD)
+            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+            gh = heads(g, H)
+            sdpa_f = cuda_ms(lambda: sdpa(qs, ks, vs), 10)
+            rec_b = timed(lambda: bwd(*bargs),
+                          lambda: k_attn.attention_core_bwd_reference(qkv, g, H, mask),
+                          lambda: torch.autograd.grad(sdpa(qs, ks, vs), (qs, ks, vs), gh),
+                          bound(2 * qkv.numel() * 2 + g.numel() * 2
+                                + (T * T * 4 if masked else 0), 10 * B * H * hd * pairs))
+            rec_b["library_ms"] -= sdpa_f
+            record(bwd_name, f"{bwd_name} {[B, T, 3 * D]}, {H} heads of {hd}", rec_b, held_b,
+                   fault_b)
+            del qkv, g, out, ref, dqkv, ref_b, q, k, v, qs, ks, vs, gh
+
+    # K8 through fused_attention_diff's forward at any head width, masked and not
+    B, T, H = LIMIT_K8
+    for hd in LIMIT_SPLIT_WIDTHS:
+        D = H * hd
+        qkv = randn(B, T, 3 * D)
+        q, k, v = qkv.split(D, dim=-1)
+        for causal in (False, True):
+            mask = primitives.build_causal_mask(T, device=device) if causal else None
+            with torch.no_grad():
+                out = k_attn.fused_attention(q, k, v, H, mask)
+            ref = k_attn.fused_attention_reference(q, k, v, H, mask)
+            held = compare(out, ref, TOL_LIMIT_FWD)
+            held["ok"] = held["ok"] and compare_scaled(out, ref, TOL_LIMIT_FWD)["ok"]
+            cut = torch.zeros(T, T, device=device)
+            cut[:, 64:] = float("-inf")  # every key past the first tile dropped
+            fault = compare_scaled(k_attn.fused_attention_cuda(
+                q, k, v, H, cut if mask is None else mask + cut), ref, TOL_LIMIT_FWD)
+            qh, kh, vh = (heads(t, H) for t in (q, k, v))
+            pairs = T * (T + 1) // 2 if causal else T * T
+            with torch.no_grad():
+                rec = timed(lambda: k_attn.fused_attention(q, k, v, H, mask),
+                            lambda: k_attn.fused_attention_reference(q, k, v, H, mask),
+                            lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal),
+                            bound(4 * B * T * D * 2 + (T * T * 4 if causal else 0),
+                                  4 * B * H * hd * pairs))
+            record("fused_attention", f"fused_attention {[B, T, D]}, {H} heads of {hd}, "
+                   + ("causal" if causal else "no mask"), rec, held, fault)
+        del qkv, q, k, v, out, ref
+
+    # P1 and P2 at other head widths and past 256 tokens
+    B, H = LIMIT_LNQKV_BATCH, LIMIT_LNQKV_HEADS
+    for hd, T in LIMIT_LNQKV:
+        D = H * hd
+        lnp = {"scale": torch.randn(D, generator=gen, device=device) * 0.1 + 1,
+               "bias": torch.randn(D, generator=gen, device=device) * 0.1}
+        w, b = randn(D, 3 * D, scale=D ** -0.5), randn(3 * D, scale=0.1)
+        x, dy = randn(B, T, D), randn(B, T, D)
+        kd = k_proto.lnqkv_head_width(hd)
+        route = "fused" if k_proto.lnqkv_fused(kd, T) else "streamed"
+        with torch.no_grad():
+            out = k_proto.fused_lnqkv_attention(x, lnp, w, b, H)
+        ref = k_block.ln_attention_forward(x, lnp, w, b, H, k_block.PLAIN_STEPS)
+        held = compare(out, ref, TOL_LIMIT_LNQKV)
+        w_fault = w.clone()
+        for h in range(H):  # each head's first q and v columns swapped
+            w_fault[:, [h * hd, 2 * D + h * hd]] = w_fault[:, [2 * D + h * hd, h * hd]]
+        fault = compare_scaled(k_proto.fused_lnqkv_attention(x, lnp, w_fault, b, H), ref,
+                               TOL_LIMIT_LNQKV)
+
+        def library(x=x, lnp=lnp, w=w, b=b, H=H, D=D):
+            qkv = F.linear(F.layer_norm(x, (D,), lnp["scale"].to(x.dtype),
+                                        lnp["bias"].to(x.dtype)), w.t(), b)
+            return F.scaled_dot_product_attention(
+                *(heads(t, H) for t in qkv.split(D, dim=-1))).transpose(1, 2).reshape(x.shape)
+
+        flops = 2 * B * T * D * 3 * D + 4 * B * T * T * D
+        with torch.no_grad():
+            rec = timed(lambda: k_proto.fused_lnqkv_attention(x, lnp, w, b, H),
+                        lambda: k_proto.fused_lnqkv_attention_reference(x, lnp, w, b, H),
+                        library, bound(2 * x.numel() * 2 + w.numel() * 2 + b.numel() * 2
+                                       + 2 * D * 4, flops), reps=5)
+        rec["route"] = route
+        record("fused_lnqkv_attention", f"fused_lnqkv_attention {[B, T, D]}, {H} heads of "
+               f"{hd} ({route})", rec, held, fault)
+
+        dx = k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy, H)
+        ref_dx = k_block.ln_attention_backward(x, dy, lnp, w, b, H, k_block.PLAIN_STEPS)[0]
+        held_b = compare_scaled(dx, ref_dx, TOL_LIMIT_LNQKV)
+        fault_b = compare_scaled(k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w_fault, b, dy, H),
+                                 ref_dx, TOL_LIMIT_LNQKV)
+        xg = x.detach().requires_grad_(True)
+        lib_f = cuda_ms(lambda: library(xg), 5)
+        rec_b = timed(lambda: k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy, H),
+                      lambda: k_proto.fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, H),
+                      lambda: torch.autograd.grad(library(xg), xg, dy),
+                      bound(3 * x.numel() * 2 + w.numel() * 2 + b.numel() * 2 + 2 * D * 4,
+                            2 * flops), reps=5)
+        rec_b["library_ms"] -= lib_f
+        rec_b["route"] = route
+        record("fused_lnqkv_attention_bwd_dx", f"fused_lnqkv_attention_bwd_dx {[B, T, D]}, "
+               f"{H} heads of {hd} ({route})", rec_b, held_b, fault_b)
+        del x, dy, w, w_fault, out, ref, dx, ref_dx, xg
+
+    # P3 at heads of 8 and 16
+    B, T, D = LIMIT_P3
+    for hd in LIMIT_PAIR_HEADS:
+        H = D // hd
+        qkv = randn(B, T, 3 * D)
+        out = k_proto.packed4d_attention(qkv, H)
+        ref = k_proto.packed4d_attention_reference(qkv, H)
+        held = compare(out, ref, TOL_LIMIT_FWD)
+        fault = compare_scaled(k_proto.packed4d_attention_cuda(qkv, H, valid_T=(T - 1) // 64 * 64),
+                               ref, TOL_LIMIT_FWD)
+        q, k, v = (heads(t, H) for t in qkv.split(D, dim=-1))
+        rec = timed(lambda: k_proto.packed4d_attention(qkv, H),
+                    lambda: k_proto.packed4d_attention_reference(qkv, H),
+                    lambda: F.scaled_dot_product_attention(q, k, v),
+                    bound(qkv.numel() * 2 + B * T * D * 2, 4 * B * H * hd * T * T))
+        record("packed4d_attention", f"packed4d_attention {[B, T, 3 * D]}, {H} heads of {hd}",
+               rec, held, fault)
+        del qkv, out, ref, q, k, v
+    torch.cuda.empty_cache()
+    return shapes, checks, {"shapes": sum(len(v) for v in shapes.values())}
+
+
+# -- the port's tools (the tools phase) -----------------------------------------
+
+TOOLS_CONFIG_YAML = "configs/trainers/CoOp/vit_b16.yaml"  # its TRAIN_X batch, 32
+TOL_TOOLS_FEATURES = 2.0 ** -5  # each feature row's relative L2 error against xla's
+
+
+def tools_phase(card: str, cfg_extra: dict = None, vision_layers: int = 12) -> tuple:
+    """The port's ``tools/lpclip/feat_extractor.py`` (``main``, as its
+    command line calls it) at ViT-B/16 from a seeded OpenAI-format state
+    dict, on the b2n phase's Caltech101 stand-in, test split, at
+    ``TOOLS_CONFIG_YAML``'s batch (its ``DATALOADER.TRAIN_X.BATCH_SIZE``,
+    which the tool reads):
+
+    * every count set to 0 just before and read just after: K5 launched once
+      per vision block and batch, as the routing implies, and no other
+      wrapper;
+    * the same run under the ``xla`` route (no kernel launched): each feature
+      row within ``TOL_TOOLS_FEATURES`` relative L2 of the kernel run's, and
+      a planted fault (K5's residual products leaving their last
+      ``PLANTED_FAULT_ROWS`` rows unwritten) must fail that;
+    * the ``.npz`` read back as ``tools/lpclip/linear_probe.py:94`` reads it;
+    * images/s, ms a batch and the loader's wait share (host clock; each
+      batch's features reach the host inside the loop).
+
+    ``cfg_extra`` overrides keys of the written configuration (a CPU
+    rehearsal's Tiny input size), ``vision_layers`` is the tower's depth.
+    Returns ``(launches by kernel label, checks, summary)``."""
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from federated_multi_modal_tpu_torch.data.seeded_trees import write_caltech101_tree
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+    from federated_multi_modal_tpu_torch.tools.lpclip import feat_extractor
+
+    checks, summary = [], {"card": card}
+    with tempfile.TemporaryDirectory(prefix="fmm_tools_") as tmp:
+        sd_path = os.path.join(tmp, "vit_b16_openai_fp16.pt")
+        summary["state_dict_write_s"] = write_openai_state_dict(sd_path)
+        root = os.path.join(tmp, "data")
+        write_caltech101_tree(root, B2N_PER_CLASS, seed=0)
+        with open(TOOLS_CONFIG_YAML) as f:
+            cfg = yaml.safe_load(f)
+        cfg.setdefault("MODEL", {}).setdefault("BACKBONE", {})["WEIGHTS_PATH"] = sd_path
+        for key, value in (cfg_extra or {}).items():
+            node = cfg
+            *parents, leaf = key.split(".")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = value
+        cfg_path = os.path.join(tmp, "feat.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        batch = cfg["DATALOADER"]["TRAIN_X"]["BATCH_SIZE"]
+
+        def run(label, out):
+            args = types.SimpleNamespace(
+                root=root, output_dir=os.path.join(tmp, out), config_file=cfg_path,
+                dataset_config_file=B2N_DATASET_YAML, backbone="", split="test",
+                num_shots=-1, seed=1)
+            reset_counts()
+            with patched(sys, stdout=sys.stdout):  # main tees it into log.txt
+                stats = feat_extractor.main(args)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            # as tools/lpclip/linear_probe.py:94 reads it
+            f = np.load(os.path.join(tmp, out, "Caltech101", "test.npz"))
+            feats, labels = np.asarray(f["feature_list"]), np.asarray(f["label_list"])
+            print(f"tools feat_extractor {label}: {stats['images']} images in "
+                  f"{stats['batches']} batches, {stats['seconds']:.2f} s, launches "
+                  f"{json.dumps(nonzero(counts))}")
+            return stats, counts, feats, labels
+
+        stats, counts, feats, labels = run("kernel routes", "kernels")
+        want = {"K5 fused_block_residual": vision_layers * stats["batches"]}
+        held = {"ok": nonzero(counts) == want, "got": nonzero(counts), "want": want}
+        checks.append(("tools feat_extractor launches as the routing implies", held))
+        with patched(primitives, _ATTENTION_IMPL="xla"):
+            _, xla_counts, xla_feats, xla_labels = run("xla route", "xla")
+        checks.append(("tools feat_extractor under xla launches no kernel",
+                       {"ok": not nonzero(xla_counts), "got": nonzero(xla_counts)}))
+        with patched(k_block, gemm_epilogue_cuda=fault_residual_gemm_tail(
+                k_block.gemm_epilogue_cuda)):
+            _, _, fault_feats, _ = run("planted fault", "fault")
+        gap = feature_gap(torch.from_numpy(feats), torch.from_numpy(xla_feats))
+        fault = feature_gap(torch.from_numpy(fault_feats), torch.from_numpy(xla_feats))
+        features = dict(gap, tol=TOL_TOOLS_FEATURES, ok=gap["max_rel_l2"] <= TOL_TOOLS_FEATURES)
+        checks += [("tools feat_extractor features vs xla", features),
+                   ("tools feat_extractor planted fault caught",
+                    {"ok": fault["max_rel_l2"] > TOL_TOOLS_FEATURES,
+                     "max_rel_l2": fault["max_rel_l2"]}),
+                   ("tools feat_extractor .npz read back",
+                    {"ok": bool(feats.shape == (stats["images"], xla_feats.shape[1])
+                                and feats.dtype == np.float64
+                                and np.array_equal(labels, xla_labels)
+                                and np.isfinite(feats).all()),
+                     "shape": list(feats.shape), "dtype": str(feats.dtype)})]
+        summary.update(
+            images=stats["images"], batch=batch, batches=stats["batches"],
+            seconds=stats["seconds"], images_per_s=stats["images"] / stats["seconds"],
+            ms_per_batch=stats["seconds"] * 1e3 / stats["batches"],
+            loader_wait_share=stats["loader_wait_seconds"] / stats["seconds"],
+            features_vs_xla=gap, planted_fault=fault)
+        print(f"tools feat_extractor: {summary['images_per_s']:.1f} images/s, "
+              f"{summary['ms_per_batch']:.2f} ms a batch of {batch}, loader wait "
+              f"{summary['loader_wait_share']:.3f}; features vs xla (relative L2, limit "
+              f"{TOL_TOOLS_FEATURES:.4g}): {gap['max_rel_l2']:.4g}, planted fault "
+              f"{fault['max_rel_l2']:.4g}")
+    return counts, checks, summary
+
+
 def main() -> int:
     import torch
 
@@ -5803,10 +6138,30 @@ def main() -> int:
         if launched:
             row.setdefault("paths", []).append("fedpar")
             row["launches_fedpar"] = launched
+    torch.cuda.empty_cache()
+
+    # -- 24. the port's tools (the tools phase) --------------------------------
+    t0 = time.perf_counter()
+    tools_launches, tools_checks, summary["tools"] = tools_phase(card)
+    summary["tools"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        launched = sum(n for label, n in tools_launches.items()
+                       if label.split(" ")[1] == row["name"] and "(backward)" not in label)
+        if launched:
+            row.setdefault("paths", []).append("tools")
+        row["launches_tools"] = launched
+    torch.cuda.empty_cache()
+
+    # -- 25. the shapes the JAX package's kernels take (the limits phase) -------
+    t0 = time.perf_counter()
+    limit_shapes, limit_checks, summary["limits"] = limits_phase(canvas.device)
+    summary["limits"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        row["limit_shapes"] = limit_shapes.get(row["name"], [])
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
                      + gemm_checks + ln_checks + cli_checks + fed_checks + b2n_checks
-                     + rn_checks + dist_checks)
+                     + rn_checks + dist_checks + tools_checks + limit_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

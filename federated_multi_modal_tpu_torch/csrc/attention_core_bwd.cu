@@ -48,7 +48,11 @@
 // 16 x 64 fp32 tiles (S^T, dP^T, dK, dV: 128 registers) at three blocks an
 // SM; above 64 it takes each streamed query tile in two halves of 32
 // (attn_bwd.cuh's N8 = 4), so that dK and dV of up to 128 columns fit
-// beside the scores at two blocks an SM.
+// beside the scores at two blocks an SM. One wider instance, head width 160
+// without a mask, serves the streamed route of P2 (lnqkv_attention_bwd_dx.cu)
+// at its widest projection instance: six 64-row tiles take 126 KB there, one
+// block an SM, and dK and dV (160 fp32 registers a thread) fit under the
+// 255-register cap beside the halved score tiles.
 #include <limits.h>
 
 #include "attn_bwd.cuh"
@@ -70,9 +74,9 @@ struct Pass {
   // query columns a dK/dV step takes: the whole 64-row tile, or half of it
   // where dK and dV are wider than 64
   static constexpr int kKeyN8 = HD <= 64 ? 8 : 4;
-  static constexpr int kKeyMinBlocks = HD <= 64 ? 3 : 2;
-  static constexpr int kQMinBlocks = HD <= 64 ? 4 : 2;
-  static constexpr int kQMinBlocksMasked = HD <= 64 ? 3 : 2;
+  static constexpr int kKeyMinBlocks = HD <= 64 ? 3 : HD <= 128 ? 2 : 1;
+  static constexpr int kQMinBlocks = HD <= 64 ? 4 : HD <= 128 ? 2 : 1;
+  static constexpr int kQMinBlocksMasked = HD <= 64 ? 3 : HD <= 128 ? 2 : 1;
 };
 
 struct Args {
@@ -327,7 +331,7 @@ int blocks_per_sm(int pass, int* blocks, int* smem_bytes) {
 // qkv (B, T, 3D) bf16, g (B, T, D) bf16, mask (T, T) fp32 or null, stats
 // (2, B, H, T) fp32 scratch (lse, then delta), dqkv (B, T, 3D) bf16; all
 // contiguous and 16-byte aligned, D = H * head width, the head width a
-// multiple of 8 up to 128. Launches the three passes.
+// multiple of 8 up to 128, or 160 without a mask. Launches the three passes.
 FMM_EXPORT int fmm_attention_core_bwd(const void* qkv, const void* g, const void* mask,
                                       void* stats, void* dqkv, int B, int T, int D, int H,
                                       float scale, void* stream) {
@@ -347,6 +351,8 @@ FMM_EXPORT int fmm_attention_core_bwd(const void* qkv, const void* g, const void
     return mask != nullptr ? launch<hd, true>(a, n, s) : launch<hd, false>(a, n, s);
     FMM_HEAD_DIMS(FMM_LAUNCH)
 #undef FMM_LAUNCH
+    case 160:
+      return mask != nullptr ? cudaErrorInvalidValue : launch<160, false>(a, n, s);
     default:
       return cudaErrorInvalidValue;
   }

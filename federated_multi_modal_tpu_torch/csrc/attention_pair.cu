@@ -6,8 +6,8 @@
 // Replaces the prototype TPU kernel tools/attn_microbench.py::_build_packed4d
 // (pallas_call at :351): K2's forward (attention_packed_fwd) computed as one
 // batched dot per 128-lane head group, grid (B // GB, D // 128), instead of a
-// loop over the group's heads, for the head widths its _packed_hp takes
-// here: 32, 64 and 128 (4, 2 and 1 heads a group). Numerics as K2's: fp32
+// loop over the group's heads, for every head width its _packed_hp takes
+// here: 8, 16, 32, 64 and 128 (16, 8, 4, 2 and 1 heads a group). Numerics as K2's: fp32
 // scores and softmax, p rounded to bf16 before P.V, fp32 P.V sums, bf16
 // output; keys at or past T (the TPU's padding) at -inf, or, for a planted
 // fault, at or past valid_T.
@@ -28,6 +28,17 @@
 // bound: each key tile costs two block barriers across all the group's
 // warps, and the softmax's expf and division run per score on the CUDA
 // cores.
+// Heads of 16 and 8: at four warps a head a group of 8 heads of 16 is 32
+// warps, 1,024 threads, the most a block may have, each held to 64
+// registers (the two-pass tile's 32 score and 8 output accumulators fit
+// beside the fragments; ptxas -v reports any spill); a group of 16 heads of
+// 8 would be 2,048. So heads of 8 run as heads of 16: the wrapper
+// (ops/kernels/prototypes.py::packed4d_attention_cuda) zero-pads each head's
+// q, k and v columns to 16, with the scale of the true width (zero columns
+// leave q.k unchanged; their P.V columns are sliced off), and one padded
+// 128-lane group carries 8 of the original heads. The Q.K^T contraction
+// runs in whole 16-column steps, so a head of 8 could not share a step with
+// its neighbour in any case.
 #include <limits.h>
 
 #include "attn_fwd.cuh"
@@ -107,7 +118,7 @@ int blocks_per_sm(int* blocks, int* smem_bytes) {
 }  // namespace
 
 // qkv (B, T, 3D) bf16, out (B, T, D) bf16, contiguous and 16-byte aligned;
-// D a multiple of 128 with heads of 32, 64 or 128 (H = D / head width);
+// D a multiple of 128 with heads of 16, 32, 64 or 128 (H = D / head width);
 // keys at or past valid_T (1 <= valid_T) get -inf, and keys in [T, valid_T)
 // are zero rows that take part.
 FMM_EXPORT int fmm_attention_pair(const void* qkv, void* out, int B, int T, int D, int H,
@@ -118,6 +129,8 @@ FMM_EXPORT int fmm_attention_pair(const void* qkv, void* out, int B, int T, int 
   const int hd = D / H;
   const bool one_pass = key_tiles(hd, valid_T) == 4;
   switch (hd) {
+    case 16:
+      return launch<16, 0>(qkv, out, B, T, D, valid_T, scale, s);
     case 32:
       return launch<32, 0>(qkv, out, B, T, D, valid_T, scale, s);
     case 64:
@@ -137,6 +150,8 @@ FMM_EXPORT int fmm_attention_pair_blocks_per_sm(int variant, int masked, int* bl
                                                 int* smem_bytes) {
   (void)masked;
   switch (variant) {
+    case 16:
+      return blocks_per_sm<16, 0>(blocks, smem_bytes);
     case 32:
       return blocks_per_sm<32, 0>(blocks, smem_bytes);
     case 64:

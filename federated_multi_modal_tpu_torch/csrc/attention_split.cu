@@ -1,6 +1,9 @@
 // attention_split: per (row b, head h) softmax(q k^T * scale + M) v over three
 // separate (B, T, D) bf16 operands, each with its own row stride, for any head
-// width that is a multiple of 8 up to 128 and any T.
+// width that is a multiple of 8 up to 128, or a multiple of 32 from 160 to
+// 288 (FMM_WIDE_HEAD_DIMS), and any T. The wrapper
+// (ops/kernels/attention.py::fused_attention_cuda) zero-pads every other
+// width up to 288 to the next of these, with the scale of the true width.
 //
 // Replaces federated_multi_modal_tpu/ops/pallas/attention.py fused_attention
 // (_attn_kernel_nomask at pallas_call :127, _attn_kernel at :147, body
@@ -30,7 +33,18 @@
 // zero-padded to the next 16 in shared memory for Q.K^T; P.V's columns go in
 // steps of 8. Shared memory is one Q tile and two stages of K and V, 5 x 64
 // rows of (16 ceil(HD / 16) + 8) bf16: 87 KB at HD = 128, 56 KB at HD = 80,
-// whatever T is. The Q fragments are read from shared memory at each use,
+// whatever T is.
+// Widths past 128: of the two ways to widen the kernel (a wider HD instance,
+// or 128-column chunks with q.k summed over the chunks and P.V written a
+// chunk at a time), this takes the wider instance: attn_fwd.cuh's tile
+// routine is generic in HD, the Q.K^T contraction reads its fragments from
+// shared memory step by step, and only the output accumulators (HD / 2 fp32
+// a thread) and the five tiles grow: 185 KB of shared memory and 144
+// accumulator registers at 288, one block an SM, under the 255-register
+// cap (ptxas -v reports the spills, if any, for each instance). A chunked
+// pass would recompute the scores once per chunk; the wider instance reads
+// each K and V tile once a pass. Past 288 the five tiles would outgrow the
+// SM's 227 KB, so the wrapper raises there. The Q fragments are read from shared memory at each use,
 // not held in registers, and the compiler is held to the registers that let as many
 // blocks share an SM as their shared memory allows (up to 4), for more warps
 // in flight. A warp whose 16 x 64 mask tile is all -inf skips that tile (its
@@ -120,7 +134,8 @@ int blocks_per_sm(int* blocks, int* smem_bytes) {
 // q, k, v (B, T, D) bf16 with row strides q_stride, k_stride, v_stride (in
 // elements; each a multiple of 8, batch stride T * row stride, 16-byte aligned
 // base), mask (T, T) fp32 contiguous or null, out (B, T, D) bf16 contiguous;
-// D = H * head_dim with head_dim a multiple of 8 up to 128.
+// D = H * head_dim with head_dim a multiple of 8 up to 128 or one of
+// FMM_WIDE_HEAD_DIMS.
 FMM_EXPORT int fmm_attention_split(const void* q, const void* k, const void* v, int q_stride,
                                    int k_stride, int v_stride, const void* mask, void* out,
                                    int B, int T, int D, int H, int head_dim, float scale,
@@ -134,6 +149,7 @@ FMM_EXPORT int fmm_attention_split(const void* q, const void* k, const void* v, 
   case n:             \
     return launch<n>(q, k, v, q_stride, k_stride, v_stride, mask, out, B, T, D, H, scale, s);
     FMM_HEAD_DIMS(FMM_LAUNCH)
+    FMM_WIDE_HEAD_DIMS(FMM_LAUNCH)
 #undef FMM_LAUNCH
     default:
       return cudaErrorInvalidValue;
@@ -151,6 +167,7 @@ FMM_EXPORT int fmm_attention_split_blocks_per_sm(int head_dim, int masked, int* 
     return masked ? blocks_per_sm<n, true>(blocks, smem_bytes)          \
                   : blocks_per_sm<n, false>(blocks, smem_bytes);
     FMM_HEAD_DIMS(FMM_OCCUPANCY)
+    FMM_WIDE_HEAD_DIMS(FMM_OCCUPANCY)
 #undef FMM_OCCUPANCY
     default:
       return cudaErrorInvalidValue;

@@ -37,6 +37,11 @@
 #define FMM_HEAD_DIMS(X) \
   X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64) X(72) X(80) X(88) X(96) X(104) X(112) X(120) X(128)
 
+// The wider instances of the split-head forward (attention_split.cu): head
+// widths past 128 in steps of 32 up to 288, each a whole Q, K and V tile
+// row in shared memory and HD / 2 fp32 output accumulators a thread.
+#define FMM_WIDE_HEAD_DIMS(X) X(160) X(192) X(224) X(256) X(288)
+
 namespace fmm {
 
 namespace attn_mma {

@@ -45,7 +45,14 @@
 //    or dbeta partials.
 // No sum crosses blocks, so P2 repeats bit for bit. T <= 256: 16 warps of 16
 // rows, and q, k, v and g of 256 rows (plus the GEMM stage's ring) take
-// 151 KB of shared memory, one block an SM.
+// 151 KB of shared memory, one block an SM. Built at head widths 16, 32 and
+// 64 (HD, as P1's fused kernel; the wrapper zero-pads other widths' W, bias
+// and dy columns to the next instance). Past 256 tokens, or at head widths
+// 128 and 160, where dK and dV of a warp's rows do not fit beside the scores
+// in 128 registers, the wrapper streams instead: q, k and v from P1's
+// fmm_lnqkv_project into a (B, T, 3 Dq) scratch, then attention_core_bwd.cu's
+// three passes (attn_bwd.cuh's key loop, keys streamed) into the d(QKV)
+// scratch, then steps 3 and 4 as here.
 #include "attn_bwd.cuh"
 #include "ln_qkv.cuh"
 
@@ -56,34 +63,36 @@ namespace am = fmm::attn_mma;
 namespace ab = fmm::attn_bwd;
 namespace lq = fmm::ln_qkv;
 
-constexpr int kHd = lq::kHd;
-constexpr int kLd = lq::kLd;
 constexpr int kN8 = 4;               // 32-column score tiles
 constexpr int kStep = 8 * kN8;       // keys or queries a step takes
 
 // Shared memory at T: ln_qkv.cuh's region (its ring, then q, k and v),
 // g_h (Tp rows), then lse and delta (Tp floats each).
+template <int HD>
 struct Layout {
   int Tp;
   size_t g_off, stats_off, bytes;
   __host__ __device__ explicit Layout(int T) {
-    const lq::Layout L(T);
+    const lq::Layout<HD> L(T);
     Tp = L.Tp;
     g_off = L.bytes;
-    stats_off = g_off + static_cast<size_t>(Tp) * kLd * sizeof(bf16);
+    stats_off = g_off + static_cast<size_t>(Tp) * lq::Split<HD>::kLd * sizeof(bf16);
     bytes = stats_off + 2 * static_cast<size_t>(Tp) * sizeof(float);
   }
 };
 
+template <int HD>
 __global__ void __launch_bounds__(lq::kThreads, 1)
     lnqkv_attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ W,
                                const bf16* __restrict__ bias, const float* __restrict__ gamma,
                                const float* __restrict__ beta, const float2* __restrict__ stats,
                                const bf16* __restrict__ dy, bf16* __restrict__ dqkv, int T,
-                               int D, int H, float scale) {
+                               int Dk, int H, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(T);
+  constexpr int kLd = lq::Split<HD>::kLd;
+  const Layout<HD> L(T);
   const int Tp = L.Tp;
+  const int Dq = H * HD;
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + static_cast<size_t>(Tp) * kLd;
   bf16* vs = ks + static_cast<size_t>(Tp) * kLd;
@@ -96,12 +105,12 @@ __global__ void __launch_bounds__(lq::kThreads, 1)
   // g_h, rows [0, Tp) (zeros at or past T): its copies join the LN -> QKV
   // stage's first copy group. lse and delta start at zero, the value the
   // rows at or past T keep (their probabilities and dS are zero).
-  const bf16* gb = dy + static_cast<size_t>(b) * T * D + h * kHd;
+  const bf16* gb = dy + static_cast<size_t>(b) * T * Dq + h * HD;
   for (int r0 = 0; r0 < Tp; r0 += am::kTile)
-    am::load_tile<kHd, lq::kThreads>(gs + r0 * kLd, kLd, gb, D, r0, T);
+    am::load_tile<HD, lq::kThreads>(gs + r0 * kLd, kLd, gb, Dq, r0, T);
   for (int i = threadIdx.x; i < 2 * Tp; i += lq::kThreads) lse[i] = 0.f;
-  lq::project_head(x + static_cast<size_t>(b) * T * D, W, bias, gamma, beta,
-                   stats + static_cast<size_t>(b) * T, T, D, h, qs);
+  lq::project_head_resident<HD>(x + static_cast<size_t>(b) * T * Dk, W, bias, gamma, beta,
+                                stats + static_cast<size_t>(b) * T, T, Dk, H, h, qs);
 
   const int row0 = (threadIdx.x >> 5) * 16;  // warp w: rows [16 w, 16 w + 16)
   const float inv_scale = 1.f / scale;
@@ -112,25 +121,25 @@ __global__ void __launch_bounds__(lq::kThreads, 1)
     float l[2] = {0.f, 0.f};
     float d[2] = {0.f, 0.f};
     for (int c = 0; c < T; c += kStep)
-      ab::stats_step<kHd, false, kN8>(m, l, d, nullptr, T, row0, c, scale, inv_scale, qs, gs,
-                                      row0, ks + c * kLd, vs + c * kLd);
+      ab::stats_step<HD, false, kN8>(m, l, d, nullptr, T, row0, c, scale, inv_scale, qs, gs,
+                                     row0, ks + c * kLd, vs + c * kLd);
     ab::stats_rows(m, l, d, row0, T, lse, delta);
   }
   __syncthreads();
   if (row0 >= T) return;
 
-  const size_t rs = 3 * static_cast<size_t>(D);
-  bf16* out = dqkv + static_cast<size_t>(b) * T * rs + h * kHd;
+  const size_t rs = 3 * static_cast<size_t>(Dq);
+  bf16* out = dqkv + static_cast<size_t>(b) * T * rs + h * HD;
   // 2. dK and dV of the warp's key rows.
   {
-    float dk[8][4], dv[8][4];
+    float dk[am::Shape<HD>::kNt][4], dv[am::Shape<HD>::kNt][4];
     ab::zero_tile(dk);
     ab::zero_tile(dv);
     for (int c = 0; c < T; c += kStep)
-      ab::dkdv_step<kHd, false, kN8>(dk, dv, nullptr, T, row0, c, scale, inv_scale, ks, vs,
-                                     row0, qs + c * kLd, gs + c * kLd, lse + c, delta + c);
-    ab::store_rows<kHd>(dk, out + D, rs, row0, T);
-    ab::store_rows<kHd>(dv, out + 2 * D, rs, row0, T);
+      ab::dkdv_step<HD, false, kN8>(dk, dv, nullptr, T, row0, c, scale, inv_scale, ks, vs,
+                                    row0, qs + c * kLd, gs + c * kLd, lse + c, delta + c);
+    ab::store_rows<HD>(dk, out + Dq, rs, row0, T);
+    ab::store_rows<HD>(dv, out + 2 * Dq, rs, row0, T);
   }
   // 3. dQ of the warp's query rows.
   const int lane = threadIdx.x & 31;
@@ -140,55 +149,76 @@ __global__ void __launch_bounds__(lq::kThreads, 1)
     lse_r[r] = lse[row0 + (lane >> 2) + 8 * r];
     delta_r[r] = delta[row0 + (lane >> 2) + 8 * r];
   }
-  float dq[8][4];
+  float dq[am::Shape<HD>::kNt][4];
   ab::zero_tile(dq);
   for (int c = 0; c < T; c += kStep)
-    ab::dq_step<kHd, false, kN8>(dq, nullptr, T, row0, c, scale, inv_scale, qs, gs, row0,
-                                 ks + c * kLd, vs + c * kLd, lse_r, delta_r);
-  ab::store_rows<kHd>(dq, out, rs, row0, T);
+    ab::dq_step<HD, false, kN8>(dq, nullptr, T, row0, c, scale, inv_scale, qs, gs, row0,
+                                ks + c * kLd, vs + c * kLd, lse_r, delta_r);
+  ab::store_rows<HD>(dq, out, rs, row0, T);
 }
 
+template <int HD>
 cudaError_t allow_smem(size_t bytes) {
-  return cudaFuncSetAttribute(lnqkv_attention_bwd_kernel,
+  return cudaFuncSetAttribute(lnqkv_attention_bwd_kernel<HD>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
-}  // namespace
-
-// x and dy (B, T, D) bf16, W (D, 3D) bf16, bias (3D,) bf16, gamma and beta
-// (D,) fp32, stats a (B, T, 2) fp32 scratch for the LN moments, dqkv
-// (B, T, 3D) bf16 out; contiguous and 16-byte aligned; D = 64 H; T <= 256.
-// Launches the moments and the attention backward.
-FMM_EXPORT int fmm_lnqkv_attention_bwd_dqkv(const void* x, const void* W, const void* bias,
-                                            const void* gamma, const void* beta, const void* dy,
-                                            void* stats, void* dqkv, int B, int T, int D, int H,
-                                            float scale, void* stream) {
-  if (T < 1 || T > lq::kMaxT || B < 1 || H < 1 || D != H * kHd) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = lq::launch_moments(static_cast<const bf16*>(x), static_cast<float2*>(stats),
-                                       B * T, D, s);
+template <int HD>
+int launch(const void* x, const void* W, const void* bias, const void* gamma, const void* beta,
+           const void* dy, const void* stats, void* dqkv, int B, int T, int Dk, int H,
+           float scale, cudaStream_t s) {
+  const size_t smem = Layout<HD>(T).bytes;
+  const cudaError_t err = allow_smem<HD>(smem);
   if (err != cudaSuccess) return err;
-  const size_t smem = Layout(T).bytes;
-  if ((err = allow_smem(smem)) != cudaSuccess) return err;
-  lnqkv_attention_bwd_kernel<<<B * H, lq::kThreads, smem, s>>>(
+  lnqkv_attention_bwd_kernel<HD><<<B * H, lq::kThreads, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(W), static_cast<const bf16*>(bias),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const float2*>(stats), static_cast<const bf16*>(dy),
-      static_cast<bf16*>(dqkv), T, D, H, scale);
+      static_cast<bf16*>(dqkv), T, Dk, H, scale);
   return cudaGetLastError();
 }
 
-// Resident blocks per SM of the attention kernel at T tokens into *blocks,
-// its dynamic shared memory into *smem_bytes; `masked` is unused.
+}  // namespace
+
+// x (B, T, Dk) bf16 (the model's D columns, then zeros), W (Dk, 3 H HD)
+// bf16, bias (3 H HD,) bf16, gamma and beta (Dk,) fp32, dy (B, T, H HD)
+// bf16, stats a (B, T, 2) fp32 scratch for the LN moments, dqkv
+// (B, T, 3 H HD) bf16 out; contiguous and 16-byte aligned; Dk a multiple of
+// 64; head width HD 16, 32 or 64; T <= 256. Launches the moments and the
+// attention backward.
+FMM_EXPORT int fmm_lnqkv_attention_bwd_dqkv(const void* x, const void* W, const void* bias,
+                                            const void* gamma, const void* beta, const void* dy,
+                                            void* stats, void* dqkv, int B, int T, int D,
+                                            int Dk, int H, int HD, float scale, void* stream) {
+  if (T < 1 || T > lq::kMaxT || B < 1 || H < 1 || D < 1 || D > Dk || Dk % lq::kBk)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = lq::launch_moments(static_cast<const bf16*>(x),
+                                             static_cast<float2*>(stats), B * T, D, Dk, s);
+  if (err != cudaSuccess) return err;
+  switch (HD) {
+#define FMM_LAUNCH(n) \
+  case n:             \
+    return launch<n>(x, W, bias, gamma, beta, dy, stats, dqkv, B, T, Dk, H, scale, s);
+    FMM_LAUNCH(16) FMM_LAUNCH(32) FMM_LAUNCH(64)
+#undef FMM_LAUNCH
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Resident blocks per SM of the attention kernel at head width 64 and T
+// tokens into *blocks, its dynamic shared memory into *smem_bytes; `masked`
+// is unused.
 FMM_EXPORT int fmm_lnqkv_attention_bwd_dqkv_blocks_per_sm(int T, int masked, int* blocks,
                                                           int* smem_bytes) {
   (void)masked;
   if (T < 1 || T > lq::kMaxT) return cudaErrorInvalidValue;
-  const size_t smem = Layout(T).bytes;
-  const cudaError_t err = allow_smem(smem);
+  const size_t smem = Layout<64>(T).bytes;
+  const cudaError_t err = allow_smem<64>(smem);
   if (err != cudaSuccess) return err;
   *smem_bytes = static_cast<int>(smem);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lnqkv_attention_bwd_kernel,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lnqkv_attention_bwd_kernel<64>,
                                                        lq::kThreads, smem);
 }

@@ -60,11 +60,16 @@ _SIGNATURES = {
                                _I, _F, _P],
     # x, x_f32, out, rows, N, splits, rows_per_split, stream
     "fmm_column_sum": [_P, _I, _P, _L, _L, _I, _L, _P],
-    # x, W, bias, gamma, beta, stats scratch, out, B, T, D, H, scale, stream
-    "fmm_lnqkv_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, W, bias, gamma, beta, dy, stats scratch, dqkv, B, T, D, H, scale,
+    # x, W, bias, gamma, beta, stats scratch, out, B, T, D, Dk, H, head width,
+    # scale, stream
+    "fmm_lnqkv_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, W, bias, gamma, beta, stats scratch, qkv, B, T, D, Dk, H, head width,
     # stream
-    "fmm_lnqkv_attention_bwd_dqkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "fmm_lnqkv_project": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, W, bias, gamma, beta, dy, stats scratch, dqkv, B, T, D, Dk, H, head
+    # width, scale, stream
+    "fmm_lnqkv_attention_bwd_dqkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _F, _P],
     # A, B, C, M, N, K, stream
     "fmm_gemm_nt_f32": [_P, _P, _P, _I, _I, _I, _P],
     # qkv, out, B, T, D, H, valid_T, scale, stream

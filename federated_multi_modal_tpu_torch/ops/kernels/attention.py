@@ -30,7 +30,15 @@ device memory: the forward in one pass over the key tiles (rows of up to 256
 keys at head widths up to 64) or two (statistics, then P.V), the backward in
 three (row statistics, dK and dV, dQ) with two fp32 ``(B, H, T)`` scratch
 vectors between them; see the sources for what keeps them off their bounds.
-Both take any T and any head width that is a multiple of 8 up to 128.
+Both kernels take any T and any head width that is a multiple of 8 up to
+128. The routed wrappers (:func:`packed_attention`,
+:func:`packed_attention_masked` and their backward) take every head width the
+JAX package's routing sends them: a width off the multiple of 8 (1, 2 and 4
+among the divisors of 128 that ``_packed_hp`` admits) is zero-padded to the
+next multiple of 8 in each head's q, k and v columns (:func:`pad_heads`),
+with the scale of the true width, and the output (or d(QKV)) is sliced back
+(:func:`unpad_heads`): zero columns leave q.k unchanged, and their P.V columns
+are dropped.
 """
 
 from __future__ import annotations
@@ -58,21 +66,23 @@ def full_fp32_products():
 
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              n_head: int, attn_mask: torch.Tensor | None = None
-                              ) -> torch.Tensor:
+                              n_head: int, attn_mask: torch.Tensor | None = None,
+                              scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch attention over ``(B, T, D)`` q, k and v with the TPU
     kernels' numerics (``_attn_body``): fp32 scores and softmax (products
     of the storage dtype's values, exact in fp32, TF32 off), the additive
     mask, ``p`` rounded to the storage dtype before P.V, fp32 P.V sums,
-    output in the storage dtype. Differentiable by autograd."""
+    output in the storage dtype; ``scale`` defaults to ``1 / sqrt(head
+    width)``. Differentiable by autograd."""
     B, T, D = q.shape
     hd = D // n_head
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
 
     def heads(t):
         return t.reshape(B, T, n_head, hd).transpose(1, 2).float()
 
     with full_fp32_products():
-        s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * scale
         if attn_mask is not None:
             s = s + attn_mask.float()
         p = torch.softmax(s, dim=-1).to(q.dtype)
@@ -81,18 +91,44 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_core_reference(qkv: torch.Tensor, n_head: int,
-                             mask: torch.Tensor | None = None) -> torch.Tensor:
+                             mask: torch.Tensor | None = None,
+                             scale: float | None = None) -> torch.Tensor:
     """Plain version of ``attention_core.cu``: :func:`fused_attention_reference`
     over the column split of a packed ``(B, T, 3D)`` QKV tensor."""
     q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
-    return fused_attention_reference(q, k, v, n_head, mask)
+    return fused_attention_reference(q, k, v, n_head, mask, scale)
+
+
+def kernel_head_width(hd: int) -> int:
+    """The head width the attention kernels run a head of ``hd`` at: ``hd``
+    itself where it is a multiple of 8, else the next multiple of 8."""
+    return -(-hd // 8) * 8
+
+
+def pad_heads(x: torch.Tensor, n_head: int, to: int, parts: int = 3) -> torch.Tensor:
+    """``x (B, T, parts * n_head * hd)`` (q, k and v of every head side by
+    side for ``parts`` 3; one part for an output or its cotangent) with each
+    head's columns zero-padded from ``hd`` to ``to``: ``(B, T, parts *
+    n_head * to)``, contiguous."""
+    B, T, W = x.shape
+    hd = W // (parts * n_head)
+    return torch.nn.functional.pad(x.reshape(B, T, parts, n_head, hd),
+                                   (0, to - hd)).reshape(B, T, parts * n_head * to)
+
+
+def unpad_heads(x: torch.Tensor, n_head: int, hd: int, parts: int = 3) -> torch.Tensor:
+    """The inverse slice of :func:`pad_heads`: each head's first ``hd``
+    columns of ``x (B, T, parts * n_head * to)``."""
+    B, T, W = x.shape
+    to = W // (parts * n_head)
+    return x.reshape(B, T, parts, n_head, to)[..., :hd].reshape(B, T, parts * n_head * hd)
 
 
 def _attention_core_args(qkv: torch.Tensor, n_head: int, mask: torch.Tensor | None,
-                         valid_T: int | None) -> tuple:
+                         valid_T: int | None, scale: float | None = None) -> tuple:
     """The arguments of ``attention_core.cu``'s entry points after the
     checks of what it takes: qkv, the fp32 mask or None, the output, B, T,
-    D, heads, valid_T and the scale."""
+    D, heads, valid_T and the scale (``1 / sqrt(head width)`` unless given)."""
     B, T, D3 = qkv.shape
     D = D3 // 3
     if not qkv.is_cuda:
@@ -115,18 +151,20 @@ def _attention_core_args(qkv: torch.Tensor, n_head: int, mask: torch.Tensor | No
             raise ValueError(f"mask must be ({T}, {T}) on {qkv.device}")
         mask = mask.to(torch.float32).contiguous()
     out = torch.empty(B, T, D, dtype=qkv.dtype, device=qkv.device)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     return (qkv.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, T, D, n_head, valid_T, 1.0 / math.sqrt(hd)), out
+            B, T, D, n_head, valid_T, scale), out
 
 
 def attention_core_cuda(qkv: torch.Tensor, n_head: int,
                         mask: torch.Tensor | None = None,
-                        valid_T: int | None = None) -> torch.Tensor:
+                        valid_T: int | None = None, scale: float | None = None) -> torch.Tensor:
     """Launch ``attention_core.cu`` on a CUDA ``(B, T, 3D)`` bf16 tensor,
     any T, head widths that are multiples of 8 up to 128; keys at or past
-    ``valid_T`` (default T: none) get ``-inf``. The kernel chooses one pass
-    over the key tiles or two (:func:`attention_core_key_tiles`)."""
-    args, out = _attention_core_args(qkv, n_head, mask, valid_T)
+    ``valid_T`` (default T: none) get ``-inf``; ``scale`` defaults to ``1 /
+    sqrt(head width)``. The kernel chooses one pass over the key tiles or
+    two (:func:`attention_core_key_tiles`)."""
+    args, out = _attention_core_args(qkv, n_head, mask, valid_T, scale)
     _build.launch("fmm_attention_core", *args)
     return out
 
@@ -150,19 +188,21 @@ def _attention_core_cuda_forced(qkv: torch.Tensor, n_head: int, key_tiles: int,
 
 
 def attention_core_bwd_reference(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
-                                 mask: torch.Tensor | None = None) -> torch.Tensor:
+                                 mask: torch.Tensor | None = None,
+                                 scale: float | None = None) -> torch.Tensor:
     """Plain d(QKV) of :func:`attention_core_reference` for the output
     cotangent ``g (B, T, D)``, with the TPU kernels' numerics
     (``_packed_bwd_body``): the fp32 probabilities recomputed; ``p`` rounded
     to the storage dtype for dV = P^T g; dP = g v^T and rowsum(dP * P) over
     the fp32 P; dS = P * (dP - rowsum) * scale rounded to the storage dtype
-    before dQ = dS k and dK = dS^T q; fp32 sums; the mask gets no gradient.
-    Returns the packed ``(B, T, 3D)`` gradient in the storage dtype."""
+    before dQ = dS k and dK = dS^T q; fp32 sums; the mask gets no gradient;
+    ``scale`` defaults to ``1 / sqrt(head width)``. Returns the packed
+    ``(B, T, 3D)`` gradient in the storage dtype."""
     B, T, D3 = qkv.shape
     D = D3 // 3
     hd = D // n_head
     dt = qkv.dtype
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
 
     def heads(t):
         return t.reshape(B, T, n_head, hd).transpose(1, 2).float()
@@ -183,11 +223,18 @@ def attention_core_bwd_reference(qkv: torch.Tensor, g: torch.Tensor, n_head: int
                      dim=-1)
 
 
+# The head widths ``attention_core_bwd.cu`` is built for: multiples of 8 up
+# to 128, and 160 without a mask (the streamed route of P2, prototypes.py).
+BWD_WIDE_HEAD_DIM = 160
+
+
 def attention_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
-                            mask: torch.Tensor | None = None) -> torch.Tensor:
+                            mask: torch.Tensor | None = None,
+                            scale: float | None = None) -> torch.Tensor:
     """Launch ``attention_core_bwd.cu`` on CUDA bf16 ``qkv (B, T, 3D)`` and
-    ``g (B, T, D)``, any T, head widths that are multiples of 8 up to 128;
-    its row statistics (log-sum-exp and rowsum(dP * P), fp32 ``(B, H, T)``
+    ``g (B, T, D)``, any T, head widths that are multiples of 8 up to 128
+    (or 160 without a mask); ``scale`` defaults to ``1 / sqrt(head width)``.
+    Its row statistics (log-sum-exp and rowsum(dP * P), fp32 ``(B, H, T)``
     each) go through scratch allocated here."""
     B, T, D3 = qkv.shape
     D = D3 // 3
@@ -199,10 +246,11 @@ def attention_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
                 f"CUDA {name} of shape {shape}, got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}")
     hd = D // n_head
-    if D3 != 3 * D or D != n_head * hd or hd % 8 or hd > 128:
+    wide = hd == BWD_WIDE_HEAD_DIM and mask is None
+    if D3 != 3 * D or D != n_head * hd or ((hd % 8 or hd > 128) and not wide):
         raise ValueError(
-            f"attention_core_bwd takes head widths that are multiples of 8 up to 128: "
-            f"D={D}, {n_head} heads")
+            f"attention_core_bwd takes head widths that are multiples of 8 up to 128 "
+            f"(or {BWD_WIDE_HEAD_DIM} without a mask): D={D}, {n_head} heads")
     if mask is not None:
         if mask.shape != (T, T) or mask.device != qkv.device:
             raise ValueError(f"mask must be ({T}, {T}) on {qkv.device}")
@@ -212,7 +260,7 @@ def attention_core_bwd_cuda(qkv: torch.Tensor, g: torch.Tensor, n_head: int,
     _build.launch(
         "fmm_attention_core_bwd", qkv.data_ptr(), g.data_ptr(),
         None if mask is None else mask.data_ptr(), stats.data_ptr(), dqkv.data_ptr(),
-        B, T, D, n_head, 1.0 / math.sqrt(hd),
+        B, T, D, n_head, 1.0 / math.sqrt(hd) if scale is None else scale,
     )
     return dqkv
 
@@ -244,9 +292,27 @@ def _bwd_reference(qkv, g, attn_mask, n_head):
 
 
 def _fwd_cuda(qkv, attn_mask, n_head):
-    out = attention_core_cuda(qkv, n_head, attn_mask)
+    hd = qkv.shape[-1] // (3 * n_head)
+    kd = kernel_head_width(hd)
+    if kd == hd:
+        out = attention_core_cuda(qkv, n_head, attn_mask)
+    else:
+        out = unpad_heads(attention_core_cuda(pad_heads(qkv, n_head, kd), n_head, attn_mask,
+                                              scale=1.0 / math.sqrt(hd)), n_head, hd, parts=1)
     (packed_attention if attn_mask is None else packed_attention_masked).launches += 1
     return out
+
+
+def _bwd_launch(qkv, g, n_head, attn_mask):
+    """``attention_core_bwd_cuda`` at the kernel's head width for this
+    one (:func:`kernel_head_width`), padding and slicing as the forward."""
+    hd = qkv.shape[-1] // (3 * n_head)
+    kd = kernel_head_width(hd)
+    if kd == hd:
+        return attention_core_bwd_cuda(qkv, g, n_head, attn_mask)
+    dqkv = attention_core_bwd_cuda(pad_heads(qkv, n_head, kd), pad_heads(g, n_head, kd, parts=1),
+                                   n_head, attn_mask, scale=1.0 / math.sqrt(hd))
+    return unpad_heads(dqkv, n_head, hd)
 
 
 def _bwd_cuda(qkv, g, attn_mask, n_head):
@@ -269,7 +335,7 @@ def packed_attention_masked_bwd(qkv: torch.Tensor, g: torch.Tensor,
     ``g``: the port of ``attention_packed_bwd_masked``."""
     if qkv.device.type == "cpu":
         return attention_core_bwd_reference(qkv, g, n_head, attn_mask)
-    dqkv = attention_core_bwd_cuda(qkv, g, n_head, attn_mask)
+    dqkv = _bwd_launch(qkv, g, n_head, attn_mask)
     packed_attention_masked_bwd.launches += 1
     return dqkv
 
@@ -295,7 +361,7 @@ def packed_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, n_head: int) -> tor
     the port of ``attention_packed_bwd``."""
     if qkv.device.type == "cpu":
         return attention_core_bwd_reference(qkv, g, n_head)
-    dqkv = attention_core_bwd_cuda(qkv, g, n_head)
+    dqkv = _bwd_launch(qkv, g, n_head, None)
     packed_attention_bwd.launches += 1
     return dqkv
 
@@ -323,42 +389,64 @@ for _fn in (packed_attention_masked, packed_attention_masked_bwd, packed_attenti
 # into 128 lanes. No backbone of the repository has such heads. On CUDA
 # tensors the forward launches ``csrc/attention_split.cu``, which reads q, k
 # and v through their own row strides (the column split of the packed QKV,
-# no copy), takes any head width that is a multiple of 8 up to 128 and any T
-# (key tiles stream through shared memory). The backward is the VJP of
+# no copy), is built for head widths that are multiples of 8 up to 128 and
+# multiples of 32 from 160 to 288, and takes any T (key tiles stream through
+# shared memory); :func:`fused_attention_cuda` zero-pads every other width
+# up to 288 to the next of those (:func:`split_head_width`), with the scale
+# of the true width, and slices the output back. The backward is the VJP of
 # :func:`fused_attention_reference`, recomputed from the saved q, k and v, as
 # ``_fad_bwd`` derives it through XLA; the mask gets no gradient. Bound on
 # the H100: memory (see the source).
 
 
+# The widest head ``attention_split.cu`` is built for (FMM_WIDE_HEAD_DIMS).
+MAX_SPLIT_HEAD_DIM = 288
+
+
+def split_head_width(hd: int) -> int:
+    """The head width ``attention_split.cu`` runs a head of ``hd`` at: the
+    next multiple of 8 up to 128, past that the next multiple of 32."""
+    return kernel_head_width(hd) if hd <= 128 else -(-hd // 32) * 32
+
+
 def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
-                         attn_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch ``attention_split.cu`` on CUDA bf16 ``(B, T, D)`` q, k and v,
-    each with unit column stride, a row stride that is a multiple of 8 and
-    a batch stride of T rows."""
+                         attn_mask: torch.Tensor | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """Launch ``attention_split.cu`` on CUDA bf16 ``(B, T, D)`` q, k and v of
+    any head width up to 288. At a width the kernel is built for, each
+    operand is read where it lies and needs unit column stride, a row
+    stride that is a multiple of 8 and a batch stride of T rows; any other
+    width is zero-padded to the next one the kernel is built for
+    (:func:`split_head_width`; q, k and v copied) and the output sliced
+    back. ``scale`` defaults to ``1 / sqrt(head width)``."""
     B, T, D = q.shape
+    hd = D // n_head
+    if D != n_head * hd or hd > MAX_SPLIT_HEAD_DIM:
+        raise ValueError(f"fused_attention takes head widths up to {MAX_SPLIT_HEAD_DIM}: "
+                         f"D={D}, {n_head} heads")
+    kd = split_head_width(hd)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (not t.is_cuda or t.dtype != torch.bfloat16 or tuple(t.shape) != (B, T, D)
-                or t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) != T * t.stride(1)
-                or t.data_ptr() % 16):
+                or (kd == hd and (t.stride(2) != 1 or t.stride(1) % 8
+                                  or t.stride(0) != T * t.stride(1) or t.data_ptr() % 16))):
             raise ValueError(
                 f"fused_attention takes bf16 CUDA q, k, v of one shape {(B, T, D)} with "
                 f"unit column stride, a row stride that is a multiple of 8 and a batch "
                 f"stride of T rows; got {name} {t.dtype} {tuple(t.shape)} strides "
                 f"{t.stride()} on {t.device}")
-    hd = D // n_head
-    if D != n_head * hd or hd % 8 or hd > 128:
-        raise ValueError(f"fused_attention takes head widths that are multiples of 8 up "
-                         f"to 128: D={D}, {n_head} heads")
     if attn_mask is not None:
         if attn_mask.shape != (T, T) or attn_mask.device != q.device:
             raise ValueError(f"attn_mask must be ({T}, {T}) on {q.device}")
         attn_mask = attn_mask.to(torch.float32).contiguous()
-    out = torch.empty(B, T, D, dtype=q.dtype, device=q.device)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    if kd != hd:
+        q, k, v = (pad_heads(t, n_head, kd, parts=1) for t in (q, k, v))
+    out = torch.empty(B, T, n_head * kd, dtype=q.dtype, device=q.device)
     _build.launch(
         "fmm_attention_split", q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1),
         k.stride(1), v.stride(1), None if attn_mask is None else attn_mask.data_ptr(),
-        out.data_ptr(), B, T, D, n_head, hd, 1.0 / math.sqrt(hd))
-    return out
+        out.data_ptr(), B, T, n_head * kd, n_head, kd, scale)
+    return out if kd == hd else unpad_heads(out, n_head, hd, parts=1)
 
 
 def _fused_attention_launch(q, k, v, n_head, attn_mask):

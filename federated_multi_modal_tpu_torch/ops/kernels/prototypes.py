@@ -5,19 +5,25 @@ never call.
 * P1 :func:`fused_lnqkv_attention` (``fused_lnqkv_attention``,
   ``pallas_call`` at :110): LN1 -> QKV product -> attention in one kernel,
   QKV never in device memory, both on the tensor cores
-  (``csrc/lnqkv_attention.cu``, after a small launch for the LN moments);
+  (``csrc/lnqkv_attention.cu``, after a small launch for the LN moments),
+  where a head's q, k and v fit in shared memory (head widths up to 64, T up
+  to 256); elsewhere streamed: the same LN -> QKV stage into a QKV scratch
+  (``fmm_lnqkv_project``), then ``csrc/attention_split.cu`` over it;
 * P2 :func:`fused_lnqkv_attention_bwd_dx` (``fused_lnqkv_attention_bwd_dx``,
   :207): dx of P1, recomputed from x alone, in three launches: the LN -> QKV
   recomputation and the attention backward per (row, head) into a packed
   d(QKV) scratch (``csrc/lnqkv_attention_bwd_dx.cu``, which shares P1's LN
-  -> QKV stage), ``dxn = d(QKV) . W^T`` on the wgmma GEMM
-  (``csrc/gemm_wgmma.cu``), and the LayerNorm backward
-  (``csrc/layernorm_bwd_rows.cu``); :class:`FusedLnQkvAttention` is P1
+  -> QKV stage), ``dxn = d(QKV) . W^T`` on the NT instance of the wgmma
+  GEMM (``csrc/gemm_epilogue.cu``), and the LayerNorm backward
+  (``csrc/layernorm_bwd_rows.cu``); streamed like P1 where P1 is, with
+  ``csrc/attention_core_bwd.cu`` as its attention backward;
+  :class:`FusedLnQkvAttention` is P1
   forward and P2 backward, the counterpart of
   ``make_fused_lnqkv_attention_fb``;
 * P3 :func:`packed4d_attention` (``_build_packed4d``, :351): K2's forward as
-  one unit of work per 128-lane head group (heads of 32, 64 or 128), its
-  products on the tensor cores (``csrc/attention_pair.cu``).
+  one unit of work per 128-lane head group (heads of 8, 16, 32, 64 or 128;
+  heads of 8 zero-padded to 16), its products on the tensor cores
+  (``csrc/attention_pair.cu``).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors it
 runs the plain PyTorch version beside it. The plain versions round where the
@@ -37,7 +43,13 @@ import math
 import torch
 
 from federated_multi_modal_tpu_torch.ops.kernels import _build
-from federated_multi_modal_tpu_torch.ops.kernels.attention import full_fp32_products
+from federated_multi_modal_tpu_torch.ops.kernels.attention import (
+    attention_core_bwd_cuda,
+    fused_attention_cuda,
+    full_fp32_products,
+    pad_heads,
+    unpad_heads,
+)
 from federated_multi_modal_tpu_torch.ops.kernels.fused_block import (
     PLAIN_STEPS,
     layernorm_bwd_rows_cuda,
@@ -46,12 +58,19 @@ from federated_multi_modal_tpu_torch.ops.kernels.fused_block import (
 )
 from federated_multi_modal_tpu_torch.ops.kernels.gemm import gemm_nt_f32_cuda
 
-# P1 and P2 are built for heads of 64 (ln_qkv.cuh's kHd) and take T up to
-# 256 (kMaxT: 16 warps of 16 rows, q, k and v of one head in shared memory).
-LNQKV_HEAD_DIM = 64
-MAX_TOKENS_LNQKV = 256
-# P3's head widths: those whose 128-lane groups the kernel's warps split.
-PAIR_HEAD_DIMS = (32, 64, 128)
+# The head widths of P1's and P2's LN -> QKV stage (ln_qkv.cuh); a head of
+# another width is zero-padded to the next of them.
+LNQKV_HEAD_DIMS = (16, 32, 64, 128, 160)
+# The fused kernels hold a head's q, k and v in shared memory: at these head
+# widths and up to this many tokens (16 warps of 16 query rows); elsewhere
+# P1 and P2 stream.
+FUSED_LNQKV_HEAD_DIMS = (16, 32, 64)
+FUSED_LNQKV_MAX_T = 256
+# P3's head widths: those whose 128-lane groups the kernel's warps split
+# (every width ``_packed_hp`` gives that the kernel is built for), and
+# heads of 8, which it runs padded to 16.
+PAIR_HEAD_DIMS = (16, 32, 64, 128)
+PAIR_PADDED_HEAD_DIMS = {8: 16}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -72,28 +91,71 @@ def _check_cuda(name: str, t: torch.Tensor, shape, dtype=torch.bfloat16) -> None
                          f"shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_lnqkv_width(name: str, D: int, n_head: int, T: int) -> None:
-    if D != n_head * LNQKV_HEAD_DIM:
-        raise ValueError(f"{name} is built for head width {LNQKV_HEAD_DIM}: D={D}, "
-                         f"{n_head} heads")
-    if T > MAX_TOKENS_LNQKV:
-        raise ValueError(f"{name} holds at most {MAX_TOKENS_LNQKV} tokens per row in shared "
-                         f"memory, got T={T}")
+def lnqkv_head_width(hd: int) -> int:
+    """The head width of the LN -> QKV stage that runs a head of ``hd``: the
+    smallest of :data:`LNQKV_HEAD_DIMS` that holds it."""
+    for kd in LNQKV_HEAD_DIMS:
+        if hd <= kd:
+            return kd
+    raise ValueError(f"the fused LN -> QKV -> attention prototypes take heads up to "
+                     f"{LNQKV_HEAD_DIMS[-1]} wide, got {hd}")
 
 
-def _ln_qkv_operands(x, lnp, w, b):
-    """W and the bias in bf16, gamma and beta in fp32, each checked."""
-    D = x.shape[-1]
-    w = w.to(torch.bfloat16).contiguous()
-    b = b.to(torch.bfloat16).contiguous()
-    gamma = lnp["scale"].to(torch.float32).contiguous()
-    beta = lnp["bias"].to(torch.float32).contiguous()
-    for name, t, shape, dtype in (("w", w, (D, 3 * D), torch.bfloat16),
-                                  ("b", b, (3 * D,), torch.bfloat16),
-                                  ("ln scale", gamma, (D,), torch.float32),
-                                  ("ln bias", beta, (D,), torch.float32)):
-        _check_cuda(f"fused_lnqkv_attention {name}", t, shape, dtype)
-    return w, b, gamma, beta
+def lnqkv_fused(kd: int, T: int) -> bool:
+    """Whether P1 and P2 run their fused kernels (else the streamed route)
+    at the stage's head width ``kd`` and T tokens."""
+    return kd in FUSED_LNQKV_HEAD_DIMS and T <= FUSED_LNQKV_MAX_T
+
+
+class _LnQkvOperands:
+    """x, W, the bias, gamma and beta as the kernels take them: x (B, T, Dk),
+    gamma and beta (Dk,) fp32 with zeros past D, W (Dk, 3 n_head kd) and the
+    bias (3 n_head kd,) bf16 with each head's columns zero-padded from hd to
+    kd (:func:`lnqkv_head_width`); Dk is D rounded up to 64."""
+
+    def __init__(self, x, lnp, w, b, n_head: int):
+        _, T, D = x.shape
+        if D % n_head:
+            raise ValueError(f"fused_lnqkv_attention takes D % n_head == 0, got D={D}, "
+                             f"{n_head} heads")
+        self.hd = D // n_head
+        self.kd = lnqkv_head_width(self.hd)
+        self.D, self.Dk, self.Dq = D, _round_up(D, 64), n_head * self.kd
+        w = w.to(torch.bfloat16).contiguous()
+        b = b.to(torch.bfloat16).contiguous()
+        gamma = lnp["scale"].to(torch.float32).contiguous()
+        beta = lnp["bias"].to(torch.float32).contiguous()
+        for name, t, shape, dtype in (("w", w, (D, 3 * D), torch.bfloat16),
+                                      ("b", b, (3 * D,), torch.bfloat16),
+                                      ("ln scale", gamma, (D,), torch.float32),
+                                      ("ln bias", beta, (D,), torch.float32)):
+            _check_cuda(f"fused_lnqkv_attention {name}", t, shape, dtype)
+        self.gamma_d = gamma
+        if self.kd != self.hd:
+            w = pad_heads(w[None], n_head, self.kd)[0]
+            b = pad_heads(b[None, None], n_head, self.kd)[0, 0]
+        pad = self.Dk - D
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+            w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+            gamma = torch.nn.functional.pad(gamma, (0, pad))
+            beta = torch.nn.functional.pad(beta, (0, pad))
+        self.x, self.w, self.b, self.gamma, self.beta = x, w, b, gamma, beta
+        self.scale = 1.0 / math.sqrt(self.hd)
+        self.fused = lnqkv_fused(self.kd, T)
+
+    def args(self):
+        """x, W, bias, gamma and beta as pointers."""
+        return tuple(t.data_ptr() for t in (self.x, self.w, self.b, self.gamma, self.beta))
+
+    def project(self, stats, n_head: int):
+        """Every head's q, k and v, ``(B, T, 3 Dq)`` bf16, by
+        ``fmm_lnqkv_project`` (the moments, then the LN -> QKV stage)."""
+        B, T, _ = self.x.shape
+        qkv = torch.empty(B, T, 3 * self.Dq, dtype=torch.bfloat16, device=self.x.device)
+        _build.launch("fmm_lnqkv_project", *self.args(), stats.data_ptr(), qkv.data_ptr(), B, T,
+                      self.D, self.Dk, n_head, self.kd)
+        return qkv
 
 
 # -- P1: LN1 -> QKV -> attention --------------------------------------------
@@ -106,18 +168,22 @@ def fused_lnqkv_attention_reference(x, lnp, w, b, n_head: int, GB: int = 4):
 
 
 def fused_lnqkv_attention_cuda(x, lnp, w, b, n_head: int):
-    """Launch ``lnqkv_attention.cu`` on a CUDA bf16 ``x (B, T, D)``, with an
-    fp32 ``(B, T, 2)`` scratch for the LN moments of each row."""
+    """P1 on a CUDA bf16 ``x (B, T, D)``, with an fp32 ``(B, T, 2)`` scratch
+    for the LN moments of each row: ``lnqkv_attention.cu``'s fused kernel
+    where it applies (:func:`lnqkv_fused`), else the streamed route
+    (``fmm_lnqkv_project`` into a QKV scratch, then ``attention_split.cu``)."""
     B, T, D = x.shape
     _check_cuda("fused_lnqkv_attention x", x, (B, T, D))
-    _check_lnqkv_width("fused_lnqkv_attention", D, n_head, T)
-    w, b, gamma, beta = _ln_qkv_operands(x, lnp, w, b)
+    ops = _LnQkvOperands(x, lnp, w, b, n_head)
     stats = torch.empty(B, T, 2, dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
-    _build.launch("fmm_lnqkv_attention", x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                  gamma.data_ptr(), beta.data_ptr(), stats.data_ptr(), out.data_ptr(), B, T, D,
-                  n_head, 1.0 / math.sqrt(LNQKV_HEAD_DIM))
-    return out
+    if ops.fused:
+        out = torch.empty(B, T, ops.Dq, dtype=torch.bfloat16, device=x.device)
+        _build.launch("fmm_lnqkv_attention", *ops.args(), stats.data_ptr(), out.data_ptr(), B,
+                      T, D, ops.Dk, n_head, ops.kd, ops.scale)
+    else:
+        qkv = ops.project(stats, n_head)
+        out = fused_attention_cuda(*qkv.split(ops.Dq, dim=-1), n_head, scale=ops.scale)
+    return out if ops.kd == ops.hd else unpad_heads(out, n_head, ops.hd, parts=1)
 
 
 def fused_lnqkv_attention(x, lnp, w, b, n_head: int, GB: int = 4):
@@ -146,24 +212,31 @@ def fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, n_head: int, GB: in
 
 
 def fused_lnqkv_attention_bwd_dx_cuda(x, lnp, w, b, dy, n_head: int):
-    """P2 on CUDA bf16 ``x`` and ``dy`` ``(B, T, D)`` in three launches:
+    """P2 on CUDA bf16 ``x`` and ``dy`` ``(B, T, D)`` in three steps:
     ``lnqkv_attention_bwd_dx.cu`` (the LN moments into an fp32 ``(B, T, 2)``
     scratch, then per (row, head) q, k and v recomputed and the attention
-    backward, into a bf16 ``(B, T, 3D)`` d(QKV) scratch), ``gemm_wgmma.cu``
-    (``dxn = d(QKV) . W^T``, fp32 ``(B T, D)``) and ``layernorm_bwd_rows.cu``
-    (dx, no parameter gradient)."""
+    backward, into a bf16 ``(B, T, 3 Dq)`` d(QKV) scratch; streamed where P1
+    is: ``fmm_lnqkv_project`` into a QKV scratch, then
+    ``attention_core_bwd.cu``), ``gemm_epilogue.cu``'s NT instance (``dxn =
+    d(QKV) . W^T``, fp32) and ``layernorm_bwd_rows.cu`` (dx, no parameter
+    gradient)."""
     B, T, D = x.shape
     _check_cuda("fused_lnqkv_attention_bwd_dx x", x, (B, T, D))
     _check_cuda("fused_lnqkv_attention_bwd_dx dy", dy, (B, T, D))
-    _check_lnqkv_width("fused_lnqkv_attention_bwd_dx", D, n_head, T)
-    w, b, gamma, beta = _ln_qkv_operands(x, lnp, w, b)
+    ops = _LnQkvOperands(x, lnp, w, b, n_head)
+    g = dy if ops.kd == ops.hd else pad_heads(dy, n_head, ops.kd, parts=1)
     stats = torch.empty(B, T, 2, dtype=torch.float32, device=x.device)
-    dqkv = torch.empty(B, T, 3 * D, dtype=torch.bfloat16, device=x.device)
-    _build.launch("fmm_lnqkv_attention_bwd_dqkv", x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                  gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), stats.data_ptr(),
-                  dqkv.data_ptr(), B, T, D, n_head, 1.0 / math.sqrt(LNQKV_HEAD_DIM))
-    dxn = gemm_nt_f32_cuda(dqkv.view(B * T, 3 * D), w)
-    dx = layernorm_bwd_rows_cuda(x.view(B * T, D), dxn, None, gamma, x.dtype,
+    if ops.fused:
+        dqkv = torch.empty(B, T, 3 * ops.Dq, dtype=torch.bfloat16, device=x.device)
+        _build.launch("fmm_lnqkv_attention_bwd_dqkv", *ops.args(), g.data_ptr(),
+                      stats.data_ptr(), dqkv.data_ptr(), B, T, D, ops.Dk, n_head, ops.kd,
+                      ops.scale)
+    else:
+        dqkv = attention_core_bwd_cuda(ops.project(stats, n_head), g, n_head, scale=ops.scale)
+    dxn = gemm_nt_f32_cuda(dqkv.view(B * T, 3 * ops.Dq), ops.w)
+    if ops.Dk != D:
+        dxn = dxn[:, :D].contiguous()
+    dx = layernorm_bwd_rows_cuda(x.view(B * T, D), dxn, None, ops.gamma_d, x.dtype,
                                  param_grads=False)[0]
     return dx.view(B, T, D)
 
@@ -253,23 +326,27 @@ def packed4d_attention_key_tiles(head_dim: int, valid_T: int) -> int:
 
 def packed4d_attention_cuda(qkv: torch.Tensor, n_head: int, valid_T: int | None = None):
     """Launch ``attention_pair.cu`` on a CUDA bf16 ``qkv (B, T, 3D)``, any
-    T, heads of 32, 64 or 128 filling whole 128-lane groups; keys at or past
-    ``valid_T`` (default T) get ``-inf`` (``valid_T`` past T lets the zero
-    rows in between take part: a planted fault)."""
+    T, heads of 8, 16, 32, 64 or 128 filling whole 128-lane groups (heads of
+    8 zero-padded to 16, with their own scale, and the output sliced back);
+    keys at or past ``valid_T`` (default T) get ``-inf`` (``valid_T`` past T
+    lets the zero rows in between take part: a planted fault)."""
     B, T, D3 = qkv.shape
     D = D3 // 3
     _check_cuda("packed4d_attention qkv", qkv, (B, T, D3))
     hd = D // n_head
-    if D3 != 3 * D or D != n_head * hd or hd not in PAIR_HEAD_DIMS or D % 128:
+    kd = PAIR_PADDED_HEAD_DIMS.get(hd, hd)
+    if D3 != 3 * D or D != n_head * hd or kd not in PAIR_HEAD_DIMS or D % 128:
         raise ValueError(f"packed4d_attention runs 128-lane head groups of heads of "
-                         f"{PAIR_HEAD_DIMS}: D={D}, {n_head} heads")
+                         f"{(*PAIR_PADDED_HEAD_DIMS, *PAIR_HEAD_DIMS)}: D={D}, {n_head} heads")
     valid_T = T if valid_T is None else valid_T
     if valid_T < 1:
         raise ValueError(f"valid_T must be at least 1, got {valid_T}")
-    out = torch.empty(B, T, D, dtype=qkv.dtype, device=qkv.device)
-    _build.launch("fmm_attention_pair", qkv.data_ptr(), out.data_ptr(), B, T, D, n_head,
-                  valid_T, 1.0 / math.sqrt(hd))
-    return out
+    if kd != hd:
+        qkv = pad_heads(qkv, n_head, kd)
+    out = torch.empty(B, T, n_head * kd, dtype=qkv.dtype, device=qkv.device)
+    _build.launch("fmm_attention_pair", qkv.data_ptr(), out.data_ptr(), B, T, n_head * kd,
+                  n_head, valid_T, 1.0 / math.sqrt(hd))
+    return out if kd == hd else unpad_heads(out, n_head, hd, parts=1)
 
 
 def packed4d_attention(qkv: torch.Tensor, n_head: int, tpad: int = 8):

@@ -981,17 +981,103 @@ def test_fused_attention_every_head_width(gen, hd, masked):
 
 
 def test_fused_attention_refuses_what_it_does_not_take(gen):
-    """Head widths off the multiple of 8 or over 128, fp32 operands and a
-    batch stride other than T rows raise."""
+    """Fp32 operands, a batch stride other than T rows and head widths past
+    288 raise. The widths the earlier kernel refused and this one takes are
+    checked beside against the plain version at 2**-6: 30 (off the multiple
+    of 8, padded to 32) and 272 (past 128, padded to the 288 instance)."""
+    for hd, H in ((30, 2), (272, 1)):
+        q, k, v = (_randn(gen, 1, 8, H * hd) for _ in range(3))
+        got = k_attn.fused_attention_cuda(q, k, v, H)
+        torch.cuda.synchronize()
+        _assert_close(got, k_attn.fused_attention_reference(q, k, v, H), 2 ** -6)
     with pytest.raises(ValueError):
-        k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 60)] * 3, 2)  # head width 30
-    with pytest.raises(ValueError):
-        k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 272)] * 2 + [_randn(gen, 1, 8, 272)], 1)
+        k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 296)] * 3, 1)  # head width 296
     with pytest.raises(ValueError):
         k_attn.fused_attention_cuda(*[_randn(gen, 1, 8, 64, dtype=torch.float32)] * 3, 1)
     q = _randn(gen, 2, 16, 64)[:, :8]
     with pytest.raises(ValueError):
         k_attn.fused_attention_cuda(q, q, q, 1)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
+@pytest.mark.parametrize("hd", [12, 30, 80, 96, 136, 160, 192, 224, 256, 272, 288])
+def test_fused_attention_any_head_width(gen, hd, masked):
+    """K8 through ``fused_attention_diff`` (the route ``multi_head_attention``
+    takes for heads that do not pack into 128 lanes at T >= 32) at widths off
+    the multiple of 8 and past 128, on the column split of a packed QKV, T =
+    77 (a ragged second key tile): the forward at 2**-6 and 2**-6 of its
+    largest value, the gradients (the plain VJP on both sides) at 2**-5 of
+    theirs, one launch counted; the kernel with its last key tile dropped
+    (``valid`` keys cut by a mask) must fail the share-of-max check."""
+    from federated_multi_modal_tpu_torch.ops.primitives import build_causal_mask
+
+    B, H, T = 2, 2, 77
+    D = H * hd
+    qkv = _randn(gen, B, T, 3 * D).requires_grad_(True)
+    mask = build_causal_mask(T, device="cuda") if masked else None
+    g = _randn(gen, B, T, D)
+    before = k_attn.fused_attention.launches
+    out = k_attn.fused_attention_diff(*qkv.split(D, dim=-1), H, mask)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert k_attn.fused_attention.launches == before + 1
+    ref_out = k_attn.fused_attention_reference(*qkv.split(D, dim=-1), H, mask)
+    (ref,) = torch.autograd.grad(ref_out, qkv, g)
+    _assert_close(out, ref_out, 2 ** -6)
+    assert _within_share_of_max(out, ref_out, 2 ** -6)
+    assert _within_share_of_max(got, ref, 2 ** -5)
+    cut = torch.zeros(T, T, device="cuda")
+    cut[:, 64:] = float("-inf")
+    q, k, v = (t.detach() for t in qkv.split(D, dim=-1))
+    fault = k_attn.fused_attention_cuda(q, k, v, H, cut if mask is None else mask + cut)
+    assert not _within_share_of_max(fault, ref_out, 2 ** -6)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["K2", "K1"])
+@pytest.mark.parametrize("hd", [1, 2, 4])
+def test_packed_attention_small_heads(gen, hd, masked):
+    """K2/K2b (no mask, T = 200) and K1/K1b (block-causal, MaPLe's packed
+    text rows of 120) at the head widths ``_packed_hp`` admits below 8, as
+    the routing sends them: 128 columns of 128 / hd heads, each zero-padded
+    to 8 by the wrapper. Forward at 2**-6 and d(QKV) at 2**-5 of its largest
+    value against the plain versions, one launch of each counted, and a
+    kernel run at the padded width's scale instead of the true one's must
+    fail the forward check."""
+    B, D = 3, 128
+    H, T = D // hd, 120 if masked else 200
+    qkv = _randn(gen, B, T, 3 * D).requires_grad_(True)
+    mask = build_block_causal_mask(5, 24, device="cuda") if masked else None
+    g = _randn(gen, B, T, D)
+    fwd = k_attn.packed_attention_masked if masked else k_attn.packed_attention
+    bwd = k_attn.packed_attention_masked_bwd if masked else k_attn.packed_attention_bwd
+    before = (fwd.launches, bwd.launches)
+    out = fwd(qkv, mask, H) if masked else fwd(qkv, H)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    q = qkv.detach()
+    ref_out = k_attn.attention_core_reference(q, H, mask)
+    _assert_close(out, ref_out, 2 ** -6)
+    assert _within_share_of_max(got, k_attn.attention_core_bwd_reference(q, g, H, mask), 2 ** -5)
+    fault = k_attn.unpad_heads(k_attn.attention_core_cuda(k_attn.pad_heads(q, H, 8), H, mask),
+                               H, hd, parts=1)
+    assert not _within_share_of_max(fault, ref_out, 2 ** -6)
+
+
+def test_attention_core_bwd_head_width_160(gen):
+    """The backward's one wide instance (160, no mask; P2's streamed route)
+    against its plain version at 2**-5 of each gradient's largest value, at
+    T = 77 and 300 (two and five key tiles); with a mask it raises."""
+    for T in (77, 300):
+        qkv, g = _randn(gen, 2, T, 3 * 2 * 160), _randn(gen, 2, T, 2 * 160)
+        got = k_attn.attention_core_bwd_cuda(qkv, g, 2)
+        torch.cuda.synchronize()
+        ref = k_attn.attention_core_bwd_reference(qkv, g, 2)
+        for part in range(3):
+            sl = slice(part * 320, (part + 1) * 320)
+            assert _within_share_of_max(got[..., sl], ref[..., sl], 2 ** -5), (T, part)
+    with pytest.raises(ValueError):
+        k_attn.attention_core_bwd_cuda(qkv, g, 2, torch.zeros(300, 300, device="cuda"))
 
 
 # -- the attention microbench's prototypes P1-P3 ------------------------------
@@ -1117,43 +1203,113 @@ def test_packed4d_attention_head_widths(gen, hd, T):
 
 
 def test_prototypes_refuse_what_they_do_not_take(gen):
-    """P1 with T % 8 != 0, B % GB != 0 or T over 256 raises, and so does P2
-    over 256 or at a head width other than 64; P3 raises at head widths its
-    128-lane groups do not split (16), for heads that do not fill whole
+    """P1 with T % 8 != 0 or B % GB != 0 raises, and so do P1 and P2 at heads
+    wider than 160; P3 raises for heads that do not fill whole 128-lane
     groups and for valid_T < 1. What the earlier kernels refused and the new
-    ones take is checked beside: P3 at 241 tokens (its old shared-memory
-    limit was 240) and P2 at 216 (its old limit was 208), each against its
-    plain version."""
+    ones take is checked beside, each against its plain version: P3 at 241
+    tokens (its old shared-memory limit was 240) and at heads of 16; P1 and
+    P2 past 256 tokens (the old limit of both), P2 at 216 (its older limit
+    was 208) and at heads of 32 (the old kernels took 64 only)."""
     from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
 
-    with pytest.raises(ValueError):
-        k_proto.packed4d_attention_cuda(_randn(gen, 1, 16, 3 * 8 * 16), 8)  # heads of 16
     with pytest.raises(ValueError):
         k_proto.packed4d_attention_cuda(_randn(gen, 1, 16, 3 * 3 * 64), 3)  # 192 lanes
     with pytest.raises(ValueError):
         k_proto.packed4d_attention_cuda(_randn(gen, 1, 16, 384), 2, valid_T=0)
-    qkv = _randn(gen, 2, 241, 384)
-    _assert_close(k_proto.packed4d_attention_cuda(qkv, 2),
-                  k_proto.packed4d_attention_reference(qkv, 2), 2 ** -6)
+    for qkv, H in ((_randn(gen, 2, 241, 384), 2), (_randn(gen, 1, 16, 3 * 8 * 16), 8)):
+        _assert_close(k_proto.packed4d_attention_cuda(qkv, H),
+                      k_proto.packed4d_attention_reference(qkv, H), 2 ** -6)
 
     lnp, w, b = _lnqkv_params(gen, 128)
     with pytest.raises(ValueError, match="T % 8"):
         k_proto.fused_lnqkv_attention(_randn(gen, 4, 12, 128), lnp, w, b, 2)
     with pytest.raises(ValueError, match="GB"):
         k_proto.fused_lnqkv_attention(_randn(gen, 3, 16, 128), lnp, w, b, 2)
-    with pytest.raises(ValueError):
-        k_proto.fused_lnqkv_attention(_randn(gen, 4, k_proto.MAX_TOKENS_LNQKV + 8, 128),
-                                      lnp, w, b, 2)
-    x = _randn(gen, 4, k_proto.MAX_TOKENS_LNQKV + 8, 128)
-    with pytest.raises(ValueError):
-        k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, x, 2)
-    x = _randn(gen, 4, 16, 128)
-    with pytest.raises(ValueError):
-        k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, x, 4)  # heads of 32
-    x, dy = _randn(gen, 2, 216, 128), _randn(gen, 2, 216, 128)
-    assert _within_share_of_max(
-        k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy, 2, GB=2),
-        k_proto.fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, 2, GB=2), 2 ** -5)
+    wide = _lnqkv_params(gen, 168)
+    with pytest.raises(ValueError, match="heads up to 160"):
+        k_proto.fused_lnqkv_attention(_randn(gen, 4, 16, 168), *wide, 1)
+    with pytest.raises(ValueError, match="heads up to 160"):
+        x = _randn(gen, 4, 16, 168)
+        k_proto.fused_lnqkv_attention_bwd_dx(x, *wide, x, 1)
+    x = _randn(gen, 4, 264, 128)
+    _assert_close(k_proto.fused_lnqkv_attention(x, lnp, w, b, 2),
+                  k_proto.fused_lnqkv_attention_reference(x, lnp, w, b, 2), 2 ** -5)
+    for x, dy, H in ((x, _randn(gen, 4, 264, 128), 2),
+                     (_randn(gen, 4, 16, 128), _randn(gen, 4, 16, 128), 4),
+                     (_randn(gen, 2, 216, 128), _randn(gen, 2, 216, 128), 2)):
+        assert _within_share_of_max(
+            k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy, H, GB=2),
+            k_proto.fused_lnqkv_attention_bwd_dx_reference(x, lnp, w, b, dy, H, GB=2), 2 ** -5)
+
+
+@pytest.mark.parametrize("hd,T", [(16, 200), (30, 200), (32, 200), (128, 200), (160, 200),
+                                  (64, 264), (160, 264), (16, 520), (8, 64)])
+def test_fused_lnqkv_attention_any_head_width(gen, hd, T):
+    """P1 and P2 at head widths other than 64 and past 256 tokens, each with
+    its route (the fused kernels at stage widths 16, 32 and 64 up to 256
+    tokens, else the projection into a QKV scratch and the streamed
+    attention), four heads: the output at 2**-5 and 2**-5 of its largest
+    value, dx at 2**-5 of its largest value, against the plain versions (K7's
+    plain forward and backward); one launch of each counted through the
+    prototypes' entry points, and the route's kernels launched. D = 4 hd is
+    off the 64-column contraction step at 30, 8 and 160 (x, gamma and beta
+    padded). A planted fault: each head's first q and v columns swapped in W
+    must fail the share-of-max check."""
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
+
+    B, H = 2, 4
+    D = H * hd
+    lnp, w, b = _lnqkv_params(gen, D)
+    x, dy = _randn(gen, B, T, D), _randn(gen, B, T, D)
+    kd = k_proto.lnqkv_head_width(hd)
+    fused = k_proto.lnqkv_fused(kd, T)
+    before = dict(_build.LAUNCHES)
+    counts = (k_proto.fused_lnqkv_attention.launches,
+              k_proto.fused_lnqkv_attention_bwd_dx.launches)
+    got = k_proto.fused_lnqkv_attention(x, lnp, w, b, H, GB=2)
+    dx = k_proto.fused_lnqkv_attention_bwd_dx(x, lnp, w, b, dy, H, GB=2)
+    torch.cuda.synchronize()
+    assert (k_proto.fused_lnqkv_attention.launches,
+            k_proto.fused_lnqkv_attention_bwd_dx.launches) == (counts[0] + 1, counts[1] + 1)
+    launched = {k for k, v in _build.LAUNCHES.items() if v > before[k]}
+    want = ({"fmm_lnqkv_attention", "fmm_lnqkv_attention_bwd_dqkv"} if fused else
+            {"fmm_lnqkv_project", "fmm_attention_split", "fmm_attention_core_bwd"})
+    assert want | {"fmm_gemm_nt_f32", "fmm_layernorm_bwd_rows"} == launched, launched
+    ref = k_block.ln_attention_forward(x, lnp, w, b, H, k_block.PLAIN_STEPS)
+    _assert_close(got, ref, 2 ** -5)
+    assert _within_share_of_max(got, ref, 2 ** -5)
+    ref_dx = k_block.ln_attention_backward(x, dy, lnp, w, b, H, k_block.PLAIN_STEPS)[0]
+    assert _within_share_of_max(dx, ref_dx, 2 ** -5), float((dx - ref_dx).float().abs().max())
+    w_fault = w.clone()
+    for h in range(H):
+        q0, v0 = h * hd, 2 * D + h * hd
+        w_fault[:, [q0, v0]] = w_fault[:, [v0, q0]]
+    fault = k_proto.fused_lnqkv_attention(x, lnp, w_fault, b, H, GB=2)
+    assert not _within_share_of_max(fault, ref, 2 ** -5)
+
+
+@pytest.mark.parametrize("T", [16, 77, 200, 600])
+@pytest.mark.parametrize("hd", [8, 16])
+def test_packed4d_attention_small_heads(gen, hd, T):
+    """P3 at heads of 16 (8 a 128-lane group, 32 warps a block) and 8 (padded
+    to 16 by the wrapper), two groups, against its plain version at 2**-6
+    elementwise and 2**-6 of the output's largest value, one launch counted;
+    the kernel with its last key tile dropped must fail the latter where T
+    spans more than one tile."""
+    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
+
+    B, H = 2, 256 // hd
+    qkv = _randn(gen, B, T, 3 * H * hd)
+    before = k_proto.packed4d_attention.launches
+    got = k_proto.packed4d_attention(qkv, H)
+    torch.cuda.synchronize()
+    assert k_proto.packed4d_attention.launches == before + 1
+    ref = k_proto.packed4d_attention_reference(qkv, H)
+    _assert_close(got, ref, 2 ** -6)
+    assert _within_share_of_max(got, ref, 2 ** -6)
+    if T > 64:
+        fault = k_proto.packed4d_attention_cuda(qkv, H, valid_T=(T - 1) // 64 * 64)
+        assert not _within_share_of_max(fault, ref, 2 ** -6)
 
 
 def _cli_maple_tiny(tmp_path, impl):

@@ -170,3 +170,31 @@ def test_import_scan_sees_the_resnet_tower_and_the_clip_api():
         assert not {m.split(".")[0] for m in _imported_modules(path)} & set(FORBIDDEN), name
         assert not [t for _, t in _code_strings(path) if _JAX_PATH.search(t)], name
     assert "torch" in set(_imported_modules(package / "models/resnet.py"))
+
+
+def test_feat_extractor_refuses_to_run_on_the_cpu_unasked(monkeypatch, tmp_path):
+    """The port's ``tools/lpclip/feat_extractor.py`` runs on the card: without
+    CUDA and without ``FMM_TPU_PLATFORM=cpu`` its ``main`` raises before it
+    reads a config or a dataset."""
+    from federated_multi_modal_tpu_torch.tools.lpclip import feat_extractor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("FMM_TPU_PLATFORM", raising=False)
+    args = feat_extractor.build_parser().parse_args(
+        ["--root", str(tmp_path / "data"), "--output-dir", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        feat_extractor.main(args)
+    assert not (tmp_path / "out").exists()
+
+
+def test_import_scan_sees_the_tools():
+    """The import scan of this file walks the port's ``tools/`` modules, and
+    none of them imports JAX or names the JAX package."""
+    package = ROOT / "federated_multi_modal_tpu_torch"
+    scanned = set(package.rglob("*.py"))
+    for name in ("tools/interpret_prompts.py", "tools/lpclip/feat_extractor.py",
+                 "tools/lpclip/__init__.py", "tools/attn_microbench.py"):
+        path = package / name
+        assert path in scanned, name
+        assert not {m.split(".")[0] for m in _imported_modules(path)} & set(FORBIDDEN), name
+        assert not [t for _, t in _code_strings(path) if _JAX_PATH.search(t)], name
