@@ -200,22 +200,35 @@ What it does, in order (any failure raises and exits non-zero):
    same halves and beside the whole batch's, then NCCL in a world of one;
    one command-line epoch under ``TRAIN.PROFILE_DIR``, its trace holding
    the port's kernels;
-24. prints, for the tensor-core kernels (``attention_core.cu``,
+24. the ViT-L/14 and ViT-B/32 backbones (``backbones_phase``, after the
+   tools and limits phases): MaPLe at ViT-L/14 with remat (eval counted
+   with K1 and K5 on their own inputs and the logits against the plain
+   path, the group route under ``FMM_TPU_FUSED_NBLK=4``, the two-kernel
+   route, the B = 512 step through ``train_phase`` with its launches, kernel
+   checks, whole 16-image step and timings, the step without remat at the
+   largest batch its measured peaks allow, K5, K7 and K2/K2b on one seeded
+   block alone, the LayerNorm backward and forward at 1024) and at
+   ViT-B/32 (eval and step), then CoOp ``vit_b32.yaml`` and zero-shot CLIP
+   at ViT-L/14 through the command line, each against the ``xla`` route;
+25. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-25. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
+26. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
    ``launches_fed``, ``launches_b2n``, ``launches_rn`` and
    ``launches_fedpar`` on the kernels the cli, fed, b2n, rn and dist phases
-   launched; K1's row also ``rn_text_shapes``)
+   launched; K1's row also ``rn_text_shapes``; each row's
+   ``backbone_shapes``, its readings at the backbones phase's shapes)
    and, last, ``{"ok": true, "device": ...}``.
 
-``python3 chip_smoke.py --step-sweep N`` instead prints the whole-step
-gradient readings of the three train routes on N batches each, for the
-kernel path and for attention forwards with exact sums (``step_sweep``).
+``python3 chip_smoke.py --step-sweep N [BACKBONE]`` instead prints the
+whole-step gradient readings on N batches a route (the three train routes
+at ViT-B/16, the default one at another backbone, with remat at ViT-L/14),
+for the kernel path, for attention forwards with exact sums and for the
+vision blocks with one step plain (``step_sweep``).
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -459,13 +472,16 @@ ATTN_TILE = 64  # query or key rows per block (am::kTile, csrc/attn_mma.cuh)
 def forward_variant_ms(qkv, n_head: int, mask, key_tiles: tuple) -> dict:
     """``attention_core.cu`` at this shape with each variant in
     ``key_tiles`` forced (0: two passes; 2 or 4: one pass with that many key
-    tiles in registers), timed in two interleaved rounds, so that the
+    tiles in registers, where they hold the row), timed in two interleaved
+    rounds, so that the
     spread between rounds shows beside the difference between variants;
     the variant the kernel chooses is marked."""
     from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
 
     T, hd = qkv.shape[1], qkv.shape[2] // 3 // n_head
     chosen = k_attn.attention_core_key_tiles(hd, T)
+    # one pass holds its key tiles' scores in registers: at most 256 keys
+    key_tiles = tuple(kt for kt in key_tiles if kt * ATTN_TILE >= T or not kt)
     names = {kt: (f"one pass, {kt} key tiles" if kt else "two passes")
              + (" (chosen)" if kt == chosen else "") for kt in key_tiles}
     out = {name: [] for name in names.values()}
@@ -668,11 +684,16 @@ def block_step_by_step(x, p, n_head: int):
 
 def seeded_block(blk, seed: int):
     """Weights of ``blk``'s shapes and dtypes with every epilogue live:
-    weights N(0, 0.05^2), biases N(0, 0.25^2), LayerNorm scale 1 + N(0,
-    0.25^2) and bias N(0, 0.25^2), drawn from ``seed``."""
+    weights N(0, 0.05^2) at ViT-B/16's width 768 (scaled by sqrt(768 / D)
+    at a block width D, so that every product's output has ViT-B/16's
+    scale, which the seeded limits were set at), biases N(0, 0.25^2),
+    LayerNorm scale 1 + N(0, 0.25^2) and bias N(0, 0.25^2), drawn from
+    ``seed``."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
+    ln = next((leaves["scale"] for part, leaves in blk.items() if part.startswith("ln")), None)
+    width_scale = 1.0 if ln is None else (768 / ln.shape[-1]) ** 0.5
 
     def draw(t, mean, std):
         return (mean + std * torch.randn(t.shape, generator=gen)).to(t.device, t.dtype)
@@ -684,7 +705,8 @@ def seeded_block(blk, seed: int):
             if part.startswith("ln"):
                 out[part][name] = draw(t, float(name == "scale"), SEEDED_STD["ln"])
             else:
-                out[part][name] = draw(t, 0.0, SEEDED_STD[name[0]])
+                std = SEEDED_STD[name[0]] * (width_scale if name[0] == "w" else 1.0)
+                out[part][name] = draw(t, 0.0, std)
     return out
 
 
@@ -1146,15 +1168,17 @@ def library_block_ms(blk, n_head: int, x, dy, weights_grad: bool) -> tuple:
     return ms
 
 
-def check_train_launches(counts: dict, arch) -> None:
-    """Each text block launches K1 and K1b once per step, vision blocks
-    0-10 K3 (forward and backward) and block 11 K4."""
+def check_train_launches(counts: dict, arch, remat: bool = False) -> None:
+    """Each text block launches K1 and K1b once per step, every vision block
+    but the last K3 (forward and backward) and the last K4; with ``remat``
+    each forward kernel runs twice (the backward recomputes it)."""
     n_text, n_vis = arch.transformer_layers, arch.vision_layers
-    check_counts(counts, {"K1 packed_attention_masked": n_text,
+    fwd = 2 if remat else 1
+    check_counts(counts, {"K1 packed_attention_masked": fwd * n_text,
                           "K1b packed_attention_masked_bwd": n_text,
-                          "K3 fused_block_train": n_vis - 1,
+                          "K3 fused_block_train": fwd * (n_vis - 1),
                           "K3 fused_block_train (backward)": n_vis - 1,
-                          "K4 fused_block_train_dw": 1,
+                          "K4 fused_block_train_dw": fwd,
                           "K4 fused_block_train_dw (backward)": 1}, "train step")
 
 
@@ -1358,7 +1382,7 @@ def train_phase(prog, canvas) -> tuple:
             fused_block_train=cotangent_recorder(first, "k3", k_block.fused_block_train),
             fused_block_train_dw=cotangent_recorder(first, "k4", k_block.fused_block_train_dw))})
     counts, state, make_batch = run["counts"], run["state"], run["make_batch"]
-    check_train_launches(counts, arch)
+    check_train_launches(counts, arch, prog.get("remat", False))
 
     # -- K1b, K3 and K4 against their plain versions -----------------------
     # On the main path's own inputs and cotangents, then with a seeded
@@ -1702,9 +1726,25 @@ def unfused_phase(prog, canvas, boxes, flips) -> tuple:
         torch.cuda.empty_cache()
     checks.insert(0, ("eval path" + label, e2e))
 
-    # -- K2 and K2b against their plain versions --------------------------
     qkv_e, n = first["eval"]["args"]
-    qkv, g = first["train"]["args"][0], first["train"]["dy"].contiguous()
+    rows, k2_checks = k2_checks_and_rows(
+        qkv_e, first["train"]["args"][0], first["train"]["dy"].contiguous(), n,
+        counts["K2 packed_attention"], counts["K2b packed_attention_bwd"],
+        eval_counts["K2 packed_attention"])
+    return rows, checks + k2_checks, summary
+
+
+def k2_checks_and_rows(qkv_e, qkv, g, n: int, launches: int, backward_launches: int,
+                       eval_launches: int, label: str = "", head_widths: bool = True) -> tuple:
+    """K2 on ``qkv_e`` and K2b on ``qkv`` and ``g`` against their plain
+    versions, on seeded inputs too, with the planted faults (the last rows
+    unwritten); timed with one and two passes forced, beside
+    ``attention_split.cu``, SDPA and the bound; with ``head_widths`` the
+    backward at head widths 32 and 128 (:func:`backward_head_widths`).
+    Returns ``(rows, checks)``; the launches are the run's counts."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
 
     def k2_check(qkv):
         return compare(k_attn.packed_attention(qkv, n),
@@ -1721,11 +1761,12 @@ def unfused_phase(prog, canvas, boxes, flips) -> tuple:
                      k_attn.attention_core_bwd_cuda)):
         faults = {"K2": k2_check(qkv_e), "K2b": k2b_check(seeded_cotangent(g, 8))}
     for name, c in cmps.items():
-        print(f"{name} vs plain{' (eval input)' if name == 'K2' else ''}:", json.dumps(c))
-    print(f"K2, K2b planted faults (the last {PLANTED_FAULT_ROWS} rows unwritten):",
+        print(f"{name}{label} vs plain{' (eval input)' if name == 'K2' else ''}:", json.dumps(c))
+    print(f"K2, K2b{label} planted faults (the last {PLANTED_FAULT_ROWS} rows unwritten):",
           json.dumps(brief(faults)))
-    checks += list(cmps.items())
-    checks += [(f"{k} planted fault caught", {"ok": not c["ok"]}) for k, c in faults.items()]
+    checks = [(k + label, c) for k, c in cmps.items()]
+    checks += [(f"{k}{label} planted fault caught", {"ok": not c["ok"]})
+               for k, c in faults.items()]
 
     # -- timings ---------------------------------------------------------------
     B, T, D3 = qkv.shape
@@ -1742,7 +1783,7 @@ def unfused_phase(prog, canvas, boxes, flips) -> tuple:
     q_cols, k_cols, v_cols = qkv.split(D3 // 3, dim=-1)
     k2_pass_ms["attention_split on the column views"] = cuda_ms(
         lambda: k_attn.fused_attention_cuda(q_cols, k_cols, v_cols, n), 20)
-    print("K2 with one pass and two passes forced, and attention_split, ms:",
+    print(f"K2{label} with one pass and two passes forced, and attention_split, ms:",
           json.dumps(k2_pass_ms))
     sdpa_f_ms = cuda_ms(lambda: sdpa(q, k, v), 20)
     k2b_ms = cuda_ms(lambda: k_attn.packed_attention_bwd(qkv, g, n), 10)
@@ -1751,20 +1792,21 @@ def unfused_phase(prog, canvas, boxes, flips) -> tuple:
     pairs = B * n * hd * T * T
     k2_bound = bound(qkv.numel() * 2 + B * T * D3 // 3 * 2, 4 * pairs)
     k2b_bound = bound(2 * qkv.numel() * 2 + g.numel() * 2, 10 * pairs)
-    print(f"packed_attention: {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, SDPA "
+    print(f"packed_attention{label}: {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, SDPA "
           f"{sdpa_f_ms:.4f} ms, bound {k2_bound[0]:.4f} ms; packed_attention_bwd: "
           f"{k2b_ms:.4f} ms, plain {k2b_plain_ms:.4f} ms, SDPA backward "
           f"{sdpa_fb_ms - sdpa_f_ms:.4f} ms, bound {k2b_bound[0]:.4f} ms")
-    width_checks, by_width = backward_head_widths(qkv, g, n, k2b_ms)
-    checks += width_checks
+    by_width = None
+    if head_widths:
+        width_checks, by_width = backward_head_widths(qkv, g, n, k2b_ms)
+        checks += width_checks
     common = {"route": "cuda", "shape": [list(qkv.shape), n]}
     rows = [
-        dict(common, name="packed_attention",
-             launches_eval_apply=eval_counts["K2 packed_attention"],
+        dict(common, name="packed_attention", launches_eval_apply=eval_launches,
              source="federated_multi_modal_tpu_torch/csrc/attention_core.cu",
              replaces="federated_multi_modal_tpu/ops/pallas/attention.py:386",
              tpu_function="attention_packed_fwd (behind packed_attention)",
-             launches=counts["K2 packed_attention"],
+             launches=launches,
              max_abs_err=cmps["K2"]["max_abs_err"], tol=cmps["K2"]["tol"],
              ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound[0], bound_by=k2_bound[1],
              library_ms=sdpa_f_ms,
@@ -1774,7 +1816,7 @@ def unfused_phase(prog, canvas, boxes, flips) -> tuple:
              source="federated_multi_modal_tpu_torch/csrc/attention_core_bwd.cu",
              replaces="federated_multi_modal_tpu/ops/pallas/attention.py:422",
              tpu_function="attention_packed_bwd (the custom VJP of packed_attention)",
-             launches=counts["K2b packed_attention_bwd"],
+             launches=backward_launches,
              max_abs_err=cmps["K2b"]["max_abs_err"], tol=cmps["K2b"]["tol"],
              ms=k2b_ms, plain_ms=k2b_plain_ms, bound_ms=k2b_bound[0], bound_by=k2b_bound[1],
              library_ms=sdpa_fb_ms - sdpa_f_ms,
@@ -1782,7 +1824,7 @@ def unfused_phase(prog, canvas, boxes, flips) -> tuple:
                           "forward + backward minus forward",
              by_head_width=by_width),
     ]
-    return rows, checks, summary
+    return rows, checks
 
 
 def two_kernel_eval_phase(prog, canvas, boxes, flips) -> tuple:
@@ -1987,14 +2029,30 @@ def sublayer_train_phase(prog, canvas) -> tuple:
 
     x, lnp, w, b, n = first["k7"]["args"]
     lnp = {k: t.detach() for k, t in lnp.items()}
-    dy = first["k7"]["dy"].contiguous()
+    row, k7_checks = k7_checks_and_row(x, first["k7"]["dy"].contiguous(), lnp, w, b, n,
+                                       counts["K7 fused_ln_attention"],
+                                       counts["K7 fused_ln_attention (backward)"])
+    return [row], checks + k7_checks, summary
+
+
+def k7_checks_and_row(x, dy, lnp, w, b, n: int, launches: int, backward_launches: int,
+                      label: str = "K7") -> tuple:
+    """K7 on ``x``, ``dy`` and its parameters against its plain version, with
+    seeded weights and a unit cotangent, the planted faults (the attention's
+    last rows, dx's last rows, d gamma and d beta skipping the last rows),
+    timed beside its library version and its bound. Returns ``(row,
+    checks)``; ``launches`` and ``backward_launches`` are the run's counts."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
     cmps = ln_attention_checks(x, dy, lnp, w, b, n)
     seeded = seeded_block({"ln_1": lnp, "attn": {"w_qkv": w, "b_qkv": b}}, seed=12)
     s_args = (seeded["ln_1"], seeded["attn"]["w_qkv"], seeded["attn"]["b_qkv"], n)
     dy_unit = seeded_cotangent(dy, 13)
     seeded_cmps = ln_attention_checks(x, dy_unit, *s_args, TOL_TRAIN_SEEDED)
-    print("K7 vs plain, main path's inputs, [max |err|, err/tol]:", json.dumps(brief(cmps)))
-    print("K7 vs plain, seeded weights and unit cotangent, [max |err|, err/tol]:",
+    print(f"{label} vs plain, the run's inputs, [max |err|, err/tol]:", json.dumps(brief(cmps)))
+    print(f"{label} vs plain, seeded weights and unit cotangent, [max |err|, err/tol]:",
           json.dumps(brief(seeded_cmps)))
     cs = k_block.CUDA_STEPS
     faults = {
@@ -2005,11 +2063,11 @@ def sublayer_train_phase(prog, canvas) -> tuple:
     ln_fault = ln_attention_checks(x, dy_unit, *s_args, TOL_TRAIN_SEEDED, steps=cs._replace(
         layernorm_bwd=fault_ln_grad_tail(k_block.layernorm_bwd_rows_cuda)))
     faults.update({k: ln_fault[k] for k in ("ln_1.scale", "ln_1.bias")})
-    print(f"K7 planted faults (the last {PLANTED_FAULT_ROWS} rows unwritten or skipped), "
+    print(f"{label} planted faults (the last {PLANTED_FAULT_ROWS} rows unwritten or skipped), "
           "[max |err|, err/tol]:", json.dumps(brief(faults)))
-    checks += [(f"K7 {k}", c) for k, c in cmps.items()]
-    checks += [(f"K7 seeded {k}", c) for k, c in seeded_cmps.items()]
-    checks += [(f"K7 planted fault caught by {k}", {"ok": not c["ok"]})
+    checks = [(f"{label} {k}", c) for k, c in cmps.items()]
+    checks += [(f"{label} seeded {k}", c) for k, c in seeded_cmps.items()]
+    checks += [(f"{label} planted fault caught by {k}", {"ok": not c["ok"]})
                for k, c in faults.items()]
     del seeded, dy_unit, ln_fault
 
@@ -2036,15 +2094,15 @@ def sublayer_train_phase(prog, canvas) -> tuple:
     ms = cuda_ms(fwd_bwd, 10)
     plain_ms = cuda_ms(lambda: fwd_bwd(k_block.fused_ln_attention_reference), 3, 1)
     lib_ms = cuda_ms(library_fwd_bwd, 10)
-    launches, _ = device_profile(fwd_bwd)
-    print("one fused_ln_attention forward + backward, device us per launch:",
-          json.dumps([[short_name(nm), round(us, 1)] for nm, us in launches]))
+    profiled, _ = device_profile(fwd_bwd)
+    print(f"one fused_ln_attention forward + backward ({label}), device us per launch:",
+          json.dumps([[short_name(nm), round(us, 1)] for nm, us in profiled]))
     M = B * T
     attn_fwd = 4 * B * D * T * T
     k7_bound = bound(4 * M * D * 2 + 3 * D * D * 2 + 3 * D * 2 + 4 * D * 4,
                      2 * (2 * M * 3 * D * D) + attn_fwd + 2 * attn_fwd)
     worst = max(cmps.values(), key=lambda c: c["max_err_over_tol"])
-    rows = [{
+    row = {
         "name": "fused_ln_attention", "route": "cuda",
         "source": "federated_multi_modal_tpu_torch/csrc/attention_core_bwd.cu",
         "sources": [f"federated_multi_modal_tpu_torch/csrc/{f}" for f in (
@@ -2054,18 +2112,17 @@ def sublayer_train_phase(prog, canvas) -> tuple:
         "tpu_function": "fused_ln_attention_fwd (:324) and fused_ln_attention_bwd (:359), "
                         "behind fused_ln_attention",
         "shape": [list(x.shape), n], "head_dim": D // n,
-        "launches": counts["K7 fused_ln_attention"],
-        "backward_launches": counts["K7 fused_ln_attention (backward)"],
+        "launches": launches, "backward_launches": backward_launches,
         "max_abs_err": worst["max_abs_err"], "max_err_over_tol": worst["max_err_over_tol"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
         "library_ms": lib_ms,
         "library_call": "F.layer_norm + F.linear + scaled_dot_product_attention, "
                         "forward + backward",
         "timed": "forward + backward",
-    }]
-    print(f"fused_ln_attention: fwd+bwd {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+    }
+    print(f"fused_ln_attention ({label}): fwd+bwd {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
           f"{lib_ms:.3f} ms, bound {k7_bound[0]:.3f} ms ({k7_bound[1]})")
-    return rows, checks, summary
+    return row, checks
 
 
 # -- the block-group eval kernel, CoOp, zero-shot CLIP and K8 -----------------
@@ -2114,8 +2171,8 @@ def block_bound(B, T, D, n_head, hidden):
     return n_bytes, ops
 
 
-def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
-    """``FMM_TPU_FUSED_NBLK`` = 4, then 5: MaPLe's eval apply with the vision
+def group_eval_phase(prog, canvas, boxes, flips, sizes=None) -> tuple:
+    """``FMM_TPU_FUSED_NBLK`` = 4, then 5 (``sizes``): MaPLe's eval apply with the vision
     blocks in groups through K9 and the deep prompts injected by
     ``inject_rows``; K9 against its plain version on the first group's own
     inputs and on seeded ones (extra rows at T = 200, seeded biases and
@@ -2127,6 +2184,7 @@ def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
     from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
     from federated_multi_modal_tpu_torch.ops.preprocess import crop_resize_flip_normalize
 
+    sizes = sizes or GROUP_SIZES
     arch = prog["arch"]
     n_vis = arch.vision_layers
     tr, fr = prog["trainable"], prog["frozen"]
@@ -2138,7 +2196,7 @@ def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
         images = crop_resize_flip_normalize(canvas[:E2E_IMAGES], boxes[:E2E_IMAGES],
                                             flips[:E2E_IMAGES], out_size=arch.image_resolution)
         logits16["K5"] = prog["eval_apply_fn"](tr, fr, images, prep)
-    for nblk in GROUP_SIZES:
+    for nblk in sizes:
         label = f" (FMM_TPU_FUSED_NBLK={nblk})"
         with gates(**dict(DEFAULT_GATES, FMM_TPU_FUSED_NBLK=nblk)):
             logits, counts, prep, images = eval_counted(
@@ -2158,11 +2216,11 @@ def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
                                  eval_launches=counts, max_abs_diff_vs_k5=vs_k5["max_abs_err"])
             del logits, prep, images
     summary["apply_ms_k9_over_k5"] = {n: summary[n]["eval_apply_ms"] / summary["K5"]["eval_apply_ms"]
-                                      for n in GROUP_SIZES}
+                                      for n in sizes}
     print("eval apply ms, K9 over K5 (same phase):", json.dumps(summary["apply_ms_k9_over_k5"]))
 
     # -- K9 and inject_rows against their plain versions -------------------
-    x, blocks, n, flags, prompts, extra = first[GROUP_SIZES[0]]["args"]
+    x, blocks, n, flags, prompts, extra = first[sizes[0]]["args"]
     B, T, D = x.shape
 
     def k9_check(x, blocks, extra, tol):
@@ -2234,7 +2292,7 @@ def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
     k9_bound = bound(2 * B * T * D * 2 + G * w_bytes + sum(p.numel() for p in prompts) * 2,
                      G * ops)
     inj_bound = bound(prompts[0].numel() * 2 + extra_s.numel() * 2 + B * 3 * D * 4, 0)
-    counts = summary[GROUP_SIZES[0]]["eval_launches"]
+    counts = summary[sizes[0]]["eval_launches"]
     row = {
         "name": "fused_block_group_residual", "route": "cuda",
         "source": "federated_multi_modal_tpu_torch/csrc/inject_rows.cu",
@@ -2245,8 +2303,8 @@ def group_eval_phase(prog, canvas, boxes, flips) -> tuple:
                         "fused_block_group_residual",
         "shape": [list(x.shape), n, hidden, G, list(flags)],
         "launches": counts["K9 fused_block_group_residual"],
-        "launches_nblk5": summary[GROUP_SIZES[1]]["eval_launches"][
-            "K9 fused_block_group_residual"],
+        **{f"launches_nblk{n}": summary[n]["eval_launches"]["K9 fused_block_group_residual"]
+           for n in sizes[1:]},
         "max_abs_err": cmps["K9"]["max_abs_err"], "tol": cmps["K9"]["tol"],
         "ms": k9_ms, "plain_ms": k9_plain_ms, "bound_ms": k9_bound[0], "bound_by": k9_bound[1],
         "library_ms": k9_lib_ms,
@@ -2881,13 +2939,18 @@ def ln_library_backward(x32, dxn, gamma, partials: bool):
 
 def kernel_device_us(fn, keys) -> dict:
     """Device microseconds of one call of ``fn`` by kernel (``short_name``),
-    for the kernels whose short names are in ``keys``."""
-    kernels, _ = device_profile(fn)
+    for the kernels whose short names are in ``keys``; profiled up to three
+    times while the trace holds none of them (now and then a window's
+    launches are all missing from it)."""
     out = {}
-    for name, us in kernels:
-        key = short_name(name)
-        if key in keys:
-            out[key] = out.get(key, 0.0) + us
+    for _ in range(3):
+        kernels, _ = device_profile(fn)
+        for name, us in kernels:
+            key = short_name(name)
+            if key in keys:
+                out[key] = out.get(key, 0.0) + us
+        if out:
+            break
     return out
 
 
@@ -2918,9 +2981,11 @@ def ln_bwd_ptxas(build_log: str) -> dict:
     return out
 
 
-def layernorm_bwd_phase(runs: dict) -> tuple:
+def layernorm_bwd_phase(runs: dict, rows: int = LN_BWD_ROWS, width: int = 768,
+                        instances=LN_BWD_INSTANCES, suffix: str = "") -> tuple:
     """``layernorm_bwd_rows.cu`` by instance: LN2's and LN1's (K3, K4), K7's
-    and P2's, at the train step's 102,400 rows of 768 on seeded inputs;
+    and P2's (``instances``), at the train step's 102,400 rows of 768
+    (``rows`` of ``width``) on seeded inputs;
     ``runs`` maps each instance's run to its counted launches by instance
     and the launches its callers' counters imply (one LN2 and one LN1 a K3
     or K4 backward, one a K7 backward, one a P2 call), which the counts must
@@ -2929,7 +2994,8 @@ def layernorm_bwd_phase(runs: dict) -> tuple:
     backward, with its registers, spills, blocks per SM and waves; then
     ``layernorm_rows.cu`` on its two main-path inputs beside
     ``F.layer_norm``, and ``column_sum`` on the step's sums beside
-    ``torch.sum``. Returns ``(rows, checks, summary)``."""
+    ``torch.sum``; ``suffix`` follows each printed name. Returns ``(rows,
+    checks, summary)``."""
     import torch
 
     from federated_multi_modal_tpu_torch.ops.kernels import _build
@@ -2937,7 +3003,7 @@ def layernorm_bwd_phase(runs: dict) -> tuple:
 
     F = torch.nn.functional
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16, None: None}
-    M, D = LN_BWD_ROWS, 768
+    M, D = rows, width
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(50)
     ptxas = ln_bwd_ptxas(_build.build_log)
@@ -2947,7 +3013,8 @@ def layernorm_bwd_phase(runs: dict) -> tuple:
 
     gamma = randn(D, scale=0.1, shift=1.0)
     rows, checks, summary = [], [], {}
-    for name, xd, rd, od, copy, partials, replaces, run_name in LN_BWD_INSTANCES:
+    for name, xd, rd, od, copy, partials, replaces, run_name in instances:
+        name += suffix
         x = randn(M, D, dtype=dt[xd], scale=3.0, shift=1.0)
         dxn = randn(M, D)
         dres = None if rd is None else randn(M, D, dtype=dt[rd])
@@ -3041,6 +3108,7 @@ def layernorm_bwd_phase(runs: dict) -> tuple:
     # layernorm_rows.cu on its main-path inputs (LN1's bf16 x, LN2's fp32 y)
     beta = randn(D, scale=0.1)
     for name, xd in (("bf16 in (LN1)", torch.bfloat16), ("fp32 in (LN2)", torch.float32)):
+        name += suffix
         x = randn(M, D, dtype=xd, scale=3.0, shift=1.0)
         got = k_block.layernorm_rows_cuda(x, gamma, beta, torch.bfloat16)
         held = compare(got, k_block.layernorm_rows_reference(x, gamma, beta, torch.bfloat16),
@@ -3068,12 +3136,13 @@ def layernorm_bwd_phase(runs: dict) -> tuple:
 
     # column_sum on the step's sums: the LayerNorm partials, a bias gradient
     # (K4's db_fc over the bf16 dh) and a split weight gradient's partials
-    splits = k_block.tn_split_plan(768, 2304, M, sms)[0]
+    splits = k_block.tn_split_plan(D, 3 * D, M, sms)[0]
     ln_blocks = k_block.ln_bwd_plan(M, sms, k_block.ln_bwd_blocks_per_sm(k_block.ln_bwd_variant(
         D, torch.bfloat16, torch.float32, torch.bfloat16, True)))[0]
     for name, shape, xd in (("LayerNorm partials", (ln_blocks, 2 * D), torch.float32),
-                            ("db_fc over dh", (M, 3072), torch.bfloat16),
-                            ("dw_qkv partials", (splits, 768 * 2304), torch.float32)):
+                            ("db_fc over dh", (M, 4 * D), torch.bfloat16),
+                            ("dw_qkv partials", (splits, D * 3 * D), torch.float32)):
+        name += suffix
         x = randn(*shape, dtype=xd)
         got = k_block.column_sum_cuda(x)
         held = compare(got, k_block.column_sum_reference(x), 1e-5 * shape[0] ** 0.5)
@@ -4529,10 +4598,12 @@ def rn_tower_phase(card: str, sd_path: str) -> tuple:
     return checks, summary
 
 
-def rn_zeroshot_k1(first: dict, name: str) -> tuple:
-    """K1 at a zero-shot text shape (the first text block's qkv and mask
-    that the run handed it) against its plain version, with the mask
-    dropped as a planted fault, timed beside SDPA."""
+def rn_zeroshot_k1(first: dict, name: str, prefix: str = "rn") -> tuple:
+    """K1 at a text shape (the first text block's qkv and mask that the run
+    handed it: zero-shot CLIP's causal 77-token rows, or MaPLe's packed
+    block-causal ones) against its plain version, with the mask dropped as
+    a planted fault, timed beside SDPA (``is_causal`` for a causal mask,
+    else the float mask)."""
     import torch
 
     from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
@@ -4546,6 +4617,8 @@ def rn_zeroshot_k1(first: dict, name: str) -> tuple:
     B1, T1, D3 = qkv.shape
     hd = D3 // 3 // n
     q, k, v = (t.reshape(B1, T1, n, hd).transpose(1, 2) for t in qkv.split(D3 // 3, dim=-1))
+    causal = bool(torch.equal(torch.isfinite(mask), torch.ones_like(mask, dtype=torch.bool).tril()))
+    sdpa_mask = {"is_causal": True} if causal else {"attn_mask": mask.to(qkv.dtype)}
     b = bound(qkv.numel() * 2 + mask.numel() * 4 + B1 * T1 * D3 // 3 * 2,
               4 * B1 * n * hd * int(torch.isfinite(mask).sum()))
     row = {"shape": [list(qkv.shape), list(mask.shape), n], "heads": n, "head_width": hd,
@@ -4554,14 +4627,196 @@ def rn_zeroshot_k1(first: dict, name: str) -> tuple:
            "plain_ms": cuda_ms(lambda: k_attn.packed_attention_masked_reference(qkv, mask, n),
                                5, 1),
            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-               q, k, v, is_causal=True), 20),
-           "library_call": "scaled_dot_product_attention(is_causal=True)",
+               q, k, v, **sdpa_mask), 20),
+           "library_call": "scaled_dot_product_attention("
+                           + ("is_causal=True)" if causal else "float mask)"),
            "bound_ms": b[0], "bound_by": b[1]}
-    print(f"  rn {name} K1 at {row['shape']}: {json.dumps(held)}; planted fault (mask "
+    print(f"  {prefix} {name} K1 at {row['shape']}: {json.dumps(held)}; planted fault (mask "
           f"dropped) [max |err|, err/tol] {json.dumps(brief({'K1': fault}))}; "
           f"{json.dumps({k: row[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')})}")
-    return row, [(f"rn {name} K1 at its text shape", held),
-                 (f"rn {name} K1 planted fault (mask dropped) caught", {"ok": not fault["ok"]})]
+    return row, [(f"{prefix} {name} K1 at its text shape", held),
+                 (f"{prefix} {name} K1 planted fault (mask dropped) caught", {"ok": not fault["ok"]})]
+
+
+def cli_coop_run(card: str, tmp: str, root: str, sd_path: str, config_file: str,
+                 label: str, opts: tuple = ()) -> tuple:
+    """CoOp with ``config_file`` through ``main`` on the seeded Caltech101
+    stand-in at ``root``, all 100 classes, 2 shots, one epoch at the
+    config's batch, from the OpenAI-format state dict at ``sd_path``: each
+    step's, ``test()``'s and the build's launches held against the
+    routing, one more step and one ``test()`` profiled, a whole
+    ``STEP_IMAGES``-image step against the plain path with K1b's mask
+    dropped as a planted fault, and the same run under ``TPU.ATTENTION_IMPL
+    xla`` (first loss within ``TOL_STEP_LOSS``, no kernel launched).
+    ``opts`` are appended to both runs' options. Returns ``(the kernel
+    run's launches by label, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+
+    def argv(out, *cfg):
+        return ["--root", root, "--seed", "1", "--trainer", "CoOp",
+                "--dataset-config-file", B2N_DATASET_YAML, "--config-file", config_file,
+                "--output-dir", os.path.join(tmp, out),
+                "MODEL.BACKBONE.WEIGHTS_PATH", sd_path, "DATASET.NUM_SHOTS", str(B2N_SHOTS),
+                "OPTIM.MAX_EPOCH", "1", *cfg, *opts]
+
+    run = b2n_run(argv("coop"), label)
+    trainer = run["trainer"]
+    n_test = len(trainer.test_loader)
+    checks = [(f"{label} launches as the routing implies",
+               hold_launches(run, cli_implied(trainer.arch, "CoOp", n_test), label))]
+    steps = [s["ms"] for s in run["steps"]]
+    batch = trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+    step_batch = trainer.parse_batch_train(next(iter(trainer.train_loader_x)))
+    coop = {
+        "classes": len(trainer.dm.dataset.classnames),
+        "train_images": len(trainer.dm.dataset.train_x),
+        "test_images": len(trainer.dm.dataset.test), "batch": batch,
+        "test_batches": n_test, "steps": len(steps),
+        "step_ms_median": statistics.median(steps[1:]), "step_ms_first": steps[0],
+        "step_ms_all": steps, "test_ms": [t["ms"] for t in run["tests"]],
+        "first_loss": run["steps"][0]["loss"], "accuracy": run["tests"][-1]["accuracy"],
+        "epoch_s": [e["epoch_s"] for e in trainer.epoch_stats],
+        "loader_wait_share": [e["loader_wait_s"] / e["epoch_s"]
+                              for e in trainer.epoch_stats],
+        "launches_per_step": nonzero(run["steps"][-1]["launches"]),
+        "launches_per_test": nonzero(run["tests"][-1]["launches"]),
+        "peak_gib": run["peak_gib"], "main_s": run["wall_s"],
+        "text_rows_per_step": text_rows(len(trainer.dm.dataset.classnames),
+                                        trainer.const.text_len),
+        "profile_step": profile_by_kernel(
+            lambda: trainer.train_step({"image": step_batch[0], "label": step_batch[1]}),
+            f"{label} train step, B={batch}, on {card}", top=14),
+        "profile_test": profile_by_kernel(
+            trainer.test, f"{label} test(), {n_test} batches, on {card}"),
+    }
+    checks += whole_step_vs_plain(
+        trainer.loss_fn, trainer.trainable, trainer.frozen, b2n_batch(trainer, STEP_IMAGES),
+        None, (k_attn, {"attention_core_bwd_cuda": fault_mask_dropped(
+            k_attn.attention_core_bwd_cuda)}), f" ({label})")
+    counts = run["counts"]
+    del trainer, run, step_batch
+    torch.cuda.empty_cache()
+
+    run = b2n_run(argv("coop-xla", "TPU.ATTENTION_IMPL", "xla", "TEST.NO_TEST", "True"),
+                  f"{label}, xla")
+    rel = abs(coop["first_loss"] - run["steps"][0]["loss"]) / abs(run["steps"][0]["loss"])
+    coop["first_loss_xla"] = run["steps"][0]["loss"]
+    coop["step_ms_median_xla"] = statistics.median(s["ms"] for s in run["steps"][1:])
+    checks += [(f"{label} first loss, kernel routes vs xla",
+                {"first_loss_rel_err": rel, "tol": TOL_STEP_LOSS, "ok": rel <= TOL_STEP_LOSS}),
+               (f"{label} xla launches no kernel", {"ok": not nonzero(run["counts"])})]
+    del run
+    torch.cuda.empty_cache()
+    print(f"{label}, Caltech101 stand-in, {coop['classes']} classes "
+          f"({coop['train_images']} train, {coop['test_images']} test images), batch "
+          f"{batch}, on {card}: step {coop['step_ms_median']:.2f} ms (median of "
+          f"{coop['steps'] - 1} after the first, synchronised; first "
+          f"{coop['step_ms_first']:.1f}; xla {coop['step_ms_median_xla']:.2f}), test() "
+          f"{', '.join(f'{t:.1f}' for t in coop['test_ms'])} ms, profiled step wall "
+          f"{coop['profile_step']['wall_ms']:.2f} ms, device busy "
+          f"{coop['profile_step']['device_busy_ms']:.2f} ms, idle "
+          f"{coop['profile_step']['idle_share']:.3f}, peak {coop['peak_gib']:.2f} GiB; "
+          f"launches per step {json.dumps(coop['launches_per_step'])}, per test() "
+          f"{json.dumps(coop['launches_per_test'])}; first loss {coop['first_loss']:.6f}, "
+          f"xla {coop['first_loss_xla']:.6f}")
+    return counts, checks, coop
+
+
+def cli_zeroshot_run(card: str, tmp: str, root: str, name: str, size: int,
+                     config_file: str, prefix: str, opts: tuple = (),
+                     vs_xla: bool = False) -> tuple:
+    """``ZeroshotCLIP --eval-only`` through ``main`` on the seeded Caltech101
+    stand-in at ``root`` (all 100 class prompts, the config's test batch)
+    at backbone ``name`` and input ``size``, from a seeded OpenAI-format
+    fp16 state dict written here: launches held, finite logits, K1 at the
+    text shape against its plain version with a planted fault and beside
+    SDPA, the tower's forward ms, ``test()`` ms and peak memory; with
+    ``vs_xla`` the logits of one test batch against the same trainer's on
+    the ``xla`` route (``TOL_E2E``). Returns ``(launches by label, checks,
+    summary, K1 row)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.models.clip_model import encode_image_auto
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.trainers.zsclip import zeroshot_text_features
+
+    path = os.path.join(tmp, f"{name.replace('/', '-')}_openai_fp16.pt")
+    write_s = write_openai_state_dict(path, backbone=name)
+    first = {}
+    with patched(primitives, _attn_kernels=overlay(
+            k_attn, packed_attention_masked=cotangent_recorder(
+                first, "k1", k_attn.packed_attention_masked))):
+        run = b2n_run(
+            ["--root", root, "--seed", "1", "--trainer", "ZeroshotCLIP",
+             "--dataset-config-file", B2N_DATASET_YAML, "--config-file", config_file,
+             "--output-dir", os.path.join(tmp, f"zs-{name.replace('/', '-')}"), "--eval-only",
+             "MODEL.BACKBONE.NAME", name, "MODEL.BACKBONE.WEIGHTS_PATH", path,
+             "DATASET.NUM_SHOTS", str(B2N_SHOTS), "INPUT.SIZE", f"({size}, {size})",
+             *opts],
+            f"{prefix} ZeroshotCLIP {name}")
+    trainer = run["trainer"]
+    arch = trainer.arch
+    n_test = len(trainer.test_loader)
+    rec = {"state_dict_write_s": write_s, "input_size": size,
+           "text": {"width": arch.transformer_width, "heads": arch.transformer_heads},
+           "test_ms": [t["ms"] for t in run["tests"]],
+           "accuracy": run["tests"][-1]["accuracy"], "peak_gib": run["peak_gib"],
+           "launches_run": nonzero(run["counts"]), "main_s": run["wall_s"]}
+    checks = [(f"{prefix} ZeroshotCLIP {name} launches as the routing implies",
+               hold_launches(run, cli_implied(arch, "ZeroshotCLIP", n_test),
+                             f"{prefix} ZeroshotCLIP {name}"))]
+    with torch.no_grad():
+        eval_batch = next(iter(trainer.test_loader))
+        logits = trainer.model_inference(trainer.parse_batch_images(eval_batch))
+    rec["logits"] = list(logits.shape)
+    checks.append((f"{prefix} ZeroshotCLIP {name} logits finite", {
+        "ok": bool(torch.isfinite(logits).all())
+        and rec["logits"] == [len(eval_batch["label"]), len(trainer.dm.dataset.classnames)]}))
+    if vs_xla:
+        # the same weights' text features and logits on the JAX package's
+        # XLA route (no kernel)
+        saved = primitives.attention_impl()
+        primitives.set_attention_impl("xla")
+        try:
+            with torch.no_grad():
+                txt_xla = zeroshot_text_features(
+                    trainer.clip_params, arch, trainer.dm.dataset.classnames,
+                    trainer.templates(trainer.cfg.DATASET.NAME), device=trainer.device)
+                logits_xla = trainer._infer_fn(trainer.clip_params, txt_xla,
+                                               trainer.parse_batch_images(eval_batch))
+        finally:
+            primitives.set_attention_impl(saved)
+        rec["text_features_max_abs_diff_vs_xla"] = float(
+            (trainer.text_features.float() - txt_xla.float()).abs().max())
+        rec["logits_vs_xla"] = compare(logits, logits_xla, TOL_E2E)
+        checks.append((f"{prefix} ZeroshotCLIP {name} logits, kernel routes vs xla",
+                       rec["logits_vs_xla"]))
+        print(f"{prefix} ZeroshotCLIP {name}: logits of {len(eval_batch['label'])} images, "
+              f"kernel routes vs xla: {json.dumps(rec['logits_vs_xla'])}; text features of "
+              f"{len(txt_xla)} classes, max |difference| "
+              f"{rec['text_features_max_abs_diff_vs_xla']:.3g} (printed, not checked)")
+        del logits_xla, txt_xla
+    images = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (RN_TOWER_BATCHES[0], size, size, 3)).astype(np.float32)).cuda()
+    visual = trainer.clip_params["visual"]
+    with torch.no_grad():
+        rec["tower_forward_ms_b32"] = cuda_ms(
+            lambda: encode_image_auto(visual, arch, images, inference=True), 5)
+    row, k1_checks = rn_zeroshot_k1(first["k1"], name, prefix)
+    checks += k1_checks
+    rec["k1"] = row
+    counts = run["counts"]
+    print(f"{prefix} ZeroshotCLIP {name} ({size} x {size}, text {arch.transformer_width} wide, "
+          f"{arch.transformer_heads} heads) on {card}: test() "
+          f"{', '.join(f'{t:.1f}' for t in rec['test_ms'])} ms, tower forward at batch "
+          f"{RN_TOWER_BATCHES[0]} {rec['tower_forward_ms_b32']:.2f} ms, peak "
+          f"{rec['peak_gib']:.2f} GiB, launches {json.dumps(rec['launches_run'])}")
+    del trainer, run, logits, images, visual, first
+    torch.cuda.empty_cache()
+    return counts, checks, rec, row
 
 
 def rn_phase(card: str, opts: tuple = (), zeroshot=RN_ZEROSHOT) -> tuple:
@@ -4591,9 +4846,6 @@ def rn_phase(card: str, opts: tuple = (), zeroshot=RN_ZEROSHOT) -> tuple:
     import torch
 
     from federated_multi_modal_tpu_torch.data.seeded_trees import write_caltech101_tree
-    from federated_multi_modal_tpu_torch.models.clip_model import encode_image_auto
-    from federated_multi_modal_tpu_torch.ops import primitives
-    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
 
     checks, summary, launches, k1_rows = [], {"card": card}, {}, {}
 
@@ -4614,129 +4866,17 @@ def rn_phase(card: str, opts: tuple = (), zeroshot=RN_ZEROSHOT) -> tuple:
         write_caltech101_tree(root, B2N_PER_CLASS, seed=0)
         summary["tree_write_s"] = time.perf_counter() - t0
 
-        def argv(out, *cfg):
-            return ["--root", root, "--seed", "1", "--trainer", "CoOp",
-                    "--dataset-config-file", B2N_DATASET_YAML, "--config-file", RN_COOP_YAML,
-                    "--output-dir", os.path.join(tmp, out),
-                    "MODEL.BACKBONE.WEIGHTS_PATH", sd_path, "DATASET.NUM_SHOTS", str(B2N_SHOTS),
-                    "OPTIM.MAX_EPOCH", "1", *cfg, *opts]
-
-        run = b2n_run(argv("coop"), "rn CoOp RN50")
-        trainer = run["trainer"]
-        n_test = len(trainer.test_loader)
-        checks.append(("rn CoOp RN50 launches as the routing implies",
-                       hold_launches(run, cli_implied(trainer.arch, "CoOp", n_test),
-                                     "rn CoOp RN50")))
-        steps = [s["ms"] for s in run["steps"]]
-        batch = trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE
-        step_batch = trainer.parse_batch_train(next(iter(trainer.train_loader_x)))
-        coop = {
-            "classes": len(trainer.dm.dataset.classnames),
-            "train_images": len(trainer.dm.dataset.train_x),
-            "test_images": len(trainer.dm.dataset.test), "batch": batch,
-            "test_batches": n_test, "steps": len(steps),
-            "step_ms_median": statistics.median(steps[1:]), "step_ms_first": steps[0],
-            "step_ms_all": steps, "test_ms": [t["ms"] for t in run["tests"]],
-            "first_loss": run["steps"][0]["loss"], "accuracy": run["tests"][-1]["accuracy"],
-            "epoch_s": [e["epoch_s"] for e in trainer.epoch_stats],
-            "loader_wait_share": [e["loader_wait_s"] / e["epoch_s"]
-                                  for e in trainer.epoch_stats],
-            "launches_per_step": nonzero(run["steps"][-1]["launches"]),
-            "launches_per_test": nonzero(run["tests"][-1]["launches"]),
-            "peak_gib": run["peak_gib"], "main_s": run["wall_s"],
-            "text_rows_per_step": text_rows(len(trainer.dm.dataset.classnames),
-                                            trainer.const.text_len),
-            "profile_step": profile_by_kernel(
-                lambda: trainer.train_step({"image": step_batch[0], "label": step_batch[1]}),
-                f"rn CoOp RN50 train step, B={batch}, on {card}", top=14),
-            "profile_test": profile_by_kernel(
-                trainer.test, f"rn CoOp RN50 test(), {n_test} batches, on {card}"),
-        }
-        checks += whole_step_vs_plain(
-            trainer.loss_fn, trainer.trainable, trainer.frozen, b2n_batch(trainer, STEP_IMAGES),
-            None, (k_attn, {"attention_core_bwd_cuda": fault_mask_dropped(
-                k_attn.attention_core_bwd_cuda)}), " (rn CoOp RN50)")
-        add(run["counts"])
-        del trainer, run, step_batch
-        torch.cuda.empty_cache()
-
-        run = b2n_run(argv("coop-xla", "TPU.ATTENTION_IMPL", "xla", "TEST.NO_TEST", "True"),
-                      "rn CoOp RN50, xla")
-        rel = abs(coop["first_loss"] - run["steps"][0]["loss"]) / abs(run["steps"][0]["loss"])
-        coop["first_loss_xla"] = run["steps"][0]["loss"]
-        coop["step_ms_median_xla"] = statistics.median(s["ms"] for s in run["steps"][1:])
-        checks += [("rn CoOp RN50 first loss, kernel routes vs xla",
-                    {"first_loss_rel_err": rel, "tol": TOL_STEP_LOSS, "ok": rel <= TOL_STEP_LOSS}),
-                   ("rn CoOp RN50 xla launches no kernel", {"ok": not nonzero(run["counts"])})]
-        del run
-        torch.cuda.empty_cache()
-        summary["coop_rn50"] = coop
-        print(f"rn CoOp RN50, Caltech101 stand-in, {coop['classes']} classes "
-              f"({coop['train_images']} train, {coop['test_images']} test images), batch "
-              f"{batch}, on {card}: step {coop['step_ms_median']:.2f} ms (median of "
-              f"{coop['steps'] - 1} after the first, synchronised; first "
-              f"{coop['step_ms_first']:.1f}; xla {coop['step_ms_median_xla']:.2f}), test() "
-              f"{', '.join(f'{t:.1f}' for t in coop['test_ms'])} ms, profiled step wall "
-              f"{coop['profile_step']['wall_ms']:.2f} ms, device busy "
-              f"{coop['profile_step']['device_busy_ms']:.2f} ms, idle "
-              f"{coop['profile_step']['idle_share']:.3f}, peak {coop['peak_gib']:.2f} GiB; "
-              f"launches per step {json.dumps(coop['launches_per_step'])}, per test() "
-              f"{json.dumps(coop['launches_per_test'])}; first loss {coop['first_loss']:.6f}, "
-              f"xla {coop['first_loss_xla']:.6f}")
+        counts, coop_checks, summary["coop_rn50"] = cli_coop_run(
+            card, tmp, root, sd_path, RN_COOP_YAML, "rn CoOp RN50", opts)
+        checks += coop_checks
+        add(counts)
 
         # -- zero-shot CLIP on each catalog ResNet --------------------------------
         for name, size in zeroshot:
-            path = os.path.join(tmp, f"{name}_openai_fp16.pt")
-            write_s = write_openai_state_dict(path, backbone=name)
-            first = {}
-            with patched(primitives, _attn_kernels=overlay(
-                    k_attn, packed_attention_masked=cotangent_recorder(
-                        first, "k1", k_attn.packed_attention_masked))):
-                run = b2n_run(
-                    ["--root", root, "--seed", "1", "--trainer", "ZeroshotCLIP",
-                     "--dataset-config-file", B2N_DATASET_YAML, "--config-file", RN_COOP_YAML,
-                     "--output-dir", os.path.join(tmp, f"zs-{name}"), "--eval-only",
-                     "MODEL.BACKBONE.NAME", name, "MODEL.BACKBONE.WEIGHTS_PATH", path,
-                     "DATASET.NUM_SHOTS", str(B2N_SHOTS), "INPUT.SIZE", f"({size}, {size})",
-                     *opts],
-                    f"rn ZeroshotCLIP {name}")
-            trainer = run["trainer"]
-            arch = trainer.arch
-            n_test = len(trainer.test_loader)
-            rec = {"state_dict_write_s": write_s, "input_size": size,
-                   "text": {"width": arch.transformer_width, "heads": arch.transformer_heads},
-                   "test_ms": [t["ms"] for t in run["tests"]],
-                   "accuracy": run["tests"][-1]["accuracy"], "peak_gib": run["peak_gib"],
-                   "launches_run": nonzero(run["counts"]), "main_s": run["wall_s"]}
-            checks.append((f"rn ZeroshotCLIP {name} launches as the routing implies",
-                           hold_launches(run, cli_implied(arch, "ZeroshotCLIP", n_test),
-                                         f"rn ZeroshotCLIP {name}")))
-            with torch.no_grad():
-                eval_batch = next(iter(trainer.test_loader))
-                logits = trainer.model_inference(trainer.parse_batch_images(eval_batch))
-            rec["logits"] = list(logits.shape)
-            checks.append((f"rn ZeroshotCLIP {name} logits finite", {
-                "ok": bool(torch.isfinite(logits).all())
-                and rec["logits"] == [len(eval_batch["label"]), len(trainer.dm.dataset.classnames)]}))
-            images = torch.from_numpy(np.random.default_rng(1).standard_normal(
-                (RN_TOWER_BATCHES[0], size, size, 3)).astype(np.float32)).cuda()
-            visual = trainer.clip_params["visual"]
-            with torch.no_grad():
-                rec["tower_forward_ms_b32"] = cuda_ms(
-                    lambda: encode_image_auto(visual, arch, images, inference=True), 5)
-            row, k1_checks = rn_zeroshot_k1(first["k1"], name)
-            checks += k1_checks
-            k1_rows[name] = row
-            rec["k1"] = row
-            summary[f"zeroshot_{name}"] = rec
-            add(run["counts"])
-            print(f"rn ZeroshotCLIP {name} ({size} x {size}, text {arch.transformer_width} wide, "
-                  f"{arch.transformer_heads} heads) on {card}: test() "
-                  f"{', '.join(f'{t:.1f}' for t in rec['test_ms'])} ms, tower forward at batch "
-                  f"{RN_TOWER_BATCHES[0]} {rec['tower_forward_ms_b32']:.2f} ms, peak "
-                  f"{rec['peak_gib']:.2f} GiB, launches {json.dumps(rec['launches_run'])}")
-            del trainer, run, logits, images, visual, first
-            torch.cuda.empty_cache()
+            counts, zs_checks, summary[f"zeroshot_{name}"], k1_rows[name] = cli_zeroshot_run(
+                card, tmp, root, name, size, RN_COOP_YAML, "rn", opts)
+            checks += zs_checks
+            add(counts)
     return launches, checks, summary, k1_rows
 
 
@@ -5352,18 +5492,27 @@ def native_build_error() -> str:
 STEP_SWEEP_ROUTES = (("default", {}), ("unfused", {"FMM_TPU_FUSED": "0"}),
                      ("sublayer", {"FMM_TPU_FUSED_TRAIN": "1",
                                    "FMM_TPU_FUSED_TRAIN_BLOCK": "0"}))
+# The sweep's variants of the kernel path: the attention forward (K1, K2,
+# and inside K3-K7) replaced by a PyTorch forward whose q.k or P.V sums, or
+# both, are exact; or one step of the vision blocks' train kernels (K3, K4)
+# replaced by its plain version.
+STEP_SWEEP_VARIANTS = {
+    "kernel": {}, "exact forward": {"attention": (True, True)},
+    "exact q.k": {"attention": (True, False)}, "exact P.V": {"attention": (False, True)},
+    "plain attention backward": {"step": "attention_bwd"}, "plain GEMMs": {"step": "gemm"},
+    "plain LayerNorm backward": {"step": "layernorm_bwd"}}
 
 
-def step_sweep(n_batches: int) -> None:
-    """``--step-sweep N``: the whole 16-image step's gradient readings
-    (max |err| over max |value| over the vision limit, worst leaf) on N
-    batches per train route, of the kernel path and of the kernel path with
-    its attention forward (K1, K2, and inside K3-K7) replaced by a PyTorch
-    forward whose q.k or P.V sums, or both, are exact; each against the
-    whole-step reference (the plain path with the exact forward), beside the
-    control (the fully plain path against the same reference). Each variant
-    trains its own state first, as the main run does. Prints; checks
-    nothing."""
+def step_sweep(n_batches: int, backbone: str = "ViT-B/16") -> None:
+    """``--step-sweep N [BACKBONE]``: the whole 16-image step's gradient
+    readings (max |err| over max |value| over the vision limit, worst leaf)
+    on N batches per train route (the default route alone at a backbone
+    other than ViT-B/16; ViT-L/14's program with remat, its B = 512 step's
+    memory), for each of ``STEP_SWEEP_VARIANTS``; each against the
+    whole-step reference (the plain path with the exact forward), beside
+    the control (the fully plain path against the same reference). Each
+    variant trains its own state first, as the main run does. Prints;
+    checks nothing."""
     import torch
 
     from federated_multi_modal_tpu_torch.flagship import build_maple_program
@@ -5372,21 +5521,24 @@ def step_sweep(n_batches: int) -> None:
 
     os.environ.update(DEFAULT_GATES)
     prog = build_maple_program(
-        "ViT-B/16", classnames=[f"class {i}" for i in range(N_CLASSES)],
-        n_ctx=2, depth=9, use_captions=True, seed=0)
+        backbone, classnames=[f"class {i}" for i in range(N_CLASSES)],
+        n_ctx=2, depth=9, use_captions=True, seed=0, remat=backbone == "ViT-L/14")
     canvas = torch.from_numpy(np.random.default_rng(0).integers(
         0, 255, (BATCH, 256, 256, 3), np.uint8)).cuda()
-    variants = {"kernel": None, "exact forward": (True, True),
-                "exact q.k": (True, False), "exact P.V": (False, True)}
+    routes = STEP_SWEEP_ROUTES if backbone == "ViT-B/16" else STEP_SWEEP_ROUTES[:1]
     table = {}
-    for name, exact in variants.items():
+    for name, variant in STEP_SWEEP_VARIANTS.items():
         with contextlib.ExitStack() as stack:
-            if exact is not None:
-                fwd = attention_forward_with(*exact)
+            if "attention" in variant:
+                fwd = attention_forward_with(*variant["attention"])
                 stack.enter_context(patched(k_attn, attention_core_cuda=fwd))
                 stack.enter_context(patched(k_block, attention_core_cuda=fwd,
                                             CUDA_STEPS=k_block.CUDA_STEPS._replace(attention=fwd)))
-            for route, env in STEP_SWEEP_ROUTES:
+            if "step" in variant:
+                plain = getattr(k_block.PLAIN_STEPS, variant["step"])
+                stack.enter_context(patched(k_block, CUDA_STEPS=k_block.CUDA_STEPS._replace(
+                    **{variant["step"]: plain})))
+            for route, env in routes:
                 with gates(**dict(DEFAULT_GATES, **env)):
                     run = drive_train(prog, canvas, {}, f" ({name}, {route})")
                     for _ in range(n_batches):
@@ -5405,8 +5557,8 @@ def step_sweep(n_batches: int) -> None:
                                 [round(c["vision"]["max_err_over_tol"], 3), c["vision"]["worst"]])
                     del run
                     torch.cuda.empty_cache()
-    print("step sweep, vision max |err| over max |value| over its limit, per batch:",
-          json.dumps(table))
+    print(f"step sweep at {backbone}, vision max |err| over max |value| over its limit, per "
+          "batch:", json.dumps(table))
     for key, readings in table.items():
         values = [r[0] for r in readings]
         print(f"  {key}: {min(values):.2f}-{max(values):.2f}")
@@ -5747,6 +5899,387 @@ def tools_phase(card: str, cfg_extra: dict = None, vision_layers: int = 12) -> t
     return counts, checks, summary
 
 
+# -- the ViT-L/14 and ViT-B/32 backbones (the backbones phase) ------------------
+#
+# The JAX package's two other ViT backbones at their full widths and depths
+# through the same entry points: MaPLe's eval and B = 512 train step at
+# ViT-L/14 (24 vision blocks of 1024, 16 heads, T = 259 and 260; text 768
+# wide, 12 heads) with remat, and without remat at the largest batch the
+# measured memory says fits; each route's kernel at ViT-L/14's block shape
+# against its plain version; MaPLe at ViT-B/32 (12 blocks of 768, T = 52 and
+# 53); CoOp ``vit_b32.yaml`` and zero-shot CLIP at ViT-L/14 through the port's
+# command line.
+
+BACKBONE_TRAIN_STEPS = 3  # timed steps a backbone (TRAIN_STEPS' 5 cut, for the smoke's time)
+BACKBONE_NBLK = "4"  # ViT-L/14's group eval: blocks 0-3, ..., 20-23
+BACKBONE_COOP_YAML = "configs/trainers/CoOp/vit_b32.yaml"
+BACKBONE_ZEROSHOT = ("ViT-L/14", 224)
+# The step without remat: its peak measured at these two batches, a line
+# through them, and the largest multiple of 32 up to BATCH whose reckoned
+# peak stays within this share of the card's memory that is free.
+BACKBONE_PROBE_BATCHES = (64, 128)
+BACKBONE_MEMORY_SHARE = 0.85
+
+
+def k5_checks_and_row(x, blk, n: int, launches: int, label: str) -> tuple:
+    """K5 on ``x`` and ``blk`` against its plain version at ``TOL_K5``, on
+    the block with seeded biases and LayerNorms at ``TOL_K5_SEEDED``, with
+    a residual product's last rows unwritten as the planted fault; timed
+    beside ``TransformerEncoderLayer`` and its bound. Returns ``(row,
+    checks)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    blk_s = seeded_block(blk, seed=31)
+
+    def k5(p, tol):
+        return compare(k_block.fused_block_residual(x, p, n),
+                       k_block.fused_block_residual_reference(x, p, n), tol)
+
+    cmps = {"": k5(blk, TOL_K5), " seeded": k5(blk_s, TOL_K5_SEEDED)}
+    with patched(k_block, gemm_epilogue_cuda=fault_residual_gemm_tail(
+            k_block.gemm_epilogue_cuda)):
+        fault = k5(blk_s, TOL_K5_SEEDED)
+    layer = library_block(blk, n)
+    with torch.no_grad():
+        lib_cmp = compare(layer(x), k_block.fused_block_residual_reference(x, blk, n),
+                          TOL_LIBRARY)
+        lib_ms = cuda_ms(lambda: layer(x), 10)
+    del layer
+    ms = cuda_ms(lambda: k_block.fused_block_residual(x, blk, n), 10)
+    plain_ms = cuda_ms(lambda: k_block.fused_block_residual_reference(x, blk, n), 3, 1)
+    B, T, D = x.shape
+    hidden = blk["mlp"]["w_fc"].shape[1]
+    w_bytes, ops = block_bound(B, T, D, n, hidden)
+    b = bound(2 * B * T * D * 2 + w_bytes, ops)
+    print(f"K5{label} vs plain: {json.dumps(brief(cmps))}; planted fault (a residual product's "
+          f"last {PLANTED_FAULT_ROWS} rows unwritten): {json.dumps(brief({'': fault}))}; library "
+          f"yardstick {json.dumps(brief({'': lib_cmp}))}; fused_block_residual {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, TransformerEncoderLayer {lib_ms:.3f} ms, bound {b[0]:.3f} ms "
+          f"({b[1]})")
+    checks = [(f"K5{label}{k}", c) for k, c in cmps.items()]
+    checks += [(f"K5{label} planted fault caught", {"ok": not fault["ok"]}),
+               (f"K5{label} library yardstick", lib_cmp)]
+    row = {"name": "fused_block_residual", "shape": [list(x.shape), n, hidden],
+           "launches": launches, "max_abs_err": cmps[""]["max_abs_err"], "tol": cmps[""]["tol"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+           "library_ms": lib_ms,
+           "library_call": "torch.nn.TransformerEncoderLayer (bf16, norm_first, QuickGELU)"}
+    return row, checks
+
+
+def maple_backbone_eval(prog, canvas, boxes, flips, label: str) -> tuple:
+    """MaPLe's eval at a backbone: ``eval_prepare_fn`` counted (K1 per text
+    block) with K1 at its text shape against its plain version, then
+    ``eval_apply_fn`` on ``BATCH`` centre crops counted (K5 per vision
+    block), K5 on its first block's own inputs (:func:`k5_checks_and_row`),
+    the 16-image logits against the plain path, images/s, prepare ms and the
+    apply's idle share. Returns ``(rows, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
+
+    arch = prog["arch"]
+    n_text, n_vis = arch.transformer_layers, arch.vision_layers
+    tr, fr = prog["trainable"], prog["frozen"]
+    first = {}
+    with patched(primitives, _attn_kernels=overlay(
+            k_attn, packed_attention_masked=cotangent_recorder(
+                first, "k1", k_attn.packed_attention_masked))):
+        reset_counts()
+        prog["eval_prepare_fn"](tr, fr)
+        torch.cuda.synchronize()
+        prep_counts = read_counts()
+    print(f"launches, eval_prepare_fn{label}:", json.dumps(nonzero(prep_counts)))
+    check_counts(prep_counts, {"K1 packed_attention_masked": n_text,
+                               "fmm_attention_core": n_text}, f"eval_prepare_fn{label}")
+    k1_row, checks = rn_zeroshot_k1(first["k1"], "MaPLe text", label.strip(" ()"))
+    k1_row.update(name="packed_attention_masked", launches=prep_counts[
+        "K1 packed_attention_masked"])
+    logits, counts, prep, images = eval_counted(prog, canvas, boxes, flips, {
+        "_block_kernels": overlay(k_block, fused_block_residual=cotangent_recorder(
+            first, "k5", k_block.fused_block_residual))}, label)
+    check_counts(counts, {
+        "K5 fused_block_residual": n_vis, "K1 packed_attention_masked": 0,
+        "fmm_gemm_epilogue": 4 * n_vis, "fmm_layernorm_rows": 2 * n_vis,
+        "fmm_attention_core": n_vis}, f"eval_apply_fn{label}")
+    checks.append((f"eval path{label}", eval_vs_plain(prog, images, logits, label)))
+    x, blk, n = first["k5"]["args"]
+    k5_row, k5_checks = k5_checks_and_row(x, blk, n, counts["K5 fused_block_residual"], label)
+    checks += k5_checks
+    summary = eval_images_per_s(prog, canvas, boxes, flips, prep, label)
+    summary["eval_prepare_ms"] = wall_ms(lambda: prog["eval_prepare_fn"](tr, fr), 3)
+    prof = profile_by_kernel(lambda: prog["eval_apply_fn"](tr, fr, images, prep),
+                             f"eval apply{label} (towers only)")
+    summary.update(eval_apply_idle_share=prof["idle_share"], eval_launches=nonzero(counts),
+                   prepare_launches=nonzero(prep_counts), T=x.shape[1])
+    print(f"eval{label}: prepare {summary['eval_prepare_ms']:.2f} ms, apply "
+          f"{summary['eval_apply_ms']:.2f} ms, idle share {prof['idle_share']:.3f}")
+    del logits, prep, images, first
+    torch.cuda.empty_cache()
+    return [k1_row, k5_row], checks, summary
+
+
+def no_remat_step(prog, canvas, label: str) -> tuple:
+    """MaPLe's step without remat at the largest batch that fits: the peak
+    of one step's loss and gradients above the start at the two
+    ``BACKBONE_PROBE_BATCHES``, a line through them, the largest multiple
+    of 32 up to ``BATCH`` whose reckoned peak is within
+    ``BACKBONE_MEMORY_SHARE`` of the free memory, then
+    ``BACKBONE_TRAIN_STEPS`` timed steps (crop sampling, clip, SGD) there
+    with their peak. Returns ``(checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine.trainer import make_train_step
+    from federated_multi_modal_tpu_torch.flagship import build_fed_optimizer
+    from federated_multi_modal_tpu_torch.ops.preprocess import (
+        crop_resize_flip_normalize,
+        sample_rrc_boxes_torch,
+    )
+    from federated_multi_modal_tpu_torch.tokenizer import tokenize
+    from federated_multi_modal_tpu_torch.trainers.maple import make_maple_model_fns
+
+    arch, tr, fr = prog["arch"], prog["trainable"], prog["frozen"]
+    _, loss_fn = make_maple_model_fns(arch, min(9, arch.vision_layers), prog["text_len"],
+                                      True, 0.5, remat=False)
+    gen = torch.Generator(device=canvas.device).manual_seed(7)
+    rng = np.random.default_rng(8)
+
+    def batch_of(n):
+        boxes, flips = sample_rrc_boxes_torch(gen, n, canvas.shape[1])
+        return {"image": crop_resize_flip_normalize(canvas[:n], boxes, flips,
+                                                    out_size=arch.image_resolution),
+                "label": torch.from_numpy(rng.integers(0, N_CLASSES, n)).cuda(),
+                "caption_tokens": torch.from_numpy(
+                    tokenize(["a satellite photo of a scene"] * n)).cuda()}
+
+    def peak_above_start(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    probe = {}
+    for n in BACKBONE_PROBE_BATCHES:
+        batch = batch_of(n)
+        probe[n] = peak_above_start(lambda: step_loss_and_grads(loss_fn, tr, fr, batch))
+        del batch
+    (b1, p1), (b2, p2) = sorted(probe.items())
+    per_image = (p2 - p1) / (b2 - b1)
+    fixed = p1 - per_image * b1
+    free = (torch.cuda.get_device_properties(0).total_memory
+            - torch.cuda.memory_allocated()) / 2 ** 30
+    fits = int((BACKBONE_MEMORY_SHARE * free - fixed) / per_image) // 32 * 32
+    n = min(BATCH, max(32, fits))
+    batch = batch_of(n)
+    tx = build_fed_optimizer()
+    step = make_train_step(loss_fn, tx)
+    state = [tr, tx.init(tr)]
+    ms = []
+
+    def steps():
+        for _ in range(BACKBONE_TRAIN_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state[0], state[1], loss, _ = step(state[0], fr, state[1], batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        assert bool(torch.isfinite(loss)), "non-finite loss without remat"
+
+    peak = peak_above_start(steps)
+    summary = {"probe_peak_gib_above_start": {str(k): v for k, v in probe.items()},
+               "reckoned_gib_per_image": per_image, "reckoned_fixed_gib": fixed,
+               "free_gib": free, "batch": n, "reckoned_peak_gib": fixed + per_image * n,
+               "peak_gib_above_start": peak, "step_ms_all": ms,
+               "step_ms_median": statistics.median(ms[1:])}
+    print(f"train step{label} without remat: peaks above the start {json.dumps(probe)} GiB at "
+          f"batches {list(probe)} -> {per_image:.4f} GiB an image + {fixed:.2f}; {free:.2f} GiB "
+          f"free -> batch {n} (reckoned peak {fixed + per_image * n:.2f} GiB): median "
+          f"{summary['step_ms_median']:.2f} ms of {BACKBONE_TRAIN_STEPS} after the first, peak "
+          f"{peak:.2f} GiB above the start")
+    del state, batch
+    torch.cuda.empty_cache()
+    ok = peak <= BACKBONE_MEMORY_SHARE * free
+    return [(f"train step{label} without remat at the reckoned batch {n} fits",
+             {"ok": ok, "peak_gib": peak, "free_gib": free})], summary
+
+
+def block_alone_phase(blk, n: int, B: int, T: int, label: str) -> tuple:
+    """One block of ``blk``'s shapes alone on seeded inputs at ``(B, T, D)``
+    (biases and LayerNorms seeded too): K5 (:func:`k5_checks_and_row`), K7
+    (:func:`k7_checks_and_row`) and K2/K2b on the block's own q, k, v
+    (:func:`k2_checks_and_rows`), each against its plain version with its
+    planted faults, timed beside its library call and its bound; no
+    program's default route runs K7 or K2. Returns ``(rows, checks)``."""
+    import torch
+
+    D = blk["attn"]["w_qkv"].shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    x = torch.randn(B, T, D, generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(B, T, D, generator=gen, device="cuda").to(torch.bfloat16)
+    p = seeded_block(_detached_block(blk, ()), seed=61)
+    k5_row, checks = k5_checks_and_row(x, _detached_block(blk, ()), n, 0,
+                                       f"{label}, block alone")
+    k7_row, k7_checks = k7_checks_and_row(x, dy, p["ln_1"], p["attn"]["w_qkv"],
+                                          p["attn"]["b_qkv"], n, 0, 0, f"K7{label}")
+    checks += k7_checks
+    torch.cuda.empty_cache()
+    xn = torch.nn.functional.layer_norm(x.float(), (D,), p["ln_1"]["scale"].float(),
+                                        p["ln_1"]["bias"].float()).to(torch.bfloat16)
+    qkv = (xn @ p["attn"]["w_qkv"].to(torch.bfloat16) + p["attn"]["b_qkv"].to(torch.bfloat16))
+    k2_rows, k2_checks = k2_checks_and_rows(qkv, qkv, dy, n, 0, 0, 0, label, head_widths=False)
+    checks += k2_checks
+    del x, dy, p, xn, qkv
+    torch.cuda.empty_cache()
+    return [k5_row, k7_row] + k2_rows, checks
+
+
+def backbone_entries(rows: list, backbone: str, extra: dict = None) -> list:
+    """A backbone's rows as entries for the kernels line: each kernel's name
+    with its shape, launches, errors, times and bound at the backbone."""
+    keys = ("shape", "launches", "backward_launches", "max_abs_err", "max_err_over_tol", "tol",
+            "ms", "plain_ms", "library_ms", "library_call", "bound_ms", "bound_by", "timed",
+            "kernel_ms", "share_of_bound", "resources", "instance", "ms_by_passes")
+    return [dict({k: r[k] for k in keys if k in r}, name=r["name"], backbone=backbone,
+                 **(extra or {})) for r in rows]
+
+
+def backbones_phase(card: str, canvas, boxes, flips, opts: tuple = ()) -> tuple:
+    """The backbones phase (see above): MaPLe at ViT-L/14 (eval with K1, K5
+    and the logits against the plain path; the group route under
+    ``FMM_TPU_FUSED_NBLK=4``; the two-kernel route; the B = 512 step with
+    remat through ``train_phase``; the step without remat at the reckoned
+    batch; K5, K7 and K2/K2b on one block alone at T = 260; the LayerNorm
+    backward and forward at 1024), MaPLe at ViT-B/32 (eval and the B = 512
+    step), CoOp ``vit_b32.yaml`` and zero-shot CLIP at ViT-L/14 through
+    ``main`` on the Caltech101 stand-in. The planted faults of the phase
+    span the last two images' rows (at T = 260 the last 256 rows hold no
+    class-token row, whose gradient is the largest). ``opts`` are appended
+    to the command-line runs' options. Returns ``(entries for the kernels
+    line, launches by kernel label over the command-line runs, checks,
+    summary)``."""
+    import tempfile
+
+    import torch
+
+    from federated_multi_modal_tpu_torch.data.seeded_trees import write_caltech101_tree
+    from federated_multi_modal_tpu_torch.engine.tree import merge_trees
+    from federated_multi_modal_tpu_torch.flagship import build_maple_program
+
+    this = sys.modules[__name__]
+    entries, checks, summary, launches = [], [], {"card": card}, {}
+    classnames = [f"class {i}" for i in range(N_CLASSES)]
+    for backbone, remat in (("ViT-L/14", True), ("ViT-B/32", False)):
+        label = f" ({backbone})"
+        t0 = time.perf_counter()
+        prog = build_maple_program(backbone, classnames=classnames, n_ctx=2, depth=9,
+                                   use_captions=True, seed=0, remat=remat)
+        torch.cuda.synchronize()
+        arch = prog["arch"]
+        T = 1 + arch.grid_size ** 2 + 2 + 1
+        rec = {"init_s": time.perf_counter() - t0, "remat": remat, "T_train": T,
+               "vision": [arch.vision_layers, arch.vision_width, arch.vision_heads],
+               "text": [arch.transformer_layers, arch.transformer_width,
+                        arch.transformer_heads]}
+        with patched(this, PLANTED_FAULT_ROWS=max(PLANTED_FAULT_ROWS, 2 * T),
+                     TRAIN_STEPS=BACKBONE_TRAIN_STEPS):
+            rows, ev_checks, rec["eval"] = maple_backbone_eval(prog, canvas, boxes, flips, label)
+            entries += backbone_entries(rows, backbone)
+            checks += ev_checks
+            if backbone == "ViT-L/14":
+                t1 = time.perf_counter()
+                rows, ph_checks, rec["group_eval"] = group_eval_phase(
+                    prog, canvas, boxes, flips, sizes=(BACKBONE_NBLK,))
+                entries += backbone_entries(rows, backbone)
+                checks += [(k + label, c) for k, c in ph_checks]
+                rows, ph_checks, rec["two_kernel_eval"] = two_kernel_eval_phase(
+                    prog, canvas, boxes, flips)
+                entries += backbone_entries(rows, backbone)
+                checks += [(k + label, c) for k, c in ph_checks]
+                rec["eval_routes_s"] = time.perf_counter() - t1
+                torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            rows, tr_checks, train = train_phase(prog, canvas)
+            rec["train"] = {k: train[k] for k in (
+                "train_step_ms", "train_step_ms_all", "train_tflops", "train_step_flops",
+                "train_images_per_s", "train_peak_gib", "train_device_busy_ms",
+                "train_idle_share", "train_losses")}
+            rec["train"]["whole_step_vs_plain"] = brief_step(train["whole_step_vs_plain"])
+            rec["train"]["launches"] = nonzero({k: v for k, v in train["train_launches"].items()
+                                                if not isinstance(v, dict)})
+            rec["train_s"] = time.perf_counter() - t1
+            entries += backbone_entries(rows, backbone)
+            checks += [(k + label, c) for k, c in tr_checks]
+            torch.cuda.empty_cache()
+            if remat:
+                no_checks, rec["no_remat"] = no_remat_step(prog, canvas, label)
+                checks += no_checks
+                print(f"train step{label}, B = {BATCH}: with remat peak "
+                      f"{train['train_peak_gib']:.2f} GiB, {train['train_step_ms']:.2f} ms; "
+                      f"without remat at B = {rec['no_remat']['batch']} peak "
+                      f"{rec['no_remat']['peak_gib_above_start']:.2f} GiB above the start, "
+                      f"{rec['no_remat']['step_ms_median']:.2f} ms")
+                blk = merge_trees(prog["trainable"], prog["frozen"]["model"])[
+                    "clip"]["visual"]["blocks"][0]
+                t1 = time.perf_counter()
+                rows, bl_checks = block_alone_phase(blk, arch.vision_heads, BATCH, T, label)
+                entries += backbone_entries(rows, backbone, {"inputs": "seeded, block alone"})
+                checks += bl_checks
+                by_instance = train["train_launches"]["layernorm_bwd_rows by instance"]
+                implied = (train["train_launches"]["K3 fused_block_train (backward)"]
+                           + train["train_launches"]["K4 fused_block_train_dw (backward)"])
+                rows, ln_checks, rec["layernorm"] = layernorm_bwd_phase(
+                    {"default train step": (by_instance, implied)}, rows=BATCH * T,
+                    width=arch.vision_width, instances=LN_BWD_INSTANCES[:2], suffix=label)
+                for r in rows:
+                    r["name"] = r["name"].replace(label, "")
+                entries += backbone_entries(rows, backbone)
+                checks += ln_checks
+                rec["block_alone_s"] = time.perf_counter() - t1
+                del blk
+        del prog
+        torch.cuda.empty_cache()
+        summary[backbone] = rec
+        print(f"backbones {backbone}: init {rec['init_s']:.1f} s, train phase "
+              f"{rec['train_s']:.1f} s")
+
+    # -- CoOp ViT-B/32 and zero-shot CLIP at ViT-L/14 through the command line --
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="fmm_backbones_") as tmp:
+        root = os.path.join(tmp, "data")
+        write_caltech101_tree(root, B2N_PER_CLASS, seed=0)
+        sd_path = os.path.join(tmp, "vit-b32_openai_fp16.pt")
+        summary["state_dict_write_s"] = write_openai_state_dict(sd_path, backbone="ViT-B/32")
+        t0 = time.perf_counter()
+        counts, coop_checks, summary["coop_vit_b32"] = cli_coop_run(
+            card, tmp, root, sd_path, BACKBONE_COOP_YAML, "backbones CoOp ViT-B/32", opts)
+        summary["coop_vit_b32"]["phase_s"] = time.perf_counter() - t0
+        checks += coop_checks
+        add(counts)
+        torch.cuda.empty_cache()
+        name, size = BACKBONE_ZEROSHOT
+        t0 = time.perf_counter()
+        counts, zs_checks, summary["zeroshot_vit_l14"], k1_row = cli_zeroshot_run(
+            card, tmp, root, name, size, BACKBONE_COOP_YAML, "backbones", opts, vs_xla=True)
+        summary["zeroshot_vit_l14"]["phase_s"] = time.perf_counter() - t0
+        checks += zs_checks
+        add(counts)
+        entries += backbone_entries([dict(k1_row, name="packed_attention_masked")], name,
+                                    {"path": "zero-shot text features"})
+    failed = [k for k, c in checks if not c["ok"]]
+    print(f"backbones phase on {card}: {len(checks)} checks, failed: {json.dumps(failed)}")
+    return entries, launches, checks, summary
+
+
 def main() -> int:
     import torch
 
@@ -5755,7 +6288,7 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--step-sweep"]:
         print(card_line())
-        step_sweep(int(sys.argv[2]))
+        step_sweep(int(sys.argv[2]), *sys.argv[3:4])
         return 0
 
     from federated_multi_modal_tpu_torch.engine.tree import merge_trees
@@ -6158,10 +6691,25 @@ def main() -> int:
     summary["limits"]["phase_s"] = time.perf_counter() - t0
     for row in rows:
         row["limit_shapes"] = limit_shapes.get(row["name"], [])
+    torch.cuda.empty_cache()
+
+    # -- 26. the ViT-L/14 and ViT-B/32 backbones (the backbones phase) ----------
+    t0 = time.perf_counter()
+    bb_entries, bb_launches, bb_checks, summary["backbones"] = backbones_phase(
+        card, canvas, boxes, flips)
+    summary["backbones"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        row["backbone_shapes"] = [{k: v for k, v in e.items() if k != "name"}
+                                  for e in bb_entries if e["name"] == row["name"]]
+        launched = sum(n for label, n in bb_launches.items()
+                       if label.split(" ")[1] == row["name"] and "(backward)" not in label)
+        if launched:
+            row.setdefault("paths", []).append("backbones")
+        row["launches_backbones_cli"] = launched
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
                      + gemm_checks + ln_checks + cli_checks + fed_checks + b2n_checks
-                     + rn_checks + dist_checks + tools_checks + limit_checks)
+                     + rn_checks + dist_checks + tools_checks + limit_checks + bb_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

@@ -19,11 +19,17 @@
 // tensor cores' truncation within a step moved a trained 16-image step's
 // vision gradients 2.5x past their limit against an exact forward
 // (chip_smoke.py on an H100; a P.V in fp32 rounded to nearest read 0.36 of
-// it). p is rounded to bf16 right after the softmax, and a score's last
-// fp32 bit flips that rounding often enough to move a 16-image train step's
-// gradients past their limit against a plain path with an exact forward
-// (chip_smoke.py): the bf16 tensor cores' sums truncate, and fp32 sums in
-// cuBLAS's order (the plain version's) read past that limit too.
+// it). attention_tile's two passes (rows past 256 keys at head widths up to
+// 64: ViT-L/14's 259 and 260 vision rows) sum P.V on the fp64 tensor cores
+// with or without a mask: through ViT-L/14's 24 vision blocks the truncation
+// put a trained 16-image step's vision gradients 1.57x past their limit
+// (0.80 for the fully plain path, 0.38-0.45 with the forward's P.V summed
+// exactly or in fp32; chip_smoke.py on an H100). p is rounded to bf16 right
+// after the softmax, and a score's last fp32 bit flips that rounding often
+// enough to move a 16-image train step's gradients past their limit against
+// a plain path with an exact forward (chip_smoke.py): the bf16 tensor cores'
+// sums truncate, and fp32 sums in cuBLAS's order (the plain version's) read
+// past that limit too.
 // Without kExact (K8, which no train step reaches) both products run on the
 // bf16 tensor cores, each accumulator chained through the steps.
 //
@@ -257,7 +263,7 @@ __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
           am::online_softmax<false, true>(s, s, m, l, unused);
         } else {
           normalize(s, m, l, r);
-          pv<HD, kExact, kExact && kMasked>(o, s, kt + 2 * E + col, ld);
+          pv<HD, kExact, kExact>(o, s, kt + 2 * E + col, ld);
         }
       }
       if (it == n_kt - 1) {

@@ -46,7 +46,8 @@ def build_maple_program(
     """Random-init MaPLe state, its loss and its eval functions.
 
     Returns a dict with ``arch, trainable, frozen, loss_fn, logits_fn,
-    eval_prepare_fn, eval_apply_fn, n_cls, text_len``:
+    eval_prepare_fn, eval_apply_fn, n_cls, text_len, n_ctx, use_captions,
+    remat``:
     ``trainable`` (prompt learner, every LayerNorm, the last block of each
     tower) in fp32, ``frozen`` under the dtype policy, both on ``device``
     (``None`` means ``"cuda"``). ``loss_fn(trainable, frozen, batch) ->
@@ -101,6 +102,7 @@ def build_maple_program(
         "text_len": text_len,
         "n_ctx": n_ctx,
         "use_captions": use_captions,
+        "remat": remat,
     }
 
 

@@ -315,6 +315,13 @@ def column_sum_cuda(x):
 # 64 step of the product, at the H100's data-sheet rates (989 TFLOP/s dense
 # bf16 over 132 SMs, 3.35 TB/s): ~1.9 MB.
 _STEP_BYTES = 2 * _TILE_M * _TILE_N * _BK / (989e12 / 132) * 3.35e12
+# The most K steps one split chains in its fp32 accumulators (32,768 rows):
+# wgmma truncates as it adds each step into them, a bias that grows with the
+# steps chained. At ViT-L/14's 133,120 rows one split of dw_fc (2,080 steps)
+# read ~4e-4 of a value against fp32 products of the same bf16 values, past
+# the card tests' 2**-14 of the largest one; 520 steps kept within it
+# (tests/test_torch_cuda.py on an H100).
+_MAX_SPLIT_STEPS = 512
 
 
 def tn_split_plan(M: int, N: int, K: int, sms: int = 132) -> tuple:
@@ -323,12 +330,14 @@ def tn_split_plan(M: int, N: int, K: int, sms: int = 132) -> tuple:
     each, walking every split of every output tile). Takes the split count
     whose modelled time is least: the waves of equal tiles times the
     K steps of one, plus the fp32 partials written and read again (none
-    for one split); the fewest splits among equals. ``k_per_split`` is a
-    multiple of the kernel's K step."""
+    for one split); the fewest splits among equals; no split of more than
+    ``_MAX_SPLIT_STEPS`` steps. ``k_per_split`` is a multiple of the
+    kernel's K step."""
     tiles = -(-M // _TILE_M) * -(-N // _TILE_N)
     steps = -(-K // _BK)
     best = None
-    for want in range(1, min(steps, 256) + 1):
+    fewest = max(1, -(-steps // _MAX_SPLIT_STEPS))
+    for want in range(fewest, max(fewest, min(steps, 256)) + 1):
         per = -(-steps // want)
         splits = -(-steps // per)
         cost = -(-tiles * splits // sms) * per

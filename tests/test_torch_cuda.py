@@ -1622,3 +1622,208 @@ def test_parallel_fed_step_one_client_on_the_card(gen):
     assert out["pallas"][1] == {"K1": 3, "K1b": 3, "K3": 2, "K4": 1}, out["pallas"][1]
     assert not any(out["xla"][1].values()), out["xla"][1]
     assert abs(out["pallas"][0] - out["xla"][0]) <= 2.0 ** -8 * abs(out["xla"][0]), out
+
+
+# -- ViT-L/14's shapes: width 1024, 16 heads of 64, an MLP of 4096, T = 260 in
+#    training and 259 in eval (B T = 133,120 rows at B = 512); ViT-B/32's
+#    T = 53. Each case holds the kernel against its plain version and a
+#    planted fault against the same check.
+
+L14_D, L14_H, L14_HIDDEN = 1024, 16, 4096
+L14_ROWS = 512 * 260
+L14_PRODUCTS = {p.key: p for ps in k_block.block_gemm_products(
+    L14_ROWS, L14_D, L14_HIDDEN).values() for p in ps}
+
+
+def _close(got, ref, tol) -> bool:
+    """``_assert_close``'s limit as a predicate."""
+    d = (got.float() - ref.float()).abs()
+    return bool((d <= tol + tol * ref.float().abs()).all())
+
+
+def _tail_zeroed(t, rows):
+    """A copy of ``t`` with its last ``rows`` rows (over the last axis) zero."""
+    out = t.detach().clone()
+    out.reshape(-1, out.shape[-1])[-rows:] = 0
+    return out
+
+
+@pytest.mark.parametrize("wgrad", [False, True], ids=["K3", "K4"])
+def test_vit_l14_train_block(gen, wgrad):
+    """K3 and K4 at ViT-L/14's train block (T = 260, 16 heads of 64, hidden
+    4096) against their plain versions at ``test_fused_block_train``'s
+    limits; dx with the last image's rows unwritten fails them."""
+    B, T = 2, 260
+    p = _block_params(gen, L14_D, torch.float32 if wgrad else torch.bfloat16, wgrad)
+    x = _randn(gen, B, T, L14_D).requires_grad_(True)
+    dy = _randn(gen, B, T, L14_D)
+    kernel = k_block.fused_block_train_dw if wgrad else k_block.fused_block_train
+    plain = (k_block.fused_block_train_dw_reference if wgrad
+             else k_block.fused_block_train_reference)
+    leaves = [x] + [p[a][b] for a, b in k_block.BLOCK_LEAVES if p[a][b].requires_grad]
+    out = kernel(x, p, L14_H)
+    got = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    ref_out = plain(x, p, L14_H)
+    ref = torch.autograd.grad(ref_out, leaves, dy)
+    assert _close(out, ref_out, 2 ** -5) and _close(got[0], ref[0], 2 ** -5)
+    assert not _close(_tail_zeroed(got[0], T), ref[0], 2 ** -5)
+    for g, r in zip(got[1:], ref[1:]):
+        d = (g.float() - r.float()).abs()
+        assert bool((d <= 2 ** -5 * (float(r.abs().max()) + r.abs())).all()), float(d.max())
+
+
+@pytest.mark.parametrize("T", [259, 260])
+def test_vit_l14_inference_block(gen, T):
+    """K5, and K6a then K6b, at ViT-L/14's eval and train lengths against
+    their plain versions at the block's 2**-5; an output with its last
+    rows unwritten fails that."""
+    B = 2
+    p = _block_params(gen, L14_D, torch.bfloat16, False)
+    x = _randn(gen, B, T, L14_D)
+    got = k_block.fused_block_residual(x, p, L14_H)
+    y = k_block.fused_ln_attention_residual(x, p["ln_1"], p["attn"], L14_H)
+    out = k_block.fused_ln_mlp_residual(y, p["ln_2"], p["mlp"])
+    torch.cuda.synchronize()
+    ref = k_block.fused_block_residual_reference(x, p, L14_H)
+    ref_y = k_block.fused_ln_attention_residual_reference(x, p["ln_1"], p["attn"], L14_H)
+    ref_out = k_block.fused_ln_mlp_residual_reference(y, p["ln_2"], p["mlp"])
+    for g, r in ((got, ref), (y, ref_y), (out, ref_out)):
+        assert _close(g, r, 2 ** -5)
+        assert not _close(_tail_zeroed(g, 64), r, 2 ** -5)
+
+
+def test_vit_l14_ln_attention(gen):
+    """K7 at ViT-L/14's train block against its plain version at
+    ``test_fused_ln_attention``'s limits; dx with the last image's rows
+    unwritten fails them."""
+    B, T = 2, 260
+    p = _block_params(gen, L14_D, torch.bfloat16, False)
+    x = _randn(gen, B, T, L14_D).requires_grad_(True)
+    dy = _randn(gen, B, T, L14_D)
+    ln, w, b = p["ln_1"], p["attn"]["w_qkv"], p["attn"]["b_qkv"]
+    out = k_block.fused_ln_attention(x, ln, w, b, L14_H)
+    got = torch.autograd.grad(out, [x, ln["scale"], ln["bias"]], dy)
+    torch.cuda.synchronize()
+    ref_out = k_block.fused_ln_attention_reference(x, ln, w, b, L14_H)
+    ref = torch.autograd.grad(ref_out, [x, ln["scale"], ln["bias"]], dy)
+    assert _close(out, ref_out, 2 ** -5)
+    for g, r in zip(got, ref):
+        assert _within_share_of_max(g, r, 2 ** -5)
+    assert not _within_share_of_max(_tail_zeroed(got[0], T), ref[0], 2 ** -5)
+
+
+def test_vit_l14_block_group(gen):
+    """K9 over ViT-L/14's first group of ``FMM_TPU_FUSED_NBLK=4`` (blocks
+    0-3, deep prompts injected before 1-3 with the caption row) at T = 259
+    against its plain version at ``test_fused_block_group_residual``'s
+    2**-4; an output with its last rows unwritten fails that."""
+    B, T = 2, 259
+    blocks = [_block_params(gen, L14_D, torch.bfloat16, False) for _ in range(4)]
+    flags = (False, True, True, True)
+    prompts = [_randn(gen, 2, L14_D, scale=0.3) for f in flags if f]
+    extra = _randn(gen, B, 1, L14_D, scale=0.3)
+    x = _randn(gen, B, T, L14_D)
+    got = k_block.fused_block_group_residual(x, blocks, L14_H, flags, prompts, extra)
+    torch.cuda.synchronize()
+    ref = k_block.fused_block_group_residual_reference(x, blocks, L14_H, flags, prompts, extra)
+    assert _close(got, ref, 2 ** -4)
+    assert not _close(_tail_zeroed(got, 64), ref, 2 ** -4)
+
+
+@pytest.mark.parametrize("key", sorted(L14_PRODUCTS), ids=[
+    f"{L14_PRODUCTS[k].name}-{('NN', 'NT', 'TN')[k[0]]}" for k in sorted(L14_PRODUCTS)])
+def test_vit_l14_gemm_product(gen, key):
+    """Each product of ViT-L/14's train and eval blocks at the B = 512
+    step's 133,120 rows (NN and NT against their plain versions at
+    ``_gemm_held``'s limits, the weight gradients (TN) at 2**-14 of their
+    largest value); the product without its last 64-deep stage of the
+    contraction (NN, NT) or over all but the last split's rows (TN) fails
+    the same check."""
+    prod = L14_PRODUCTS[key]
+    M, N, K = prod.rows, prod.cols, prod.k
+    if prod.layout == k_block._TN:
+        a, b = _randn(gen, K, M), _randn(gen, K, N)
+        got = k_block.gemm_tn_cuda(a, b)
+        torch.cuda.synchronize()
+        ref = k_block.gemm_tn_reference(a, b)
+        assert _within_share_of_max(got, ref, 2 ** -14)
+        splits, k_per = k_block.tn_split_plan(
+            M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)
+        rows = (splits - 1) * k_per if splits > 1 else K - 64
+        fault = k_block.gemm_tn_cuda(a[:rows].contiguous(), b[:rows].contiguous())
+        assert not _within_share_of_max(fault, ref, 2 ** -14)
+        return
+    a, w, kw = _gemm_case(gen, prod.layout, prod.code, M, N, K)
+    got = k_block.gemm_epilogue_cuda(a, w, **kw)
+    torch.cuda.synchronize()
+    ref = k_block.gemm_epilogue_reference(a, w, **kw)
+    assert _gemm_held(got, ref)
+    cut = w[:, :K - 64] if prod.layout == k_block._NT else w[:K - 64]
+    dropped = k_block.gemm_epilogue_cuda(a[:, :K - 64].contiguous(), cut.contiguous(), **kw)
+    assert not _gemm_held(dropped, ref)
+
+
+@pytest.mark.parametrize("instance", ["LN2", "LN1", "P2"])
+def test_vit_l14_layernorm_bwd_rows(gen, instance):
+    """LN2's and LN1's instance (with d gamma and d beta partials) and the
+    one without partials at ViT-L/14's 133,120 rows of 1024, against the
+    plain version at ``test_layernorm_bwd_rows_instances``' limits; dx with
+    its last 256 rows unwritten fails the share of its largest value."""
+    args, partials = _ln_bwd_case(gen, instance, L14_ROWS, D=L14_D)
+    got = k_block.layernorm_bwd_rows_cuda(*args, param_grads=partials)
+    torch.cuda.synchronize()
+    ref = k_block.layernorm_bwd_rows_reference(*args)
+    if not partials:
+        assert got[2] is None and got[3] is None
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g is None:
+            continue
+        bf = g.dtype == torch.bfloat16
+        _assert_close(g, r, 2 ** -7 if bf else 1e-4 if i == 0 else 1e-4 * L14_ROWS ** 0.5)
+        assert _within_share_of_max(g, r, 2 ** -7 if bf else 2 ** -14), i
+    share = 2 ** -7 if got[0].dtype == torch.bfloat16 else 2 ** -14
+    assert not _within_share_of_max(_tail_zeroed(got[0], 256), ref[0], share)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vit_l14_layernorm_rows(gen, dtype):
+    """The LayerNorm forward over ViT-L/14's 133,120 rows of 1024 (LN1's
+    bf16 input, LN2's fp32 one) against its plain version at 2**-7; its
+    last rows unwritten fail that."""
+    x = _randn(gen, L14_ROWS, L14_D, dtype=dtype, scale=3.0) + 1.0
+    gamma = _randn(gen, L14_D, dtype=torch.float32) * 0.1 + 1
+    beta = _randn(gen, L14_D, dtype=torch.float32, scale=0.1)
+    got = k_block.layernorm_rows_cuda(x, gamma, beta, torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = k_block.layernorm_rows_reference(x, gamma, beta, torch.bfloat16)
+    assert _close(got, ref, 2 ** -7)
+    assert not _close(_tail_zeroed(got, 256), ref, 2 ** -7)
+
+
+@pytest.mark.parametrize("T", [53, 259, 260])
+def test_vit_l14_attention(gen, T):
+    """The attention forward and backward at 16 heads of 64 (ViT-L/14's
+    vision rows; T = 53 is ViT-B/32's train length at its 12 heads' head
+    width): the forward at 2**-6 elementwise and of its largest value,
+    d(QKV) at 2**-5 and each of dQ, dK and dV at 2**-5 of its largest
+    value. Planted faults: the forward with its last key tile dropped (the
+    last 8 keys where T is one tile), dK and dV of the last key tile scaled
+    by exp(-1/8)."""
+    B = 4
+    D = L14_H * 64
+    qkv = _randn(gen, B, T, 3 * D)
+    g = _randn(gen, B, T, D)
+    out = k_attn.attention_core_cuda(qkv, L14_H)
+    dqkv = k_attn.attention_core_bwd_cuda(qkv, g, L14_H)
+    torch.cuda.synchronize()
+    ref_out = k_attn.attention_core_reference(qkv, L14_H)
+    ref = k_attn.attention_core_bwd_reference(qkv, g, L14_H)
+    assert _close(out, ref_out, 2 ** -6) and _within_share_of_max(out, ref_out, 2 ** -6)
+    assert _close(dqkv, ref, 2 ** -5) and _each_within_share_of_max(dqkv, ref, D, 2 ** -5)
+    last = (T - 1) // 64 * 64
+    dropped = k_attn.attention_core_cuda(qkv, L14_H, valid_T=last if last else T - 8)
+    assert not _within_share_of_max(dropped, ref_out, 2 ** -6)
+    fault = dqkv.clone()
+    fault[:, last:, D:] *= math.exp(-1 / 8)
+    assert not _each_within_share_of_max(fault, ref, D, 2 ** -5)

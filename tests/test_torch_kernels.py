@@ -736,15 +736,20 @@ def test_block_products_are_the_table(run):
 @pytest.mark.parametrize("M,N,K,plan", [
     (768, 2304, 102400, (7, 14656)), (768, 768, 102400, (7, 14656)),
     (768, 3072, 102400, (9, 11392)), (3072, 768, 102400, (9, 11392)),
-    (768, 3072, 5000, (1, 5056)), (8, 8, 37, (1, 64)), (136, 264, 1000, (8, 128))])
+    (768, 3072, 5000, (1, 5056)), (8, 8, 37, (1, 64)), (136, 264, 1000, (8, 128)),
+    (1024, 3072, 133120, (8, 16640)), (1024, 1024, 133120, (8, 16640)),
+    (1024, 4096, 133120, (5, 26624)), (4096, 1024, 133120, (5, 26624))])
 def test_tn_split_plan(M, N, K, plan):
     """The weight gradient's split of its contraction at the kernel's K step
     of 64: every split but the last is whole steps, the splits cover K and
     none is empty. The four ViT-B/16 weight gradients (102,400 rows) take 7 and 9 splits
-    on 132 SMs."""
+    on 132 SMs; ViT-L/14's (133,120 rows) 8 and 5, no split chaining more
+    than ``_MAX_SPLIT_STEPS`` steps (one split of 2,080 would fill the card
+    as well, 128 tiles on 132 SMs)."""
     splits, k_per = port_fb.tn_split_plan(M, N, K, 132)
     assert (splits, k_per) == plan
     assert k_per % port_fb._BK == 0 and splits * k_per >= K > (splits - 1) * k_per
+    assert k_per <= port_fb._MAX_SPLIT_STEPS * port_fb._BK
 
 
 @pytest.mark.parametrize("rows,sms,per_sm,blocks", [
