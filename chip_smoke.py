@@ -2,7 +2,7 @@
 """Drive the PyTorch port's MaPLe eval path and train step, CoOp and zero-shot
 CLIP, the attention microbench, the training command line, federated MaPLe
 (sequential and parallel rounds), VPT, IVLP and CoCoOp base to novel, the
-ModifiedResNet backbones and the distributed layer on one NVIDIA GPU and
+ModifiedResNet backbones, the distributed layer and the bench on one NVIDIA GPU and
 hold its hand-written CUDA kernels against their plain PyTorch versions.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
@@ -210,17 +210,31 @@ What it does, in order (any failure raises and exits non-zero):
    block alone, the LayerNorm backward and forward at 1024) and at
    ViT-B/32 (eval and step), then CoOp ``vit_b32.yaml`` and zero-shot CLIP
    at ViT-L/14 through the command line, each against the ``xla`` route;
-25. prints, for the tensor-core kernels (``attention_core.cu``,
+25. the port's bench (``bench_phase``): ``python -m
+   federated_multi_modal_tpu_torch.bench`` in a subprocess per run at
+   ViT-B/16, full width and depth: the train defaults (B = 512, 1000
+   classes, depth 9, captions, ``--dispatch scan``: one step captured in a
+   CUDA graph and replayed, with the fed-step and eval secondaries), the
+   train variants ``--dispatch python``, ``--attention xla`` (at batch 256,
+   ``XLA_BATCH``), ``--remat``, ``--fwd-only`` and ``--no-pack`` (5 steps, 2
+   warm-up), loader (1024 JPEGs) and CoCoOp batched and looped at
+   ``COCOOP_BATCH`` images of 1000 classes (eval and fed-step run as the
+   defaults' secondaries, with every flag they read): each run exits 0 with one line whose keys are
+   those of ``bench.py``'s for the same arguments (and ``device``,
+   ``power_limit_w``), finite losses, every process's launches in one step
+   equal to the routing's, and under ``scan`` each replayed step equal to
+   the eager step bit for bit; the scan step beside the python one;
+26. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-26. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
-   ``launches_fed``, ``launches_b2n``, ``launches_rn`` and
-   ``launches_fedpar`` on the kernels the cli, fed, b2n, rn and dist phases
-   launched; K1's row also ``rn_text_shapes``; each row's
+27. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
+   ``launches_fed``, ``launches_b2n``, ``launches_rn``,
+   ``launches_fedpar`` and ``launches_bench`` on the kernels the cli, fed,
+   b2n, rn, dist and bench phases launched; K1's row also ``rn_text_shapes``; each row's
    ``backbone_shapes``, its readings at the backbones phase's shapes)
    and, last, ``{"ok": true, "device": ...}``.
 
@@ -862,37 +876,11 @@ def plain_path(attention_forward=None):
         yield
 
 
-def kernel_counters() -> dict:
-    """Every ported kernel's wrapper, by the label its counts print under."""
-    from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
-    from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
-    from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
-
-    return {"K1 packed_attention_masked": k_attn.packed_attention_masked,
-            "K1b packed_attention_masked_bwd": k_attn.packed_attention_masked_bwd,
-            "K2 packed_attention": k_attn.packed_attention,
-            "K2b packed_attention_bwd": k_attn.packed_attention_bwd,
-            "K3 fused_block_train": k_block.fused_block_train,
-            "K4 fused_block_train_dw": k_block.fused_block_train_dw,
-            "K5 fused_block_residual": k_block.fused_block_residual,
-            "K6a fused_ln_attention_residual": k_block.fused_ln_attention_residual,
-            "K6b fused_ln_mlp_residual": k_block.fused_ln_mlp_residual,
-            "K7 fused_ln_attention": k_block.fused_ln_attention,
-            "K8 fused_attention": k_attn.fused_attention,
-            "K9 fused_block_group_residual": k_block.fused_block_group_residual,
-            "P1 fused_lnqkv_attention": k_proto.fused_lnqkv_attention,
-            "P2 fused_lnqkv_attention_bwd_dx": k_proto.fused_lnqkv_attention_bwd_dx,
-            "P3 packed4d_attention": k_proto.packed4d_attention}
-
-
 def reset_counts() -> None:
-    from federated_multi_modal_tpu_torch.ops.kernels import _build
+    from federated_multi_modal_tpu_torch.ops.kernels import _build, counters
     from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
 
-    for fn in kernel_counters().values():
-        fn.launches = 0
-        if hasattr(fn, "backward_launches"):
-            fn.backward_launches = 0
+    counters.reset()
     _build.reset_launches()
     k_block.GEMM_LAUNCHES.clear()
     k_block.LN_BWD_LAUNCHES.clear()
@@ -901,13 +889,9 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Each wrapper's launches (and backward launches) since the last
     :func:`reset_counts`, then each CUDA entry point's."""
-    from federated_multi_modal_tpu_torch.ops.kernels import _build
+    from federated_multi_modal_tpu_torch.ops.kernels import _build, counters
 
-    counts = {}
-    for name, fn in kernel_counters().items():
-        counts[name] = fn.launches
-        if hasattr(fn, "backward_launches"):
-            counts[name + " (backward)"] = fn.backward_launches
+    counts = counters.read()
     counts.update(_build.LAUNCHES)
     counts["gemm_epilogue by product"] = gemm_launches_by_label()
     counts["layernorm_bwd_rows by instance"] = ln_launches_by_label()
@@ -3464,12 +3448,9 @@ CLI_PATH_KERNELS = ("K1 packed_attention_masked", "K1b packed_attention_masked_b
 
 def kernel_counts() -> dict:
     """Each wrapper's launches (and backward launches) so far, by label."""
-    counts = {}
-    for name, fn in kernel_counters().items():
-        counts[name] = fn.launches
-        if hasattr(fn, "backward_launches"):
-            counts[name + " (backward)"] = fn.backward_launches
-    return counts
+    from federated_multi_modal_tpu_torch.ops.kernels import counters
+
+    return counters.read()
 
 
 def nonzero(counts: dict) -> dict:
@@ -6280,6 +6261,198 @@ def backbones_phase(card: str, canvas, boxes, flips, opts: tuple = ()) -> tuple:
     return entries, launches, checks, summary
 
 
+# -- the port's bench (the bench phase) ------------------------------------------
+
+# The variants' and the other modes' steps, cut from the defaults' 30 timed
+# steps (and 5 warm-up ones under python dispatch) for the smoke's time.
+BENCH_CUT = ("--steps", "5", "--warmup", "2")
+# CoCoOp's batch at 1000 classes: B x 1000 prompt rows in the batched pass
+# (on an NVIDIA H100 80GB HBM3 at 700 W, 20 is the largest that fits, at
+# 75.5 GiB; 24 runs out).
+COCOOP_BATCH = 8
+# The xla route's batch: at 512 its eager fp32 scores need 73.6 GiB on the
+# same card, and the step runs out of memory in its backward or its capture.
+XLA_BATCH = 256
+BENCH_RUNS = (
+    ("train", ()),
+    ("train --dispatch python", ("--dispatch", "python", "--no-secondary") + BENCH_CUT),
+    ("train --attention xla", ("--attention", "xla", "--batch-size", str(XLA_BATCH),
+                               "--no-secondary") + BENCH_CUT),
+    ("train --remat", ("--remat", "--no-secondary") + BENCH_CUT),
+    ("train --fwd-only", ("--fwd-only", "--no-secondary") + BENCH_CUT),
+    ("train --no-pack", ("--no-pack", "--no-secondary") + BENCH_CUT),
+    ("loader", ("--mode", "loader", "--loader-images", "1024")),
+    ("cocoop", ("--mode", "cocoop", "--batch-size", str(COCOOP_BATCH)) + BENCH_CUT),
+    ("cocoop --cocoop-loop", ("--mode", "cocoop", "--cocoop-loop", "--batch-size",
+                              str(COCOOP_BATCH)) + BENCH_CUT),
+)
+BENCH_TIMEOUT_S = 400
+BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_includes_dataloading",
+                   "this_run_host_free", "device", "power_limit_w"}
+
+
+def bench_line_keys(argv) -> set:
+    """The keys of ``bench.py``'s line for these arguments, and the two the
+    port adds (``device``, ``power_limit_w``)."""
+    keys = set(BENCH_LINE_KEYS)
+    mode = argv[argv.index("--mode") + 1] if "--mode" in argv else "train"
+    if mode == "train":
+        keys |= {"train_step_ms", "step_tflops", "mfu"}
+        if "--no-secondary" not in argv:
+            keys |= {"fed_step_images_per_sec", "eval_images_per_sec"}
+    return keys
+
+
+def bench_expected_launches(argv, arch, batch: int) -> dict:
+    """What the routing implies for one step of the bench's run ``argv``,
+    by kernel label: ``{"": the run's, "<child mode>": a secondary's}``, each
+    ``{"launches": ..., ["launches_prepare": ...]}``."""
+    n_text, n_vis = arch.transformer_layers, arch.vision_layers
+    mode = argv[argv.index("--mode") + 1] if "--mode" in argv else "train"
+    train = {"K1 packed_attention_masked": n_text, "K1b packed_attention_masked_bwd": n_text,
+             "K3 fused_block_train": n_vis - 1, "K3 fused_block_train (backward)": n_vis - 1,
+             "K4 fused_block_train_dw": 1, "K4 fused_block_train_dw (backward)": 1}
+    evals = {"launches_prepare": {"K1 packed_attention_masked": n_text},
+             "launches": {"K5 fused_block_residual": n_vis}}
+    if "--attention" in argv and argv[argv.index("--attention") + 1] == "xla":
+        return {"": {"launches": {}}}
+    if mode == "eval":
+        return {"": evals}
+    if mode in ("fed-step", "loader"):
+        return {"": {"launches": train}}
+    if mode == "cocoop":
+        # the frozen image tower forward only (K3), the text tower's rows
+        # once (batched) or once an image, recomputed in the backward (loop)
+        per = batch if "--cocoop-loop" in argv else 1
+        fwd = 2 if "--cocoop-loop" in argv else 1
+        return {"": {"launches": {"K1 packed_attention_masked": fwd * per * n_text,
+                                  "K1b packed_attention_masked_bwd": per * n_text,
+                                  "K3 fused_block_train": n_vis}}}
+    if "--no-pack" in argv:
+        train = {k: v for k, v in train.items() if not k.startswith("K1")}
+    if "--fwd-only" in argv:
+        train = {k: v for k, v in train.items() if "backward" not in k and "K1b" not in k}
+    if "--remat" in argv:
+        train = {k: (2 * v if "backward" not in k and "K1b" not in k else v)
+                 for k, v in train.items()}
+    out = {"": {"launches": train}}
+    if "--no-secondary" not in argv:
+        out["fed-step"] = {"launches": train}
+        out["eval"] = evals
+    return out
+
+
+def parse_bench_run(proc) -> dict:
+    """One bench process's line and its stderr records: ``line``, ``lines``
+    (how many), ``info`` (its ``# ...`` details line), and by process (``""``
+    for it, a secondary's mode for the children it relayed) its
+    ``launches``, ``launches_prepare`` and ``replay_vs_eager``."""
+    import re
+
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    records, info = {}, ""
+    pattern = re.compile(r"^# (?:(fed-step|eval): )?(launches|launches_prepare|replay_vs_eager): (.*)$")
+    for ln in proc.stderr.splitlines():
+        m = pattern.match(ln)
+        if m:
+            records.setdefault(m.group(1) or "", {})[m.group(2)] = json.loads(m.group(3))
+        elif ln.startswith(("# batch=", "# mode=")):
+            info = ln[2:]
+    return {"line": json.loads(lines[0]) if len(lines) == 1 else None, "lines": len(lines),
+            "info": info, "records": records}
+
+
+def bench_losses(info: str) -> list:
+    """The losses a bench run's details line reports (``loss=`` or
+    ``losses=[...]``); none for eval."""
+    import re
+
+    m = re.search(r"losses=\[([^\]]*)\]", info)
+    if m:
+        return [float(x) for x in m.group(1).split(",")]
+    m = re.search(r"loss=(\S+)", info)
+    return [float(m.group(1))] if m else []
+
+
+def bench_phase(card: str, arch=None, runs=BENCH_RUNS, extra_argv=()) -> tuple:
+    """The port's bench (``python -m federated_multi_modal_tpu_torch.bench``)
+    in a subprocess per run (``BENCH_RUNS``): the train defaults (ViT-B/16,
+    B = 512, 1000 classes, depth 9, captions, ``--dispatch scan``, the
+    fed-step and eval secondaries), the train variants (``--dispatch python``,
+    ``--attention xla`` at ``XLA_BATCH``, ``--remat``, ``--fwd-only``,
+    ``--no-pack``), loader (1024 JPEGs) and CoCoOp batched and looped at
+    ``COCOOP_BATCH`` images and 1000 classes. Eval and fed-step are the
+    defaults' secondaries: each child's one line gives its field on the
+    train line, and its launches and replayed step come back on the
+    parent's stderr under its mode. For each run, held: exit 0 and
+    exactly one JSON line with the keys of ``bench.py``'s line for the same
+    arguments (and ``device``, ``power_limit_w``); finite losses; every
+    process's launches in one step equal to the routing's
+    (:func:`bench_expected_launches`); under ``scan`` each process's replayed
+    step equal to its eager step from the same state and draws, bit for bit.
+    ``extra_argv`` is appended to every run (a CPU rehearsal's Tiny
+    arguments). Returns ``(launches by kernel label, summed over the runs'
+    processes, checks, summary)``."""
+    from federated_multi_modal_tpu_torch.models.params import BACKBONE_CONFIGS
+
+    arch = arch or BACKBONE_CONFIGS["ViT-B/16"]
+    checks, summary, totals = [], {"card": card, "runs": {}}, {}
+    for name, argv in runs:
+        argv = list(argv) + list(extra_argv)
+        batch = int(argv[argv.index("--batch-size") + 1]) if "--batch-size" in argv else 512
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "federated_multi_modal_tpu_torch.bench",
+                               *argv], capture_output=True,
+                              text=True, timeout=BENCH_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        run = parse_bench_run(proc)
+        line = run["line"]
+        print(f"bench {name} ({wall_s:.1f} s, rc {proc.returncode}):",
+              json.dumps(line) if line else proc.stdout[-500:])
+        print(f"bench {name} details: {run['info']}")
+        ok = proc.returncode == 0 and run["lines"] == 1
+        if not ok:
+            print(f"bench {name} stderr tail:", proc.stderr[-3000:])
+        checks.append((f"bench {name} exits 0 with one line", {"ok": ok}))
+        checks.append((f"bench {name} line keys as bench.py's",
+                       {"ok": bool(line) and set(line) == bench_line_keys(argv)}))
+        losses = bench_losses(run["info"])
+        if "--mode" not in argv or argv[argv.index("--mode") + 1] != "eval":
+            checks.append((f"bench {name} losses finite",
+                           {"ok": bool(losses) and all(np.isfinite(losses))}))
+        expected = bench_expected_launches(argv, arch, batch)
+        got = {proc_name: {k: rec.get(k) for k in want}
+               for proc_name, want in expected.items()
+               for rec in [run["records"].get(proc_name, {})]}
+        held = got == expected
+        print(f"bench {name} launches a step (got == routing: {held}):", json.dumps(got))
+        checks.append((f"bench {name} launches as the routing implies", {"ok": held}))
+        scan = "--dispatch" not in argv or argv[argv.index("--dispatch") + 1] == "scan"
+        replay = {p: r.get("replay_vs_eager") for p, r in run["records"].items()}
+        if scan and "loader" not in name:
+            bitwise = bool(replay) and all(r and r["bit_for_bit"] for r in replay.values()) \
+                and set(replay) == set(expected)
+            print(f"bench {name} replayed step vs eager step:", json.dumps(replay))
+            checks.append((f"bench {name} replayed step equals the eager step", {"ok": bitwise}))
+        for rec in run["records"].values():
+            for counts in (rec.get("launches") or {}, rec.get("launches_prepare") or {}):
+                for label, n in counts.items():
+                    totals[label] = totals.get(label, 0) + n
+        summary["runs"][name] = {"argv": argv, "wall_s": wall_s, "rc": proc.returncode,
+                                 "line": line, "info": run["info"], "losses": losses,
+                                 "launches": got, "replay_vs_eager": replay}
+    runs_by = summary["runs"]
+    scan_ms = (runs_by.get("train", {}).get("line") or {}).get("train_step_ms")
+    python_ms = (runs_by.get("train --dispatch python", {}).get("line") or {}).get("train_step_ms")
+    if scan_ms and python_ms:
+        summary["scan_vs_python"] = {"scan_ms": scan_ms, "python_ms": python_ms,
+                                     "host_share": 1 - scan_ms / python_ms}
+        print("bench train step, scan against python:", json.dumps(summary["scan_vs_python"]))
+    failed = [n for n, c in checks if not c["ok"]]
+    print(f"bench phase on {card}: {len(checks)} checks, failed: {failed}")
+    return totals, checks, summary
+
+
 def main() -> int:
     import torch
 
@@ -6706,10 +6879,23 @@ def main() -> int:
         if launched:
             row.setdefault("paths", []).append("backbones")
         row["launches_backbones_cli"] = launched
+    torch.cuda.empty_cache()
+
+    # -- 27. the port's bench (the bench phase) ----------------------------------
+    t0 = time.perf_counter()
+    bench_launches, bench_checks, summary["bench"] = bench_phase(card)
+    summary["bench"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        launched = sum(n for label, n in bench_launches.items()
+                       if label.split(" ")[1] == row["name"] and "(backward)" not in label)
+        if launched:
+            row.setdefault("paths", []).append("bench")
+        row["launches_bench"] = launched
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
                      + gemm_checks + ln_checks + cli_checks + fed_checks + b2n_checks
-                     + rn_checks + dist_checks + tools_checks + limit_checks + bb_checks)
+                     + rn_checks + dist_checks + tools_checks + limit_checks + bb_checks
+                     + bench_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

@@ -134,7 +134,7 @@ def build_fed_optimizer(lr: float = 0.0026):
 
 
 def estimate_train_step_flops(arch, batch_size, n_cls, text_len,
-                              use_captions=True, n_vis_ctx=2):
+                              use_captions=True, n_vis_ctx=2, fwd_only=False):
     """Analytic matmul FLOPs of one MaPLe train step (a copy of the JAX
     package's ``bench.py::estimate_train_step_flops``): 2*M*N*K per product,
     LN, softmax and elementwise work excluded. Per block of width D at
@@ -142,7 +142,8 @@ def estimate_train_step_flops(arch, batch_size, n_cls, text_len,
     backward's activation gradients 1x the linears and 2x the attention;
     dW (1x the linears) for the one trainable vision block; the patch
     embedding forward only; the text tower at its EOT-truncated length over
-    ``n_cls`` prompts (packing makes compute proportional to real tokens).
+    ``n_cls`` prompts (packing makes compute proportional to real tokens);
+    ``fwd_only`` counts the forward alone (``bench.py --fwd-only``).
     42.3e12 at ViT-B/16, batch 512, 1000 classes."""
     if not arch.is_vit:
         return None
@@ -154,6 +155,8 @@ def estimate_train_step_flops(arch, batch_size, n_cls, text_len,
         lin_f = 24 * T * D * D
         attn_f = 4 * T * T * D
         fwd = layers * (lin_f + attn_f)
+        if fwd_only:
+            return rows * fwd
         bwd = layers * (lin_f + 2 * attn_f) + trainable_blocks * lin_f
         return rows * (fwd + bwd)
 

@@ -59,9 +59,16 @@ def crop_resize_flip_normalize(canvas: torch.Tensor, boxes: torch.Tensor,
     tmp = torch.einsum("bos,bshc->bohc", wy, imgs)  # rows
     out = torch.einsum("bwt,botc->bowc", wx, tmp)  # columns
     out = torch.where(flips[:, None, None, None], out.flip(2), out)
-    mean = torch.tensor(mean, dtype=torch.float32, device=out.device)
-    std = torch.tensor(std, dtype=torch.float32, device=out.device)
-    return ((out - mean) / std).to(torch.bfloat16)
+    return ((out - _channel_constant(mean, out.device))
+            / _channel_constant(std, out.device)).to(torch.bfloat16)
+
+
+def _channel_constant(values, device) -> torch.Tensor:
+    """``values`` as an fp32 vector made on ``device`` by fill kernels (the
+    same roundings as ``torch.tensor(values, dtype=torch.float32)``): no
+    host-to-device copy, which a step captured in a CUDA graph may not
+    hold."""
+    return torch.stack([torch.full((), v, dtype=torch.float32, device=device) for v in values])
 
 
 def center_boxes(n: int, canvas_size: int = DEFAULT_CANVAS, out_size: int = 224):

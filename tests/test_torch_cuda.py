@@ -1827,3 +1827,102 @@ def test_vit_l14_attention(gen, T):
     fault = dqkv.clone()
     fault[:, last:, D:] *= math.exp(-1 / 8)
     assert not _each_within_share_of_max(fault, ref, D, 2 ** -5)
+
+
+# -- the port's bench: --dispatch scan as a captured CUDA graph -------------------
+
+BENCH_TINY = ["--backbone", "Tiny", "--depth", "3", "--batch-size", "8", "--n-cls", "10",
+              "--steps", "3"]
+
+
+def test_bench_replay_equals_eager(gen):
+    """One replay of the bench's captured train step (Tiny, batch 8, captions,
+    crops drawn on the card from a generator registered with the graph)
+    equals the eager step from the same state with the same draws, bit for
+    bit; the captured step launches the routing's kernels, and the state is
+    put back."""
+    from federated_multi_modal_tpu_torch import bench
+    from federated_multi_modal_tpu_torch.engine.optim import build_optimizer
+    from federated_multi_modal_tpu_torch.flagship import build_maple_program
+    from federated_multi_modal_tpu_torch.ops.preprocess import sample_rrc_boxes_torch
+    from federated_multi_modal_tpu_torch.tokenizer import tokenize
+
+    B = 8
+    prog = build_maple_program("Tiny", classnames=[f"class {i}" for i in range(10)], depth=3)
+    tx = build_optimizer(lr=0.0026, clip=1.0)
+    one_step = bench.make_one_step(prog, tx, use_captions=True)
+    canvas = torch.randint(0, 255, (B, 256, 256, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 10, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    captions = torch.from_numpy(tokenize(["a satellite photo of a scene"] * B)).cuda()
+    draws = torch.Generator(device="cuda").manual_seed(0)
+
+    def apply(state, drawn):
+        tr, opt, loss = one_step(state[0], prog["frozen"], state[1], canvas, *drawn, labels,
+                                 captions)
+        return (tr, opt), loss
+
+    state = (prog["trainable"], tx.init(prog["trainable"]))
+    before = bench._clone(state)
+    held, launches = bench.replay_vs_eager(
+        apply, state, lambda: sample_rrc_boxes_torch(draws, B), (draws,))
+    assert held["bit_for_bit"], held
+    assert launches == {"K1 packed_attention_masked": 3, "K1b packed_attention_masked_bwd": 3,
+                        "K3 fused_block_train": 2, "K3 fused_block_train (backward)": 2,
+                        "K4 fused_block_train_dw": 1, "K4 fused_block_train_dw (backward)": 1}
+    assert bench.held_bitwise(state, before)["bit_for_bit"]
+
+
+@pytest.mark.parametrize("mode", [
+    ["--no-secondary"], ["--mode", "eval"], ["--mode", "fed-step"], ["--mode", "cocoop"],
+    ["--mode", "cocoop", "--cocoop-loop"],
+], ids=["train", "eval", "fed-step", "cocoop", "cocoop-loop"])
+def test_bench_scan_tiny_on_the_card(gen, capsys, monkeypatch, mode):
+    """``--dispatch scan`` (the default) at Tiny through the bench's ``main``:
+    exit 0, one line naming the card and its power limit, and the replayed
+    step equal to the eager one bit for bit."""
+    import json
+
+    from federated_multi_modal_tpu_torch import bench
+    from federated_multi_modal_tpu_torch.models import clip_model
+    from federated_multi_modal_tpu_torch.ops import primitives
+
+    monkeypatch.setattr(primitives, "_ATTENTION_IMPL", primitives._ATTENTION_IMPL)
+    monkeypatch.setattr(clip_model, "_TEXT_PACK_DEFAULT", clip_model._TEXT_PACK_DEFAULT)
+    assert bench.main(BENCH_TINY + mode) == 0
+    out, err = capsys.readouterr()
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1, out
+    rec = json.loads(lines[0])
+    assert rec["device"] == torch.cuda.get_device_name(0) and rec["power_limit_w"] > 0
+    replay = [json.loads(ln.split(": ", 1)[1]) for ln in err.splitlines()
+              if ln.startswith("# replay_vs_eager: ")]
+    assert len(replay) == 1 and replay[0]["bit_for_bit"], replay
+
+
+def test_bench_capture_of_a_host_read_fails_loudly(gen):
+    """A step that reads a device tensor on the host cannot be captured:
+    ``capture_step`` raises saying so (in a child process, whose CUDA
+    context the failed capture leaves behind)."""
+    import os
+    import subprocess
+    import sys
+
+    script = (
+        "import torch\n"
+        "from federated_multi_modal_tpu_torch import bench\n"
+        "x = torch.ones(4, device='cuda')\n"
+        "def step(state):\n"
+        "    y = state[0] * 2\n"
+        "    if y.sum().item() > 0:\n"
+        "        y = y + 1\n"
+        "    return (y,), y.sum()\n"
+        "try:\n"
+        "    bench.capture_step(step, (x,))\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=300, cwd=root)
+    assert "raised: --dispatch scan: the step cannot be captured" in proc.stdout, \
+        proc.stdout + proc.stderr[-2000:]
