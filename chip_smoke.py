@@ -224,17 +224,30 @@ What it does, in order (any failure raises and exits non-zero):
    ``power_limit_w``), finite losses, every process's launches in one step
    equal to the routing's, and under ``scan`` each replayed step equal to
    the eager step bit for bit; the scan step beside the python one;
-26. prints, for the tensor-core kernels (``attention_core.cu``,
+26. several devices in one process (``cards_phase``): the card's machine
+   has one card, so the device list names it twice (``[cuda:0, cuda:0]``,
+   as the CPU tests name ``[cpu, cpu]``), each replica on a stream of its
+   own: the port bench's ``train`` (B = 512 split over the replicas) and
+   ``fed-step`` (two clients of 256) under ``scan`` and ``python`` in one
+   child (each replay bit for bit its eager step, launches twice the
+   routing's), the train step's update against one replica's over the same
+   halves and its loss against the whole batch's; the CLI's MaPLe with
+   ``TPU.DATA_PARALLEL`` over the replicas, and two Gloo processes each
+   splitting its half over two replicas (against the same quarters in this
+   process, both ranks bit for bit alike); ``FED.PARALLEL_CLIENTS`` over a
+   ``(2, 1)`` mesh (launches twice the routing's a step, FedAvg against the
+   fp64 host mean, a planted NaN left out);
+27. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-27. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
+28. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
    ``launches_fed``, ``launches_b2n``, ``launches_rn``,
-   ``launches_fedpar`` and ``launches_bench`` on the kernels the cli, fed,
-   b2n, rn, dist and bench phases launched; K1's row also ``rn_text_shapes``; each row's
+   ``launches_fedpar``, ``launches_bench`` and ``launches_cards`` on the
+   kernels the cli, fed, b2n, rn, dist, bench and cards phases launched; K1's row also ``rn_text_shapes``; each row's
    ``backbone_shapes``, its readings at the backbones phase's shapes)
    and, last, ``{"ok": true, "device": ...}``.
 
@@ -4909,8 +4922,14 @@ else:
     cfg.merge_from_list(spec["opts"])
     cfg.OUTPUT_DIR = os.path.join(spec["dir"], f"rank{rank}")
     cfg.freeze()
+    if spec.get("replicas", 1) > 1:
+        from federated_multi_modal_tpu_torch.parallel import mesh
+        card = (torch.device("cuda", torch.cuda.current_device()) if spec["device"] == "cuda"
+                else torch.device(spec["device"]))
+        mesh.visible_devices = lambda device=None: [card] * spec["replicas"]
     trainer = build_trainer(cfg, device=spec["device"])
     out["dp_multihost"] = trainer._dp_multihost
+    out["local_devices"] = [str(d) for d in trainer._dp_devices or [trainer.device]]
     full = torch.load(spec["batch"])
     n = len(full["label"]) // world
     half = {k: v[rank * n:(rank + 1) * n].to(spec["device"]) for k, v in full.items()}
@@ -4936,9 +4955,13 @@ def dist_children(spec: dict, world: int, tmp: str) -> list:
     store = os.path.join(tmp, f"store_{spec['mode']}")
     procs = []
     for rank in range(world):
-        env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
+        env = {k: v for k, v in os.environ.items() if k not in ("LOCAL_WORLD_SIZE", "LOCAL_RANK")}
+        env.update(PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""),
                    JAX_COORDINATOR_ADDRESS=f"file://{store}", JAX_NUM_PROCESSES=str(world),
                    JAX_PROCESS_ID=str(rank), DIST_SPEC=json.dumps(spec))
+        if spec.get("replicas", 1) > 1:
+            # a process a host, driving every device it sees
+            env["LOCAL_WORLD_SIZE"] = "1"
         procs.append(subprocess.Popen([sys.executable, "-c", DIST_CHILD], env=env, cwd=here,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True))
@@ -5011,7 +5034,8 @@ def fedpar_instrumented(record: dict, plant_nan: bool = False):
         got, held = flatten(out), flatten(stacked)
         record.setdefault("fedavg", []).append({
             "ms": ms, "clients": int(next(iter(held.values())).shape[0]),
-            "bit_equal_to_input": all(torch.equal(got[k], held[k]) for k in held)})
+            "bit_equal_to_input": all(torch.equal(got[k], held[k]) for k in held),
+            "max_rel_err_vs_fp64_mean": fedavg_vs_fp64_mean(stacked, out)})
         return out
 
     def resume_rec(self):
@@ -5123,38 +5147,17 @@ def worst(errs: dict) -> list:
     return [name, errs[name]]
 
 
-def dist_dp_phase(card: str, tmp: str, sd_path: str, opts: tuple = (),
-                  device: str = "cuda") -> tuple:
-    """``TPU.DATA_PARALLEL_MULTIHOST`` in two processes on this one card
-    (Gloo: NCCL refuses two ranks on one device), each on its half of a
-    MaPLe batch of ``DIST_DP_BATCH`` at ViT-B/16 (the cli phase's
-    configuration, Synthetic), from the same weights as this process's
-    steps over the whole batch:
-
-    * the all-reduced update against this process's step over the same two
-      halves, their gradients, losses and aux averaged here
-      (``DIST_DP_TOL`` of each leaf's update: the all-reduce adds the same
-      two fp32 values), both processes bit for bit alike, the all-reduced
-      loss against the whole batch's at ``TOL_STEP_LOSS``;
-    * printed beside it, its distance from the step over the whole batch,
-      and that of the one-process two-halves step (the control: under the
-      bf16 policy a batch split moves the text tower's gradients by bf16
-      rounding);
-    * then a world of one through NCCL: its ``all_reduce`` and
-      :func:`~engine.trainer.all_reduce_mean` on card tensors."""
+def dp_setup(tmp: str, sd_path: str, opts: tuple, device) -> tuple:
+    """The cli phase's MaPLe (Synthetic, ViT-B/16, batch ``DIST_DP_BATCH``)
+    built in this process without ``TPU.DATA_PARALLEL_MULTIHOST``, its first
+    batch saved under ``tmp`` for the children: ``(cfg, the children's
+    spec, trainer, batch)``."""
     import torch
 
     import federated_multi_modal_tpu_torch.trainers  # noqa: F401
     from federated_multi_modal_tpu_torch.config import get_cfg_default
     from federated_multi_modal_tpu_torch.engine import build_trainer
-    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
-    from federated_multi_modal_tpu_torch.engine.trainer import (
-        loss_grads_and_aux,
-        make_train_step_with_aux,
-    )
-    from federated_multi_modal_tpu_torch.parallel.mesh import mean_over_devices
 
-    checks = []
     opts = ["DATASET.ROOT", os.path.join(tmp, "dp-data"), "MODEL.BACKBONE.WEIGHTS_PATH", sd_path,
             "DATALOADER.TRAIN_X.BATCH_SIZE", str(DIST_DP_BATCH), "SEED", "1", "VERBOSE", "False",
             "TRAINER.NAME", "MaPLe", *opts]
@@ -5170,55 +5173,121 @@ def dist_dp_phase(card: str, tmp: str, sd_path: str, opts: tuple = (),
     batch = trainer.parse_batch_train(next(batches))
     batches.close()
     torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(tmp, "dp-batch.pt"))
-    n = len(batch["label"]) // 2
+    spec = {"mode": "dp", "backend": "gloo", "dir": tmp, "config_files": files,
+            "device": str(device), "opts": opts + ["TPU.DATA_PARALLEL_MULTIHOST", "True"],
+            "batch": os.path.join(tmp, "dp-batch.pt")}
+    return cfg, spec, trainer, batch
 
-    def halves(tr, frozen, b):
-        outs = [loss_grads_and_aux(trainer.loss_fn, tr, frozen,
-                                   {k: v[i * n:(i + 1) * n] for k, v in b.items()})
-                for i in range(2)]
-        return tuple(mean_over_devices([o[i] for o in outs], trainer.device) for i in range(3))
 
-    initial = flatten_params(trainer.trainable)
+def dp_reference_steps(trainer, batch, splits) -> dict:
+    """This process's steps from ``trainer``'s state over ``batch``:
+    ``"whole"``, and for each of ``splits`` (``"halves"``, ``"quarters"``)
+    the step whose gradients, losses and aux are the means over the
+    batch's parts, each half's parts averaged first, then the halves (the
+    order of the processes' means). Each ``{"loss", "grad_norm",
+    "params"}``."""
+    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
+    from federated_multi_modal_tpu_torch.engine.trainer import (
+        loss_grads_and_aux,
+        make_train_step_with_aux,
+    )
+    from federated_multi_modal_tpu_torch.parallel.mesh import mean_over_devices
+
+    def split_mean(parts):
+        def grad_fn(tr, frozen, b):
+            outs = [loss_grads_and_aux(trainer.loss_fn, tr, frozen, {k: v.chunk(parts)[i]
+                                                                    for k, v in b.items()})
+                    for i in range(parts)]
+            means = [tuple(mean_over_devices([o[i] for o in outs[h:h + parts // 2]],
+                                             trainer.device) for i in range(3))
+                     for h in range(0, parts, parts // 2)]
+            return tuple(mean_over_devices([m[i] for m in means], trainer.device)
+                         for i in range(3))
+        return grad_fn
+
+    grad_fns = {"whole": None}
+    grad_fns.update((name, split_mean({"halves": 2, "quarters": 4}[name])) for name in splits)
     ref = {}
-    for name, grad_fn in (("whole", None), ("halves", halves)):
+    for name, grad_fn in grad_fns.items():
         step = make_train_step_with_aux(trainer.loss_fn, trainer.tx, grad_fn)
         tr, _, loss, gnorm, _ = step(trainer.trainable, trainer.frozen, trainer.opt_state, batch)
         ref[name] = {"loss": float(loss), "grad_norm": float(gnorm),
                      "params": flatten_params(tr)}
-    del trainer, batch, tr
-    torch.cuda.empty_cache()
+    return ref
 
+
+def dp_children_held(spec: dict, tmp: str, ref: dict, split: str, initial: dict,
+                     replicas: int) -> dict:
+    """``TPU.DATA_PARALLEL_MULTIHOST`` in two Gloo processes on this card
+    (``spec``), each on its half of the saved batch over ``replicas``
+    local devices, held against ``ref[split]`` (this process's step over
+    the same parts) at ``DIST_DP_TOL`` of each leaf's update, the two
+    processes bit for bit alike, the loss against the whole batch's at
+    ``TOL_STEP_LOSS``; printed beside it, its distance from the step over
+    the whole batch and that of ``ref[split]`` (the control: under the bf16
+    policy a batch split moves the text tower's gradients by bf16
+    rounding)."""
     t0 = time.perf_counter()
-    spec = {"mode": "dp", "backend": "gloo", "dir": tmp, "config_files": files, "device": device,
-            "opts": opts + ["TPU.DATA_PARALLEL_MULTIHOST", "True"],
-            "batch": os.path.join(tmp, "dp-batch.pt")}
-    children = dist_children(spec, 2, tmp)
+    children = dist_children(dict(spec, replicas=replicas), 2, tmp)
     dp_s = time.perf_counter() - t0
     trained = [dict(np.load(os.path.join(tmp, f"trained{r}.npz"))) for r in range(2)]
-    errs = update_errs(trained[0], ref["halves"]["params"], initial)
-    loss_halves = abs(children[0]["loss"] - ref["halves"]["loss"]) / abs(ref["halves"]["loss"])
+    errs = update_errs(trained[0], ref[split]["params"], initial)
+    loss_split = abs(children[0]["loss"] - ref[split]["loss"]) / abs(ref[split]["loss"])
     loss_whole = abs(children[0]["loss"] - ref["whole"]["loss"]) / abs(ref["whole"]["loss"])
     held = {
-        "update_vs_halves_worst": worst(errs), "tol": DIST_DP_TOL,
-        "loss_rel_err_vs_halves": loss_halves,
+        f"update_vs_{split}_worst": worst(errs), "tol": DIST_DP_TOL,
+        f"loss_rel_err_vs_{split}": loss_split,
         "loss_rel_err_vs_whole": loss_whole, "loss_tol": TOL_STEP_LOSS,
         "ranks_bit_equal": all(np.array_equal(trained[0][k], trained[1][k])
                                for k in ref["whole"]["params"]),
         "update_vs_whole_worst": worst(update_errs(trained[0], ref["whole"]["params"], initial)),
-        "control_halves_vs_whole_worst": worst(update_errs(
-            ref["halves"]["params"], ref["whole"]["params"], initial)),
+        f"control_{split}_vs_whole_worst": worst(update_errs(
+            ref[split]["params"], ref["whole"]["params"], initial)),
         "children": [{k: c[k] for k in ("rank", "world", "backend", "device", "dp_multihost",
-                                        "loss", "grad_norm", "shard", "imported_jax")}
+                                        "local_devices", "loss", "grad_norm", "shard",
+                                        "imported_jax")}
                      for c in children],
         "one_process": {k: {"loss": v["loss"], "grad_norm": v["grad_norm"]}
                         for k, v in ref.items()},
         "seconds": dp_s,
     }
-    held["ok"] = (held["update_vs_halves_worst"][1] <= DIST_DP_TOL
-                  and loss_halves <= DIST_DP_TOL and loss_whole <= TOL_STEP_LOSS
+    held["ok"] = (held[f"update_vs_{split}_worst"][1] <= DIST_DP_TOL
+                  and loss_split <= DIST_DP_TOL and loss_whole <= TOL_STEP_LOSS
                   and held["ranks_bit_equal"]
                   and all(c["dp_multihost"] and c["world"] == 2 and c["backend"] == "gloo"
-                          and c["shard"] == n and not c["imported_jax"] for c in children))
+                          and c["shard"] == DIST_DP_BATCH // 2
+                          and len(c["local_devices"]) == replicas
+                          and not c["imported_jax"] for c in children))
+    return held
+
+
+def dist_dp_phase(card: str, tmp: str, sd_path: str, opts: tuple = (),
+                  device: str = "cuda") -> tuple:
+    """``TPU.DATA_PARALLEL_MULTIHOST`` in two processes on this one card
+    (Gloo: NCCL refuses two ranks on one device), each on its half of a
+    MaPLe batch of ``DIST_DP_BATCH`` at ViT-B/16 (the cli phase's
+    configuration, Synthetic), from the same weights as this process's
+    steps over the whole batch:
+
+    * the all-reduced update against this process's step over the same two
+      halves, their gradients, losses and aux averaged here
+      (``DIST_DP_TOL`` of each leaf's update: the all-reduce adds the same
+      two fp32 values), both processes bit for bit alike, the all-reduced
+      loss against the whole batch's at ``TOL_STEP_LOSS``
+      (:func:`dp_children_held`);
+    * then a world of one through NCCL: its ``all_reduce`` and
+      :func:`~engine.trainer.all_reduce_mean` on card tensors."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
+
+    checks = []
+    _, spec, trainer, batch = dp_setup(tmp, sd_path, opts, device)
+    initial = flatten_params(trainer.trainable)
+    ref = dp_reference_steps(trainer, batch, ["halves"])
+    del trainer, batch
+    torch.cuda.empty_cache()
+    held = dp_children_held(spec, tmp, ref, "halves", initial, 1)
     print(f"dist two-process DP (Gloo, one card, halves of {DIST_DP_BATCH}) vs one process, on "
           f"{card}:", json.dumps(held))
     checks.append(("dist two-process DP step vs one process's step over the same halves", held))
@@ -5233,6 +5302,93 @@ def dist_dp_phase(card: str, tmp: str, sd_path: str, opts: tuple = (),
     print("dist NCCL world of one:", json.dumps(nccl))
     checks.append(("dist NCCL starts and all-reduces", nccl))
     return checks, {"dp": held, "nccl": nccl}
+
+
+def cards_dp_phase(card: str, tmp: str, sd_path: str, dev, opts: tuple = ()) -> tuple:
+    """Data parallelism over ``CARDS_REPLICAS`` replicas of the card, on
+    :func:`dist_dp_phase`'s MaPLe and batch: (b) this process's trainer
+    with ``TPU.DATA_PARALLEL`` over the replicas against its step over the
+    same halves (:func:`dp_over_replicas`); (d) two Gloo processes, each
+    driving every device it sees (``LOCAL_WORLD_SIZE=1``) and splitting its
+    half over its replicas, against this process's step over the same four
+    quarters (:func:`dp_children_held`). Returns ``(checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
+
+    cfg, spec, trainer, batch = dp_setup(tmp, sd_path, opts, dev)
+    initial = flatten_params(trainer.trainable)
+    ref = dp_reference_steps(trainer, batch, ["halves", "quarters"])
+    summary = {"one_process": dp_over_replicas(card, cfg, trainer, batch, ref["halves"], initial,
+                                               CARDS_REPLICAS, dev)}
+    checks = [("cards TPU.DATA_PARALLEL over two replicas vs one process over the same halves",
+               summary["one_process"])]
+    del trainer, batch
+    torch.cuda.empty_cache()
+    held = dp_children_held(spec, tmp, ref, "quarters", initial, CARDS_REPLICAS)
+    print(f"cards two-process DP (Gloo, one card, halves of {DIST_DP_BATCH}, {CARDS_REPLICAS} "
+          f"local devices a process) vs one process, on {card}:", json.dumps(held))
+    checks.append((f"cards two-process DP step ({CARDS_REPLICAS} local devices a process) vs "
+                   "one process's step over the same quarters", held))
+    summary["multiprocess"] = held
+    return checks, summary
+
+
+def dp_over_replicas(card: str, cfg, trainer, batch, ref: dict, initial: dict,
+                     replicas: int, device) -> dict:
+    """The cli phase's MaPLe built again with the device list naming
+    ``device`` ``replicas`` times (``TPU.DATA_PARALLEL``, the default), from
+    ``trainer``'s state: one step over ``batch`` against ``ref`` (one
+    process's step over the same halves) at ``DIST_DP_TOL`` of each leaf's
+    update; ``model_inference`` of the batch's images launching K5 once a
+    block and replica (before the step, on the same weights as ``trainer``),
+    its logits beside the one-device trainer's."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine import build_trainer
+    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
+
+    dp_cfg = cfg.clone()
+    dp_cfg.defrost()
+    dp_cfg.OUTPUT_DIR = cfg.OUTPUT_DIR + "-replicas"
+    dp_cfg.freeze()
+    with card_named_twice(device):
+        dp = build_trainer(dp_cfg, device=device)
+    dp.trainable, dp.opt_state = trainer.trainable, trainer.opt_state
+    one = trainer.model_inference(batch["image"])
+    torch.cuda.synchronize()
+    reset_counts()
+    logits = dp.model_inference(batch["image"])
+    torch.cuda.synchronize()
+    k5 = read_counts()["K5 fused_block_residual"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    summary = dp.train_step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    errs = update_errs(flatten_params(dp.trainable), ref["params"], initial)
+    n_vis = dp.arch.vision_layers
+    held = {
+        "devices": [str(d) for d in dp._dp_devices or []],
+        "update_vs_halves_worst": worst(errs), "tol": DIST_DP_TOL,
+        "loss_rel_err_vs_halves": abs(summary["loss"] - ref["loss"]) / abs(ref["loss"]),
+        "step_ms_first_call": step_ms, "step_peak_gib_above_start": peak,
+        "eval_k5_launches": k5, "eval_k5_implied": replicas * n_vis,
+        "eval_logits_max_abs_diff_vs_one_device": float(
+            (logits.float() - one.float()).abs().max()),
+        "eval_logits_shape": list(logits.shape),
+    }
+    held["ok"] = (len(held["devices"]) == replicas and held["update_vs_halves_worst"][1]
+                  <= DIST_DP_TOL and held["loss_rel_err_vs_halves"] <= DIST_DP_TOL
+                  and k5 == replicas * n_vis and tuple(logits.shape) == tuple(one.shape))
+    print(f"cards TPU.DATA_PARALLEL over {replicas} replicas (MaPLe, cli configuration, batch "
+          f"{DIST_DP_BATCH}) vs one process over the same halves, on {card}:",
+          json.dumps(held))
+    del dp
+    return held
 
 
 def profile_dir_phase(card: str, tmp: str, sd_path: str, opts: tuple = ()) -> tuple:
@@ -6374,6 +6530,53 @@ def bench_losses(info: str) -> list:
     return [float(m.group(1))] if m else []
 
 
+def hold_bench_run(name: str, argv: list, proc, wall_s: float, arch, checks: list,
+                   totals: dict, replicas: int = 1) -> dict:
+    """One bench run's output (``proc``: its ``stdout``, ``stderr`` and
+    ``returncode``) held as :func:`bench_phase` says, its checks appended
+    to ``checks`` and its launches added to ``totals``; the expected
+    launches are the routing's times ``replicas`` (the step's replicas of
+    the card). Returns the run's summary."""
+    batch = int(argv[argv.index("--batch-size") + 1]) if "--batch-size" in argv else 512
+    run = parse_bench_run(proc)
+    line = run["line"]
+    print(f"bench {name} ({wall_s:.1f} s, rc {proc.returncode}):",
+          json.dumps(line) if line else proc.stdout[-500:])
+    print(f"bench {name} details: {run['info']}")
+    ok = proc.returncode == 0 and run["lines"] == 1
+    if not ok:
+        print(f"bench {name} stderr tail:", proc.stderr[-3000:])
+    checks.append((f"bench {name} exits 0 with one line", {"ok": ok}))
+    checks.append((f"bench {name} line keys as bench.py's",
+                   {"ok": bool(line) and set(line) == bench_line_keys(argv)}))
+    losses = bench_losses(run["info"])
+    if "--mode" not in argv or argv[argv.index("--mode") + 1] != "eval":
+        checks.append((f"bench {name} losses finite",
+                       {"ok": bool(losses) and all(np.isfinite(losses))}))
+    expected = {p: {k: {label: replicas * n for label, n in counts.items()}
+                    for k, counts in rec.items()}
+                for p, rec in bench_expected_launches(argv, arch, batch).items()}
+    got = {proc_name: {k: rec.get(k) for k in want}
+           for proc_name, want in expected.items()
+           for rec in [run["records"].get(proc_name, {})]}
+    held = got == expected
+    print(f"bench {name} launches a step (got == routing: {held}):", json.dumps(got))
+    checks.append((f"bench {name} launches as the routing implies", {"ok": held}))
+    scan = "--dispatch" not in argv or argv[argv.index("--dispatch") + 1] == "scan"
+    replay = {p: r.get("replay_vs_eager") for p, r in run["records"].items()}
+    if scan and "loader" not in name:
+        bitwise = bool(replay) and all(r and r["bit_for_bit"] for r in replay.values()) \
+            and set(replay) == set(expected)
+        print(f"bench {name} replayed step vs eager step:", json.dumps(replay))
+        checks.append((f"bench {name} replayed step equals the eager step", {"ok": bitwise}))
+    for rec in run["records"].values():
+        for counts in (rec.get("launches") or {}, rec.get("launches_prepare") or {}):
+            for label, n in counts.items():
+                totals[label] = totals.get(label, 0) + n
+    return {"argv": argv, "wall_s": wall_s, "rc": proc.returncode, "line": line,
+            "info": run["info"], "losses": losses, "launches": got, "replay_vs_eager": replay}
+
+
 def bench_phase(card: str, arch=None, runs=BENCH_RUNS, extra_argv=()) -> tuple:
     """The port's bench (``python -m federated_multi_modal_tpu_torch.bench``)
     in a subprocess per run (``BENCH_RUNS``): the train defaults (ViT-B/16,
@@ -6384,7 +6587,8 @@ def bench_phase(card: str, arch=None, runs=BENCH_RUNS, extra_argv=()) -> tuple:
     ``COCOOP_BATCH`` images and 1000 classes. Eval and fed-step are the
     defaults' secondaries: each child's one line gives its field on the
     train line, and its launches and replayed step come back on the
-    parent's stderr under its mode. For each run, held: exit 0 and
+    parent's stderr under its mode. For each run, held
+    (:func:`hold_bench_run`): exit 0 and
     exactly one JSON line with the keys of ``bench.py``'s line for the same
     arguments (and ``device``, ``power_limit_w``); finite losses; every
     process's launches in one step equal to the routing's
@@ -6399,48 +6603,12 @@ def bench_phase(card: str, arch=None, runs=BENCH_RUNS, extra_argv=()) -> tuple:
     checks, summary, totals = [], {"card": card, "runs": {}}, {}
     for name, argv in runs:
         argv = list(argv) + list(extra_argv)
-        batch = int(argv[argv.index("--batch-size") + 1]) if "--batch-size" in argv else 512
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "federated_multi_modal_tpu_torch.bench",
                                *argv], capture_output=True,
                               text=True, timeout=BENCH_TIMEOUT_S)
-        wall_s = time.perf_counter() - t0
-        run = parse_bench_run(proc)
-        line = run["line"]
-        print(f"bench {name} ({wall_s:.1f} s, rc {proc.returncode}):",
-              json.dumps(line) if line else proc.stdout[-500:])
-        print(f"bench {name} details: {run['info']}")
-        ok = proc.returncode == 0 and run["lines"] == 1
-        if not ok:
-            print(f"bench {name} stderr tail:", proc.stderr[-3000:])
-        checks.append((f"bench {name} exits 0 with one line", {"ok": ok}))
-        checks.append((f"bench {name} line keys as bench.py's",
-                       {"ok": bool(line) and set(line) == bench_line_keys(argv)}))
-        losses = bench_losses(run["info"])
-        if "--mode" not in argv or argv[argv.index("--mode") + 1] != "eval":
-            checks.append((f"bench {name} losses finite",
-                           {"ok": bool(losses) and all(np.isfinite(losses))}))
-        expected = bench_expected_launches(argv, arch, batch)
-        got = {proc_name: {k: rec.get(k) for k in want}
-               for proc_name, want in expected.items()
-               for rec in [run["records"].get(proc_name, {})]}
-        held = got == expected
-        print(f"bench {name} launches a step (got == routing: {held}):", json.dumps(got))
-        checks.append((f"bench {name} launches as the routing implies", {"ok": held}))
-        scan = "--dispatch" not in argv or argv[argv.index("--dispatch") + 1] == "scan"
-        replay = {p: r.get("replay_vs_eager") for p, r in run["records"].items()}
-        if scan and "loader" not in name:
-            bitwise = bool(replay) and all(r and r["bit_for_bit"] for r in replay.values()) \
-                and set(replay) == set(expected)
-            print(f"bench {name} replayed step vs eager step:", json.dumps(replay))
-            checks.append((f"bench {name} replayed step equals the eager step", {"ok": bitwise}))
-        for rec in run["records"].values():
-            for counts in (rec.get("launches") or {}, rec.get("launches_prepare") or {}):
-                for label, n in counts.items():
-                    totals[label] = totals.get(label, 0) + n
-        summary["runs"][name] = {"argv": argv, "wall_s": wall_s, "rc": proc.returncode,
-                                 "line": line, "info": run["info"], "losses": losses,
-                                 "launches": got, "replay_vs_eager": replay}
+        summary["runs"][name] = hold_bench_run(name, argv, proc, time.perf_counter() - t0, arch,
+                                               checks, totals)
     runs_by = summary["runs"]
     scan_ms = (runs_by.get("train", {}).get("line") or {}).get("train_step_ms")
     python_ms = (runs_by.get("train --dispatch python", {}).get("line") or {}).get("train_step_ms")
@@ -6451,6 +6619,355 @@ def bench_phase(card: str, arch=None, runs=BENCH_RUNS, extra_argv=()) -> tuple:
     failed = [n for n, c in checks if not c["ok"]]
     print(f"bench phase on {card}: {len(checks)} checks, failed: {failed}")
     return totals, checks, summary
+
+
+# -- several devices in one process: two replicas of the one card (the cards phase)
+
+# The bench's train and fed-step over [cuda:0, cuda:0], each under scan and
+# python, cut as the bench phase's variants (5 timed steps, 2 warm-up).
+CARDS_BENCH_RUNS = (
+    ("train x2", ("--no-secondary",) + BENCH_CUT),
+    ("train x2 --dispatch python", ("--dispatch", "python", "--no-secondary") + BENCH_CUT),
+    ("fed-step x2", ("--mode", "fed-step") + BENCH_CUT),
+    ("fed-step x2 --dispatch python", ("--mode", "fed-step", "--dispatch", "python")
+     + BENCH_CUT),
+)
+CARDS_REPLICAS = 2
+# The bench runs in one child process whose device list names the card
+# twice (the CPU tests' [cpu, cpu]): each run through bench.main, its
+# stdout and stderr kept apart.
+CARDS_BENCH_CHILD = """
+import contextlib, gc, io, json, sys, time, traceback
+import torch
+from federated_multi_modal_tpu_torch import bench
+from federated_multi_modal_tpu_torch.parallel import mesh
+card = torch.device(sys.argv[4])
+mesh.visible_devices = bench.visible_devices = lambda device=None: [card] * int(sys.argv[3])
+results = {}
+for name, argv in json.loads(sys.argv[1]):
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = bench.main(argv)
+        except Exception:
+            traceback.print_exc()
+            rc = 1
+    results[name] = {"stdout": out.getvalue(), "stderr": err.getvalue(), "returncode": rc,
+                     "wall_s": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+with open(sys.argv[2], "w") as f:
+    json.dump(results, f)
+"""
+
+
+@contextlib.contextmanager
+def card_named_twice(device):
+    """``parallel/mesh.py::visible_devices`` in this process gives the card
+    ``CARDS_REPLICAS`` times, as the CPU tests give ``[cpu, cpu]``."""
+    from federated_multi_modal_tpu_torch.parallel import mesh
+
+    with patched(mesh, visible_devices=lambda device_=None: [device] * CARDS_REPLICAS):
+        yield
+
+
+def cards_bench(card: str, tmp: str, arch, extra_argv=(), device: str = "cuda:0") -> tuple:
+    """``CARDS_BENCH_RUNS`` in one child over two replicas of the card, each
+    held as the bench phase holds a run (:func:`hold_bench_run`) with the
+    routing's launches twice over; the train line's step ms and peak beside
+    the bench phase's one-card run. Returns ``(launches, checks,
+    summary)``."""
+    runs = [(name, list(argv) + list(extra_argv)) for name, argv in CARDS_BENCH_RUNS]
+    path = os.path.join(tmp, "cards_bench.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CARDS_BENCH_CHILD, json.dumps(runs), path,
+                           str(CARDS_REPLICAS), device], capture_output=True, text=True, cwd=here,
+                          timeout=BENCH_TIMEOUT_S * 2)
+    wall_s = time.perf_counter() - t0
+    checks, totals, summary = [], {}, {"child_s": wall_s, "runs": {}}
+    checks.append(("cards bench child exits 0", {"ok": proc.returncode == 0}))
+    if proc.returncode != 0:
+        print("cards bench child stderr tail:", proc.stderr[-3000:])
+        return totals, checks, summary
+    with open(path) as f:
+        results = json.load(f)
+    for name, argv in runs:
+        r = results[name]
+        summary["runs"][name] = hold_bench_run(
+            name, argv, types.SimpleNamespace(**r), r["wall_s"], arch, checks, totals,
+            replicas=CARDS_REPLICAS)
+        info = summary["runs"][name]["info"]
+        checks.append((f"bench {name} over {CARDS_REPLICAS} devices",
+                       {"ok": f"devices={CARDS_REPLICAS}" in info}))
+        print(f"cards {name}, one line: {json.dumps(summary['runs'][name]['line'])}")
+    return totals, checks, summary
+
+
+def cards_train_step(card: str, dev, backbone: str = "ViT-B/16") -> tuple:
+    """The bench's train step at its defaults (ViT-B/16, B = 512, 1000
+    classes, depth 9, captions; the boxes drawn once on the host, as its
+    python dispatch draws them) over two replicas of the card, eagerly: its
+    update against one replica's step over the same two halves (their
+    gradients in turn on the card's current stream, then averaged) at
+    ``DIST_DP_TOL`` of each leaf's update, and its loss against the whole
+    batch's (the train step's kernels, forward only) at ``TOL_STEP_LOSS``.
+    Returns ``(checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch import bench
+    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
+    from federated_multi_modal_tpu_torch.engine.optim import build_optimizer
+    from federated_multi_modal_tpu_torch.engine.trainer import loss_grads_and_aux
+    from federated_multi_modal_tpu_torch.flagship import build_maple_program
+    from federated_multi_modal_tpu_torch.ops.preprocess import sample_rrc_boxes
+    from federated_multi_modal_tpu_torch.parallel.mesh import mean_over_devices
+    from federated_multi_modal_tpu_torch.tokenizer import tokenize
+
+    prog = build_maple_program(backbone, classnames=[f"class {i}" for i in range(N_CLASSES)],
+                               n_ctx=2, depth=9, use_captions=True, seed=0, device=dev)
+    tx = build_optimizer(lr=0.0026, clip=1.0)
+    rng = np.random.default_rng(0)
+    canvas = torch.from_numpy(rng.integers(0, 255, (BATCH, 256, 256, 3), np.uint8)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, N_CLASSES, BATCH).astype(np.int32)).to(dev)
+    captions = torch.from_numpy(tokenize(["a satellite photo of a scene"] * BATCH)).to(dev)
+    boxes, flips = (torch.from_numpy(a).to(dev) for a in sample_rrc_boxes(rng, BATCH))
+    inputs = (canvas, boxes, flips, labels, captions)
+    tr, fr, loss_fn = prog["trainable"], prog["frozen"], prog["loss_fn"]
+    initial = flatten_params(tr)
+
+    def halves(_loss_fn, _devices):
+        def grads(trainable, frozen, batch, _run):
+            outs = [loss_grads_and_aux(loss_fn, trainable, frozen,
+                                       {k: v.chunk(2)[j] for k, v in batch.items()})[:2]
+                    for j in range(2)]
+            return (mean_over_devices([o[0] for o in outs], dev),
+                    mean_over_devices([o[1] for o in outs], dev))
+        return grads
+
+    steps = {"two replicas": bench.make_one_step(prog, tx, True, devices=[dev] * CARDS_REPLICAS)}
+    with patched(bench, data_parallel_grads=halves):
+        steps["one replica, two halves"] = bench.make_one_step(prog, tx, True, devices=[dev])
+    steps["whole batch"] = bench.make_one_step(prog, tx, True, fwd_only=True)
+    out = {}
+    for name, one_step in steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        trained, _, loss = one_step(tr, fr, tx.init(tr), *inputs)
+        torch.cuda.synchronize()
+        out[name] = {"ms_first_call": (time.perf_counter() - t0) * 1e3, "loss": float(loss),
+                     "peak_gib_above_start": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                     "launches": {k: v for k, v in read_counts().items()
+                                  if k.split(" ")[0] in ("K1", "K1b", "K3", "K4")},
+                     "params": flatten_params(trained)}
+        del trained, loss
+        torch.cuda.empty_cache()
+    two, halves_ref, whole = (out[k] for k in steps)
+    errs = update_errs(two["params"], halves_ref["params"], initial)
+    held = {
+        "update_vs_halves_worst": worst(errs), "tol": DIST_DP_TOL,
+        "bit_for_bit_vs_halves": all(np.array_equal(two["params"][k], halves_ref["params"][k])
+                                     for k in initial),
+        "loss_rel_err_vs_halves": abs(two["loss"] - halves_ref["loss"]) / abs(halves_ref["loss"]),
+        "loss_rel_err_vs_whole": abs(two["loss"] - whole["loss"]) / abs(whole["loss"]),
+        "loss_tol": TOL_STEP_LOSS,
+        "launches": {k: v["launches"] for k, v in out.items()},
+        "ms_first_call": {k: v["ms_first_call"] for k, v in out.items()},
+        "peak_gib_above_start": {k: v["peak_gib_above_start"] for k, v in out.items()},
+        "losses": {k: v["loss"] for k, v in out.items()},
+    }
+    held["ok"] = (held["update_vs_halves_worst"][1] <= DIST_DP_TOL
+                  and held["loss_rel_err_vs_halves"] <= DIST_DP_TOL
+                  and held["loss_rel_err_vs_whole"] <= TOL_STEP_LOSS)
+    print(f"cards train step over two replicas (B={BATCH}) vs one replica over the same halves, "
+          f"on {card}:", json.dumps(held))
+    del prog, tr, fr, canvas
+    torch.cuda.empty_cache()
+    return [("cards two-replica train step vs one replica over the same halves", held)], held
+
+
+def fedavg_vs_fp64_mean(stacked, averaged) -> float:
+    """FedAvg's output over the client axis against the fp64 host mean of its
+    input, as the largest relative error over every leaf and client."""
+    from federated_multi_modal_tpu_torch.engine.checkpoint import flatten_params
+
+    held, got = flatten_params(stacked), flatten_params(averaged)
+    worst_err = 0.0
+    for name, value in held.items():
+        mean = np.mean(np.nan_to_num(value.astype(np.float64), nan=0.0, posinf=1e4,
+                                     neginf=-1e4), axis=0)
+        err = np.abs(got[name].astype(np.float64) - mean[None])
+        worst_err = max(worst_err, float((err / np.maximum(np.abs(mean[None]), 1e-30)).max()))
+    return worst_err
+
+
+def cards_fed_round(card: str, tmp: str, sd_path: str, dev, opts: tuple = ()) -> tuple:
+    """``FED.PARALLEL_CLIENTS`` with ``TPU.MESH_SHAPE`` ``(2, 1)`` over two
+    replicas of the card: the fed phase's configuration (``FED_YAML``, two
+    clients on the PatternNet and Ucmerced stand-ins, ViT-B/16), one round
+    of one local epoch through ``main``, ``TPU.DATA_PARALLEL`` off so that
+    each client's ``test()`` runs on one replica as the routing counts it.
+    Held: the mesh line; every parallel step's launches twice one client's
+    routing (each client a replica), every ``test()``'s the routing's;
+    FedAvg over the two clients against the fp64 host mean to
+    ``TOL_FEDAVG`` relative; then the round with a NaN planted in client 0's
+    stacked weights after the last step: the gate leaves client 0 out and
+    averages client 1 alone. Returns ``(launches, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.data.seeded_trees import write_seeded_tree
+    from federated_multi_modal_tpu_torch.engine.checkpoint import load_checkpoint
+
+    root = os.path.join(tmp, "fed-data")
+    for name, n in FED_PER_CLASS.items():
+        write_seeded_tree(root, name, n, seed=0)
+
+    def argv(out):
+        return ["--root", root, "--seed", "1", "--trainer", "MaPLeFederated",
+                "--dataset-config-file", "configs/datasets/PatternNet.yaml",
+                "--config-file", FED_YAML, "--output-dir", os.path.join(tmp, out),
+                "MODEL.BACKBONE.WEIGHTS_PATH", sd_path, "FED.NUM_CLIENTS", "2",
+                "FED.NUM_ROUNDS", "1", "FED.LOCAL_EPOCHS", "1",
+                "FED.CHECKPOINT_EVERY_ROUND", "True", "FED.PARALLEL_CLIENTS", "True",
+                "TPU.MESH_SHAPE", "(2, 1)", "TPU.DATA_PARALLEL", "False", *opts]
+
+    def log_of(out):
+        with open(os.path.join(tmp, out, "log.txt")) as f:
+            return f.read()
+
+    checks = []
+    with card_named_twice(dev):
+        run = fed_run(argv("cards-fed"), "MaPLeFederated, parallel clients over two replicas",
+                      instrument=fedpar_instrumented)
+    fed = run["trainer"]
+    mesh_line = "[FED] parallel clients over mesh {'client': 2, 'data': 1}"
+    checks.append(("cards parallel loop over the {client: 2, data: 1} mesh", {
+        "ok": mesh_line in log_of("cards-fed") and fed.nan_stats == {
+            "total_updates": 1, "failed_clients": [], "skipped_rounds": 0},
+        "nan_stats": fed.nan_stats}))
+    arch = fed.clients[0].arch
+    step, _, _ = cli_implied(arch, "MaPLe", 0)
+    n_test = len(fed.clients[0].test_loader)
+    wrong = [[i, {k: (e["launches"][k], 2 * v) for k, v in step.items()
+                  if e["launches"][k] != 2 * v}]
+             for i, e in enumerate(run["steps"]) if any(
+                 e["launches"][k] != 2 * v for k, v in step.items())]
+    test = cli_implied(arch, "MaPLe", n_test)[1]
+    wrong += [[f"test {i}", {k: (e["launches"][k], v) for k, v in test.items()
+                             if e["launches"][k] != v}]
+              for i, e in enumerate(run["tests"]) if any(
+                  e["launches"][k] != v for k, v in test.items())]
+    launches = {"ok": not wrong and bool(run["steps"]) and len(run["tests"]) >= 1,
+                "steps": len(run["steps"]), "per_step": nonzero(run["steps"][0]["launches"])
+                if run["steps"] else {}, "wrong": wrong[:4]}
+    print("  cards fed launches (each step twice one client's routing):", json.dumps(launches))
+    checks.append(("cards fed launches as the routing implies, twice a step", launches))
+    fedavg = {"ok": len(run["fedavg"]) == 1 and run["fedavg"][0]["clients"] == 2
+              and run["fedavg"][0]["max_rel_err_vs_fp64_mean"] <= TOL_FEDAVG,
+              "tol": TOL_FEDAVG, "fedavg": run["fedavg"]}
+    print("  cards FedAvg over two clients vs the fp64 host mean:", json.dumps(fedavg))
+    checks.append(("cards FedAvg over two clients vs the fp64 host mean", fedavg))
+    steps_ms = [s["ms"] for s in run["steps"]]
+    summary = {"mesh_line": mesh_line, "steps": len(steps_ms),
+               "step_ms_median": statistics.median(steps_ms[1:] or steps_ms),
+               "step_ms_first": steps_ms[0], "fedavg_ms": [a["ms"] for a in run["fedavg"]],
+               "round_s": run["round_s"], "test_ms": [t["ms"] for t in run["tests"]],
+               "peak_gib": run["peak_gib"], "batch": run["steps"][0]["batch"],
+               "first_losses": run["steps"][0]["loss"]}
+    print(f"  cards fed round over two replicas, on {card}: step "
+          f"{summary['step_ms_median']:.2f} ms (median after the first; first "
+          f"{summary['step_ms_first']:.1f}), FedAvg {summary['fedavg_ms']} ms, round "
+          f"{summary['round_s']} s, peak {summary['peak_gib']:.2f} GiB, launches a step "
+          f"{json.dumps(launches['per_step'])}")
+    counts = run["counts"]
+    del fed, run
+    torch.cuda.empty_cache()
+
+    with card_named_twice(dev):
+        run = fed_run(argv("cards-nan"), "MaPLeFederated, two replicas, NaN planted",
+                      instrument=lambda record: fedpar_instrumented(record, plant_nan=True))
+    saved = load_checkpoint(os.path.join(tmp, "cards-nan", "MultiModalPromptLearner_Aggregator",
+                                         "model.pth.tar-round1"))["state_dict"]
+    # the clients each FedAvg averaged (the gate's average of the valid
+    # clients is recorded by both instruments)
+    planted = {"nan_stats": run["trainer"].nan_stats,
+               "averaged": [a["clients"] for a in run["fedavg"]],
+               "logged": "Client 0 produced invalid weights, skipping aggregation"
+               in log_of("cards-nan"),
+               "round_checkpoint_finite": all(np.isfinite(v).all() for v in saved.values())}
+    planted["ok"] = (planted["nan_stats"] == {"total_updates": 1, "failed_clients": [],
+                                              "skipped_rounds": 0}
+                     and planted["averaged"] and set(planted["averaged"]) == {1}
+                     and planted["logged"]
+                     and planted["round_checkpoint_finite"])
+    print("  cards planted NaN in client 0's stacked weights:", json.dumps(planted))
+    checks.append(("cards planted NaN left out by the validity gate", planted))
+    summary["planted_nan"] = planted
+    del run
+    torch.cuda.empty_cache()
+    return counts, checks, summary
+
+
+def cards_phase(card: str, arch=None, opts: tuple = (), bench_argv=(),
+                device: str = None, backbone: str = "ViT-B/16") -> tuple:
+    """Every path the JAX package runs over several devices in one process,
+    run over ``[cuda:0, cuda:0]``: the card's machine has one card, so the
+    device list names it twice, as the CPU tests name ``[cpu, cpu]``; each
+    replica runs on a stream of its own, with a graph of its own under
+    ``--dispatch scan``.
+
+    * (a) the port bench's ``train`` (B = 512 split over the replicas) and
+      ``fed-step`` (two clients of 256, one a replica) under scan and
+      python (:func:`cards_bench`), and the train step's numerics
+      (:func:`cards_train_step`);
+    * (b) and (d) the CLI's MaPLe with ``TPU.DATA_PARALLEL`` over the two
+      replicas, and two Gloo processes each splitting its half over two
+      replicas (:func:`cards_dp_phase`);
+    * (c) ``FED.PARALLEL_CLIENTS`` over a ``(2, 1)`` mesh
+      (:func:`cards_fed_round`).
+
+    Returns ``(launches by kernel label over the phase's runs, checks,
+    summary)``."""
+    import tempfile
+
+    import torch
+
+    from federated_multi_modal_tpu_torch.models.params import BACKBONE_CONFIGS
+
+    arch = arch or BACKBONE_CONFIGS[backbone]
+    dev = torch.device(device) if device else torch.device("cuda", torch.cuda.current_device())
+    checks, summary, launches = [], {"card": card, "replicas": CARDS_REPLICAS}, {}
+    with tempfile.TemporaryDirectory(prefix="fmm_cards_") as tmp:
+        t0 = time.perf_counter()
+        bench_launches, bench_checks, summary["bench"] = cards_bench(card, tmp, arch, bench_argv,
+                                                                     str(dev))
+        summary["bench"]["phase_s"] = time.perf_counter() - t0
+        checks += bench_checks
+        for label, n in bench_launches.items():
+            launches[label] = launches.get(label, 0) + n
+        t0 = time.perf_counter()
+        step_checks, summary["train_step"] = cards_train_step(card, dev, backbone)
+        summary["train_step"]["phase_s"] = time.perf_counter() - t0
+        checks += step_checks
+        sd_path = os.path.join(tmp, "vit_b16_openai_fp16.pt")
+        summary["state_dict_write_s"] = write_openai_state_dict(sd_path)
+        t0 = time.perf_counter()
+        dp_checks, summary["data_parallel"] = cards_dp_phase(card, tmp, sd_path, dev, opts)
+        summary["data_parallel"]["phase_s"] = time.perf_counter() - t0
+        checks += dp_checks
+        t0 = time.perf_counter()
+        fed_counts, fed_checks, summary["fed"] = cards_fed_round(card, tmp, sd_path, dev, opts)
+        summary["fed"]["phase_s"] = time.perf_counter() - t0
+        checks += fed_checks
+        for label, n in fed_counts.items():
+            launches[label] = launches.get(label, 0) + n
+    failed = [n for n, c in checks if not c["ok"]]
+    print(f"cards phase on {card}: {len(checks)} checks, failed: {failed}")
+    return launches, checks, summary
 
 
 def main() -> int:
@@ -6891,11 +7408,23 @@ def main() -> int:
         if launched:
             row.setdefault("paths", []).append("bench")
         row["launches_bench"] = launched
+    torch.cuda.empty_cache()
+
+    # -- 28. several devices in one process: two replicas of the card (cards) -----
+    t0 = time.perf_counter()
+    cards_launches, cards_checks, summary["cards"] = cards_phase(card)
+    summary["cards"]["phase_s"] = time.perf_counter() - t0
+    for row in rows:
+        launched = sum(n for label, n in cards_launches.items()
+                       if label.split(" ")[1] == row["name"] and "(backward)" not in label)
+        if launched:
+            row.setdefault("paths", []).append("cards")
+        row["launches_cards"] = launched
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
     route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
                      + gemm_checks + ln_checks + cli_checks + fed_checks + b2n_checks
                      + rn_checks + dist_checks + tools_checks + limit_checks + bb_checks
-                     + bench_checks)
+                     + bench_checks + cards_checks)
     summary["attention_forward"] = {
         r["name"]: {k: r.get(k) for k in ("ms", "library_ms", "bound_ms", "ms_by_passes")}
         for r in rows if r["name"] in ("packed_attention_masked", "packed_attention",

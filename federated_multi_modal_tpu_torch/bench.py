@@ -23,14 +23,18 @@ backward, the global-norm clip and SGD.
 Dispatch modes:
 
 * ``scan`` (default): the counterpart of ``bench.py``'s one ``lax.scan``.
-  One whole step is captured in a ``torch.cuda.CUDAGraph`` and replayed
-  ``--steps`` times; each step draws fresh random-resized-crop boxes and
-  flips on the card from a ``torch.Generator`` registered with the graph
+  One whole step is captured in CUDA graphs and replayed ``--steps``
+  times; each step draws fresh random-resized-crop boxes and flips on the
+  card from a ``torch.Generator`` registered with the graphs
   (``sample_rrc_boxes_torch``), and copies its new state into the buffers
-  the next replay reads, so the loop makes no host round trip. A step that
-  cannot be captured raises; nothing falls back to eager calls. It needs
-  one card: on the CPU, or over several cards (the train step's data
-  parallelism, the fed-step's clients), run ``--dispatch python``.
+  the next replay reads, so the loop makes no host round trip. Over every
+  visible card, as ``bench.py``'s scan is over every device: the train
+  step's batch split over the cards where they divide it, the fed-step's
+  two clients on a ``(client, data)`` mesh where their count is even; each
+  card's share is a graph of its own, replayed on its own stream, and the
+  home card's graphs take the mean and the update (``mesh.StepGraph``). A
+  step that cannot be captured raises; nothing falls back to eager calls.
+  On the CPU, run ``--dispatch python``.
 * ``python``: one eager call a step, after ``--warmup`` of them; the train
   mode draws its boxes once on the host (``sample_rrc_boxes``), as
   ``bench.py``'s python mode does.
@@ -97,7 +101,9 @@ from federated_multi_modal_tpu_torch.parallel import (
 from federated_multi_modal_tpu_torch.parallel.mesh import (
     make_client_mesh,
     mean_over_devices,
+    StepGraph,
     replicate,
+    run_replicas,
     visible_devices,
 )
 from federated_multi_modal_tpu_torch.tokenizer import tokenize
@@ -210,33 +216,40 @@ def held_bitwise(got, ref) -> dict:
 
 
 def capture_step(step, state, generators=()):
-    """One ``step(state) -> (new state, out)`` captured in a CUDA graph whose
-    every replay runs the step on ``state`` and copies the new state into
-    it, so that each replay reads what the last one left. ``generators``
-    are the ``torch.Generator`` s the step draws from, registered with the
-    graph so that each replay draws new numbers. One eager step runs first
-    on a side stream and its result is dropped: first-use set-up (the kernel
-    library, cuBLAS handles, kernel attributes) happens outside the
-    capture. Returns ``(graph, out, launches)``, ``launches`` the kernel
-    wrappers' counts in the captured step, which every replay repeats. A
-    step that cannot be captured raises ``RuntimeError`` saying why."""
+    """One ``step(state, run) -> (new state, out)`` captured as CUDA graphs
+    (``mesh.StepGraph``: one graph where the step runs on one card; where
+    it spreads over several devices through ``run``, the eager step's
+    ``mesh.run_replicas`` and the capture's ``StepGraph.replicas``, the home
+    card's stretches and one graph a replica) whose every replay runs the
+    step on ``state`` and copies the new state into it, so that each replay
+    reads what the last one left. ``generators`` are the
+    ``torch.Generator`` s the step draws from, registered with the graphs
+    so that each replay draws new numbers. One eager step runs first on a
+    side stream and its result is dropped: first-use set-up (the kernel
+    library, cuBLAS handles, kernel attributes, the replicas' streams and
+    frozen copies) happens outside the capture. Returns ``(graph, out,
+    launches)``, ``launches`` the kernel wrappers' counts in the captured
+    step, which every replay repeats. A step that cannot be captured raises
+    ``RuntimeError`` saying why."""
     device = leaves(state)[0].device
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
-        step(state)
+        step(state, run_replicas)
     torch.cuda.current_stream(device).wait_stream(side)
-    torch.cuda.synchronize(device)
+    torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
+    graph = StepGraph(device, generators)
     counters.reset()
+
+    def captured():
+        new_state, out = step(state, graph.replicas)
+        _copy_into(state, new_state)
+        return out
+
     try:
-        with torch.cuda.graph(graph):
-            new_state, out = step(state)
-            _copy_into(state, new_state)
+        out = graph.capture(captured)
     except Exception as e:
         raise RuntimeError(
             f"--dispatch scan: the step cannot be captured in a CUDA graph "
@@ -245,13 +258,14 @@ def capture_step(step, state, generators=()):
 
 
 def _recording_step(apply, draw):
-    """``(step, drawn)``: ``step(state)`` applies ``apply`` to ``draw()`` (or
-    ``()``), keeping the latest draws in ``drawn["inputs"]``."""
+    """``(step, drawn)``: ``step(state, run)`` applies ``apply`` to
+    ``draw()`` (or ``()``) with ``run`` (what runs its replicas), keeping
+    the latest draws in ``drawn["inputs"]``."""
     drawn = {}
 
-    def step(state):
+    def step(state, run):
         drawn["inputs"] = draw() if draw is not None else ()
-        return apply(state, drawn["inputs"])
+        return apply(state, drawn["inputs"], run)
 
     return step, drawn
 
@@ -272,11 +286,11 @@ def replay_vs_eager(apply, state, draw=None, generators=()):
     gc.collect()
     torch.cuda.empty_cache()
     _copy_into(state, initial)
-    return held_bitwise(replayed, apply(initial, inputs)), launches
+    return held_bitwise(replayed, apply(initial, inputs, run_replicas)), launches
 
 
 def dispatch(apply, state, args, draw=None, generators=(), restart=False, finish=None):
-    """Run ``apply(state, draw()) -> (state, out)`` as ``--dispatch`` says
+    """Run ``apply(state, draw(), run) -> (state, out)`` as ``--dispatch`` says
     (``()`` in place of the draws when ``draw`` is ``None``) and time
     ``--steps`` of it on the host's clock, ended by reading the last
     ``out`` back (``bench.py``'s ``device_get``).
@@ -298,7 +312,7 @@ def dispatch(apply, state, args, draw=None, generators=(), restart=False, finish
         first, launches, out = state, None, None
         counters.reset()
         for i in range(args.warmup):
-            state, out = step(state)
+            state, out = step(state, run_replicas)
             if i == 0:
                 launches = counters.read(nonzero=True)
         if finish is not None and args.warmup:
@@ -309,7 +323,7 @@ def dispatch(apply, state, args, draw=None, generators=(), restart=False, finish
             state = first
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            state, out = step(state)
+            state, out = step(state, run_replicas)
             if launches is None:
                 launches = counters.read(nonzero=True)
         if finish is not None:
@@ -341,29 +355,24 @@ def dispatch(apply, state, args, draw=None, generators=(), restart=False, finish
 # -- the train step ------------------------------------------------------------------
 
 
-def check_one_card_for_scan(args, n_dev: int) -> None:
-    """``--dispatch scan`` captures one card's stream: with more than one
-    visible card the run raises (``--dispatch python`` spreads the step over
-    them, or ``CUDA_VISIBLE_DEVICES`` leaves one)."""
-    if args.dispatch == "scan" and n_dev > 1:
-        raise ValueError(f"--dispatch scan captures one card's stream; over {n_dev} cards "
-                         f"run --dispatch python, or leave one card visible "
-                         f"(CUDA_VISIBLE_DEVICES)")
-
-
 def data_parallel_grads(loss_fn, devices):
-    """``grads(trainable, frozen, batch) -> (loss, grads)``: on one device
-    the plain ones; over several (``bench.py``'s batch sharded along a
-    ``data`` mesh), each device's share of the batch with the trees
-    replicated to it, the losses and gradients averaged on the first."""
-    def grads(trainable, frozen, batch):
+    """``grads(trainable, frozen, batch, run=run_replicas) -> (loss,
+    grads)``: on one device the plain ones; over several (``bench.py``'s
+    batch sharded along a ``data`` mesh), each device's share of the batch a
+    replica of ``run`` (``mesh.run_replicas``, or a capture's
+    ``StepGraph.replicas``) with the trees replicated to it, the losses and
+    gradients averaged on the first device."""
+    def grads(trainable, frozen, batch, run=run_replicas):
         if len(devices) == 1:
             return loss_grads_and_aux(loss_fn, trainable, frozen, batch)[:2]
         n, home = len(devices), devices[0]
-        outs = [loss_grads_and_aux(
-            loss_fn, to_device(trainable, d), replicate(frozen, d),
-            tree_map_with_path(lambda _, x, j=j, d=d: x.chunk(n)[j].to(d), batch))
-            for j, d in enumerate(devices)]
+
+        def work(d, x):
+            return loss_grads_and_aux(loss_fn, x[0], replicate(frozen, d), x[1])[:2]
+
+        outs = run(work, devices, [
+            (trainable, tree_map_with_path(lambda _, x, j=j: x.chunk(n)[j], batch))
+            for j in range(n)], home)
         return (mean_over_devices([o[0] for o in outs], home),
                 mean_over_devices([o[1] for o in outs], home))
 
@@ -375,12 +384,15 @@ def make_one_step(prog, tx, use_captions: bool, fwd_only: bool = False, devices=
     flips, labels, caption_tokens) -> (trainable, opt_state, loss)``: the
     crop on the device, the loss and its gradients, the optimizer's update
     added to the parameters; ``fwd_only`` computes the loss alone (the
-    towers on the train step's kernel routes, no autograd graph)."""
+    towers on the train step's kernel routes, no autograd graph). Its
+    keyword ``run`` runs the replicas over ``devices``
+    (:func:`data_parallel_grads`)."""
     loss_fn = prog["loss_fn"]
     out_size = prog["arch"].image_resolution
     grads_fn = data_parallel_grads(loss_fn, list(devices))
 
-    def one_step(trainable, frozen, opt_state, canvas, boxes, flips, labels, caption_tokens):
+    def one_step(trainable, frozen, opt_state, canvas, boxes, flips, labels, caption_tokens,
+                 run=run_replicas):
         images = crop_resize_flip_normalize(canvas, boxes, flips, out_size=out_size)
         batch = {"image": images, "label": labels}
         if use_captions:
@@ -392,7 +404,7 @@ def make_one_step(prog, tx, use_captions: bool, fwd_only: bool = False, devices=
             with torch.no_grad():
                 loss, _ = loss_fn(marked, frozen, batch)
             return trainable, opt_state, loss
-        loss, grads = grads_fn(trainable, frozen, batch)
+        loss, grads = grads_fn(trainable, frozen, batch, run)
         updates, opt_state = tx.update(grads, opt_state, trainable)
         trainable = tree_map_multi(lambda p, u: p + u, trainable, updates)
         return trainable, opt_state, loss
@@ -426,7 +438,6 @@ def measure_train(args, device):
     devices = visible_devices(device)
     n_dev = len(devices)
     if n_dev > 1 and B % n_dev == 0:
-        check_one_card_for_scan(args, n_dev)
         print(f"# data-parallel over {n_dev} devices", file=sys.stderr)
     else:
         n_dev, devices = 1, [device]
@@ -445,11 +456,11 @@ def measure_train(args, device):
         boxes_np, flips_np = sample_rrc_boxes(rng, B)
         fixed = (torch.from_numpy(boxes_np).to(device), torch.from_numpy(flips_np).to(device))
 
-    def apply(state, drawn):
+    def apply(state, drawn, run=run_replicas):
         trainable, opt = state
         boxes, flips = drawn or fixed
         trainable, opt, loss = one_step(trainable, frozen, opt, canvas, boxes, flips,
-                                        labels, captions)
+                                        labels, captions, run)
         return (trainable, opt), loss
 
     if device.type == "cuda":
@@ -490,11 +501,12 @@ def make_eval_step(prog, prep, boxes, flips, labels):
     """``bench.py``'s eval scan body, ``apply((correct, canvas), ()) ->
     ((correct, canvas), correct)``: the centre crops of the canvas through
     the prompt-cached apply, the correct predictions counted on the device,
-    the canvas rolled by one image so that successive steps differ."""
+    the canvas rolled by one image so that successive steps differ (on one
+    device: ``run`` is not called)."""
     trainable, frozen = prog["trainable"], prog["frozen"]
     out_size = prog["arch"].image_resolution
 
-    def apply(state, _):
+    def apply(state, _, run=None):
         correct, canvas = state
         images = crop_resize_flip_normalize(canvas, boxes, flips, out_size=out_size)
         logits = prog["eval_apply_fn"](trainable, frozen, images, prep)
@@ -570,7 +582,6 @@ def measure_fed_step(args, device):
     path). Returns ``(ips, info)``."""
     devices = visible_devices(device)
     n_dev = len(devices)
-    check_one_card_for_scan(args, n_dev)
     n_clients = 2 if n_dev % 2 == 0 else 1
     mesh = make_client_mesh(n_clients, devices)
     classnames = [f"class {i}" for i in range(args.n_cls)]
@@ -602,10 +613,10 @@ def measure_fed_step(args, device):
     def draw():
         return sample_rrc_boxes_torch(gen, C * Bc)
 
-    def apply(state, drawn):
+    def apply(state, drawn, run=run_replicas):
         boxes, flips = drawn
         b = dict(batch, boxes=boxes.reshape(C, Bc, 4), flips=flips.reshape(C, Bc))
-        stacked, opt, losses = fed_step(state[0], frozen, state[1], b)
+        stacked, opt, losses = fed_step(state[0], frozen, state[1], b, run)
         return (stacked, opt), losses
 
     def finish(state):  # round-end FedAvg over the client axis
@@ -707,8 +718,9 @@ def make_cocoop_loss(arch, text_len: int, loop: bool):
 
 def make_cocoop_step(arch, tx, loss_fn, frozen, canvas, labels):
     """``bench.py``'s CoCoOp scan body: ``apply((trainable, opt_state),
-    (boxes, flips)) -> ((trainable, opt_state), loss)``."""
-    def apply(state, drawn):
+    (boxes, flips)) -> ((trainable, opt_state), loss)`` (on one device:
+    ``run`` is not called)."""
+    def apply(state, drawn, run=None):
         trainable, opt_state = state
         boxes, flips = drawn
         images = crop_resize_flip_normalize(canvas, boxes, flips,

@@ -135,18 +135,6 @@ def make_train_step(loss_fn, tx):
     return train_step
 
 
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    """Whether two devices name the same device (``cuda`` is the current
-    card)."""
-    def index(d):
-        d = torch.device(d)
-        if d.type == "cuda" and d.index is None:
-            return torch.cuda.current_device()
-        return d.index
-
-    return torch.device(a).type == torch.device(b).type and index(a) == index(b)
-
-
 def _collective_device() -> torch.device:
     """Where a ``torch.distributed`` collective's tensors live: the current
     card under NCCL, the CPU under Gloo."""
@@ -602,16 +590,20 @@ class FunctionalTrainerMixin:
         and replicated otherwise, and the shards' gradients, losses and aux
         are averaged on the trainer's device before the clip and the
         optimizer (:meth:`_dp_grad_fn`). Several processes
-        (``torch.distributed`` initialised with more than one, one card
-        each): only with ``TPU.DATA_PARALLEL_MULTIHOST``, opt-in as in the
-        JAX package because the federated trainers have their own
-        cross-process rules; each process's batch is its shard of the
-        global batch, and the gradients, loss and aux go through one
-        ``all_reduce`` and are divided by the number of processes."""
+        (``torch.distributed`` initialised with more than one): only with
+        ``TPU.DATA_PARALLEL_MULTIHOST``, opt-in as in the JAX package
+        because the federated trainers have their own cross-process rules;
+        each process's batch is its shard of the global batch, split again
+        over the process's local devices (``mesh.local_devices``), and the
+        gradients, loss and aux are averaged over the local devices, then
+        go through one ``all_reduce`` and are divided by the number of
+        processes. Either way the device list starts with the trainer's
+        device, where the shards' gradients meet."""
         self._dp_devices = None
         self._dp_multihost = False
         if not getattr(cfg.TPU, "DATA_PARALLEL", True):
             return
+        device = self.device
         if process_count() > 1:
             if not getattr(cfg.TPU, "DATA_PARALLEL_MULTIHOST", False):
                 return
@@ -627,33 +619,43 @@ class FunctionalTrainerMixin:
                     "FMM_TPU_MULTIHOST_VERIFY_SCALARS is set on some processes but not "
                     f"others (per-process values {flags.astype(int).tolist()}); it gates a "
                     "collective and must be identical on every process")
-            return
-        device = self.device
-        devices = _mesh.visible_devices(device)
+            devices = _mesh.local_devices(device)
+        else:
+            devices = _mesh.visible_devices(device)
         if len(devices) <= 1:
             return
-        # the trainer's device first: the shards' gradients meet there
-        i = next((i for i, d in enumerate(devices) if _same_device(d, device)), None)
+        i = next((i for i, d in enumerate(devices)
+                  if _mesh.same_device(d, torch.device(device))), None)
         if i is None:
             raise ValueError(f"the trainer's device {device} is not one of the visible "
                              f"devices {devices}")
         self._dp_devices = [devices[i]] + devices[:i] + devices[i + 1:]
 
     def _dp_shard(self, tree) -> list:
-        """``[(device, shard of tree)]``: single-process DP splits each leaf
-        whose axis 0 the devices divide and replicates the others (one
-        entry on the trainer's device when no leaf divides); multi-process
-        DP checks that this process's batch can be its shard (every leaf
-        with axis 0, non-empty; 0-d leaves are replicated and, with
+        """``[(device, shard of tree)]``, one entry a device, each shard on
+        the trainer's device (``mesh.run_replicas`` moves it). Single-process
+        DP splits each leaf whose axis 0 the devices divide and replicates
+        the others (one entry on the trainer's device when no leaf
+        divides). Multi-process DP splits every leaf with an axis 0 over
+        this process's local devices, and raises where the local count does
+        not divide it (this process's batch is its shard of the global
+        batch, so a leaf that cannot be split would train on inconsistent
+        data); 0-d leaves are replicated and, with
         ``FMM_TPU_MULTIHOST_VERIFY_SCALARS``, held equal across
-        processes)."""
+        processes."""
         device = self.device
+        devices = self._dp_devices or [device]
+        n = len(devices)
+
+        def divides(x):
+            return x.ndim >= 1 and x.shape[0] > 0 and x.shape[0] % n == 0
+
         if self._dp_multihost:
             for name, x in flatten(tree).items():
-                if x.ndim >= 1 and x.shape[0] == 0:
+                if x.ndim >= 1 and not divides(x):
                     raise ValueError(
                         f"multi-host DP requires every batch leaf's axis 0 ({x.shape[0]}) "
-                        "to be divisible by the local device count (1); pad the batch or "
+                        f"to be divisible by the local device count ({n}); pad the batch or "
                         "change DATALOADER.*.BATCH_SIZE")
                 if x.ndim == 0 and self._dp_verify_scalars:
                     gathered = all_gather_scalar(float(x))
@@ -664,33 +666,35 @@ class FunctionalTrainerMixin:
                             f"0-d batch leaf {name} differs across processes (per-process "
                             f"values {gathered}); multi-host DP replicates scalars and "
                             "requires them identical everywhere")
-            return [(device, to_device(tree, device))]
-        devices = self._dp_devices or [device]
-        n = len(devices)
-
-        def divides(x):
-            return x.ndim >= 1 and x.shape[0] > 0 and x.shape[0] % n == 0
-
         if n == 1 or not any(divides(x) for x in leaves(tree)):
             return [(device, to_device(tree, device))]
         return [(d, tree_map_with_path(
-            lambda _, x, j=j, d=d: (x.chunk(n)[j] if divides(x) else x).to(d), tree))
+            lambda _, x, j=j: x.chunk(n)[j] if divides(x) else x, tree))
             for j, d in enumerate(devices)]
 
     def _dp_grad_fn(self):
         """The gradient function of the data-parallel step, or ``None``
-        (the plain one) without data parallelism."""
+        (the plain one) without data parallelism: the shards through
+        ``mesh.run_replicas`` (each on a stream of its own), their mean on
+        the trainer's device, and under multi-process DP the mean over
+        processes of that."""
         if self._dp_devices is None and not self._dp_multihost:
             return None
         loss_fn = self.loss_fn
 
         def grad_fn(trainable, frozen, batch):
+            def work(d, x):
+                return loss_grads_and_aux(loss_fn, x[0], replicate(frozen, d), x[1])
+
             home = self.device
             shards = self._dp_shard(batch)
-            outs = [loss_grads_and_aux(loss_fn, to_device(trainable, d), replicate(frozen, d), b)
-                    for d, b in shards]
-            loss, grads, aux = (mean_over_devices([o[i] for o in outs], home)
-                                for i in range(3))
+            outs = _mesh.run_replicas(work, [d for d, _ in shards],
+                                      [(trainable, b) for _, b in shards], home)
+            if len(outs) == 1:
+                loss, grads, aux = outs[0]
+            else:
+                loss, grads, aux = (mean_over_devices([o[i] for o in outs], home)
+                                    for i in range(3))
             if self._dp_multihost:
                 loss, grads, aux = all_reduce_mean((loss, grads, aux))
             return loss, grads, aux
@@ -767,18 +771,24 @@ class FunctionalTrainerMixin:
     @torch.no_grad()
     def model_inference(self, images):
         """The logits of ``images``. Under single-process DP the images are
-        split over the devices as a train batch is, and the logits gathered
-        on the trainer's device; under multi-process DP the eval is
-        process-local (each process evaluates its own loader's batches; the
-        trained state is the same in every process)."""
+        split over the devices as a train batch is (each share a replica of
+        ``mesh.run_replicas``), and the logits gathered on the trainer's
+        device; under multi-process DP the eval is process-local and on the
+        trainer's device (each process evaluates its own loader's batches;
+        the trained state is the same in every process), as the JAX
+        package's is."""
         if self._eval_prepare is not None and self._eval_cache is None:
             self._eval_cache = self._eval_prepare(self.trainable, self.frozen)
-        if getattr(self, "_dp_devices", None) is None:
+        if getattr(self, "_dp_devices", None) is None or self._dp_multihost:
             return self._logits(self.trainable, self.frozen, images, self._eval_cache)
-        logits = [self._logits(to_device(self.trainable, d), replicate(self.frozen, d), imgs,
-                               None if self._eval_cache is None
-                               else to_device(self._eval_cache, d)).to(self.device)
-                  for d, imgs in self._dp_shard(images)]
+
+        def work(d, x):
+            return self._logits(x[0], replicate(self.frozen, d), x[1], x[2])
+
+        shards = self._dp_shard(images)
+        logits = _mesh.run_replicas(work, [d for d, _ in shards],
+                                    [(self.trainable, imgs, self._eval_cache)
+                                     for _, imgs in shards], self.device)
         return torch.cat(logits)
 
     def _logits(self, trainable, frozen, images, prepared):

@@ -27,11 +27,14 @@ import torch
 
 from federated_multi_modal_tpu_torch.engine.tree import (
     leaves,
-    to_device,
     tree_map_multi,
     tree_map_with_path,
 )
-from federated_multi_modal_tpu_torch.parallel.mesh import mean_over_devices, replicate
+from federated_multi_modal_tpu_torch.parallel.mesh import (
+    mean_over_devices,
+    replicate,
+    run_replicas,
+)
 
 
 def stack_client_trees(trees):
@@ -90,10 +93,12 @@ def build_parallel_fed_step(loss_fn: Callable, tx, mesh, fedavg_every_step: bool
     its optimizer state (the single-site skip of the reference,
     ``trainers/maple.py:617-627``).
 
-    Returns ``step(stacked_trainable, frozen, stacked_opt_state, batch) ->
-    (stacked_trainable, stacked_opt_state, losses (C,))``; the stacked trees
-    and the losses are on the device of the stacked trainable leaves, and
-    every batch leaf is ``(C, B, ...)``."""
+    Returns ``step(stacked_trainable, frozen, stacked_opt_state, batch,
+    run=run_replicas) -> (stacked_trainable, stacked_opt_state, losses
+    (C,))``; the stacked trees and the losses are on the device of the
+    stacked trainable leaves, and every batch leaf is ``(C, B, ...)``.
+    ``run`` runs the replicas (``mesh.run_replicas``, or a capture's
+    ``mesh.StepGraph.replicas``)."""
     from federated_multi_modal_tpu_torch.engine.trainer import loss_grads_and_aux
 
     if impl not in ("auto", "vmap", "shard_map"):
@@ -112,25 +117,6 @@ def build_parallel_fed_step(loss_fn: Callable, tx, mesh, fedavg_every_step: bool
                                    new_state, opt_state)
         return trainable, opt_state
 
-    def local_step(trainable, frozen, opt_state, batch, devices):
-        """One client's step on ``devices`` (its batch split over them when
-        there are several), the update on the first of them."""
-        home = devices[0]
-        trainable, opt_state = to_device(trainable, home), to_device(opt_state, home)
-        if len(devices) == 1:
-            loss, grads, _ = loss_grads_and_aux(loss_fn, trainable, replicate(frozen, home),
-                                                to_device(batch, home))
-        else:
-            n = len(devices)
-            outs = [loss_grads_and_aux(
-                loss_fn, to_device(trainable, d), replicate(frozen, d),
-                tree_map_with_path(lambda _, x, j=j, d=d: x.chunk(n)[j].to(d), batch))
-                for j, d in enumerate(devices)]
-            loss = mean_over_devices([o[0] for o in outs], home)
-            grads = mean_over_devices([o[1] for o in outs], home)
-        trainable, opt_state = apply(trainable, opt_state, grads)
-        return trainable, opt_state, loss
-
     def shard_map_fits(C, batch) -> bool:
         if "client" not in mesh.axis_names or "data" not in mesh.axis_names:
             return False
@@ -142,7 +128,7 @@ def build_parallel_fed_step(loss_fn: Callable, tx, mesh, fedavg_every_step: bool
     def client(tree, c):
         return tree_map_with_path(lambda _, x: x[c], tree)
 
-    def step(stacked_trainable, frozen, stacked_opt_state, batch):
+    def step(stacked_trainable, frozen, stacked_opt_state, batch, run=run_replicas):
         C = leaves(stacked_trainable)[0].shape[0]
         home = leaves(stacked_trainable)[0].device
         split_data = impl == "shard_map" or (
@@ -153,15 +139,37 @@ def build_parallel_fed_step(loss_fn: Callable, tx, mesh, fedavg_every_step: bool
                 f"{C} clients divisible by its {nc} client groups and every batch leaf "
                 f"(C, B, ...) with B divisible by its {nd} data devices")
         per_group = C // nc if C % nc == 0 else C
-        outs = []
+        # one replica per (client, data device): client c's batch split over
+        # its group's devices (shard_map) or whole on the group's first
+        devices, inputs, owner = [], [], []
         for c in range(C):
             row = groups[c // per_group]
-            outs.append(local_step(client(stacked_trainable, c), frozen,
-                                   client(stacked_opt_state, c), client(batch, c),
-                                   list(row) if split_data else [row[0]]))
-        trainable = stack_client_trees([to_device(o[0], home) for o in outs])
-        opt_state = stack_client_trees([to_device(o[1], home) for o in outs])
-        losses = torch.stack([o[2].to(home) for o in outs])
+            row = list(row) if split_data else [row[0]]
+            n = len(row)
+            tr_c, b_c = client(stacked_trainable, c), client(batch, c)
+            for j, d in enumerate(row):
+                shard = b_c if n == 1 else tree_map_with_path(
+                    lambda _, x, j=j: x.chunk(n)[j], b_c)
+                devices.append(d)
+                inputs.append((tr_c, shard))
+                owner.append(c)
+
+        def work(d, x):
+            return loss_grads_and_aux(loss_fn, x[0], replicate(frozen, d), x[1])[:2]
+
+        replicas = run(work, devices, inputs, home)
+        outs = []
+        for c in range(C):
+            mine = [r for r, k in zip(replicas, owner) if k == c]
+            loss, grads = mine[0] if len(mine) == 1 else (
+                mean_over_devices([r[0] for r in mine], home),
+                mean_over_devices([r[1] for r in mine], home))
+            trainable, opt_state = apply(client(stacked_trainable, c),
+                                         client(stacked_opt_state, c), grads)
+            outs.append((trainable, opt_state, loss))
+        trainable = stack_client_trees([o[0] for o in outs])
+        opt_state = stack_client_trees([o[1] for o in outs])
+        losses = torch.stack([o[2] for o in outs])
         if fedavg_every_step:
             trainable = fedavg_over_clients(trainable)
         return trainable, opt_state, losses

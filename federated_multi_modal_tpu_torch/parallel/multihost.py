@@ -2,7 +2,8 @@
 ``federated_multi_modal_tpu/parallel/multihost.py``).
 
 The JAX package wires ``jax.distributed`` from a coordinator address; the
-port does the same with PyTorch's process group: one process per card, NCCL
+port does the same with PyTorch's process group: one process per card (or
+per host, driving its cards), NCCL
 for CUDA tensors and Gloo for CPU ones. Host-side effects (``log.txt``,
 checkpoint writes) are guarded to process 0 through :func:`is_main_process`,
 and :func:`sync_hosts` is the barrier before a process reads what process 0
@@ -12,7 +13,12 @@ Where the settings come from, in order: the arguments; the JAX package's
 variables ``JAX_COORDINATOR_ADDRESS`` (``host:port``, or an init method such
 as ``file:///path``), ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``; then
 ``torchrun``'s ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``.
-``LOCAL_RANK`` (else the process id modulo the visible cards) picks the card.
+A process drives the cards ``mesh.local_devices`` gives it and makes the
+first current: one card a process, ``LOCAL_RANK`` (else the process id
+modulo the visible cards), unless ``torchrun``'s ``LOCAL_WORLD_SIZE`` leaves
+it several (at ``LOCAL_WORLD_SIZE=1``, every visible card). Under
+``TPU.DATA_PARALLEL_MULTIHOST`` a process splits its batch over its local
+cards (``engine/trainer.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 
-def _env_int(name: str):
+def env_int(name: str):
     value = os.environ.get(name)
     return None if value in (None, "") else int(value)
 
@@ -48,15 +54,15 @@ def initialize_multihost(coordinator_address: str = None, num_processes: int = N
 
     address = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None:
-        num_processes = _env_int("JAX_NUM_PROCESSES")
+        num_processes = env_int("JAX_NUM_PROCESSES")
     if process_id is None:
-        process_id = _env_int("JAX_PROCESS_ID")
+        process_id = env_int("JAX_PROCESS_ID")
     if not address and os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
         address = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
         if num_processes is None:
-            num_processes = _env_int("WORLD_SIZE")
+            num_processes = env_int("WORLD_SIZE")
         if process_id is None:
-            process_id = _env_int("RANK")
+            process_id = env_int("RANK")
     if not address:
         return False
     if num_processes is None or process_id is None:
@@ -70,10 +76,9 @@ def initialize_multihost(coordinator_address: str = None, num_processes: int = N
     if backend is None:
         backend = "nccl" if cuda else "gloo"
     if cuda:
-        local_rank = _env_int("LOCAL_RANK")
-        if local_rank is None:
-            local_rank = process_id % torch.cuda.device_count()
-        torch.cuda.set_device(local_rank)
+        from federated_multi_modal_tpu_torch.parallel.mesh import local_devices
+
+        torch.cuda.set_device(local_devices("cuda", process_id, num_processes)[0])
     try:
         dist.init_process_group(backend=backend, init_method=_init_method(address),
                                 world_size=num_processes, rank=process_id)

@@ -11,10 +11,14 @@ the port its kernel routes (each kernel's plain version on CPU tensors).
 Then the command line: each mode prints one line, with ``bench.py``'s keys
 and ``device`` and ``power_limit_w`` (through ``main`` in this process, and
 the train mode once as a process of its own beside one root ``bench.py``
-process); the secondaries' budget and failures; no fallback to the CPU. The CUDA graph of ``--dispatch scan`` runs only on
-the card (``tests/test_torch_cuda.py``).
+process); the secondaries' budget and failures; no fallback to the CPU. The
+step ``--dispatch scan`` captures over several devices runs here eagerly over
+two CPU devices, against ``bench.py``'s body over two of the JAX CPU
+devices. The CUDA graphs of ``--dispatch scan`` run only on the card
+(``tests/test_torch_cuda.py``).
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -140,7 +144,7 @@ def jax_train(jax_prog):
         out_size = prog["arch"].image_resolution
 
         def one_step(trainable, frozen, opt_state, canvas, boxes, flips, labels,
-                     caption_tokens):
+                     caption_tokens, tx=tx):
             images = jax_pre.crop_resize_flip_normalize(canvas, boxes, flips,
                                                         out_size=out_size)
             batch = {"image": images, "label": labels, "caption_tokens": caption_tokens}
@@ -164,7 +168,8 @@ def jax_train(jax_prog):
             losses.append(float(loss))
         return {"trainable": trainable, "frozen": frozen, "losses": losses,
                 "final": flatten_params(tr), "inputs": (canvas, labels, boxes, flips),
-                "captions": captions, "loss_fn": loss_fn, "out_size": out_size}
+                "captions": captions, "loss_fn": loss_fn, "out_size": out_size,
+                "one_step": one_step, "tx": tx}
 
 
 def _port_prog(jax_run, use_captions=True):
@@ -597,16 +602,201 @@ def test_secondary_that_raises_gives_its_error_field_and_a_failing_exit(capsys, 
             assert argv[argv.index(flag) + 1] == value
 
 
-@pytest.mark.parametrize("measure", ["measure_train", "measure_fed_step"])
-def test_scan_over_several_cards_raises(measure, monkeypatch):
-    """``--dispatch scan`` captures one card's stream: with two visible
-    devices the train and fed-step measurements raise, naming ``--dispatch
-    python``, rather than capturing one device's share."""
+class _RecordingTx:
+    """The port's optimizer, its state also holding the last gradients it
+    was given (``(state, grads)``), so that a step's gradients come back
+    through its optimizer state."""
+
+    def __init__(self, tx):
+        self.tx = tx
+
+    def init(self, params):
+        return self.tx.init(params), tree_map_multi(torch.zeros_like, params)
+
+    def update(self, grads, state, params):
+        updates, inner = self.tx.update(grads, state[0], params)
+        return updates, (inner, grads)
+
+
+def _jax_recording_tx(tx):
+    """:class:`_RecordingTx` for an optax transformation."""
+    def init(params):
+        return tx.init(params), jax.tree.map(jnp.zeros_like, params)
+
+    def update(grads, state, params=None):
+        updates, inner = tx.update(grads, state[0], params)
+        return updates, (inner, grads)
+
+    return optax.GradientTransformation(init, update)
+
+
+@pytest.mark.parametrize("mode", ["train", "fed-step"])
+def test_several_device_step_matches_jax(jax_train, mode):
+    """The step ``--dispatch scan`` captures over several devices, run
+    eagerly over two CPU devices (``[cpu, cpu]``), against the root
+    ``bench.py`` body over two of the JAX CPU devices, on the carried fp32
+    weights: ``train``'s batch of 4 split over the two devices (the JAX
+    batch sharded along a 1-D ``data`` mesh), ``fed-step``'s two clients of
+    4 images (``test_fed_step_matches_bench_py``'s client; at 2 images the
+    two packages' crops round a few pixels apart, which
+    ``test_two_image_client_gap_is_the_crops_rounding`` shows) on a
+    ``(client, data)`` mesh of ``(2, 1)`` (the JAX stacked trees sharded
+    along ``client``, the batch along ``client`` and ``data``), which also
+    gives the same bits as both clients on one device. The loss (each
+    client's) within 1e-6 relative; every gradient the optimizer was given
+    (each client's) within 5e-5 of its
+    largest value, as ``test_data_parallel_grads_over_two_devices_match_one``
+    holds them (each side's optimizer state records them)."""
+    from jax.sharding import Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
     cpu = torch.device("cpu")
-    monkeypatch.setattr(bench, "visible_devices", lambda device: [cpu, cpu])
-    args = bench.build_parser().parse_args(CLI[:-2] + ["--dispatch", "scan"])
-    with pytest.raises(ValueError, match="one card's stream.*--dispatch python"):
-        getattr(bench, measure)(args, cpu)
+    two = jax.devices()[:2]
+    trainable, frozen = jax_train["trainable"], jax_train["frozen"]
+    port = _port_prog(jax_train)
+    if mode == "train":
+        canvas, labels, boxes, flips = jax_train["inputs"]
+        captions = jax_train["captions"]
+        sharding = NamedSharding(Mesh(np.asarray(two), ("data",)), P("data"))
+        put = [jax.device_put(jnp.asarray(a), sharding)
+               for a in (canvas, boxes, flips, labels, captions)]
+        tx = _jax_recording_tx(jax_train["tx"])
+        step = jax.jit(functools.partial(jax_train["one_step"], tx=tx))
+        _, state, loss = step(trainable, frozen, tx.init(trainable), *put)
+        ref_losses, ref_grads = [float(loss)], flatten_params(state[1])
+
+        port_tx = _RecordingTx(build_optimizer(lr=0.0026, clip=1.0))
+        one_step = bench.make_one_step(port, port_tx, use_captions=True, devices=[cpu, cpu])
+        _, state, loss = one_step(port["trainable"], port["frozen"],
+                                  port_tx.init(port["trainable"]),
+                                  *(torch.from_numpy(np.asarray(a))
+                                    for a in (canvas, boxes, flips, labels, captions)))
+        got_losses, got_grads = [float(loss)], flatten(state[1])
+    else:
+        C, Bc = 2, B
+        loss_fn, out_size = jax_train["loss_fn"], jax_train["out_size"]
+        tx = _jax_recording_tx(jax_fed_optimizer())
+        canvas, labels, boxes, flips = _inputs((C, Bc))
+        cap = np.broadcast_to(jax_tokenize(["a satellite photo of a scene"] * Bc)[None],
+                              (C, Bc, 77)).copy()
+        batch = {"canvas": canvas, "label": labels, "caption_tokens": cap,
+                 "boxes": boxes.reshape(C, Bc, 4), "flips": flips.reshape(C, Bc)}
+
+        def bench_loss(trainable, frozen, b):
+            images = jax_pre.crop_resize_flip_normalize(b["canvas"], b["boxes"], b["flips"],
+                                                        out_size=out_size)
+            return loss_fn(trainable, frozen, {"image": images, "label": b["label"],
+                                               "caption_tokens": b["caption_tokens"]})
+
+        mesh = jax_client_mesh(C, two)
+
+        def shard(tree, spec):
+            return jax.tree.map(lambda x: jax.device_put(x, NamedSharding(mesh, spec)), tree)
+
+        step = jax_fed_step(bench_loss, tx, mesh)
+        _, state, losses = step(shard(jax_stack([trainable] * C), P("client")),
+                                shard(frozen, P()),
+                                shard(jax_stack([tx.init(trainable)] * C), P("client")),
+                                shard({k: jnp.asarray(v) for k, v in batch.items()},
+                                      P("client", "data")))
+        ref_losses, ref_grads = [float(x) for x in np.asarray(losses)], flatten_params(state[1])
+
+        port_tx = _RecordingTx(port_flagship.build_fed_optimizer())
+        runs = []
+        for devices in ([cpu, cpu], [cpu]):
+            port_step = port_fed_step(bench.make_fed_loss(port), port_tx,
+                                      port_client_mesh(C, devices))
+            runs.append(port_step(
+                port_stack([port["trainable"]] * C), port["frozen"],
+                port_stack([port_tx.init(port["trainable"])] * C),
+                {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}))
+        # each client's step alone on its device: the same bits as both
+        # clients on one device
+        assert bench.held_bitwise(runs[0], runs[1])["bit_for_bit"]
+        _, state, losses = runs[0]
+        got_losses, got_grads = losses.tolist(), flatten(state[1])
+    assert len(got_losses) == len(ref_losses)
+    for g, r in zip(got_losses, ref_losses):
+        assert _rel(g, r) < 1e-6, (got_losses, ref_losses)
+    assert set(got_grads) == set(ref_grads)
+    for name, ref in ref_grads.items():
+        ref = np.asarray(ref, np.float32)
+        assert got_grads[name].shape == ref.shape, name
+        err = np.abs(got_grads[name].numpy() - ref).max()
+        assert err <= 5e-5 * np.abs(ref).max(), (name, err, np.abs(ref).max())
+
+
+def _crop_fp64(canvas, boxes, flips, out_size):
+    """The port's crop of ``canvas`` with its fp32 resampling weights, summed
+    and normalised in fp64 (no bf16 rounding)."""
+    from federated_multi_modal_tpu_torch.ops import preprocess as port_pre
+
+    boxes = torch.from_numpy(boxes)
+    wy = port_pre._resample_matrix(256, out_size, boxes[:, 0], boxes[:, 2]).double()
+    wx = port_pre._resample_matrix(256, out_size, boxes[:, 1], boxes[:, 3]).double()
+    imgs = torch.from_numpy(canvas).double() / 255.0
+    out = torch.einsum("bwt,botc->bowc", wx, torch.einsum("bos,bshc->bohc", wy, imgs))
+    out = torch.where(torch.from_numpy(flips)[:, None, None, None], out.flip(2), out)
+    mean = torch.tensor(port_pre.CLIP_MEAN, dtype=torch.float64)
+    std = torch.tensor(port_pre.CLIP_STD, dtype=torch.float64)
+    return ((out - mean) / std).numpy(), port_pre.CLIP_STD
+
+
+def test_two_image_client_gap_is_the_crops_rounding(jax_train):
+    """Why ``test_several_device_step_matches_jax``'s fed-step clients hold 4
+    images: at 2 a client's gradient from the port sits up to 7.1e-5 of its
+    largest value from the JAX package's (``clip.visual.blocks.2.attn.w_qkv``,
+    client 0), above that test's 5e-5, on one device and on two alike. The
+    cause is the crop, not the model or the devices: both packages resample
+    in fp32 and round to bf16, their fp32 sums differ in the last place, and
+    the few pixels that lie within about one fp32 unit of a bf16 rounding
+    midpoint round apart; at 2 images each such pixel weighs twice as much
+    in the mean as at 4. Held for both clients of 2 images: (a) the two
+    crops differ by at most one bf16 unit, only at pixels within two units
+    of 2^-24 (at the pixel's [0, 1] scale) of a bf16 midpoint of the crop
+    summed in fp64; (b) given the JAX package's images, the port's
+    gradients are within 5e-5 of each leaf's largest value of the JAX
+    package's."""
+    C, Bc = 2, 2
+    loss_fn, out_size = jax_train["loss_fn"], jax_train["out_size"]
+    trainable, frozen = jax_train["trainable"], jax_train["frozen"]
+    port = _port_prog(jax_train)
+    canvas, labels, boxes, flips = _inputs((C, Bc))
+    boxes, flips = boxes.reshape(C, Bc, 4), flips.reshape(C, Bc)
+    captions = jax_tokenize(["a satellite photo of a scene"] * Bc)
+
+    @jax.jit
+    def jax_grads(tr, images, label):
+        def loss(t):
+            return loss_fn(t, frozen, {"image": images, "label": label,
+                                       "caption_tokens": captions})[0]
+        return jax.grad(loss)(tr)
+
+    for c in range(C):
+        jax_images = jax_pre.crop_resize_flip_normalize(canvas[c], boxes[c], flips[c],
+                                                        out_size=out_size)
+        ref = np.asarray(jax_images).astype(np.float32)
+        got = crop_resize_flip_normalize(torch.from_numpy(canvas[c]), torch.from_numpy(boxes[c]),
+                                         torch.from_numpy(flips[c]),
+                                         out_size=out_size).float().numpy()
+        exact, std = _crop_fp64(canvas[c], boxes[c], flips[c], out_size)
+        for i in map(tuple, np.argwhere(got != ref)):
+            unit = 2.0 ** (np.floor(np.log2(abs(exact[i]))) - 7)
+            midpoint = (np.floor(exact[i] / unit) + 0.5) * unit
+            assert abs(got[i] - ref[i]) <= unit, (c, i, got[i], ref[i])
+            assert abs(exact[i] - midpoint) * std[i[-1]] <= 2 * 2.0 ** -24, (c, i, exact[i])
+
+        want = flatten_params(jax_grads(trainable, jax_images, labels[c]))
+        batch = {"image": torch.from_numpy(ref).to(torch.bfloat16),
+                 "label": torch.from_numpy(labels[c]),
+                 "caption_tokens": torch.from_numpy(np.asarray(captions))}
+        grads = flatten(loss_grads_and_aux(port["loss_fn"], port["trainable"], port["frozen"],
+                                           batch)[1])
+        assert set(grads) == set(want)
+        for name, w in want.items():
+            w = np.asarray(w, np.float32)
+            err = np.abs(grads[name].numpy() - w).max()
+            assert err <= 5e-5 * np.abs(w).max(), (c, name, err, np.abs(w).max())
 
 
 def test_no_fallback_to_the_cpu():

@@ -1857,9 +1857,9 @@ def test_bench_replay_equals_eager(gen):
     captions = torch.from_numpy(tokenize(["a satellite photo of a scene"] * B)).cuda()
     draws = torch.Generator(device="cuda").manual_seed(0)
 
-    def apply(state, drawn):
+    def apply(state, drawn, run):
         tr, opt, loss = one_step(state[0], prog["frozen"], state[1], canvas, *drawn, labels,
-                                 captions)
+                                 captions, run)
         return (tr, opt), loss
 
     state = (prog["trainable"], tx.init(prog["trainable"]))
@@ -1912,10 +1912,119 @@ def test_bench_capture_of_a_host_read_fails_loudly(gen):
         "import torch\n"
         "from federated_multi_modal_tpu_torch import bench\n"
         "x = torch.ones(4, device='cuda')\n"
-        "def step(state):\n"
+        "def step(state, run):\n"
         "    y = state[0] * 2\n"
         "    if y.sum().item() > 0:\n"
         "        y = y + 1\n"
+        "    return (y,), y.sum()\n"
+        "try:\n"
+        "    bench.capture_step(step, (x,))\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=300, cwd=root)
+    assert "raised: --dispatch scan: the step cannot be captured" in proc.stdout, \
+        proc.stdout + proc.stderr[-2000:]
+
+
+# -- several devices in one process: two replicas of the one card ------------------
+
+BENCH_TINY_LAUNCHES = {"K1 packed_attention_masked": 3, "K1b packed_attention_masked_bwd": 3,
+                       "K3 fused_block_train": 2, "K3 fused_block_train (backward)": 2,
+                       "K4 fused_block_train_dw": 1, "K4 fused_block_train_dw (backward)": 1}
+
+
+@pytest.mark.parametrize("mode", [["--no-secondary"], ["--mode", "fed-step"]],
+                         ids=["train", "fed-step"])
+def test_bench_scan_over_a_card_named_twice(gen, capsys, monkeypatch, mode):
+    """``--dispatch scan`` over ``[cuda:0, cuda:0]`` at Tiny through the
+    bench's ``main``: the train batch split over the two replicas, the
+    fed-step's two clients one a replica, each replica a graph of its own on
+    its own stream; the replayed step equals the eager one bit for bit, the
+    captured step launches twice the one-device routing's kernels, and the
+    line says ``devices=2``."""
+    import json
+
+    from federated_multi_modal_tpu_torch import bench
+    from federated_multi_modal_tpu_torch.models import clip_model
+    from federated_multi_modal_tpu_torch.ops import primitives
+
+    monkeypatch.setattr(primitives, "_ATTENTION_IMPL", primitives._ATTENTION_IMPL)
+    monkeypatch.setattr(clip_model, "_TEXT_PACK_DEFAULT", clip_model._TEXT_PACK_DEFAULT)
+    card = torch.device("cuda", 0)
+    monkeypatch.setattr(bench, "visible_devices", lambda device: [card, card])
+    assert bench.main(BENCH_TINY + mode) == 0
+    out, err = capsys.readouterr()
+    assert len([ln for ln in out.splitlines() if ln.startswith("{")]) == 1, out
+    records = {ln[2:].split(": ", 1)[0]: ln.split(": ", 1)[1] for ln in err.splitlines()
+               if ln.startswith(("# replay_vs_eager: ", "# launches: "))}
+    replay = json.loads(records["replay_vs_eager"])
+    assert replay["bit_for_bit"], replay
+    assert json.loads(records["launches"]) == {k: 2 * v for k, v in BENCH_TINY_LAUNCHES.items()}
+    assert "devices=2" in err, err[-2000:]
+
+
+def test_replicas_mean_without_its_event_reads_a_stale_shard(gen, monkeypatch):
+    """Two replicas of the card, each sleeping on its stream before it
+    writes its shard: with the home stream's wait for the replicas' events
+    (``mesh._join``) the mean is right, eagerly and replayed; with the wait
+    taken out (a planted fault) the mean reads the shards the last call or
+    replay left, and differs."""
+    from federated_multi_modal_tpu_torch import bench
+    from federated_multi_modal_tpu_torch.parallel import mesh
+
+    card = torch.device("cuda", 0)
+
+    def work(d, v):
+        torch.cuda._sleep(100_000_000)
+        return v * 2
+
+    def mean(v, run=mesh.run_replicas):
+        return mesh.mean_over_devices(run(work, [card, card], [v, v + 1], card), card)
+
+    def step(state, run):
+        y = mean(state[0], run)
+        return (y,), y.sum()
+
+    x = torch.ones(1 << 16, device=card)
+    assert torch.equal(mean(x), torch.full_like(x, 3.0))
+    state = (x.clone(),)
+    graph, _, _ = bench.capture_step(step, state)
+    state[0].fill_(1.0)
+    graph.replay()
+    assert torch.equal(state[0], torch.full_like(x, 3.0))
+    monkeypatch.setattr(mesh, "_join", lambda stream, home: None)
+    stale = mean(x * 5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(stale, torch.full_like(x, 11.0))
+    assert not torch.equal(state[0], torch.full_like(x, 7.0))
+
+
+def test_capture_of_a_replica_host_read_fails_loudly(gen):
+    """A step over two replicas whose replica reads a device tensor on the
+    host cannot be captured: ``capture_step`` raises saying so rather than
+    running the step eagerly (in a child process, whose CUDA context the
+    failed capture leaves behind)."""
+    import os
+    import subprocess
+    import sys
+
+    script = (
+        "import torch\n"
+        "from federated_multi_modal_tpu_torch import bench\n"
+        "from federated_multi_modal_tpu_torch.parallel import mesh\n"
+        "card = torch.device('cuda', 0)\n"
+        "x = torch.ones(4, device=card)\n"
+        "def work(d, v):\n"
+        "    y = v * 2\n"
+        "    if y.sum().item() > 0:\n"
+        "        y = y + 1\n"
+        "    return y\n"
+        "def step(state, run):\n"
+        "    y = mesh.mean_over_devices(run(work, [card, card], [state[0], state[0]], card),\n"
+        "                               card)\n"
         "    return (y,), y.sum()\n"
         "try:\n"
         "    bench.capture_step(step, (x,))\n"

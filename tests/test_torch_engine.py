@@ -252,10 +252,8 @@ DIST_SETTINGS = [
 
 @pytest.mark.parametrize("section,key,value,module", DIST_SETTINGS,
                          ids=[u[1] for u in DIST_SETTINGS])
-def test_settings_of_a_later_item_raise(section, key, value, module, tmp_path, monkeypatch):
-    """(Named for what it held before these settings were ported; nothing
-    raises now.) The settings that raised until their module was ported
-    are read:
+def test_ported_settings_are_read(section, key, value, module, tmp_path, monkeypatch):
+    """The settings that raised until their module was ported are read:
     ``TRAIN.PROFILE_DIR`` traces into its directory, ``TPU.DATA_PARALLEL_
     MULTIHOST`` leaves one process alone (no data parallelism without a
     process group, as in the JAX package), ``TPU.MESH_SHAPE`` lays out the
@@ -280,9 +278,8 @@ def test_settings_of_a_later_item_raise(section, key, value, module, tmp_path, m
         assert got.shape == {"client": 2, "data": 2}, module
 
 
-def test_data_parallel_over_devices_raises(monkeypatch):
-    """(Named for what it held before data parallelism was ported; nothing
-    raises now.) ``TPU.DATA_PARALLEL`` has nothing to do on one device and splits the
+def test_data_parallel_splits_the_batch_over_devices(monkeypatch):
+    """``TPU.DATA_PARALLEL`` has nothing to do on one device and splits the
     batch over more than one (the trainer's device first); off, it uses
     none."""
     from federated_multi_modal_tpu_torch.parallel import mesh

@@ -9,7 +9,11 @@ test workers never race for a port. One pair of children runs once per
 module and writes what each process saw to a JSON file; the tests read it.
 Each child builds the port's CoOp trainer (Tiny, Synthetic, fp32) from the
 same weights as the parent's single-process runs of the port and of the JAX
-package, and takes two data-parallel steps on its half of a batch of eight.
+package, and takes two data-parallel steps on its half of a batch of eight:
+once on one local device, and once with ``parallel/mesh.py::visible_devices``
+replaced by two CPU devices, so that each process splits its half over them
+(each child is launched as the one process of its host,
+``LOCAL_WORLD_SIZE=1``, which drives every device it sees).
 """
 
 import json
@@ -73,6 +77,28 @@ CHILD = textwrap.dedent(
     out["losses"] = [trainer.train_step(batch)["loss"] for _ in range(spec["steps"])]
     out["ctx"] = trainer.trainable["prompt_learner"]["ctx"].tolist()
     out["local_logits_rows"] = int(trainer.model_inference(batch["image"]).shape[0])
+
+    # two local devices a process: each process splits its half over them
+    from federated_multi_modal_tpu_torch.parallel import mesh
+    visible = mesh.visible_devices
+    mesh.visible_devices = lambda device=None: [torch.device("cpu")] * 2
+    cfg2 = cfg.clone()
+    cfg2.defrost()
+    cfg2.OUTPUT_DIR = os.path.join(spec["dir"], f"out_local2_{rank}")
+    cfg2.freeze()
+    local2 = build_trainer(cfg2, device="cpu")
+    out["local2_devices"] = [str(d) for d in local2._dp_devices]
+    out["local2_shards"] = [int(b["label"].shape[0]) for _, b in local2._dp_shard(batch)]
+    out["local2_losses"] = [local2.train_step(batch)["loss"] for _ in range(spec["steps"])]
+    out["local2_ctx"] = local2.trainable["prompt_learner"]["ctx"].tolist()
+    out["local2_logits_rows"] = int(local2.model_inference(batch["image"]).shape[0])
+    try:
+        local2._dp_shard({"x": torch.zeros(3, 4)})
+        out["local2_odd_leaf_error"] = None
+    except ValueError as e:
+        out["local2_odd_leaf_error"] = str(e)
+    mesh.visible_devices = visible
+    del local2
 
     # save_model writes on process 0 only
     trainer.save_model(0, directory=os.path.join(spec["dir"], f"saved{rank}"))
@@ -173,10 +199,11 @@ def two(tmp_path_factory):
     procs = []
     for rank in range(2):
         env = {k: v for k, v in os.environ.items()
-               if k not in ("FMM_TPU_MULTIHOST_VERIFY_SCALARS", "MASTER_ADDR", "MASTER_PORT")}
+               if k not in ("FMM_TPU_MULTIHOST_VERIFY_SCALARS", "MASTER_ADDR", "MASTER_PORT",
+                            "LOCAL_WORLD_SIZE", "LOCAL_RANK")}
         env.update(PYTHONPATH=str(REPO) + os.pathsep + env.get("PYTHONPATH", ""),
                    JAX_COORDINATOR_ADDRESS=f"file://{d / 'pg_store'}",
-                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
+                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank), LOCAL_WORLD_SIZE="1",
                    CHILD_SPEC=json.dumps(spec), OMP_NUM_THREADS="1")
         procs.append(subprocess.Popen([sys.executable, "-c", CHILD], env=env, cwd=str(d),
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -225,6 +252,35 @@ def test_two_process_data_parallel_step_matches_full_batch(two):
         np.testing.assert_allclose(np.asarray(r["ctx"], np.float32), jax_ctx, atol=CTX_ATOL)
         assert r["local_logits_rows"] == BATCH // 2
     assert two["children"][0]["ctx"] == two["children"][1]["ctx"]
+
+
+def test_two_process_two_local_devices_match_full_batch(two):
+    """With two local devices a process (``visible_devices`` replaced by two
+    CPU devices in each child), each process splits its half of the batch
+    over them: the shards' mean, then the mean over the processes. After
+    two steps both processes hold the same bits, within ``LOSS_ATOL`` and
+    ``CTX_ATOL`` of the JAX package's one-process full-batch steps; eval
+    stays process-local, on the process's half."""
+    jax_losses, jax_ctx = two["jax"]
+    for r in two["children"]:
+        assert r["local2_devices"] == ["cpu", "cpu"]
+        assert r["local2_shards"] == [BATCH // 4, BATCH // 4]
+        np.testing.assert_allclose(r["local2_losses"], jax_losses, atol=LOSS_ATOL)
+        np.testing.assert_allclose(np.asarray(r["local2_ctx"], np.float32), jax_ctx,
+                                   atol=CTX_ATOL)
+        assert r["local2_logits_rows"] == BATCH // 2
+    first, second = two["children"]
+    assert first["local2_ctx"] == second["local2_ctx"]
+    assert first["local2_losses"] == second["local2_losses"]
+
+
+def test_two_process_local_count_that_does_not_divide_raises(two):
+    """A batch leaf whose axis 0 the two local devices do not divide raises
+    with the JAX package's message, naming the local device count."""
+    for r in two["children"]:
+        assert r["local2_odd_leaf_error"] == (
+            "multi-host DP requires every batch leaf's axis 0 (3) to be divisible by the "
+            "local device count (2); pad the batch or change DATALOADER.*.BATCH_SIZE")
 
 
 def test_two_process_batch_checks_and_verify_scalars(two):

@@ -599,3 +599,88 @@ def test_maple_trainer_reads_remat_and_profile_dir(weights, tmp_path, monkeypatc
     steps = len(trainer.train_loader_x)
     assert len(calls) == steps * (arch.vision_layers + arch.transformer_layers) > 0
     assert list((tmp_path / "trace").glob("*.pt.trace.json"))
+
+
+def test_run_replicas_over_a_device_named_twice():
+    """``run_replicas`` over a device named twice (two CPU replicas): each
+    replica's work gets its input as given, on its device (no copy), and the
+    outputs come back in replica order on the home device; ``replicate`` on
+    the same device returns each tensor itself, and ``mean_over_devices``
+    sums in list order into new tensors, then divides."""
+    cpu = torch.device("cpu")
+    x = torch.arange(4.0)
+    seen = []
+
+    def work(device, inputs):
+        seen.append((device, inputs))
+        return {"y": inputs * 2 + len(seen)}
+
+    outs = port_mesh.run_replicas(work, [cpu, cpu], [x, x + 1], cpu)
+    assert seen[0][1] is x and [d for d, _ in seen] == [cpu, cpu]
+    assert [o["y"].tolist() for o in outs] == [[1.0, 3.0, 5.0, 7.0], [4.0, 6.0, 8.0, 10.0]]
+    frozen = {"w": torch.ones(3)}
+    assert port_mesh.replicate(frozen, cpu)["w"] is frozen["w"]
+    one = port_mesh.mean_over_devices([x], cpu)
+    assert one is not x and torch.equal(one, x)
+    a, b, c = torch.tensor([1e8]), torch.tensor([1.0]), torch.tensor([-1e8])
+    assert float(port_mesh.mean_over_devices([a, b, c], cpu)) == float((a + b + c) / 3)
+
+
+LOCAL_LAUNCHES = {
+    # id: (processes, process id, LOCAL_WORLD_SIZE, LOCAL_RANK, the cards it drives)
+    "alone": (1, 0, None, None, [0, 1, 2, 3]),
+    "one_process_a_card": (4, 2, None, None, [2]),
+    "one_process_a_card_local_rank": (8, 5, None, "1", [1]),
+    "one_process_a_host": (2, 1, "1", "0", [0, 1, 2, 3]),
+    "two_processes": (2, 1, "2", "1", [2, 3]),
+    "two_processes_without_local_rank": (4, 3, "2", None, [2, 3]),
+    "one_card_each": (4, 3, "4", "3", [3]),
+    "more_processes": (8, 5, "8", "5", [1]),
+}
+
+
+def _launch(monkeypatch, local_world, local_rank):
+    """Four visible cards, and the launcher's ``LOCAL_WORLD_SIZE`` and
+    ``LOCAL_RANK`` as given (``None``: not set)."""
+    cards = [torch.device("cuda", i) for i in range(4)]
+    monkeypatch.setattr(port_mesh, "visible_devices", lambda device=None: list(cards))
+    for name, value in (("LOCAL_WORLD_SIZE", local_world), ("LOCAL_RANK", local_rank)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    return cards
+
+
+@pytest.mark.parametrize("launch", list(LOCAL_LAUNCHES))
+def test_local_devices_share_the_cards(launch, monkeypatch):
+    """A process alone drives every visible card. Of several processes,
+    without ``torchrun``'s ``LOCAL_WORLD_SIZE`` each drives one card, the
+    ``LOCAL_RANK``-th or else its process id modulo the cards (the launch
+    by the JAX package's variables, one process a card); under it, its
+    ``LOCAL_RANK``-th (else process id modulo ``LOCAL_WORLD_SIZE``) even
+    share of them, every card at one process a host, the card
+    ``LOCAL_RANK`` modulo their count where there are fewer cards than
+    processes."""
+    n, pid, local_world, local_rank, want = LOCAL_LAUNCHES[launch]
+    cards = _launch(monkeypatch, local_world, local_rank)
+    assert port_mesh.local_devices("cuda", pid, n) == [cards[i] for i in want]
+
+
+@pytest.mark.parametrize("launch", ["one_process_a_card", "two_processes_without_local_rank",
+                                    "more_processes"])
+def test_initialize_multihost_sets_the_first_local_card(launch, monkeypatch):
+    """``initialize_multihost`` makes current the first card that
+    ``local_devices`` gives the process, before it starts the process group
+    (here a start that fails, so that no group is left behind)."""
+    from federated_multi_modal_tpu_torch.parallel import multihost
+
+    n, pid, local_world, local_rank, want = LOCAL_LAUNCHES[launch]
+    cards = _launch(monkeypatch, local_world, local_rank)
+    current = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    with pytest.raises(RuntimeError, match="init_process_group failed"):
+        multihost.initialize_multihost("bogus://nowhere", n, pid, backend="gloo")
+    assert current == [cards[want[0]]]
+    assert not torch.distributed.is_initialized()
