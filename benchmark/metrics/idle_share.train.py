@@ -1,0 +1,7 @@
+"""Share of the train window in which no operation ran on the device (%)."""
+
+
+def read(t):
+    if not t.kernels or t.kind != "train" or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)

@@ -1,0 +1,11 @@
+"""The whole eval step's share of the card's dense bf16 peak (%): the frozen
+analytic FLOP count (benchmark/counts/flops.py) of the window's steps over
+the window's length."""
+
+from benchmark.counts.flops import PEAK_BF16_FLOPS
+
+
+def read(t):
+    if not t.kernels or t.kind != "eval" or t.window_s <= 0:
+        return None
+    return 100.0 * t.flops_per_step * t.steps / t.window_s / PEAK_BF16_FLOPS
