@@ -112,6 +112,7 @@ from federated_multi_modal_tpu_torch.trainers.common import (
     build_prompt_constants,
     linear_params,
 )
+from federated_multi_modal_tpu_torch.utils.profiling import span
 
 A100_BASELINE_IPS = 16000 * 5 / 3600.0  # ~22.2 img/s (docs/RUN.md:8-10)
 
@@ -229,7 +230,10 @@ def capture_step(step, state, generators=()):
     library, cuBLAS handles, kernel attributes, the replicas' streams and
     frozen copies) happens outside the capture. Returns ``(graph, out,
     launches)``, ``launches`` the kernel wrappers' counts in the captured
-    step, which every replay repeats. A step that cannot be captured raises
+    step, which every replay repeats. The captured step and its copy into
+    ``state`` are span ``step`` (``utils/profiling.py``): its markers, and
+    those of every span inside, are nodes of the graph, so each replay marks
+    them on the device. A step that cannot be captured raises
     ``RuntimeError`` saying why."""
     device = leaves(state)[0].device
     side = torch.cuda.Stream(device)
@@ -244,9 +248,10 @@ def capture_step(step, state, generators=()):
     counters.reset()
 
     def captured():
-        new_state, out = step(state, graph.replicas)
-        _copy_into(state, new_state)
-        return out
+        with span("step"):
+            new_state, out = step(state, graph.replicas)
+            _copy_into(state, new_state)
+            return out
 
     try:
         out = graph.capture(captured)

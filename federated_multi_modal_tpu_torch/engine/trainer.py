@@ -70,7 +70,7 @@ from federated_multi_modal_tpu_torch.parallel.multihost import (
     process_count,
     sync_hosts,
 )
-from federated_multi_modal_tpu_torch.utils.profiling import trace
+from federated_multi_modal_tpu_torch.utils.profiling import span, trace
 
 
 # --------------------------------------------------------------------------
@@ -82,15 +82,18 @@ def loss_grads_and_aux(loss_fn, trainable, frozen, batch):
     """``(loss, grads, aux)`` of ``loss_fn(trainable, frozen, batch) ->
     (loss, aux)``: the gradient of every leaf of ``trainable`` (zeros where
     the loss does not reach it), the loss and the aux's 0-d tensors
-    detached."""
-    tr = tree_map_with_path(lambda _, t: t.detach().requires_grad_(True), trainable)
-    flat = flatten(tr)
-    loss, aux = loss_fn(tr, frozen, batch)
-    got = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
-    by_name = {name: torch.zeros_like(leaf) if g is None else g
-               for (name, leaf), g in zip(flat.items(), got)}
-    grads = tree_map_with_path(lambda name, _: by_name[name], tr)
-    return loss.detach(), grads, {k: v.detach() for k, v in aux.items()}
+    detached. Spans: ``forward_backward`` around it all, ``backward``
+    around the gradients."""
+    with span("forward_backward"):
+        tr = tree_map_with_path(lambda _, t: t.detach().requires_grad_(True), trainable)
+        flat = flatten(tr)
+        loss, aux = loss_fn(tr, frozen, batch)
+        with span("backward"):
+            got = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+        by_name = {name: torch.zeros_like(leaf) if g is None else g
+                   for (name, leaf), g in zip(flat.items(), got)}
+        grads = tree_map_with_path(lambda name, _: by_name[name], tr)
+        return loss.detach(), grads, {k: v.detach() for k, v in aux.items()}
 
 
 def make_train_step_with_aux(loss_fn, tx, grad_fn=None):
@@ -105,20 +108,23 @@ def make_train_step_with_aux(loss_fn, tx, grad_fn=None):
     the optimizer state as they were (the reference zeroes the gradients
     and skips the batch). Nothing is read back to the host. ``grad_fn``
     replaces :func:`loss_grads_and_aux` (the data-parallel steps of
-    :meth:`FunctionalTrainerMixin._setup_data_parallel`)."""
+    :meth:`FunctionalTrainerMixin._setup_data_parallel`). What follows the
+    gradients (the norm, the clip, the optimizer, the gate) is span
+    ``update``."""
     if grad_fn is None:
         def grad_fn(trainable, frozen, batch):
             return loss_grads_and_aux(loss_fn, trainable, frozen, batch)
 
     def train_step(trainable, frozen, opt_state, batch):
         loss, grads, aux = grad_fn(trainable, frozen, batch)
-        gnorm = global_norm(grads)
-        finite = torch.isfinite(gnorm) & torch.isfinite(loss)
-        updates, new_state = tx.update(grads, opt_state, trainable)
-        trainable = tree_map_multi(lambda p, u: torch.where(finite, p + u, p),
-                                   trainable, updates)
-        opt_state = tree_map_multi(lambda new, old: torch.where(finite, new, old),
-                                   new_state, opt_state)
+        with span("update"):
+            gnorm = global_norm(grads)
+            finite = torch.isfinite(gnorm) & torch.isfinite(loss)
+            updates, new_state = tx.update(grads, opt_state, trainable)
+            trainable = tree_map_multi(lambda p, u: torch.where(finite, p + u, p),
+                                       trainable, updates)
+            opt_state = tree_map_multi(lambda new, old: torch.where(finite, new, old),
+                                       new_state, opt_state)
         return trainable, opt_state, loss, gnorm, aux
 
     return train_step

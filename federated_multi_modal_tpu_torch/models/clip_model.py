@@ -45,6 +45,7 @@ from federated_multi_modal_tpu_torch.ops.primitives import (
     residual_block,
     residual_block_group,
 )
+from federated_multi_modal_tpu_torch.utils.profiling import span, span_boundary
 
 # -- vision tower -------------------------------------------------------------
 
@@ -112,69 +113,76 @@ def encode_image(
 
     Returns:
         ``(B, embed_dim)`` image features (before normalization), fp32.
+
+    Spans (``utils/profiling.py``): ``vision_tower``, and in the backward
+    ``vision_tower.backward``.
     """
-    dtype = params["conv1"]["w"].dtype
-    x = patchify(params, cfg, images.to(dtype))
-    B = x.shape[0]
-    w = cfg.vision_width
+    with span("vision_tower"):
+        params, shallow_prompts, deep_prompts, extra_tokens = span_boundary(
+            "vision_tower", params, shallow_prompts, deep_prompts, extra_tokens, entry=True)
+        dtype = params["conv1"]["w"].dtype
+        x = patchify(params, cfg, images.to(dtype))
+        B = x.shape[0]
+        w = cfg.vision_width
 
-    cls = params["class_embedding"].to(dtype).expand(B, 1, w)
-    x = torch.cat([cls, x], dim=1)
-    x = x + params["positional_embedding"].to(dtype)[None]
+        cls = params["class_embedding"].to(dtype).expand(B, 1, w)
+        x = torch.cat([cls, x], dim=1)
+        x = x + params["positional_embedding"].to(dtype)[None]
 
-    n_ctx = 0
-    if shallow_prompts is not None:
-        sp = _broadcast_prompt(shallow_prompts, B, dtype)
-        n_ctx = sp.shape[1]
-        x = torch.cat([x, sp], dim=1)
+        n_ctx = 0
+        if shallow_prompts is not None:
+            sp = _broadcast_prompt(shallow_prompts, B, dtype)
+            n_ctx = sp.shape[1]
+            x = torch.cat([x, sp], dim=1)
 
-    n_extra = 0
-    if extra_tokens is not None:
-        extra_tokens = extra_tokens.to(dtype)
-        n_extra = extra_tokens.shape[1]
-        x = torch.cat([x, extra_tokens], dim=1)
+        n_extra = 0
+        if extra_tokens is not None:
+            extra_tokens = extra_tokens.to(dtype)
+            n_extra = extra_tokens.shape[1]
+            x = torch.cat([x, extra_tokens], dim=1)
 
-    x = layer_norm(x, params["ln_pre"])
-    n_tail = n_ctx + n_extra
+        x = layer_norm(x, params["ln_pre"])
+        n_tail = n_ctx + n_extra
 
-    deep_prompts = deep_prompts or []
-    if deep_prompts and n_ctx == 0:
-        raise ValueError(
-            "deep_prompts require shallow_prompts: injection replaces the "
-            "trailing prompt tokens, and with none the sequence would grow")
-    for i, dp in enumerate(deep_prompts):
-        if dp.shape[-2] != n_ctx:
+        deep_prompts = deep_prompts or []
+        if deep_prompts and n_ctx == 0:
             raise ValueError(
-                f"deep_prompts[{i}] has {dp.shape[-2]} rows but the shallow "
-                f"prompts define n_ctx={n_ctx}: injection replaces the "
-                "trailing prompt rows one-for-one")
+                "deep_prompts require shallow_prompts: injection replaces the "
+                "trailing prompt tokens, and with none the sequence would grow")
+        for i, dp in enumerate(deep_prompts):
+            if dp.shape[-2] != n_ctx:
+                raise ValueError(
+                    f"deep_prompts[{i}] has {dp.shape[-2]} rows but the shallow "
+                    f"prompts define n_ctx={n_ctx}: injection replaces the "
+                    "trailing prompt rows one-for-one")
 
-    blocks = params["blocks"]
-    if inference and attention_impl() == "pallas" and fused_block_group_eligible(
-            B, x.shape[1], w, cfg.vision_heads, blocks[0]["mlp"]["w_fc"].shape[-1],
-            deep_prompts):
-        # groups of G blocks, the last one possibly shorter; the deep prompts
-        # and the extra tokens are injected inside the group (under "xla" the
-        # JAX package never groups: clip_model.py:220-230)
-        G = fused_block_group_size()
-        for s in range(0, len(blocks), G):
-            flags = [1 <= i <= len(deep_prompts) for i in range(s, min(s + G, len(blocks)))]
-            prompts = [deep_prompts[i - 1].to(dtype)
-                       for i, f in zip(range(s, s + G), flags) if f]
-            x = residual_block_group(x, blocks[s:s + G], cfg.vision_heads, flags, prompts,
-                                     extra_tokens if any(flags) else None)
-    else:
-        for i, blk in enumerate(blocks):
-            if 1 <= i <= len(deep_prompts):
-                tail = [_broadcast_prompt(deep_prompts[i - 1], B, dtype)]
-                if extra_tokens is not None:
-                    tail.append(extra_tokens)
-                x = torch.cat([x[:, : x.shape[1] - n_tail], *tail], dim=1)
-            x = block_forward(x, blk, cfg.vision_heads, remat=remat, inference=inference)
+        blocks = params["blocks"]
+        if inference and attention_impl() == "pallas" and fused_block_group_eligible(
+                B, x.shape[1], w, cfg.vision_heads, blocks[0]["mlp"]["w_fc"].shape[-1],
+                deep_prompts):
+            # groups of G blocks, the last one possibly shorter; the deep prompts
+            # and the extra tokens are injected inside the group (under "xla" the
+            # JAX package never groups: clip_model.py:220-230)
+            G = fused_block_group_size()
+            for s in range(0, len(blocks), G):
+                flags = [1 <= i <= len(deep_prompts) for i in range(s, min(s + G, len(blocks)))]
+                prompts = [deep_prompts[i - 1].to(dtype)
+                           for i, f in zip(range(s, s + G), flags) if f]
+                x = residual_block_group(x, blocks[s:s + G], cfg.vision_heads, flags, prompts,
+                                         extra_tokens if any(flags) else None)
+        else:
+            for i, blk in enumerate(blocks):
+                if 1 <= i <= len(deep_prompts):
+                    tail = [_broadcast_prompt(deep_prompts[i - 1], B, dtype)]
+                    if extra_tokens is not None:
+                        tail.append(extra_tokens)
+                    x = torch.cat([x[:, : x.shape[1] - n_tail], *tail], dim=1)
+                x = block_forward(x, blk, cfg.vision_heads, remat=remat, inference=inference)
 
-    pooled = layer_norm(x[:, 0, :], params["ln_post"])
-    # fp32 products of the storage dtype's values, fp32 result
-    return torch.matmul(pooled.float(), params["proj"].to(dtype).float())
+        pooled = layer_norm(x[:, 0, :], params["ln_post"])
+        # fp32 products of the storage dtype's values, fp32 result
+        out = torch.matmul(pooled.float(), params["proj"].to(dtype).float())
+        return span_boundary("vision_tower", out, entry=False)[0]
 
 
 def encode_image_auto(params, cfg: CLIPConfig, images: torch.Tensor, **prompt_kwargs):
@@ -260,43 +268,47 @@ def encode_text_embedded(
     block-causal mask (the same per-sequence math, in attention-sized
     rows); with it off, every sequence is its own row under a causal
     mask. ``remat`` recomputes each block in the backward
-    (:func:`block_forward`)."""
-    if max_len is not None and prompts.shape[1] > max_len:
-        prompts = prompts[:, :max_len]
-    dtype = params["text_projection"].dtype
-    pos = params["positional_embedding"][: prompts.shape[1]]
-    x = prompts.to(dtype) + pos.to(dtype)[None]
+    (:func:`block_forward`). Spans: ``text_tower``, and in the backward
+    ``text_tower.backward``."""
+    with span("text_tower"):
+        params, prompts, deep_prompts = span_boundary(
+            "text_tower", params, prompts, deep_prompts, entry=True)
+        if max_len is not None and prompts.shape[1] > max_len:
+            prompts = prompts[:, :max_len]
+        dtype = params["text_projection"].dtype
+        pos = params["positional_embedding"][: prompts.shape[1]]
+        x = prompts.to(dtype) + pos.to(dtype)[None]
 
-    N, T, d = x.shape
-    P, G = text_pack_layout(N, T, pack)
-    deep_prompts = deep_prompts or []
-    if P >= 2:
-        n_pad = G * P
-        if n_pad != N:
-            x = torch.cat([x, x.new_zeros(n_pad - N, T, d)], dim=0)
-        mask = build_block_causal_mask(P, T, device=x.device)
-        x = x.reshape(G, P * T, d)
-    else:
-        n_pad = N
-        mask = build_causal_mask(T, device=x.device)
+        N, T, d = x.shape
+        P, G = text_pack_layout(N, T, pack)
+        deep_prompts = deep_prompts or []
+        if P >= 2:
+            n_pad = G * P
+            if n_pad != N:
+                x = torch.cat([x, x.new_zeros(n_pad - N, T, d)], dim=0)
+            mask = build_block_causal_mask(P, T, device=x.device)
+            x = x.reshape(G, P * T, d)
+        else:
+            n_pad = N
+            mask = build_causal_mask(T, device=x.device)
 
-    for i, blk in enumerate(params["blocks"]):
-        if 1 <= i <= len(deep_prompts):
-            p = deep_prompts[i - 1]
-            if p.ndim == 3 and p.shape[0] == N and n_pad != N:
-                p = torch.cat([p, p.new_zeros(n_pad - N, *p.shape[1:])], dim=0)
-            p = _broadcast_prompt(p, n_pad, dtype)
-            n_ctx = p.shape[1]
-            xs = x.reshape(n_pad, T, d)
-            xs = torch.cat([xs[:, :1], p, xs[:, 1 + n_ctx:]], dim=1)
-            x = xs.reshape(x.shape)
-        x = block_forward(x, blk, cfg.transformer_heads, mask, remat=remat)
+        for i, blk in enumerate(params["blocks"]):
+            if 1 <= i <= len(deep_prompts):
+                p = deep_prompts[i - 1]
+                if p.ndim == 3 and p.shape[0] == N and n_pad != N:
+                    p = torch.cat([p, p.new_zeros(n_pad - N, *p.shape[1:])], dim=0)
+                p = _broadcast_prompt(p, n_pad, dtype)
+                n_ctx = p.shape[1]
+                xs = x.reshape(n_pad, T, d)
+                xs = torch.cat([xs[:, :1], p, xs[:, 1 + n_ctx:]], dim=1)
+                x = xs.reshape(x.shape)
+            x = block_forward(x, blk, cfg.transformer_heads, mask, remat=remat)
 
-    x = x.reshape(n_pad, T, d)[:N]
-    x = layer_norm(x, params["ln_final"])
-    pooled = x[torch.arange(N, device=x.device), eot_index.long()]
-    return torch.matmul(pooled.float(),
-                        params["text_projection"].to(dtype).float())
+        x = x.reshape(n_pad, T, d)[:N]
+        x = layer_norm(x, params["ln_final"])
+        pooled = x[torch.arange(N, device=x.device), eot_index.long()]
+        out = torch.matmul(pooled.float(), params["text_projection"].to(dtype).float())
+        return span_boundary("text_tower", out, entry=False)[0]
 
 
 def encode_text_tokens(params, cfg: CLIPConfig, tokens: torch.Tensor,

@@ -74,6 +74,8 @@ _SIGNATURES = {
     "fmm_gemm_nt_f32": [_P, _P, _P, _I, _I, _I, _P],
     # qkv, out, B, T, D, H, valid_T, scale, stream
     "fmm_attention_pair": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # span id, opens (1) or closes (0), stream (utils/profiling.py's markers)
+    "fmm_span_mark": [_I, _I, _P],
 }
 
 # Launches of each CUDA kernel since the last reset, by entry point.
@@ -174,6 +176,11 @@ def library():
             getattr(lib, name).restype = ctypes.c_int
         lib.fmm_error_string.argtypes = [ctypes.c_int]
         lib.fmm_error_string.restype = ctypes.c_char_p
+        lib.fmm_span_prepare.restype = ctypes.c_int
+        err = lib.fmm_span_prepare()
+        if err != 0:
+            raise RuntimeError(
+                f"fmm_span_prepare: CUDA error {err} ({lib.fmm_error_string(err).decode()})")
         _lib = lib
     return _lib
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from federated_multi_modal_tpu_torch.utils.profiling import span
+
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
@@ -50,17 +52,18 @@ def crop_resize_flip_normalize(canvas: torch.Tensor, boxes: torch.Tensor,
                                mean=CLIP_MEAN, std=CLIP_STD) -> torch.Tensor:
     """``canvas (B, S, S, 3)`` uint8, ``boxes (B, 4)`` fp32 ``(y0, x0, h,
     w)`` in canvas pixels, ``flips (B,)`` bool -> ``(B, out_size, out_size,
-    3)`` bf16 CLIP-normalized images."""
-    S = canvas.shape[1]
-    imgs = canvas.float() * (1.0 / 255.0)
-    boxes = boxes.float()
-    wy = _resample_matrix(S, out_size, boxes[:, 0], boxes[:, 2])  # (B, O, S)
-    wx = _resample_matrix(S, out_size, boxes[:, 1], boxes[:, 3])
-    tmp = torch.einsum("bos,bshc->bohc", wy, imgs)  # rows
-    out = torch.einsum("bwt,botc->bowc", wx, tmp)  # columns
-    out = torch.where(flips[:, None, None, None], out.flip(2), out)
-    return ((out - _channel_constant(mean, out.device))
-            / _channel_constant(std, out.device)).to(torch.bfloat16)
+    3)`` bf16 CLIP-normalized images (span ``crop``)."""
+    with span("crop"):
+        S = canvas.shape[1]
+        imgs = canvas.float() * (1.0 / 255.0)
+        boxes = boxes.float()
+        wy = _resample_matrix(S, out_size, boxes[:, 0], boxes[:, 2])  # (B, O, S)
+        wx = _resample_matrix(S, out_size, boxes[:, 1], boxes[:, 3])
+        tmp = torch.einsum("bos,bshc->bohc", wy, imgs)  # rows
+        out = torch.einsum("bwt,botc->bowc", wx, tmp)  # columns
+        out = torch.where(flips[:, None, None, None], out.flip(2), out)
+        return ((out - _channel_constant(mean, out.device))
+                / _channel_constant(std, out.device)).to(torch.bfloat16)
 
 
 def _channel_constant(values, device) -> torch.Tensor:

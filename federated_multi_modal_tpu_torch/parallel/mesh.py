@@ -35,6 +35,7 @@ from federated_multi_modal_tpu_torch.engine.tree import (
     tree_map_with_path,
 )
 from federated_multi_modal_tpu_torch.parallel import multihost
+from federated_multi_modal_tpu_torch.utils.profiling import span
 
 
 class ClientMesh:
@@ -378,19 +379,21 @@ class StepGraph:
         return outs
 
     def replay(self) -> None:
-        home_stream = torch.cuda.current_stream(self.home)
-        for kind, item in self.program:
-            if kind == "home":
-                item.replay()
-                continue
-            for d, stream, copies_in, graph, copies_out in item:
-                stream.wait_stream(home_stream)
-                stream.wait_stream(torch.cuda.current_stream(d))
-                with torch.cuda.stream(stream):
-                    for src, dst in copies_in:
-                        dst.copy_(src)
-                    graph.replay()
-                    for src, dst in copies_out:
-                        dst.copy_(src)
-            for _, stream, *_ in item:
-                _join(stream, self.home)
+        """The captured step once (the host range ``replay``, no marker)."""
+        with span("replay", marker=False):
+            home_stream = torch.cuda.current_stream(self.home)
+            for kind, item in self.program:
+                if kind == "home":
+                    item.replay()
+                    continue
+                for d, stream, copies_in, graph, copies_out in item:
+                    stream.wait_stream(home_stream)
+                    stream.wait_stream(torch.cuda.current_stream(d))
+                    with torch.cuda.stream(stream):
+                        for src, dst in copies_in:
+                            dst.copy_(src)
+                        graph.replay()
+                        for src, dst in copies_out:
+                            dst.copy_(src)
+                for _, stream, *_ in item:
+                    _join(stream, self.home)

@@ -52,6 +52,7 @@ from federated_multi_modal_tpu_torch.trainers.common import (
     linear_params,
     random_ctx_vectors,
 )
+from federated_multi_modal_tpu_torch.utils.profiling import span, span_boundary
 
 
 @functools.lru_cache(maxsize=65536)
@@ -129,36 +130,44 @@ def init_maple_prompt_learner(generator: torch.Generator, arch, n_ctx: int,
 
 def maple_prompts(pl: dict, prefix, suffix, depth: int):
     """The prompt learner's forward: the assembled text prompts, the shared
-    vision context and the coupled deep prompt lists."""
-    text_deep: List = [None] * (depth - 1)
-    vis_deep: List = [None] * (depth - 1)
-    ti = vi = 0
-    for i in range(depth - 1):
-        proj = pl["couplers"][i]
-        if i % 2 == 0:
-            p = pl["text_deep_params"][ti]
-            vis_deep[i] = apply_linear(proj, p)
-            text_deep[i] = p
-            ti += 1
-        else:
-            p = pl["vis_deep_params"][vi]
-            text_deep[i] = apply_linear(proj, p)
-            vis_deep[i] = p
-            vi += 1
-    shared_ctx = apply_linear(pl["proj_lang_to_vis"], pl["ctx"])
-    prompts = assemble_prompts_end(pl["ctx"], prefix, suffix)
-    return prompts, shared_ctx, text_deep, vis_deep
+    vision context and the coupled deep prompt lists (span
+    ``prompt_learner``, its backward ``prompt_learner.backward``)."""
+    with span("prompt_learner"):
+        (pl,) = span_boundary("prompt_learner", pl, entry=True)
+        text_deep: List = [None] * (depth - 1)
+        vis_deep: List = [None] * (depth - 1)
+        ti = vi = 0
+        for i in range(depth - 1):
+            proj = pl["couplers"][i]
+            if i % 2 == 0:
+                p = pl["text_deep_params"][ti]
+                vis_deep[i] = apply_linear(proj, p)
+                text_deep[i] = p
+                ti += 1
+            else:
+                p = pl["vis_deep_params"][vi]
+                text_deep[i] = apply_linear(proj, p)
+                vis_deep[i] = p
+                vi += 1
+        shared_ctx = apply_linear(pl["proj_lang_to_vis"], pl["ctx"])
+        prompts = assemble_prompts_end(pl["ctx"], prefix, suffix)
+        return span_boundary("prompt_learner", prompts, shared_ctx, text_deep, vis_deep,
+                             entry=False)
 
 
 def caption_tokens_to_extra(pl: dict, text_params, caption_tokens):
     """Pool the frozen caption embeddings into one vision-width token per
     image: ``(B, 77)`` token ids -> ``(B, 1, width)`` fp32. The embeddings
-    get no gradient; the pooling softmax runs in fp32."""
-    emb = embed_tokens(text_params, caption_tokens).detach().float()  # (B, 77, d)
-    scores = torch.einsum("btd,d->bt", emb, pl["caption_pool_w"].float())
-    probs = torch.softmax(scores, dim=1)
-    pooled = torch.einsum("btd,bt->bd", emb, probs)
-    return apply_linear(pl["caption_proj"], pooled)[:, None, :]
+    get no gradient; the pooling softmax runs in fp32. A second
+    ``prompt_learner`` span, as :func:`maple_prompts`."""
+    with span("prompt_learner"):
+        (pl,) = span_boundary("prompt_learner", pl, entry=True)
+        emb = embed_tokens(text_params, caption_tokens).detach().float()  # (B, 77, d)
+        scores = torch.einsum("btd,d->bt", emb, pl["caption_pool_w"].float())
+        probs = torch.softmax(scores, dim=1)
+        pooled = torch.einsum("btd,bt->bd", emb, probs)
+        extra = apply_linear(pl["caption_proj"], pooled)[:, None, :]
+        return span_boundary("prompt_learner", extra, entry=False)[0]
 
 
 def make_maple_eval_fns(arch, depth: int, text_len: int):
@@ -186,7 +195,8 @@ def make_maple_eval_fns(arch, depth: int, text_len: int):
             m["clip"]["visual"], arch, images,
             shallow_prompts=prep["shared_ctx"],
             deep_prompts=prep["vis_deep"], inference=True)
-        return prep["scale"] * l2_normalize(img) @ prep["txt_n"].T
+        with span("logits"):
+            return prep["scale"] * l2_normalize(img) @ prep["txt_n"].T
 
     return eval_prepare_fn, eval_apply_fn
 
@@ -198,9 +208,12 @@ def make_maple_model_fns(arch, depth: int, text_len: int, use_captions: bool,
     towers in the backward (``TPU.REMAT``). ``loss_fn(trainable, frozen, batch) ->
     (loss, {"acc", "align"})`` for ``batch`` holding ``image (B, H, W, 3)``,
     ``label (B,)`` and optionally ``caption_tokens (B, 77)`` and
-    ``soft_label (B, n_cls)`` (the KL branch)."""
+    ``soft_label (B, n_cls)`` (the KL branch). The loss from the towers'
+    features on is span ``loss`` (its backward ``loss.backward``)."""
 
     def features(trainable, frozen, images, caption_tokens=None):
+        """``(image features, text features, logit_scale)``, before the
+        normalisation."""
         m = merge_trees(trainable, frozen["model"])
         pc = frozen["prompt_const"]
         prompts, shared_ctx, text_deep, vis_deep = maple_prompts(
@@ -215,29 +228,35 @@ def make_maple_model_fns(arch, depth: int, text_len: int, use_captions: bool,
         img = encode_image(
             m["clip"]["visual"], arch, images, shallow_prompts=shared_ctx,
             deep_prompts=vis_deep, extra_tokens=extra, remat=remat)
-        scale = torch.clamp(torch.exp(m["clip"]["logit_scale"].float()), max=100.0)
-        return l2_normalize(img), l2_normalize(txt), scale
+        return img, txt, m["clip"]["logit_scale"]
+
+    def scaled(logit_scale):
+        return torch.clamp(torch.exp(logit_scale.float()), max=100.0)
 
     def logits_fn(trainable, frozen, images):
-        img_n, txt_n, scale = features(trainable, frozen, images)
-        return scale * img_n @ txt_n.T
+        img, txt, logit_scale = features(trainable, frozen, images)
+        return scaled(logit_scale) * l2_normalize(img) @ l2_normalize(txt).T
 
     def loss_fn(trainable, frozen, batch):
-        img_n, txt_n, scale = features(
+        img, txt, logit_scale = features(
             trainable, frozen, batch["image"], batch.get("caption_tokens"))
-        logits = scale * img_n @ txt_n.T
-        labels = batch["label"].long()
-        if "soft_label" in batch:
-            target = torch.clamp(batch["soft_label"], min=1e-8)
-            logp = torch.log_softmax(logits, dim=1)
-            loss = (target * (torch.log(target) - logp)).sum(1).mean()
-            txt_sel = target @ txt_n
-        else:
-            loss = torch.nn.functional.cross_entropy(logits, labels)
-            txt_sel = txt_n[labels]
-        alignment = 1.0 - (img_n * txt_sel).sum(-1).mean()
-        acc = (logits.argmax(-1) == labels).float().mean()
-        return loss + align_lambda * alignment, {"acc": acc * 100.0, "align": alignment}
+        with span("loss"):
+            img, txt = span_boundary("loss", img, txt, entry=True)
+            img_n, txt_n = l2_normalize(img), l2_normalize(txt)
+            logits = scaled(logit_scale) * img_n @ txt_n.T
+            labels = batch["label"].long()
+            if "soft_label" in batch:
+                target = torch.clamp(batch["soft_label"], min=1e-8)
+                logp = torch.log_softmax(logits, dim=1)
+                loss = (target * (torch.log(target) - logp)).sum(1).mean()
+                txt_sel = target @ txt_n
+            else:
+                loss = torch.nn.functional.cross_entropy(logits, labels)
+                txt_sel = txt_n[labels]
+            alignment = 1.0 - (img_n * txt_sel).sum(-1).mean()
+            acc = (logits.argmax(-1) == labels).float().mean()
+            total = span_boundary("loss", loss + align_lambda * alignment, entry=False)[0]
+            return total, {"acc": acc * 100.0, "align": alignment}
 
     return logits_fn, loss_fn
 

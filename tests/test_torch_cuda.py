@@ -2035,3 +2035,72 @@ def test_capture_of_a_replica_host_read_fails_loudly(gen):
                           timeout=300, cwd=root)
     assert "raised: --dispatch scan: the step cannot be captured" in proc.stdout, \
         proc.stdout + proc.stderr[-2000:]
+
+
+def test_captured_step_marks_its_spans_in_every_replay(gen, monkeypatch):
+    """A MaPLe train step (Tiny, batch 8, captions, the crop drawn on the
+    card, the engine's step with its clip and SGD) captured by
+    ``capture_step``: the spans' markers launched during the capture nest as
+    the program's spans do, and three replays under ``torch.profiler`` run
+    every marker once each, in capture order, under names that decode to
+    ``SPANS``."""
+    import re
+
+    from test_torch_spans import TRAIN_TREE, _flat
+
+    from federated_multi_modal_tpu_torch import bench
+    from federated_multi_modal_tpu_torch.engine.optim import build_optimizer
+    from federated_multi_modal_tpu_torch.engine.trainer import make_train_step_with_aux
+    from federated_multi_modal_tpu_torch.flagship import build_maple_program
+    from federated_multi_modal_tpu_torch.ops.preprocess import (
+        crop_resize_flip_normalize,
+        sample_rrc_boxes_torch,
+    )
+    from federated_multi_modal_tpu_torch.tokenizer import tokenize
+    from federated_multi_modal_tpu_torch.utils import profiling
+
+    B = 8
+    prog = build_maple_program("Tiny", classnames=[f"class {i}" for i in range(10)], depth=3)
+    tx = build_optimizer(lr=0.0026, clip=1.0)
+    engine_step = make_train_step_with_aux(prog["loss_fn"], tx)
+    canvas = torch.randint(0, 255, (B, 256, 256, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 10, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    captions = torch.from_numpy(tokenize(["a satellite photo of a scene"] * B)).cuda()
+    draws = torch.Generator(device="cuda").manual_seed(0)
+
+    def step(state, run):
+        boxes, flips = sample_rrc_boxes_torch(draws, B)
+        batch = {"image": crop_resize_flip_normalize(canvas, boxes, flips,
+                                                     out_size=prog["arch"].image_resolution),
+                 "label": labels, "caption_tokens": captions}
+        tr, opt, loss, _, _ = engine_step(state[0], prog["frozen"], state[1], batch)
+        return (tr, opt), loss
+
+    captured = []
+    launch = profiling._launch_marker
+
+    def record(span_id, opening):
+        captured.append((profiling.SPANS[span_id], opening))
+        launch(span_id, opening)
+
+    monkeypatch.setattr(profiling, "_launch_marker", record)
+    graph, _, _ = bench.capture_step(step, (prog["trainable"], tx.init(prog["trainable"])),
+                                     (draws,))
+    monkeypatch.setattr(profiling, "_launch_marker", launch)
+    assert captured == _flat([("step", TRAIN_TREE)])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    pattern = re.compile(r"span_marker<(\d+), (true|false)>")
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = sorted((e.start_ns(), pattern.search(e.name())) for e in
+                  prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda and pattern.search(e.name()))
+    got = [(profiling.SPANS[int(m.group(1))], m.group(2) == "true") for _, m in seen]
+    assert got == captured * 3
+    host = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "replay" in host

@@ -15,6 +15,7 @@ through ``MODEL.BACKBONE.WEIGHTS_PATH`` and ``MODEL.INIT_WEIGHTS`` as in
 
 import contextlib
 import io
+import json
 import os
 import re
 import shutil
@@ -583,7 +584,8 @@ def test_maple_trainer_reads_remat_and_profile_dir(weights, tmp_path, monkeypatc
     """A MaPLe trainer built with ``TPU.REMAT True`` and
     ``TRAIN.PROFILE_DIR``: its train step runs every block under
     ``torch.utils.checkpoint``, and an epoch writes a ``torch.profiler``
-    trace into the directory."""
+    trace into the directory, which holds the train step's span ranges
+    (``utils/profiling.py``)."""
     cfg = _cfg(get_cfg_default, weights[1], tmp_path / "out", weights[0])
     cfg.TRAINER.NAME = "MaPLe"
     cfg.TPU.REMAT = True
@@ -598,7 +600,13 @@ def test_maple_trainer_reads_remat_and_profile_dir(weights, tmp_path, monkeypatc
     arch = trainer.arch
     steps = len(trainer.train_loader_x)
     assert len(calls) == steps * (arch.vision_layers + arch.transformer_layers) > 0
-    assert list((tmp_path / "trace").glob("*.pt.trace.json"))
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert traces
+    names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    want = {"forward_backward", "prompt_learner", "text_tower", "vision_tower", "loss",
+            "backward", "update", "prompt_learner.backward", "text_tower.backward",
+            "vision_tower.backward", "loss.backward"}
+    assert want <= names, want - names
 
 
 def test_run_replicas_over_a_device_named_twice():
