@@ -496,24 +496,24 @@ def profile_by_kernel(fn, label: str, top: int = 10) -> dict:
 ATTN_TILE = 64  # query or key rows per block (am::kTile, csrc/attn_mma.cuh)
 
 
-def forward_variant_ms(qkv, n_head: int, mask, key_tiles: tuple) -> dict:
-    """``attention_core.cu`` at this shape with each variant in
-    ``key_tiles`` forced (0: two passes; 2 or 4: one pass with that many key
-    tiles in registers, where they hold the row), timed in two interleaved
-    rounds, so that the
-    spread between rounds shows beside the difference between variants;
-    the variant the kernel chooses is marked."""
+def forward_variant_ms(qkv, n_head: int, mask, held: tuple) -> dict:
+    """``attention_core.cu`` at this shape with each variant in ``held``
+    forced (0: two passes; else one pass holding that many keys in
+    registers: 128 or 256 with a mask, 128, 208 or 272 on fp64 operands
+    without, where they cover the row), timed in two interleaved rounds, so
+    that the spread between rounds shows beside the difference between
+    variants; the variant the kernel chooses is marked."""
     from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
 
     T, hd = qkv.shape[1], qkv.shape[2] // 3 // n_head
-    chosen = k_attn.attention_core_key_tiles(hd, T)
-    # one pass holds its key tiles' scores in registers: at most 256 keys
-    key_tiles = tuple(kt for kt in key_tiles if kt * ATTN_TILE >= T or not kt)
-    names = {kt: (f"one pass, {kt} key tiles" if kt else "two passes")
-             + (" (chosen)" if kt == chosen else "") for kt in key_tiles}
+    chosen = k_attn.attention_core_held_keys(hd, T, mask is not None)
+    held = tuple(kt for kt in held if kt >= T or not kt)
+    names = {kt: (f"one pass, {kt} keys" + ("" if mask is not None else " on fp64 operands")
+                  if kt else "two passes") + (" (chosen)" if kt == chosen else "")
+             for kt in held}
     out = {name: [] for name in names.values()}
     for _ in range(2):
-        for kt in key_tiles:
+        for kt in held:
             out[names[kt]].append(cuda_ms(
                 lambda kt=kt: k_attn._attention_core_cuda_forced(qkv, n_head, kt, mask), 20))
     return out
@@ -547,8 +547,8 @@ def attention_resources(build_log: str, rows: list) -> dict:
     ptxas, entry = {}, None  # (kernel name, template arguments): registers, spills
     for line in build_log.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"(attention_core_bwd_[a-z]+|attention_split|attention_core|"
-                          r"attention_pair)_kernelI((?:L[ib]\d+E)+)E", line)
+            m = re.search(r"(attention_core_bwd_[a-z]+|attention_core_f64|attention_split|"
+                          r"attention_core|attention_pair)_kernelI((?:L[ib]\d+E)+)E", line)
             entry = m and (m[1], tuple(int(v) for v in re.findall(r"L[ib](\d+)E", m[2])))
             g = re.search(r"gemm_epilogue_kernelILi(\d+)ELi(\d+)EE", line)
             if g:
@@ -576,11 +576,16 @@ def attention_resources(build_log: str, rows: list) -> dict:
 
     def forward(label, B, T, D, H, masked):
         hd = D // H
-        kt = k_attn.attention_core_key_tiles(hd, T)
-        variant = f"one pass, {kt} key tiles" if kt else "two passes"
-        shapes[label] = (tiles(B, T, H), masked, {f"attention_core<{hd}>, {variant}": (
-            ("attention_core", (hd, int(masked), kt)), "fmm_attention_core_blocks_per_sm",
-            hd + 256 * kt)})
+        held = k_attn.attention_core_held_keys(hd, T, masked)
+        if held and not masked:  # attention_core_f64_kernel<hd, 8-key tiles>
+            name, key = f"attention_core_f64<{hd}>, {held} keys", ("attention_core_f64",
+                                                                     (hd, held // 8))
+        else:  # attention_core_kernel<hd, masked, 64-key tiles>
+            name = f"attention_core<{hd}>, " + (f"one pass, {held} keys" if held
+                                                else "two passes")
+            key = ("attention_core", (hd, int(masked), held // ATTN_TILE))
+        shapes[label] = (tiles(B, T, H), masked, {name: (
+            key, "fmm_attention_core_blocks_per_sm", hd + 256 * held)})
 
     for row in rows:
         source = row["source"].rsplit("/", 1)[1]
@@ -1776,7 +1781,7 @@ def k2_checks_and_rows(qkv_e, qkv, g, n: int, launches: int, backward_launches: 
     k2_plain_ms = cuda_ms(lambda: k_attn.attention_core_reference(qkv, n), 5, 1)
     # the kernel with one pass and two passes forced, and K8's two-pass
     # kernel on the column views of the same packed tensor (no copy)
-    k2_pass_ms = forward_variant_ms(qkv, n, None, (4, 0))
+    k2_pass_ms = forward_variant_ms(qkv, n, None, (208, 272, 0))
     q_cols, k_cols, v_cols = qkv.split(D3 // 3, dim=-1)
     k2_pass_ms["attention_split on the column views"] = cuda_ms(
         lambda: k_attn.fused_attention_cuda(q_cols, k_cols, v_cols, n), 20)
@@ -2536,7 +2541,7 @@ def zeroshot_phase(coop_prog, canvas, boxes, flips) -> tuple:
               4 * B1 * n * hd * int(torch.isfinite(mask).sum()))
     k1_times.update(bound_ms=b[0], bound_by=b[1], shape=[list(qkv.shape), list(mask.shape), n],
                     max_abs_err=k1["max_abs_err"],
-                    ms_by_passes=forward_variant_ms(qkv, n, mask, (2, 4, 0)),
+                    ms_by_passes=forward_variant_ms(qkv, n, mask, (128, 256, 0)),
                     library_call="scaled_dot_product_attention(is_causal=True)")
     print("K1 at the zero-shot shape:", json.dumps(k1_times))
     checks = [("K1 zero-shot shape", k1)]
@@ -7129,7 +7134,7 @@ def main() -> int:
     sdpa_mask = mask.to(qkv.dtype)
     k1_lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=sdpa_mask), 20)
-    k1_pass_ms = forward_variant_ms(qkv, n_head_t, mask, (2, 4, 0))
+    k1_pass_ms = forward_variant_ms(qkv, n_head_t, mask, (128, 256, 0))
     print("K1 with one pass and two passes forced, ms:", json.dumps(k1_pass_ms))
     finite_pairs = int(torch.isfinite(mask).sum())
     k1_bound = bound(

@@ -11,25 +11,29 @@
 // PyTorch's does, not __expf and a reciprocal.
 //
 // kExact (attention_core.cu, P1) sums q.k on the fp64 tensor cores
-// (mma.m8n8k4, am::mma_abt_exact), so each fp32 score is the correctly
-// rounded one, and adds each 16-key step of P.V to the fp32 accumulators
-// rounded to nearest (am::mma_rn); with a mask (K1: the text tower, whose
-// features reach the logits at CLIP's logit scale of 100) each step is
+// (mma.m8n8k4, am::mma_abt_exact, the bf16 fragments converted to fp64 in
+// the product's loop), so each fp32 score is the correctly rounded one, and
+// adds each 16-key step of P.V to the fp32 accumulators rounded to nearest
+// (am::mma_rn); attention_core.cu's instances without a mask take
+// attention_tile_f64 instead (the same numerics, its q.k on mma.m16n8k8
+// fp64 from tiles converted once a block). With a mask (K1: the text tower,
+// whose features reach the logits at CLIP's logit scale of 100) each step is
 // summed on the fp64 tensor cores first (am::mma_pv_exact), since the bf16
 // tensor cores' truncation within a step moved a trained 16-image step's
 // vision gradients 2.5x past their limit against an exact forward
 // (chip_smoke.py on an H100; a P.V in fp32 rounded to nearest read 0.36 of
-// it). attention_tile's two passes (rows past 256 keys at head widths up to
-// 64: ViT-L/14's 259 and 260 vision rows) sum P.V on the fp64 tensor cores
-// with or without a mask: through ViT-L/14's 24 vision blocks the truncation
-// put a trained 16-image step's vision gradients 1.57x past their limit
-// (0.80 for the fully plain path, 0.38-0.45 with the forward's P.V summed
-// exactly or in fp32; chip_smoke.py on an H100). p is rounded to bf16 right
-// after the softmax, and a score's last fp32 bit flips that rounding often
-// enough to move a 16-image train step's gradients past their limit against
-// a plain path with an exact forward (chip_smoke.py): the bf16 tensor cores'
-// sums truncate, and fp32 sums in cuBLAS's order (the plain version's) read
-// past that limit too.
+// it). attention_tile's two passes (rows past 256 keys, and wider heads)
+// sum P.V on the fp64 tensor cores with or without a mask: through
+// ViT-L/14's 24 vision blocks the truncation put a trained 16-image step's
+// vision gradients 1.57x past their limit (0.80 for the fully plain path,
+// 0.38-0.45 with the forward's P.V summed exactly or in fp32; chip_smoke.py
+// on an H100); ViT-L/14's 259 and 260 vision rows now take
+// attention_tile_f64's one pass, each 16-key step rounded to nearest. p is
+// rounded to bf16 right after the softmax, and a score's last fp32 bit flips
+// that rounding often enough to move a 16-image train step's gradients past
+// their limit against a plain path with an exact forward (chip_smoke.py):
+// the bf16 tensor cores' sums truncate, and fp32 sums in cuBLAS's order (the
+// plain version's) read past that limit too.
 // Without kExact (K8, which no train step reaches) both products run on the
 // bf16 tensor cores, each accumulator chained through the steps.
 //
@@ -337,6 +341,277 @@ __device__ __forceinline__ void attention_tile(const Tile& a, bf16* smem) {
     }
   }
   store_rows<HD>(o, a.out + col, a.out_stride, row0, a.T);
+}
+
+// A K tile of head width HD in fp64 in shared memory: kLd doubles a row,
+// so that the 16-byte loads of a quarter warp (lanes 4 g + t, g of two
+// adjacent rows, 2t + [0, 2) of an 8-column chunk) fall on all 32 banks.
+template <int HD>
+struct F64Tile {
+  static constexpr int kLd = HD % 16 == 8 ? HD : HD + 8;
+  static constexpr int kElems = am::kTile * kLd;
+};
+
+// The Q tile in fp64 with rows g and g + 8 of each warp's 16 side by side:
+// (16 w + 8 h + g, column c) at (8 w + g) kLd + 2 c + h, so that a lane's
+// m16n8k8 A operand (rows g and g + 8 at columns 2t and 2t + 1 of a chunk) is
+// one 32-byte run that two 16-byte loads bring in the instruction's order.
+// kLd = 2 HD + 2: the two adjacent double rows of a quarter warp start 16
+// bytes apart modulo 128 and interleave on the banks.
+template <int HD, int kWarps = am::kWarps>
+struct F64QTile {
+  static constexpr int kLd = 2 * HD + 2;
+  static constexpr int kElems = 8 * kWarps * kLd;
+};
+
+// The shape of attention_tile_f64's instance for rows of up to 8 kN8 keys.
+// Up to 208 keys (ViT-B/16's 200) the scores take 104 registers a thread or
+// fewer, and three blocks share an SM (12 warps; the registers capped at
+// 168, some scores spill to L1): the fp64 K tile holds half a key tile at a
+// time and the bf16 ring two stages (70,144 bytes at HD = 64). Past that
+// (ViT-L/14's 260 keys, 136 registers of scores) two blocks share it: a
+// whole fp64 key tile and four stages (107,008 bytes). On an H100 three
+// blocks an SM took ViT-B/16's launch from 1.89 to 1.73 ms, one block an SM
+// to 3.07. Blocks of one warp (kWarps = 1, a last tile of at most 16
+// queries) hold half a key tile and two stages, with up to 255 registers.
+template <int HD, int kN8, int kWarps = am::kWarps>
+struct F64Plan {
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr bool kThree = kN8 <= 26 || kWarps == 1;
+  static constexpr int kMinBlocks = kWarps == 1 ? 1 : kThree ? 3 : 2;
+  static constexpr int kKdRows = kThree ? am::kTile / 2 : am::kTile;
+  static constexpr int kStages = kThree ? 2 : 4;
+  static constexpr size_t kBytes =
+      (F64QTile<HD, kWarps>::kElems + kKdRows * F64Tile<HD>::kLd) * sizeof(double) +
+      kStages * Shape<HD>::kTileElems * sizeof(bf16);
+};
+
+// kRows rows of a bf16 ring stage (Shape<HD>::kLd a row) converted to an
+// fp64 K tile, by the block: each thread a bf16 pair into a 16-byte store, a
+// warp one run of consecutive pairs.
+template <int HD, int kRows, int kThreads>
+__device__ __forceinline__ void tile_to_f64(double* dst, const bf16* src) {
+  constexpr int kPairs = HD / 2;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kRows * kPairs; i += kThreads) {
+    const int r = i / kPairs;
+    const int c = 2 * (i - r * kPairs);
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(src + r * Shape<HD>::kLd + c));
+    *reinterpret_cast<double2*>(dst + r * F64Tile<HD>::kLd + c) = make_double2(v.x, v.y);
+  }
+}
+
+// The Q tile of a bf16 ring stage converted into the F64QTile layout, by
+// the block: each thread a column pair of rows r and r + 8 into two 16-byte
+// stores.
+template <int HD, int kWarps>
+__device__ __forceinline__ void q_to_f64(double* dst, const bf16* src) {
+  constexpr int kPairs = HD / 2;
+  for (int i = threadIdx.x; i < 8 * kWarps * kPairs; i += 32 * kWarps) {
+    const int p = i / kPairs;  // 8 w + g
+    const int c = 2 * (i - p * kPairs);
+    const int r = (p >> 3) * 16 + (p & 7);
+    const float2 top = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(src + r * Shape<HD>::kLd + c));
+    const float2 bottom = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(src + (r + 8) * Shape<HD>::kLd + c));
+    double2* out = reinterpret_cast<double2*>(dst + p * F64QTile<HD>::kLd + 2 * c);
+    out[0] = make_double2(top.x, bottom.x);
+    out[1] = make_double2(top.y, bottom.y);
+  }
+}
+
+// One warp's exact scores against kN 8-key tiles of an fp64 K tile: out[nt]
+// = fp32(q.k) * scale for rows row0 + [0, 16) (A operands at qa: this
+// lane's F64QTile run) and keys col0 + 8 nt + [0, 8) (B operands at kb: the
+// tile's row of key col0 + g, column 2t); -inf past T, past n_keys and for
+// nt >= n_live. Every product on the fp64 tensor cores (am::dmma_k8): the
+// bf16 products are exact in fp64 and each sum of up to 128 of them is
+// rounded to 53 bits, so fp32(q.k) is the correctly rounded score unless
+// the exact sum lies within ~2^-46 of its largest partial sum of a rounding
+// boundary.
+template <int HD, int kN>
+__device__ __forceinline__ void f64_scores(float (&out)[kN][4], const double* qa,
+                                           const double* kb, int row0, int col0, int T,
+                                           int n_keys, float scale, int n_live) {
+  const int lane = threadIdx.x & 31;
+  double d[kN][4];
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[nt][e] = 0.0;
+#pragma unroll 1
+  for (int c = 0; c < HD / 8; ++c) {
+    const double2 a01 = am::lds_f64x2(qa + 16 * c);
+    const double2 a23 = am::lds_f64x2(qa + 16 * c + 2);
+#pragma unroll
+    for (int nt = 0; nt < kN; ++nt)
+      if (nt < n_live)
+        am::dmma_k8(d[nt], a01, a23, am::lds_f64x2(kb + nt * 8 * F64Tile<HD>::kLd + 8 * c));
+  }
+#pragma unroll
+  for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + (lane >> 2) + 8 * (e >> 1);
+      const int col = col0 + nt * 8 + 2 * (lane & 3) + (e & 1);
+      out[nt][e] = nt < n_live && row < T && col < n_keys
+                       ? static_cast<float>(d[nt][e]) * scale
+                       : -CUDART_INF_F;
+    }
+}
+
+// The exact forward without a mask in one pass (attention_core.cu's vision
+// instances): one block of 4 warps per 64-query tile, each warp 16 rows;
+// its scores of up to 8 kN8 keys (n_keys <= 8 kN8) stay in registers,
+// s[i] the 8-key tile i. The block converts the Q tile to fp64 once and
+// each K tile once, into shared memory, and every warp feeds the fp64
+// tensor cores (f64_scores) from those tiles with 16-byte loads: no
+// conversion in the product's loop. Then the row max and sum over every
+// key, p = bf16(expf(s - m) / l), and P.V on the bf16 tensor cores with
+// each 16-key step added rounded to nearest. The K tiles and then the V
+// tiles stream through a ring of kStages bf16 stages, kStages - 1 tiles
+// ahead of the one in use. Rows at or past T are not written; keys at or
+// past n_keys are -inf (K and V rows past n_keys read as zeros).
+template <int HD, int kN8, int kWarps = am::kWarps>
+__device__ __forceinline__ void attention_tile_f64(const Tile& a, unsigned char* smem) {
+  static_assert(kN8 % 2 == 0 && HD <= 64, "16-key steps of P.V; Q.K^T unpadded");
+  using S = Shape<HD>;
+  using F = F64Tile<HD>;
+  constexpr int E = S::kTileElems;
+  using P = F64Plan<HD, kN8, kWarps>;
+  constexpr int kThreads = P::kThreads;
+  constexpr int kStages = P::kStages;
+  constexpr int kKt = (kN8 + 7) / 8;  // key tiles the registers hold
+  double* qd = reinterpret_cast<double*>(smem);
+  double* kd = qd + F64QTile<HD, kWarps>::kElems;
+  bf16* ring = reinterpret_cast<bf16*>(kd + P::kKdRows * F::kLd);
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int n_kt = (a.n_keys + am::kTile - 1) / am::kTile;
+  const int q_row = warp * 16;
+  const int row0 = a.q0 + q_row;
+  const bool rows_live = row0 < a.T;  // a warp wholly past T only copies
+
+  // Tile it of [0, 2 n_kt) (K tiles, then V tiles) goes to stage it %
+  // kStages; one copy group each, empty past the last tile.
+  auto issue = [&](int it) {
+    if (it < 2 * n_kt) {
+      const bool v = it >= n_kt;
+      am::load_tile<HD, kThreads>(ring + (it % kStages) * E, S::kLd, v ? a.v : a.k,
+                        v ? a.v_stride : a.k_stride, (v ? it - n_kt : it) * am::kTile,
+                        a.n_keys);
+    }
+    am::cp_async_commit();
+  };
+  // Wait for tile it (the kStages - 2 after it may be in flight), with every
+  // warp past its use of tile it - 1, then put tile it + kStages - 1 into
+  // that tile's stage.
+  auto arrive = [&](int it) {
+    am::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(it + kStages - 1);
+  };
+  // Q into the last stage, tiles [0, kStages - 1) into the others; Q
+  // converted once.
+  am::load_tile<HD, kThreads>(ring + (kStages - 1) * E, S::kLd, a.q, a.q_stride, a.q0, a.T,
+                              16 * kWarps);
+  am::cp_async_commit();
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) issue(it);
+  am::cp_async_wait<kStages - 1>();
+  __syncthreads();
+  q_to_f64<HD, kWarps>(qd, ring + (kStages - 1) * E);
+  const double* qa = qd + (q_row / 2 + g) * F64QTile<HD>::kLd + 4 * t;
+
+  float s[kN8][4];
+#pragma unroll
+  for (int j = 0; j < kKt; ++j) {
+    if (j < n_kt) {
+      arrive(j);
+      const bf16* stage = ring + (j % kStages) * E;
+      if (P::kKdRows == am::kTile) {
+        tile_to_f64<HD, am::kTile, kThreads>(kd, stage);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (8 * j + 4 * half >= kN8) break;
+        const double* kb = kd + (32 * half + g) * F::kLd + 2 * t;
+        if (P::kKdRows < am::kTile) {  // this half of the tile alone
+          if (half) __syncthreads();   // every warp is past the first half
+          tile_to_f64<HD, am::kTile / 2, kThreads>(kd, stage + 32 * half * S::kLd);
+          __syncthreads();
+          kb = kd + g * F::kLd + 2 * t;
+        }
+        const int i0 = 8 * j + 4 * half;
+        if (rows_live) {
+          float h[4][4];
+          f64_scores<HD, 4>(h, qa, kb, row0, 8 * i0, a.T, a.n_keys, a.scale,
+                            i0 * 8 < a.n_keys ? kN8 - i0 : 0);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            if (i0 + nt < kN8)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[i0 + nt][e] = h[nt][e];
+        }
+      }
+    }
+  }
+  // The row max and sum over every key, then p = bf16(exp(s - m) / l).
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  float r[2];
+  if (rows_live) {
+#pragma unroll
+    for (int i = 0; i < kN8; ++i)
+      if (i < 8 * n_kt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[i][e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = am::quad_max(m[h]);
+      if (m[h] == -CUDART_INF_F) m[h] = 0.f;  // a row with no finite score
+    }
+#pragma unroll
+    for (int i = 0; i < kN8; ++i)
+      if (i < 8 * n_kt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][e] = expf(s[i][e] - m[e >> 1]);
+          l[e >> 1] += s[i][e];
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = am::quad_sum(l[h]);
+      r[h] = 1.f / l[h];
+    }
+  }
+  float o[S::kNt][4];
+#pragma unroll
+  for (int nt = 0; nt < S::kNt; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kKt; ++j) {
+    if (j < n_kt) {
+      arrive(n_kt + j);
+      if (rows_live) {
+        constexpr int kLast = kN8 - 8 * (kKt - 1);  // 8-key tiles of the last key tile
+        const int n8 = j < kKt - 1 ? 8 : kLast;
+#pragma unroll
+        for (int i = 8 * j; i < 8 * j + 8; ++i)
+          if (i < kN8)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[i][e] = div_by(s[i][e], l[e >> 1], r[e >> 1]);
+        am::mma_pv<S::kNt, true>(o, s, ring + ((n_kt + j) % kStages) * E, S::kLd, 8 * j, n8);
+      }
+    }
+  }
+  if (rows_live) store_rows<HD>(o, a.out, a.out_stride, row0, a.T);
 }
 
 // One warp's query rows [row0, row0 + 16) (the same rows of qs) against

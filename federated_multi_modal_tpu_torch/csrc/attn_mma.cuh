@@ -88,15 +88,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Rows [row0, row0 + kTile) of a (T, stride) bf16 matrix at src, its first
-// kCols columns (a multiple of 8), into dst (kTile rows of ld elements), by
+// Rows [row0, row0 + n_rows) of a (T, stride) bf16 matrix at src, its first
+// kCols columns (a multiple of 8), into dst (n_rows rows of ld elements), by
 // the block's kBlockThreads threads; rows at or past T become zero. One copy
 // group's worth: the caller commits.
 template <int kCols, int kBlockThreads = kThreads>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
-                                          size_t stride, int row0, int T) {
+                                          size_t stride, int row0, int T, int n_rows = kTile) {
   constexpr int kChunks = kCols / 8;
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kBlockThreads) {
+  for (int idx = threadIdx.x; idx < n_rows * kChunks; idx += kBlockThreads) {
     const int r = idx / kChunks;
     const int c = idx - r * kChunks;
     const bool valid = row0 + r < T;
@@ -235,20 +235,25 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N8][4], const bf16* a_tile,
   }
 }
 
-// out (16 x 8 NT) += bf16(p) (16 x 8 N8, p as N8 accumulators, rounded to
-// bf16 here) times the tile's first 8 N8 rows over columns [0, 8 NT): one
-// warp's block of a P.V-shaped product. kRn adds each 16-key step's product
-// to out rounded to nearest (mma_rn).
+// out (16 x 8 NT) += bf16(p) (16 x 8 n8, the accumulators p[p0], ...,
+// p[p0 + n8 - 1], rounded to bf16 here; n8 even) times the tile's first 8
+// n8 rows over columns [0, 8 NT): one warp's block of a P.V-shaped product.
+// kRn adds each 16-key step's product to out rounded to nearest (mma_rn).
+// p0 and n8 are constants once the caller's loops are unrolled.
 template <int NT, bool kRn = false, int N8>
 __device__ __forceinline__ void mma_pv(float (&out)[NT][4], const float (&p)[N8][4],
-                                       const bf16* tile, int ld) {
+                                       const bf16* tile, int ld, int p0 = 0, int n8 = N8) {
+  constexpr int kSteps = (N8 < kTile / 8 ? N8 : kTile / 8) / 2;  // 16-key steps of a tile
 #pragma unroll
-  for (int kk = 0; kk < N8 / 2; ++kk) {
+  for (int kk = 0; kk < kSteps; ++kk) {
+    if (2 * kk >= n8) break;
+    const float(&lo)[4] = p[p0 + 2 * kk];
+    const float(&hi)[4] = p[p0 + 2 * kk + 1];
     uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    a[0] = pack_bf16(lo[0], lo[1]);
+    a[1] = pack_bf16(lo[2], lo[3]);
+    a[2] = pack_bf16(hi[0], hi[1]);
+    a[3] = pack_bf16(hi[2], hi[3]);
 #pragma unroll
     for (int np = 0; np < NT / 2; ++np) {
       uint32_t b[4];
@@ -271,6 +276,22 @@ __device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b)
   asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
                : "+d"(d0), "+d"(d1)
                : "d"(a), "d"(b));
+}
+
+// d += a b on the fp64 tensor cores (mma.m16n8k8): a 16x8, b 8x8, d 16x8;
+// lane = 4 g + t holds a as (row g, k t), (row g + 8, k t) in a01 and (row
+// g, k t + 4), (row g + 8, k t + 4) in a23, b as (k t, column g), (k t + 4,
+// column g), and d as an m16n8 fp32 accumulator holds c. Not volatile: the
+// compiler may interleave independent products.
+__device__ __forceinline__ void dmma_k8(double (&d)[4], double2 a01, double2 a23, double2 b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a01.x), "d"(a01.y), "d"(a23.x), "d"(a23.y), "d"(b.x), "d"(b.y));
+}
+
+__device__ __forceinline__ double2 lds_f64x2(const double* p) {
+  return *reinterpret_cast<const double2*>(p);
 }
 
 __device__ __forceinline__ double lo_bf16(uint32_t x) {

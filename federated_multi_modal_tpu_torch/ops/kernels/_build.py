@@ -39,7 +39,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # qkv, mask, out, B, T, D, H, valid_T, scale, stream
     "fmm_attention_core": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # the same, then the key tiles held in registers (forced), stream
+    # the same, then the keys held in registers (forced), stream
     "fmm_attention_core_forced": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # qkv, g, mask, stats scratch, dqkv, B, T, D, H, scale, stream
     "fmm_attention_core_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -171,9 +171,10 @@ def library():
             fn = getattr(lib, name)
             fn.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
             fn.restype = ctypes.c_int
-        for name in ("fmm_attention_core_key_tiles", "fmm_attention_pair_key_tiles"):
-            getattr(lib, name).argtypes = [_I, _I]
-            getattr(lib, name).restype = ctypes.c_int
+        lib.fmm_attention_core_held_keys.argtypes = [_I, _I, _I]
+        lib.fmm_attention_core_held_keys.restype = ctypes.c_int
+        lib.fmm_attention_pair_key_tiles.argtypes = [_I, _I]
+        lib.fmm_attention_pair_key_tiles.restype = ctypes.c_int
         lib.fmm_error_string.argtypes = [ctypes.c_int]
         lib.fmm_error_string.restype = ctypes.c_char_p
         lib.fmm_span_prepare.restype = ctypes.c_int
@@ -201,8 +202,8 @@ def blocks_per_sm(name: str, variant: int, masked: bool) -> tuple:
     """``(resident blocks per SM, dynamic shared memory bytes)`` of one
     kernel (``name`` in ``_OCCUPANCY``; ``variant`` its head width for
     ``attention_split``, head width + 256 x pass for ``attention_core_bwd``,
-    head width + 256 x key tiles held in registers for ``attention_core`` and
-    ``attention_pair``, T for ``lnqkv_attention`` and
+    head width + 256 x the keys held in registers for ``attention_core``,
+    head width + 256 x key tiles held in registers for ``attention_pair``, T for ``lnqkv_attention`` and
     ``lnqkv_attention_bwd_dqkv``, layout x 512 + the epilogue's code for
     ``gemm_epilogue`` (``fused_block.GEMM_INSTANCES``; P2's product is NT,
     code 0x100), ``fused_block.ln_bwd_variant`` for ``layernorm_bwd_rows``

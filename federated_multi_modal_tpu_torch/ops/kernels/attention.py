@@ -27,9 +27,10 @@ vision shape ``(512, 200, 2304)`` with 12 heads the forward moves ~629 MB
 Both stream 64-row tiles through shared memory and run their products on
 the tensor cores with the scores in registers, so no score tensor reaches
 device memory: the forward in one pass over the key tiles (rows of up to 256
-keys at head widths up to 64) or two (statistics, then P.V), the backward in
-three (row statistics, dK and dV, dQ) with two fp32 ``(B, H, T)`` scratch
-vectors between them; see the sources for what keeps them off their bounds.
+keys at head widths up to 64, 272 without a mask) or two (statistics, then
+P.V), the backward in three (row statistics, dK and dV, dQ) with two fp32
+``(B, H, T)`` scratch vectors between them; see the sources for what keeps
+them off their bounds.
 Both kernels take any T and any head width that is a multiple of 8 up to
 128. The routed wrappers (:func:`packed_attention`,
 :func:`packed_attention_masked` and their backward) take every head width the
@@ -163,27 +164,31 @@ def attention_core_cuda(qkv: torch.Tensor, n_head: int,
     any T, head widths that are multiples of 8 up to 128; keys at or past
     ``valid_T`` (default T: none) get ``-inf``; ``scale`` defaults to ``1 /
     sqrt(head width)``. The kernel chooses one pass over the key tiles or
-    two (:func:`attention_core_key_tiles`)."""
+    two (:func:`attention_core_held_keys`)."""
     args, out = _attention_core_args(qkv, n_head, mask, valid_T, scale)
     _build.launch("fmm_attention_core", *args)
     return out
 
 
-def attention_core_key_tiles(head_dim: int, valid_T: int) -> int:
-    """The key tiles ``attention_core.cu`` holds in registers at this head
-    width and ``valid_T``, as the kernel chooses: 2 or 4 (one pass over the
-    key tiles), 0 (two passes). Launches nothing."""
-    return _build.library().fmm_attention_core_key_tiles(head_dim, valid_T)
+def attention_core_held_keys(head_dim: int, valid_T: int, masked: bool = False) -> int:
+    """The keys a warp's scores hold in registers in ``attention_core.cu`` at
+    this head width and ``valid_T``, with a mask or without, as the kernel
+    chooses: one pass over the key tiles holding 128 or 256 keys with a mask,
+    128, 208 or 272 without (its Q and K tiles converted to fp64 once a
+    block); 0, two passes. Launches nothing."""
+    return _build.library().fmm_attention_core_held_keys(head_dim, valid_T, int(masked))
 
 
-def _attention_core_cuda_forced(qkv: torch.Tensor, n_head: int, key_tiles: int,
+def _attention_core_cuda_forced(qkv: torch.Tensor, n_head: int, held_keys: int,
                                 mask: torch.Tensor | None = None,
                                 valid_T: int | None = None) -> torch.Tensor:
     """:func:`attention_core_cuda` with the kernel's variant forced, for
-    tests and timings only: ``key_tiles`` 0 takes two passes, 2 or 4 one
-    pass (head widths up to 64, ``valid_T`` up to 64 ``key_tiles``)."""
+    tests and timings only: ``held_keys`` 0 takes two passes, else one pass
+    holding that many keys (a value :func:`attention_core_held_keys` answers
+    with the same mask or none; head widths up to 64, ``valid_T`` up to
+    ``held_keys``)."""
     args, out = _attention_core_args(qkv, n_head, mask, valid_T)
-    _build.launch("fmm_attention_core_forced", *args, key_tiles)
+    _build.launch("fmm_attention_core_forced", *args, held_keys)
     return out
 
 

@@ -136,19 +136,95 @@ def test_attention_core_head_widths_32_128(gen, hd, T, masked):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("T", [40, 120, 200, 256])
 def test_attention_core_one_pass_and_two(gen, T, masked):
-    """Every variant of the kernel that takes the row, forced: one pass with
-    2 or 4 key tiles in registers, and two passes, each against the plain
+    """Every variant of the kernel that takes the row, forced: one pass
+    holding 128 or 256 keys in registers with a mask, 128, 208 or 272
+    without (on fp64 operands), and two passes, each against the plain
     version (the timing in chip_smoke.py compares them); and the variant
-    the kernel chooses is one pass."""
+    the kernel chooses is the one pass holding the fewest keys that cover
+    the row."""
     B, H = 3, 2
     qkv = _randn(gen, B, T, 3 * H * 64)
     mask = _forward_mask(gen, T, masked)
     ref = k_attn.attention_core_reference(qkv, H, mask)
-    assert k_attn.attention_core_key_tiles(64, T) == (2 if T <= 128 else 4)
-    for key_tiles in ((2, 4, 0) if T <= 128 else (4, 0)):
-        got = k_attn._attention_core_cuda_forced(qkv, H, key_tiles, mask)
+    fits = [held for held in ((128, 256) if masked else (128, 208, 272)) if held >= T]
+    assert k_attn.attention_core_held_keys(64, T, masked) == fits[0]
+    for held in (*fits, 0):
+        got = k_attn._attention_core_cuda_forced(qkv, H, held, mask)
         torch.cuda.synchronize()
         _assert_close(got, ref, 2 ** -6)
+
+
+@pytest.mark.parametrize("H,T,valid_T", [(12, 200, 200), (16, 259, 259), (16, 260, 260),
+                                         (16, 260, 203), (12, 200, 137)])
+def test_attention_core_vision_rows(gen, H, T, valid_T):
+    """The one pass on fp64 operands at the vision towers' rows: ViT-B/16's
+    T = 200 with 12 heads of 64, ViT-L/14's 259 and 260 with 16 (ragged last
+    query and key tiles), and valid_T below T. The variant chosen holds 208
+    keys up to 208 valid ones, else 272; it and every forced instance that
+    covers the row equal each other bit for bit (the same sums; keys past
+    valid_T are -inf in each) and the plain version at 2**-6, elementwise
+    and of its largest value. Planted fault: the last key tile dropped."""
+    B = 2
+    qkv = _randn(gen, B, T, 3 * H * 64)
+    cut = torch.zeros(T, T, device="cuda")
+    cut[:, valid_T:] = float("-inf")
+    ref = k_attn.attention_core_reference(qkv, H, cut)
+    assert k_attn.attention_core_held_keys(64, valid_T) == (208 if valid_T <= 208 else 272)
+    got = k_attn.attention_core_cuda(qkv, H, valid_T=valid_T)
+    torch.cuda.synchronize()
+    _assert_close(got, ref, 2 ** -6)
+    assert _within_share_of_max(got, ref, 2 ** -6)
+    for held in (208, 272):
+        if held >= valid_T:
+            assert torch.equal(k_attn._attention_core_cuda_forced(qkv, H, held, valid_T=valid_T),
+                               got)
+    dropped = k_attn.attention_core_cuda(qkv, H, valid_T=(valid_T - 1) // 64 * 64)
+    assert not _within_share_of_max(dropped, ref, 2 ** -6)
+
+
+def _exact_sums_forward(qkv, n_head):
+    """The attention forward with each sum exact before its one rounding
+    (chip_smoke.py's ``attention_forward_with(True, True)``): q.k as fp64
+    products and sums of the bf16 values rounded to fp32, then times the
+    scale; P.V likewise, then rounded to bf16. Between them the fp32 softmax
+    in the kernel's own order, so that p rounds to the same bf16 values:
+    expf(s - max), each lane's sum over its columns 2t and 2t + 1 of every
+    8-key tile in key order, the four lanes' sums added pairwise, then the
+    correctly rounded division. Returns the output and sum_i p_i |v_i|
+    (fp32, the size of each output's terms)."""
+    B, T, D3 = qkv.shape
+    D = D3 // 3
+    hd = D // n_head
+    q, k, v = (t.reshape(B, T, n_head, hd).transpose(1, 2) for t in qkv.split(D, dim=-1))
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)).float() * (1.0 / hd ** 0.5)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    e = torch.nn.functional.pad(e, (0, -T % 8)).unflatten(-1, (-1, 4, 2))  # [tile, t, column]
+    lane = torch.zeros(e.shape[:-3] + (4,), device=e.device)
+    for i in range(e.shape[-3]):
+        for c in range(2):
+            lane = lane + e[..., i, :, c]
+    l = (lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3])
+    p = (e.flatten(-3)[..., :T] / l.unsqueeze(-1)).to(qkv.dtype).double()
+    out = torch.matmul(p, v.double()).float().to(qkv.dtype)
+    size = torch.matmul(p, v.double().abs()).float()
+    return out.transpose(1, 2).reshape(B, T, D), size.transpose(1, 2).reshape(B, T, D)
+
+
+@pytest.mark.parametrize("H,T", [(12, 200), (16, 260)])
+def test_attention_core_against_exact_sums(gen, H, T):
+    """The vision rows' one pass against a forward whose q.k and P.V sums are
+    exact (``_exact_sums_forward``): every output within one bf16 step of the
+    exact one, plus what rounding the fp32 P.V accumulators to nearest after
+    each 16-key step can add (one fp32 step, 2**-24, of the size of the
+    terms a step)."""
+    qkv = _randn(gen, 2, T, 3 * H * 64)
+    got = k_attn.attention_core_cuda(qkv, H).float()
+    torch.cuda.synchronize()
+    ref, size = _exact_sums_forward(qkv, H)
+    ref = ref.float()
+    step = torch.exp2(torch.floor(torch.log2(ref.abs())) - 7)
+    tol = step + -(-T // 16) * 2 ** -24 * size
+    assert bool(((got - ref).abs() <= tol).all()), float(((got - ref).abs() / tol).max())
 
 
 def test_packed_attention_masked_counts_launches(gen):
@@ -492,12 +568,15 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         with pytest.raises(ValueError):
             k_attn.attention_core_bwd_cuda(_randn(gen, 1, 8, 3 * 2 * hd), _randn(gen, 1, 8, 2 * hd),
                                            2)
-    assert k_attn.attention_core_key_tiles(64, 300) == 0  # two passes past 256 keys
-    assert k_attn.attention_core_key_tiles(128, 200) == 0  # and past head width 64
-    with pytest.raises(RuntimeError):  # one pass forced past 256 keys
-        k_attn._attention_core_cuda_forced(_randn(gen, 1, 300, 384), 2, 4)
-    with pytest.raises(RuntimeError):  # two key tiles forced at 129 keys
-        k_attn._attention_core_cuda_forced(_randn(gen, 1, 129, 384), 2, 2)
+    assert k_attn.attention_core_held_keys(64, 300) == 0  # two passes past 272 keys
+    assert k_attn.attention_core_held_keys(64, 260, masked=True) == 0  # past 256 with a mask
+    assert k_attn.attention_core_held_keys(128, 200) == 0  # and past head width 64
+    with pytest.raises(RuntimeError):  # one pass forced past 272 keys
+        k_attn._attention_core_cuda_forced(_randn(gen, 1, 300, 384), 2, 272)
+    with pytest.raises(RuntimeError):  # 128 keys forced at 129 keys
+        k_attn._attention_core_cuda_forced(_randn(gen, 1, 129, 384), 2, 128)
+    with pytest.raises(RuntimeError):  # 256 keys is a masked instance only
+        k_attn._attention_core_cuda_forced(_randn(gen, 1, 200, 384), 2, 256)
     with pytest.raises(ValueError):
         k_attn.attention_core_cuda(_randn(gen, 1, 8, 384), 2, valid_T=9)
     with pytest.raises(ValueError):
