@@ -1,9 +1,10 @@
 """What the profiler saw in the window, as the per-layer metrics read it.
 
-Device operations (kernels, copies, fills) and host ranges come from the
-profiler's raw event list; both share one clock. The window is the host
-range ``benchmark.window``; device operations are cut to it. ``busy_s`` is
-the length of the union of the device operations' intervals.
+Device operations (kernels, copies, fills), each on its device, and host
+ranges come from the profiler's raw event list; all share one clock. The
+window is the host range ``benchmark.window``; device operations are cut to
+it. ``busy_s`` is the mean over the cell's devices of the length of the
+union of each device's operations' intervals.
 """
 
 from __future__ import annotations
@@ -41,16 +42,33 @@ def patterns(group: str) -> list:
     return out
 
 
-class Trace:
-    """``kernels``: ``(name, start s, seconds)`` of each device operation in
-    the window; ``host``: ``(name, start s, end s)`` of each host range;
-    ``window_s``, ``busy_s``; and what the cell hands its metrics:
-    ``kind`` (train or eval), ``steps``, ``flops_per_step``, ``work``
-    (``{"attention": ops, "gemm": ops}`` of one step, from
-    ``benchmark/counts``)."""
+def _union(ops) -> list:
+    """The union of ``(name, start, seconds)`` intervals, ``[start, end]``
+    in order."""
+    out = []
+    for _, a, d in sorted(ops, key=lambda k: k[1]):
+        b = a + d
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
 
-    def __init__(self, prof, kind: str, steps: int, flops_per_step: float, work: dict):
+
+class Trace:
+    """``per_device``: ``{device index: [(name, start s, seconds)]}`` of the
+    device operations in the window; ``kernels``: every device's, device by
+    device; ``host``: ``(name, start s, end s)`` of each host range;
+    ``window_s``, ``busy_s``; and what the cell hands its metrics:
+    ``kind`` (the mix's), ``steps``, ``chips`` (the cell's devices),
+    ``flops_per_step`` and ``work`` (``{"attention": ops, "gemm": ops}``),
+    one step's over every device (``benchmark/counts``). On one device
+    every reading is that device's."""
+
+    def __init__(self, prof, kind: str, steps: int, flops_per_step: float, work: dict,
+                 chips: int = 1):
         self.kind, self.steps, self.flops_per_step, self.work = kind, steps, flops_per_step, work
+        self.chips = chips
         events = prof.profiler.kineto_results.events()
         cuda = torch.autograd.DeviceType.CUDA
         raw_dev, host, window = [], [], None
@@ -58,7 +76,7 @@ class Trace:
             start, dur = _ns(e, "start"), _ns(e, "duration")
             if e.device_type() == cuda:
                 if "annotation" not in _activity(e) and e.name() != WINDOW_RANGE:
-                    raw_dev.append((e.name(), start, dur))
+                    raw_dev.append((e.device_index(), e.name(), start, dur))
             elif e.name() == WINDOW_RANGE:
                 window = (start, start + dur)
             else:
@@ -67,25 +85,18 @@ class Trace:
             raise RuntimeError("the profiler's trace holds no window range")
         w0, w1 = window
         self.window_s = (w1 - w0) * 1e-9
-        self.kernels = []
-        for name, start, dur in raw_dev:
+        self.per_device = {}
+        for dev, name, start, dur in raw_dev:
             a, b = max(start, w0), min(start + dur, w1)
             if b > a:
-                self.kernels.append((name, (a - w0) * 1e-9, (b - a) * 1e-9))
+                self.per_device.setdefault(dev, []).append((name, (a - w0) * 1e-9,
+                                                            (b - a) * 1e-9))
+        self.kernels = [k for dev in sorted(self.per_device) for k in self.per_device[dev]]
         self.host = [(n, (a - w0) * 1e-9, (b - w0) * 1e-9) for n, a, b in host
                      if b > w0 and a < w1]
-        self.busy_intervals = self._union()
-        self.busy_s = sum(b - a for a, b in self.busy_intervals)
-
-    def _union(self) -> list:
-        out = []
-        for _, a, d in sorted(self.kernels, key=lambda k: k[1]):
-            b = a + d
-            if out and a <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], b)
-            else:
-                out.append([a, b])
-        return out
+        self.busy_intervals = {dev: _union(ops) for dev, ops in self.per_device.items()}
+        self.busy_s = sum(sum(b - a for a, b in self.busy_intervals[dev])
+                          for dev in self.busy_intervals) / chips
 
     def kernel_seconds(self, group: str):
         """Device seconds of the operations whose names match ``group``'s
@@ -94,10 +105,10 @@ class Trace:
         hits = [d for n, _, d in self.kernels if any(p.search(n) for p in pats)]
         return sum(hits) if hits else None
 
-    def gaps(self) -> list:
-        """``(start, end)`` of each idle stretch of the window."""
+    def gaps(self, device: int) -> list:
+        """``(start, end)`` of each idle stretch of the window on ``device``."""
         out, t = [], 0.0
-        for a, b in self.busy_intervals:
+        for a, b in self.busy_intervals.get(device, []):
             if a > t:
                 out.append((t, a))
             t = max(t, b)
@@ -107,22 +118,28 @@ class Trace:
 
     def breakdown(self) -> dict:
         """The ten device operations that took most time, and the ten host
-        activities under which the device sat idle longest (the innermost
+        activities under which a device sat idle longest (the innermost
         host range at the middle of each of the 1000 longest gaps; the
-        shorter gaps summed under one name)."""
+        shorter gaps summed under one name). On several devices each name
+        starts with its device (``cuda:1 ...``)."""
+        def on(dev):
+            return f"cuda:{dev} " if self.chips > 1 else ""
+
         ops = collections.Counter()
-        for n, _, d in self.kernels:
-            ops[n[:160]] += d
+        for dev in sorted(self.per_device):
+            for n, _, d in self.per_device[dev]:
+                ops[on(dev) + n[:160]] += d
         idle = collections.Counter()
-        gaps = sorted(self.gaps(), key=lambda g: g[0] - g[1])
-        for a, b in gaps[:1000]:
+        gaps = sorted(((dev, a, b) for dev in range(self.chips) for a, b in self.gaps(dev)),
+                      key=lambda g: g[1] - g[2])
+        for dev, a, b in gaps[:1000]:
             mid = (a + b) / 2
             under = [h for h in self.host if h[1] <= mid <= h[2]]
             name = (min(under, key=lambda h: h[2] - h[1])[0] if under
                     else "(host outside any profiled call)")
-            idle[name[:160]] += b - a
+            idle[on(dev) + name[:160]] += b - a
         if len(gaps) > 1000:
             idle["(the shorter gaps, each under the 1000th longest)"] = sum(
-                b - a for a, b in gaps[1000:])
+                b - a for _, a, b in gaps[1000:])
         return {"device_ops": [[n, s] for n, s in ops.most_common(10)],
                 "idle_gaps": [[n, s] for n, s in idle.most_common(10)]}

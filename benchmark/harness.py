@@ -2,12 +2,50 @@
 
 ``BENCHMARK.json`` names every piece. A cell (``workloads``) names its
 configuration, whose ``file`` holds the sizes, and its traffic mix,
-``benchmark/traffic/<traffic>.json``, whose ``kind`` picks the loop in
-``benchmark/kinds/<kind>.py``. A per-layer metric is read by
-``benchmark/metrics/<name>.py``; the numbers compared against the
+``benchmark/traffic/<traffic>.json``. The mix's ``kind`` picks the loop,
+``benchmark/kinds/<kind>.py``; the configuration's ``architecture``
+(``clip_vit`` where it names none) picks the model's pieces,
+``benchmark/architectures/<architecture>.py``. A per-layer metric is read
+by ``benchmark/metrics/<name>.py``; the numbers compared against the
 reference have their limits in ``benchmark/limits/<cell>.json``. Adding a
-cell, a configuration, a mix or a metric adds files and entries and edits
-none.
+cell, a configuration, a mix, a metric, an architecture, a kind of loop or
+a cell on several cards adds files and entries and edits none.
+
+An architecture module exports what a loop takes from the model:
+
+* ``state_dict(cfg, seed, device)`` and ``prompt_learner(cfg,
+  use_captions, seed, device)``: the weights and the prompt learner's
+  initial values, made on ``device`` from the seed;
+* ``system``: the module or object that drives the program under test
+  (``build_kernels(device)``; ``build(sd, pl, cfg, classnames,
+  use_captions, device)``, a dict with at least ``text_len``;
+  ``train_step(prog, cfg, inputs, draw)`` and ``eval_step(prog, inputs,
+  boxes, flips, roll)``, each ``(step, state)``, the train state
+  ``(trainable, optimizer state with its "trace", non-finite count)``, the
+  eval state ``(canvas, non-finite count)``; ``Runner(step, state,
+  generators=())``; ``trainable_flat(state)`` and ``trace_flat(state)`` by
+  the reference's leaf names);
+* ``Reference(sd, pl, classnames, cfg, device, quant=False)``: the plain
+  float32 reference (``params``, ``trainable``, ``loss_and_grads``,
+  ``step``, ``logits``), float8 operands with ``quant`` (the control);
+  ``crop(canvas, boxes, flips, out)``, its crop; ``grad_norm(grads)``;
+  ``strict_fp32()``, called before it is built;
+* ``reference_rows(cfg, mix, device)``: the images the reference takes at
+  once;
+* the frozen counts ``train_step_flops``, ``eval_batch_flops``,
+  ``attention_work`` and ``gemm_work``, each ``(cfg, mix, text_len)``:
+  one step's operations, and its attention and product work as
+  ``[{"flops", "bytes"}]``, summed over every device of the cell.
+
+A kind module exports ``run(cfg, mix, arch, seed, seconds, trace, devices,
+start, limits)``: one run on ``devices`` (``cuda:0`` up to the cell's
+chips, the CPU in tests) returning ``correct``, ``attempted``, ``failed``,
+``memory_peak_bytes`` (the fullest device's), ``end_to_end`` (by metric
+name), ``checks`` (``benchmark/checks.py::judge``) and with ``trace`` a
+``benchmark/devtrace.py::Trace`` of the cell's chips; and ``readings(cfg,
+mix, arch, seed, devices, controls)``: the compared numbers with no window,
+``{"program": {...}}`` and with ``controls`` the control's and the faults'
+(``benchmark/control.py``).
 
 One run: set-up (weights and inputs from the seed, the program built, its
 step captured and warmed up), the window of ``--seconds`` (under the
@@ -20,12 +58,12 @@ standard error and the result's last key.
 from __future__ import annotations
 
 import argparse
-import importlib
-import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+from benchmark import pieces
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "federated_multi_modal_tpu")
 
@@ -64,11 +102,16 @@ def reported_metrics(bench: dict, workload: str, trace: bool) -> list:
 
 
 def read_metric(root: Path, name: str, t):
-    path = root / "benchmark" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location("benchmark_metric_" + name.replace(".", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read(t)
+    return pieces.load(root, "metrics", name).read(t)
+
+
+def kind_module(root: Path, kind: str):
+    return pieces.load(root, "kinds", kind)
+
+
+def architecture(root: Path, cfg: dict):
+    """The configuration's architecture module."""
+    return pieces.load(root, "architectures", cfg.get("architecture", "clip_vit"))
 
 
 def card_line() -> None:
@@ -95,27 +138,38 @@ def parse(argv):
 
 
 def require_devices(chips: int):
-    """The card, or ``None`` where CUDA or enough devices are missing."""
+    """The cell's cards, ``cuda:0`` up to ``cuda:chips-1``, or ``None`` where
+    CUDA or enough devices are missing."""
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         log(f"this cell needs {chips} CUDA device(s); {n} visible: no result")
         return None
-    return torch.device("cuda", 0)
+    return [torch.device("cuda", i) for i in range(chips)]
 
 
-def run_cell(root: Path, args, start: float, device) -> dict:
-    """One run of the cell on ``device``: the result's fields and the
+def run_kind(root: Path, bench: dict, args, start: float, devices) -> tuple:
+    """``(workload entry, the kind's result)`` of one run of the cell on
+    ``devices``."""
+    import torch
+
+    w, cfg, mix, limits = cell_parts(root, bench, args.workload)
+    torch.set_num_threads(min(4, torch.get_num_threads()))
+    res = kind_module(root, mix["kind"]).run(
+        cfg=cfg, mix=mix, arch=architecture(root, cfg), seed=args.seed, seconds=args.seconds,
+        trace=bool(args.trace), devices=devices, start=start, limits=limits)
+    return w, res
+
+
+def run_cell(root: Path, args, start: float, devices) -> dict:
+    """One run of the cell on ``devices``: the result's fields and the
     checks."""
     import torch
 
     bench = load_benchmark(root)
-    w, cfg, mix, limits = cell_parts(root, bench, args.workload)
-    torch.set_num_threads(min(4, torch.get_num_threads()))
-    kind = importlib.import_module(f"benchmark.kinds.{mix['kind']}")
-    res = kind.run(cfg=cfg, mix=mix, seed=args.seed, seconds=args.seconds,
-                   trace=bool(args.trace), device=device, start=start, limits=limits)
+    w, res = run_kind(root, bench, args, start, devices)
+    device = devices[0]
     metrics = {}
     for m in reported_metrics(bench, args.workload, bool(args.trace)):
         value = res["end_to_end"].get(m["name"]) if not args.trace else read_metric(
@@ -142,11 +196,11 @@ def main(argv, root, start) -> int:
     if chips is None:
         log(f"unknown workload {args.workload!r}")
         return 2
-    device = require_devices(chips)
-    if device is None:
+    devices = require_devices(chips)
+    if devices is None:
         return 3
     card_line()
-    out = run_cell(root, args, start, device)
+    out = run_cell(root, args, start, devices)
     found = forbidden_modules()
     if found:
         log(f"loaded in this process: {found}; no result")

@@ -6,17 +6,17 @@ drawn on the card as in the window), keeping each step's loss, gradient
 norm and crops, the first gradient as the optimizer took it and the change
 of every trainable leaf. The window then goes on from there. Once it has
 closed and the program is freed, the reference takes the same steps from
-the same weights on the same crops.
+the same weights on the same crops. The cell's first device runs it all.
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
+
 from benchmark import checks, window
-from benchmark.counts import flops
 from benchmark.kinds import common
-from benchmark.reference import model as reference
 from benchmark.traffic import generator
 
 CHECK_STEPS = 3
@@ -43,17 +43,17 @@ def program_steps(system, runner, cfg: dict) -> dict:
     return rec
 
 
-def reference_steps(ref, inputs: dict, rec: dict, out_size: int, rows: int,
+def reference_steps(ref, arch, inputs: dict, rec: dict, out_size: int, rows: int,
                     take=None) -> dict:
     """The reference's steps on the program's crops: the same read-outs."""
     p0 = {k: ref.params[k].clone() for k in ref.trainable}
     res = {"losses": [], "gnorms": []}
     for k in range(len(rec["boxes"])):
-        images = reference.crop(inputs["canvas"], rec["boxes"][k], rec["flips"][k], out_size)
+        images = arch.crop(inputs["canvas"], rec["boxes"][k], rec["flips"][k], out_size)
         loss, grads = ref.loss_and_grads(images, inputs["labels"], inputs.get("captions"),
                                          rows, take)
         res["losses"].append(loss)
-        res["gnorms"].append(reference.grad_norm(grads))
+        res["gnorms"].append(arch.grad_norm(grads))
         clipped = ref.step(grads)
         if k == 0:
             res["grad"] = checks.norms(clipped)
@@ -61,12 +61,12 @@ def reference_steps(ref, inputs: dict, rec: dict, out_size: int, rows: int,
     return res
 
 
-def first_steps(cfg, mix, seed, device):
+def first_steps(cfg, mix, arch, seed, device):
     """The program built from the seed, its step captured and driven
     through its first steps: ``(runner, program, inputs, read-outs,
     use_captions)``."""
-    use_captions = bool(cfg["maple"]["use_captions"] and mix.get("captions"))
-    system, prog, inputs = common.setup(cfg, mix, seed, device, use_captions)
+    use_captions = bool(mix.get("captions") and cfg["maple"]["use_captions"])
+    system, prog, inputs = common.setup(cfg, mix, arch, seed, device, use_captions)
     gen = generator.box_generator(seed, device)
     step, state = system.train_step(prog, cfg, inputs,
                                     lambda: generator.random_resized_boxes(gen, mix))
@@ -74,8 +74,9 @@ def first_steps(cfg, mix, seed, device):
     return runner, prog, inputs, program_steps(system, runner, cfg), use_captions
 
 
-def run(cfg, mix, seed, seconds, trace, device, start, limits) -> dict:
-    runner, prog, inputs, rec, use_captions = first_steps(cfg, mix, seed, device)
+def run(cfg, mix, arch, seed, seconds, trace, devices, start, limits) -> dict:
+    device = devices[0]
+    runner, prog, inputs, rec, use_captions = first_steps(cfg, mix, arch, seed, device)
     window.sync(device)
     bad_before = int(runner.state[2])
     setup_s = common.elapsed(start)
@@ -92,16 +93,47 @@ def run(cfg, mix, seed, seconds, trace, device, start, limits) -> dict:
     if prof is not None:
         from benchmark.devtrace import Trace
 
-        res["trace"] = Trace(prof, "train", steps, flops.train_step_flops(cfg, mix, text_len),
-                             {"attention": flops.attention_work(cfg, mix, text_len),
-                              "gemm": flops.gemm_work(cfg, mix, text_len)})
+        res["trace"] = Trace(prof, "train", steps, arch.train_step_flops(cfg, mix, text_len),
+                             {"attention": arch.attention_work(cfg, mix, text_len),
+                              "gemm": arch.gemm_work(cfg, mix, text_len)}, len(devices))
         del prof
     del runner, prog
     common.release(device)
 
-    ref = common.reference_model(cfg, seed, device, use_captions)
-    got = reference_steps(ref, inputs, rec, cfg["image_resolution"],
-                          common.reference_rows(cfg, mix, device))
+    ref = common.reference_model(cfg, arch, seed, device, use_captions)
+    got = reference_steps(ref, arch, inputs, rec, cfg["image_resolution"],
+                          arch.reference_rows(cfg, mix, device))
     ok, res["checks"] = checks.judge(checks.train_numbers(rec, got), limits)
     res["correct"] = bool(ok and failed == 0 and math.isfinite(last_loss))
     return res
+
+
+def readings(cfg, mix, arch, seed, devices, controls: bool) -> dict:
+    """The numbers a run compares, with no window: the program's first steps
+    against the reference (``program``); with ``controls`` the reference on
+    float8 operands (``control``) and the reference's loss over half of the
+    batch (``half_batch``) in the program's place."""
+    device = devices[0]
+    runner, prog, inputs, rec, use_captions = first_steps(cfg, mix, arch, seed, device)
+    del runner, prog
+    common.release(device)
+    rows = arch.reference_rows(cfg, mix, device)
+
+    def steps(quant=False, take=None):
+        model = common.reference_model(cfg, arch, seed, device, use_captions, quant=quant)
+        got = reference_steps(model, arch, inputs, rec, cfg["image_resolution"], rows, take)
+        del model
+        common.release(device)
+        return got
+
+    ref = steps()
+
+    def against_reference(got):
+        return {k: v[0] for k, v in checks.train_numbers(got, ref).items()}
+
+    out = {"program": against_reference(rec)}
+    if controls:
+        out["control"] = against_reference(steps(quant=True))
+        out["half_batch"] = against_reference(
+            steps(take=torch.arange(mix["batch"] // 2, device=device)))
+    return out

@@ -12,7 +12,6 @@ span's kernel time by the rooflines' groups (attention, gemm, the rest),
 per step. Exits 3 without the card the cell needs.
 """
 
-import importlib
 import json
 import os
 import sys
@@ -64,21 +63,17 @@ def kernel_groups(t, steps: int) -> dict:
 
 
 def main(argv) -> int:
-    import torch
-
     from benchmark import run  # the caches and the program's gates as a run has them
 
     args = harness.parse(list(argv) + ["--trace", "1"])
     root = Path(run.ROOT)
-    w, cfg, mix, limits = harness.cell_parts(root, harness.load_benchmark(root), args.workload)
-    device = harness.require_devices(w["chips"])
-    if device is None:
+    bench = harness.load_benchmark(root)
+    w, _, _, _ = harness.cell_parts(root, bench, args.workload)
+    devices = harness.require_devices(w["chips"])
+    if devices is None:
         return 3
     harness.card_line()
-    torch.set_num_threads(min(4, torch.get_num_threads()))
-    kind = importlib.import_module(f"benchmark.kinds.{mix['kind']}")
-    res = kind.run(cfg=cfg, mix=mix, seed=args.seed, seconds=args.seconds, trace=True,
-                   device=device, start=run.START, limits=limits)
+    _, res = harness.run_kind(root, bench, args, run.START, devices)
     t = res["trace"]
     table = spans.read(t)
     out = {"workload": args.workload, "seed": args.seed, "correct": res["correct"],

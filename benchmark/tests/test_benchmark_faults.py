@@ -25,7 +25,7 @@ def tiny(tmp_path_factory):
 
 def run(root, cell, seed=2 ** 31 + 5):
     args = argparse.Namespace(workload=cell, seed=seed, seconds=0.3, trace=0)
-    return harness.run_cell(root, args, 0.0, torch.device("cpu"))
+    return harness.run_cell(root, args, 0.0, [torch.device("cpu")])
 
 
 def unchanged(build_step):
@@ -118,8 +118,7 @@ def test_control_fails_the_limits_the_program_meets(tiny, cell, seed):
     """The reference on float8 operands, in the program's place, fails; the
     program on the same seed passes."""
     cfg, mix = load(tiny, cell)
-    readings = control.train_readings if mix["kind"] == "train" else control.eval_readings
-    got = readings(cfg, mix, seed, torch.device("cpu"), True)
+    got = control.readings(tiny, cfg, mix, seed, [torch.device("cpu")], True)
     limits = {k: {"limit": v} for k, v in TINY_LIMITS[cell].items()}
     as_numbers = {k: (v, None) for k, v in got["program"].items()}
     assert checks.judge(as_numbers, limits)[0], got["program"]

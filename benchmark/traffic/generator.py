@@ -2,10 +2,12 @@
 
 A mix (``benchmark/traffic/<name>.json``) holds parameters only:
 
-* ``kind``: ``train`` (a closed loop of optimizer steps on random resized
-  crops, a box drawn on the card every step with ``scale``, ``ratio`` and a
-  flip with probability ``flip``) or ``eval`` (a closed loop of
-  prompt-cached eval batches on centre crops: the whole canvas, no flip);
+* ``kind``: the loop, any ``benchmark/kinds/<kind>.py``: ``train`` (a
+  closed loop of optimizer steps on random resized crops, a box drawn on
+  the card every step with ``scale``, ``ratio`` and a flip with
+  probability ``flip``), ``eval`` (a closed loop of prompt-cached eval
+  batches on centre crops: the whole canvas, no flip), or a kind added
+  with its file, which reads the parameters it names;
 * ``batch``: images a step; ``canvas``: the side of the uint8 canvas each
   image is decoded onto;
 * ``roll``: eval only, how many images the canvas moves on after a step;
@@ -27,6 +29,7 @@ from pathlib import Path
 
 import torch
 
+from benchmark import pieces
 from benchmark.traffic.weights import generator
 
 _DATA_STREAM, _BOX_STREAM, _PICK_STREAM = 0x5EED0003, 0x5EED0004, 0x5EED0005
@@ -35,8 +38,10 @@ SOT, EOT = 49406, 49407
 
 def load_mix(root: Path, name: str) -> dict:
     mix = json.loads((root / "benchmark" / "traffic" / f"{name}.json").read_text())
-    if mix.get("kind") not in ("train", "eval"):
-        raise ValueError(f"traffic {name}: kind must be train or eval")
+    kinds = pieces.names(root, "kinds")
+    if mix.get("kind") not in kinds:
+        raise ValueError(f"traffic {name}: kind {mix.get('kind')!r} has no "
+                         f"benchmark/kinds/<kind>.py; known: {kinds}")
     return mix
 
 
