@@ -237,19 +237,32 @@ What it does, in order (any failure raises and exits non-zero):
    process, both ranks bit for bit alike); ``FED.PARALLEL_CLIENTS`` over a
    ``(2, 1)`` mesh (launches twice the routing's a step, FedAvg against the
    fp64 host mean, a planted NaN left out);
-27. prints, for the tensor-core kernels (``attention_core.cu``,
+27. EVA02-CLIP-L/14 under MaPLe at full width (``eva_phase``): one train
+   step at the ``maple_eva02_l14_train`` cell's batch of 480 and one
+   prompt-cached eval, each with its launches held (E1 ``eva_block_train``
+   23 times, E2 ``eva_block_train_dw`` once, E3 ``eva_block_residual`` 24
+   times in the eval, the ``fmm_*`` entry points of the RoPE and gate
+   epilogues, ``layernorm_rows_ld``, ``layernorm_bwd_gate`` and
+   ``rope_rows``, no CLIP vision block); each EVA step and each block held
+   against its plain version on the inputs of its first call in that step,
+   with a planted fault caught, and timed beside its plain version and its
+   bound;
+28. prints, for the tensor-core kernels (``attention_core.cu``,
    ``attention_split.cu``, ``attention_core_bwd.cu`` with the unfused
    phase's head-width line at 32 and 128, ``lnqkv_attention.cu``,
    ``lnqkv_attention_bwd_dx.cu``, ``attention_pair.cu``, P2's GEMM and
    the ``gemm_epilogue.cu`` products) at the shapes the phases gave them,
    their registers, spills, shared memory, resident blocks per SM and
    waves;
-28. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
+29. prints ``{"kernels": [...]}`` (``paths``, ``launches_cli``,
    ``launches_fed``, ``launches_b2n``, ``launches_rn``,
    ``launches_fedpar``, ``launches_bench`` and ``launches_cards`` on the
    kernels the cli, fed, b2n, rn, dist, bench and cards phases launched; K1's row also ``rn_text_shapes``; each row's
    ``backbone_shapes``, its readings at the backbones phase's shapes)
    and, last, ``{"ok": true, "device": ...}``.
+
+``python3 chip_smoke.py --eva`` runs the build and the eva phase (27.)
+alone and prints its kernels line.
 
 ``python3 chip_smoke.py --step-sweep N [BACKBONE]`` instead prints the
 whole-step gradient readings on N batches a route (the three train routes
@@ -6975,6 +6988,464 @@ def cards_phase(card: str, arch=None, opts: tuple = (), bench_argv=(),
     return launches, checks, summary
 
 
+# -- EVA02-CLIP-L/14 (the eva phase) --------------------------------------------
+
+EVA_BACKBONE = "EVA02-CLIP-L/14"
+EVA_BATCH = 480  # maple_eva02_l14_train's batch (benchmark/traffic/train_rrc_b480.json)
+# Each EVA step against its plain step (eva_block.EVA_PLAIN_STEPS) on the
+# inputs the train step handed it, as tests/test_torch_cuda.py holds them:
+# the products with the rotation or the gate in their epilogue, LN_ffn and
+# the inverse rotation at one bf16 rounding (TOL_STEP_BF16, elementwise);
+# the gate's g = silu(x1) x2 at two (TOL_EVA_GATE): x1 and x2 are rounded
+# to bf16 from fp32 sums in another order, so each may flip a rounding, and
+# g's own rounding may flip too; the fused LN_ffn and gate backward's d(x1,
+# x2) at 2**-6 of its largest value plus 2**-6 relative (an fp32 LN
+# backward over 2730 columns, then one rounding), its d gamma and d beta
+# (sums over the rows) at 2**-8 of their largest plus 2**-8 relative. The
+# whole block: its output elementwise at the train blocks' 2**-5
+# (TOL_TRAIN_DX), dx as K3's and K4's (max |err| over max |value|, the same
+# 2**-5: LN1's backward divides by each row's deviation, so an entry much
+# smaller than the row's largest keeps no relative accuracy), the gradients
+# of the LayerNorms and weights at 2**-5 of their largest plus 2**-5
+# relative.
+TOL_EVA_GATE = 2.0 ** -6
+TOL_EVA_BWD_GATE = 2.0 ** -6
+TOL_EVA_SUMS = 2.0 ** -8
+
+
+def compare_of_max(got, ref, tol: float) -> dict:
+    """``|got - ref| <= tol (max |ref| + |ref|)`` elementwise: for outputs
+    whose small entries carry no relative accuracy (sums over rows, a
+    backward's cotangents)."""
+    d = (got.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max())
+    allowed = tol * (scale + ref.float().abs())
+    return {"max_abs_err": float(d.max()), "max_err_over_tol": float((d / allowed).max()),
+            "tol": {"of_max_plus_rel": tol}, "ok": bool((d <= allowed).all())}
+
+
+def host_copy(tree):
+    """``tree`` (tensors, dicts, tuples, numbers) with every tensor detached
+    and copied to the host: the train step fills the card."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
+
+
+def card_copy(tree):
+    """A host copy made by :func:`host_copy` back on the card."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.cuda()
+    if isinstance(tree, dict):
+        return {k: card_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(card_copy(v) for v in tree)
+    return tree
+
+
+def unit_scale(t):
+    """``t`` (a cotangent of the step, ~1e-6) times the power of two that
+    brings its largest value into [1, 2): exact in bf16 and fp32, and the
+    steps that take it are linear in it, so the comparison sees the same
+    roundings at a scale where its absolute term does not swamp them."""
+    import math
+
+    top = float(t.float().abs().max())
+    return t * 2.0 ** -math.floor(math.log2(top)) if top > 0 else t
+
+
+def first_call_recorder(first: dict, key: str, fn):
+    """``fn`` that keeps a host copy of the arguments of its first call under
+    ``first[key]``, taken before the call (``rope_rows`` turns in place)."""
+    def rec(*args, **kwargs):
+        if key not in first:
+            first[key] = (host_copy(args), host_copy(kwargs))
+        return fn(*args, **kwargs)
+    return rec
+
+
+def eva_block_leaves(p, wgrad: bool):
+    """The block's tree on the card with the leaves that get a gradient
+    (the LayerNorms', every leaf's with ``wgrad``) as fp32 leaves that
+    require one, as the train step hands them."""
+    from federated_multi_modal_tpu_torch.ops.kernels import eva_block as k_eva
+
+    out = {}
+    for path in k_eva.BLOCK_LEAVES:
+        t = k_eva._get(p, path).cuda()
+        if wgrad or path in k_eva.LN_LEAVES:
+            t = t.float().requires_grad_(True)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return out
+
+
+def eva_block_checks(args, wgrad: bool, seed: int) -> tuple:
+    """The recorded first call of ``eva_block_train`` (``wgrad`` False) or
+    ``eva_block_train_dw``: the block on the CUDA steps against the same
+    sequence on the plain steps, forward and every gradient for a seeded
+    unit cotangent; dx with the last image's rows unwritten must fail.
+    Returns ``(checks, timings)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import eva_block as k_eva
+
+    x, p, n_head, table, hidden, eps = args
+    x = x.cuda().requires_grad_(True)
+    table = table.cuda()
+    p = eva_block_leaves(p, wgrad)
+    dy = seeded_cotangent(x.detach(), seed)
+    grad_leaves = [x] + [t for t in k_eva._leaves(p) if t.requires_grad]
+
+    def run(steps):
+        out = k_eva._EvaBlockTrain.apply(x, table, n_head, hidden, eps, steps, wgrad, None,
+                                         *k_eva._leaves(p))
+        return out, torch.autograd.grad(out, grad_leaves, dy)
+
+    out, got = run(k_eva.EVA_CUDA_STEPS)
+    ref_out, ref = run(k_eva.EVA_PLAIN_STEPS)
+    held = {"out": compare(out.detach(), ref_out.detach(), TOL_TRAIN_DX),
+            "dx": compare_scaled(got[0], ref[0], TOL_TRAIN_DX)}
+    rows_std = x.detach().float().std(-1)
+    print(f"  eva block (wgrad {wgrad}) dx: max |plain| {float(ref[0].abs().max()):.4g}, "
+          f"elementwise err / (2**-5 + 2**-5 |plain|) "
+          f"{compare(got[0], ref[0], TOL_TRAIN_DX)['max_err_over_tol']:.4g}; x's rows' deviation "
+          f"{float(rows_std.min()):.4g}-{float(rows_std.max()):.4g}")
+    for path, g, r in zip([pt for pt in k_eva.BLOCK_LEAVES
+                           if k_eva._get(p, pt).requires_grad], got[1:], ref[1:]):
+        held["d " + ".".join(path)] = compare_of_max(g, r, TOL_TRAIN_DX)
+    tail = got[0].detach().clone()
+    tail[-1] = 0
+    fault = compare_scaled(tail, ref[0], TOL_TRAIN_DX)
+    del out, got, ref_out, ref, tail
+
+    def fwd_bwd(steps):
+        return lambda: run(steps)
+
+    B, T, D = x.shape
+    M = B * T
+    ld = p["mlp"]["w3"].shape[0]
+    products = 2 * M * (4 * D * D + 3 * D * ld)
+    # the least work: the products forward and for dx (and for the weights'
+    # gradients), the attention forward and its backward's four products
+    flops = (3 if wgrad else 2) * products + 12 * B * T * T * D
+    n_bytes = 2 * (2 * M * D + 3 * M * D + 2 * M * ld)  # x, dy, dx, saved qkv and pair
+    timings = {"kernel_ms": cuda_ms(fwd_bwd(k_eva.EVA_CUDA_STEPS), 5),
+               "plain_ms": cuda_ms(fwd_bwd(k_eva.EVA_PLAIN_STEPS), 2, 1)}
+    timings["bound_ms"], timings["bound_by"] = bound(n_bytes, flops)
+    checks = {name: c for name, c in held.items()}
+    checks["planted fault (last image's dx unwritten) caught"] = {"ok": not fault["ok"]}
+    return checks, dict(timings, shape=[B, T, D, n_head, hidden, ld])
+
+
+def eva_step_checks(first: dict) -> tuple:
+    """Each EVA step on the inputs of its first call in the train step
+    against its plain version, a planted fault each, and each one's time,
+    its plain version's and its bound. Returns ``(rows, checks)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.ops.kernels import eva_block as k_eva
+
+    rows, checks = [], []
+    src_gemm = "federated_multi_modal_tpu_torch/csrc/gemm_epilogue.cu"
+    src_rows = "federated_multi_modal_tpu_torch/csrc/eva_rows.cu"
+
+    def row(name, source, shape, cuda_fn, plain_fn, n_bytes, flops, held, fault_ok):
+        ms = cuda_ms(cuda_fn, 10)
+        plain_ms = cuda_ms(plain_fn, 3, 1)
+        b_ms, b_by = bound(n_bytes, flops)
+        worst = max(c["max_err_over_tol"] for c in held.values())
+        rows.append({"name": name, "route": "cuda", "source": source, "shape": shape,
+                     "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "max_err_over_tol": worst, "planted_fault_caught": fault_ok})
+        for what, c in held.items():
+            checks.append((f"eva {name} {what}", c))
+        checks.append((f"eva {name} planted fault caught", {"ok": fault_ok}))
+
+    # gemm_rope: LN1(x) (M, D) @ [Wq Wk Wv] + [bq 0 bv], q and k turned
+    (a, w, bias, table), _ = card_copy(first["gemm_rope"])
+    got = k_eva.gemm_rope_cuda(a, w, bias, table)
+    ref = k_eva.gemm_rope_reference(a, w, bias, table)
+    identity = k_eva.rope_table(table.shape[0], 0, 2 * table.shape[1], table.device)
+    unrotated = k_eva.gemm_rope_cuda(a, w, bias, identity)
+    M, K = a.shape
+    N = w.shape[1]
+    row("gemm_rope", src_gemm, [M, K, N, table.shape[0]],
+        lambda: k_eva.gemm_rope_cuda(a, w, bias, table),
+        lambda: k_eva.gemm_rope_reference(a, w, bias, table),
+        2 * (M * K + K * N + M * N) + table.numel() * 4, 2 * M * K * N,
+        {"out": compare(got, ref, TOL_STEP_BF16)},
+        not compare(unrotated, ref, TOL_STEP_BF16)["ok"])
+    del a, w, bias, got, ref, unrotated, identity
+
+    # gemm_gate: LN2(y) (M, D) @ W12 (D, 2 ld) interleaved, silu(x1) x2 out
+    (z, w12, b12), kw = card_copy(first["gemm_gate"])
+    g, pair = k_eva.gemm_gate_cuda(z, w12, b12, pre=True)
+    g_ref, pair_ref = k_eva.gemm_gate_reference(z, w12, b12, pre=True)
+    g_eval = k_eva.gemm_gate_cuda(z, w12, b12)
+    dropped = fault_rows_dropped(k_eva.gemm_gate_cuda)(z, w12, b12)
+    M, K = z.shape
+    N = w12.shape[1]
+    row("gemm_gate", src_gemm, [M, K, N],
+        lambda: k_eva.gemm_gate_cuda(z, w12, b12, pre=True),
+        lambda: k_eva.gemm_gate_reference(z, w12, b12, pre=True),
+        2 * (M * K + K * N + M * N // 2 + M * N), 2 * M * K * N,
+        {"g": compare(g, g_ref, TOL_EVA_GATE), "pair": compare(pair, pair_ref, TOL_STEP_BF16),
+         "g (eval, no pair)": compare(g_eval, g_ref, TOL_EVA_GATE),
+         "padding zero": {"ok": not bool(g[:, first["layernorm_ld"][0][3]:].any()),
+                          "max_err_over_tol": 0.0}},
+        not compare(dropped, g_ref, TOL_EVA_GATE)["ok"])
+    del z, w12, b12, g, pair, g_ref, pair_ref, g_eval, dropped
+
+    # layernorm_ld: LN_ffn over the hidden's valid columns at its padded stride
+    (gx, gamma, beta, valid, eps), _ = card_copy(first["layernorm_ld"])
+    got = k_eva.layernorm_ld_cuda(gx, gamma, beta, valid, eps)
+    ref = k_eva.layernorm_ld_reference(gx, gamma, beta, valid, eps)
+    dropped = fault_rows_dropped(k_eva.layernorm_ld_cuda)(gx, gamma, beta, valid, eps)
+    rows_n, ld = gx.shape
+    row("layernorm_rows_ld", src_rows, [rows_n, valid, ld],
+        lambda: k_eva.layernorm_ld_cuda(gx, gamma, beta, valid, eps),
+        lambda: k_eva.layernorm_ld_reference(gx, gamma, beta, valid, eps),
+        2 * rows_n * ld * 2, 8 * rows_n * valid,
+        {"out": compare(got, ref, TOL_STEP_BF16)},
+        not compare(dropped, ref, TOL_STEP_BF16)["ok"])
+    del gx, got, ref, dropped
+
+    # layernorm_bwd_gate: LN_ffn's backward and the gate's over the saved
+    # pair, for the step's cotangent at unit scale
+    (pre, dgn, gamma, valid, eps), _ = card_copy(first["layernorm_bwd_gate"])
+    dgn = unit_scale(dgn)
+    got = k_eva.layernorm_bwd_gate_cuda(pre, dgn, gamma, valid, eps)
+    ref = k_eva.layernorm_bwd_gate_reference(pre, dgn, gamma, valid, eps)
+    rows_n, ld = dgn.shape
+    # the planted fault: d x1 and d x2 written to each other's columns
+    dropped = got[0].reshape(rows_n, ld, 2).flip(-1).reshape(rows_n, 2 * ld)
+    row("layernorm_bwd_gate", src_rows, [rows_n, valid, ld],
+        lambda: k_eva.layernorm_bwd_gate_cuda(pre, dgn, gamma, valid, eps),
+        lambda: k_eva.layernorm_bwd_gate_reference(pre, dgn, gamma, valid, eps),
+        rows_n * 2 * ld * 2 + rows_n * ld * 4 + rows_n * 2 * ld * 2, 16 * rows_n * valid,
+        {"d pair": compare_of_max(got[0], ref[0], TOL_EVA_BWD_GATE),
+         "d gamma": compare_of_max(got[1], ref[1], TOL_EVA_SUMS),
+         "d beta": compare_of_max(got[2], ref[2], TOL_EVA_SUMS)},
+        not compare_of_max(dropped, ref[0], TOL_EVA_BWD_GATE)["ok"])
+    del pre, dgn, got, ref, dropped
+
+    # rope_rows: d(QKV)'s inverse rotation, in place, for the step's
+    # cotangent at unit scale
+    (dqkv, table), kw = card_copy(first["rope_rows"])
+    dqkv = unit_scale(dqkv)
+    got = k_eva.rope_rows_cuda(dqkv.clone(), table, **kw)
+    ref = k_eva.rope_rows_reference(dqkv, table, **kw)
+    turned_forward = k_eva.rope_rows_cuda(dqkv.clone(), table, inverse=False)
+    B, T, W = dqkv.shape
+    scratch = dqkv.clone()
+    row("rope_rows", src_rows, [B, T, W],
+        lambda: k_eva.rope_rows_cuda(scratch, table, **kw),
+        lambda: k_eva.rope_rows_reference(dqkv, table, **kw),
+        2 * B * T * (2 * W // 3) * 2, 6 * B * T * (2 * W // 3),
+        {"out": compare(got, ref, TOL_STEP_BF16)},
+        not compare(turned_forward, ref, TOL_STEP_BF16)["ok"])
+    del dqkv, got, ref, turned_forward, scratch
+    torch.cuda.empty_cache()
+    return rows, checks
+
+
+def eva_phase(card: str) -> tuple:
+    """EVA02-CLIP-L/14 under MaPLe at full width (``flagship.build_maple_program``,
+    random init from a seed, 1000 classes, n_ctx 2, depth 9, captions): one
+    train step at batch ``EVA_BATCH`` (``maple_eva02_l14_train``'s) with the
+    counts set to 0 just before and read just after (E1 ``eva_block_train``
+    23 times, E2 ``eva_block_train_dw`` once, each backward as often, no
+    CLIP vision block; ``fmm_gemm_epilogue_eva`` 2 a block and one more for
+    the trainable block's recomputed gate, ``fmm_layernorm_rows_ld`` one a
+    block and one more, ``fmm_layernorm_bwd_gate`` and ``fmm_rope_rows`` one
+    a block) and one prompt-cached eval (E3 ``eva_block_residual`` 24 times);
+    the first call of each EVA step and of each block in that step kept on
+    the host, then each held against its plain version on those inputs with
+    a planted fault caught, and timed beside its plain version and its
+    bound. Returns ``(kernel rows, checks, summary)``."""
+    import torch
+
+    from federated_multi_modal_tpu_torch.engine.trainer import make_train_step
+    from federated_multi_modal_tpu_torch.flagship import build_fed_optimizer, build_maple_program
+    from federated_multi_modal_tpu_torch.ops import primitives
+    from federated_multi_modal_tpu_torch.ops.kernels import _build
+    from federated_multi_modal_tpu_torch.ops.kernels import eva_block as k_eva
+    from federated_multi_modal_tpu_torch.ops.preprocess import (
+        center_boxes,
+        crop_resize_flip_normalize,
+        sample_rrc_boxes_torch,
+    )
+    from federated_multi_modal_tpu_torch.tokenizer import tokenize
+
+    t0 = time.perf_counter()
+    prog = build_maple_program(EVA_BACKBONE, classnames=[f"class {i}" for i in range(N_CLASSES)],
+                               n_ctx=2, depth=9, use_captions=True, seed=0)
+    torch.cuda.synchronize()
+    arch = prog["arch"]
+    res, n_vis = arch.image_resolution, arch.vision_layers
+    summary = {"card": card, "backbone": EVA_BACKBONE, "batch": EVA_BATCH,
+               "init_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(5)
+    canvas = torch.from_numpy(rng.integers(0, 255, (EVA_BATCH, 256, 256, 3), np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, N_CLASSES, EVA_BATCH)).cuda()
+    captions = torch.from_numpy(tokenize(["a satellite photo of a scene"] * EVA_BATCH)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    boxes, flips = sample_rrc_boxes_torch(gen, EVA_BATCH, 256)
+    batch = {"image": crop_resize_flip_normalize(canvas, boxes, flips, out_size=res),
+             "label": labels, "caption_tokens": captions}
+    tx = build_fed_optimizer()
+    train_step = make_train_step(prog["loss_fn"], tx)
+    tr, frozen = prog["trainable"], prog["frozen"]
+    opt = tx.init(tr)
+
+    first = {}
+    steps = k_eva.EVA_CUDA_STEPS
+    recording = k_eva.EvaSteps(steps.base, *[first_call_recorder(first, f, getattr(steps, f))
+                                             for f in k_eva.EvaSteps._fields[1:]])
+    blocks = overlay(k_eva, **{
+        name: first_call_recorder(first, name, getattr(k_eva, name))
+        for name in ("eva_block_train", "eva_block_train_dw", "eva_block_residual")})
+    with patched(k_eva, EVA_CUDA_STEPS=recording), patched(primitives, _eva_kernels=blocks):
+        reset_counts()
+        t0 = time.perf_counter()
+        tr_new, _, loss, gnorm = train_step(tr, frozen, opt, batch)
+        torch.cuda.synchronize()
+        summary["train_step_s"] = time.perf_counter() - t0
+        train_counts = read_counts()
+        summary["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del tr_new, opt, batch
+        torch.cuda.empty_cache()
+        eval_boxes, eval_flips = center_boxes(EVA_BATCH, 256, res)
+        images = crop_resize_flip_normalize(canvas, torch.from_numpy(eval_boxes).cuda(),
+                                            torch.from_numpy(eval_flips).cuda(), out_size=res)
+        reset_counts()
+        with torch.no_grad():
+            prep = prog["eval_prepare_fn"](tr, frozen)
+            logits = prog["eval_apply_fn"](tr, frozen, images, prep)
+        torch.cuda.synchronize()
+        eval_counts = read_counts()
+    loss, gnorm = float(loss), float(gnorm)
+    launches = {k: v for k, v in train_counts.items()
+                if k.startswith("E") or k.startswith("fmm_")}
+    eval_launches = {k: v for k, v in eval_counts.items()
+                     if k.startswith("E") or k.startswith("fmm_")}
+    print(f"eva launches, one train step at B = {EVA_BATCH}:", json.dumps(launches))
+    print(f"eva launches, one prompt-cached eval of {EVA_BATCH} images:",
+          json.dumps(eval_launches))
+    print(f"eva train step: loss {loss:.6f}, gnorm {gnorm:.4f}, "
+          f"{summary['train_step_s']:.2f} s (the first), peak {summary['train_peak_gib']:.2f} GiB;"
+          f" eval logits {tuple(logits.shape)}, |max| {float(logits.abs().max()):.4f}")
+    expected_train = {
+        "E1 eva_block_train": n_vis - 1, "E1 eva_block_train (backward)": n_vis - 1,
+        "E2 eva_block_train_dw": 1, "E2 eva_block_train_dw (backward)": 1,
+        "E3 eva_block_residual": 0,
+        "fmm_gemm_epilogue_eva": 2 * n_vis + 1, "fmm_layernorm_rows_ld": n_vis + 1,
+        "fmm_layernorm_bwd_gate": n_vis, "fmm_rope_rows": n_vis}
+    expected_eval = {"E1 eva_block_train": 0, "E2 eva_block_train_dw": 0,
+                     "E3 eva_block_residual": n_vis, "fmm_gemm_epilogue_eva": 2 * n_vis,
+                     "fmm_layernorm_rows_ld": n_vis, "fmm_layernorm_bwd_gate": 0,
+                     "fmm_rope_rows": 0}
+    clip_blocks = {k: v for k, v in {**train_counts, **eval_counts}.items()
+                   if k.startswith(("K3", "K4", "K5", "K9")) and v}
+    checks = [
+        ("eva train step launches",
+         {"ok": all(train_counts.get(k, 0) == n for k, n in expected_train.items())
+          and not clip_blocks, "expected": expected_train, "clip_blocks": clip_blocks}),
+        ("eva eval launches",
+         {"ok": all(eval_counts.get(k, 0) == n for k, n in expected_eval.items())}),
+        ("eva train loss and eval logits finite",
+         {"ok": bool(np.isfinite(loss) and np.isfinite(gnorm)
+                     and torch.isfinite(logits).all())}),
+    ]
+    summary.update(train_loss=loss, train_gnorm=gnorm, train_launches=launches,
+                   eval_launches=eval_launches)
+    del prog, tr, frozen, prep, logits, images, canvas, labels, captions
+    torch.cuda.empty_cache()
+
+    rows, step_checks = eva_step_checks(first)
+    checks += step_checks
+    for key, name, wgrad, seed in (("eva_block_train", "E1 eva_block_train", False, 7),
+                                   ("eva_block_train_dw", "E2 eva_block_train_dw", True, 8)):
+        args, _ = first[key]
+        held, timing = eva_block_checks(args, wgrad, seed)
+        checks += [(f"eva {name} {what}", c) for what, c in held.items()]
+        worst = max(c.get("max_err_over_tol", 0.0) for c in held.values())
+        rows.append({"name": name.split(" ")[1], "route": "cuda",
+                     "source": "federated_multi_modal_tpu_torch/ops/kernels/eva_block.py",
+                     "launches_train_step": train_counts[name], "max_err_over_tol": worst,
+                     **timing})
+        torch.cuda.empty_cache()
+    (x, p, n_head, table, hidden, eps), _ = card_copy(first["eva_block_residual"])
+    with torch.no_grad():
+        got = k_eva.eva_block_residual(x, p, n_head, table, hidden, eps)
+        ref = k_eva.eva_block_forward(x, p, n_head, table, hidden, eps, k_eva.EVA_PLAIN_STEPS,
+                                      False)[0]
+        tail = got.clone()
+        tail[-1] = 0
+        held = compare(got, ref, TOL_TRAIN_DX)
+        checks += [("eva E3 eva_block_residual out", held),
+                   ("eva E3 planted fault (last image unwritten) caught",
+                    {"ok": not compare(tail, ref, TOL_TRAIN_DX)["ok"]})]
+        B, T, D = x.shape
+        ld = p["mlp"]["w3"].shape[0]
+        e3_bound = bound(2 * (2 * B * T * D), 2 * B * T * (4 * D * D + 3 * D * ld)
+                         + 4 * B * T * T * D)
+        rows.append({"name": "eva_block_residual", "route": "cuda",
+                     "source": "federated_multi_modal_tpu_torch/ops/kernels/eva_block.py",
+                     "shape": [B, T, D, n_head, hidden, ld],
+                     "launches_eval": eval_counts["E3 eva_block_residual"],
+                     "max_err_over_tol": held["max_err_over_tol"],
+                     "kernel_ms": cuda_ms(lambda: k_eva.eva_block_residual(
+                         x, p, n_head, table, hidden, eps), 5),
+                     "plain_ms": cuda_ms(lambda: k_eva.eva_block_forward(
+                         x, p, n_head, table, hidden, eps, k_eva.EVA_PLAIN_STEPS, False), 2, 1),
+                     "bound_ms": e3_bound[0], "bound_by": e3_bound[1]})
+    del x, p, got, ref, tail, first
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    failed = [n for n, c in checks if not c["ok"]]
+    print(f"eva phase on {card}: {len(checks)} checks, failed: {failed}")
+    print("eva kernels, ms beside the plain version and the bound:",
+          json.dumps([{k: r.get(k) for k in ("name", "kernel_ms", "plain_ms", "bound_ms",
+                                              "max_err_over_tol")} for r in rows]))
+    return rows, checks, summary
+
+
+def eva_only() -> int:
+    """``--eva``: the build and the eva phase alone."""
+    from federated_multi_modal_tpu_torch.ops.kernels import _build
+
+    os.environ.update(DEFAULT_GATES)
+    card = card_line()
+    print(card)
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s ({_build.build_seconds:.1f} s in nvcc)")
+    t0 = time.perf_counter()
+    rows, checks, summary = eva_phase(card)
+    summary["phase_s"] = time.perf_counter() - t0
+    print("summary:", json.dumps({"eva": summary}))
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    failed = [name for name, c in checks if not c["ok"]]
+    if failed:
+        print(f"chip_smoke: over tolerance: {failed}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6985,6 +7456,8 @@ def main() -> int:
         print(card_line())
         step_sweep(int(sys.argv[2]), *sys.argv[3:4])
         return 0
+    if sys.argv[1:2] == ["--eva"]:
+        return eva_only()
 
     from federated_multi_modal_tpu_torch.engine.tree import merge_trees
     from federated_multi_modal_tpu_torch.flagship import build_maple_program
@@ -7425,8 +7898,15 @@ def main() -> int:
         if launched:
             row.setdefault("paths", []).append("cards")
         row["launches_cards"] = launched
+    torch.cuda.empty_cache()
+
+    # -- 29. EVA02-CLIP-L/14 at the benchmark cell's batch (the eva phase) ------
+    t0 = time.perf_counter()
+    eva_rows, eva_checks, summary["eva"] = eva_phase(card)
+    summary["eva"]["phase_s"] = time.perf_counter() - t0
+    rows += eva_rows
     summary["attention_resources"] = attention_resources(_build.build_log, rows)
-    route_checks += (group_checks + coop_checks + zs_checks + k8_checks + proto_checks
+    route_checks += (eva_checks + group_checks + coop_checks + zs_checks + k8_checks + proto_checks
                      + gemm_checks + ln_checks + cli_checks + fed_checks + b2n_checks
                      + rn_checks + dist_checks + tools_checks + limit_checks + bb_checks
                      + bench_checks + cards_checks)

@@ -18,6 +18,17 @@
 // flags template parameters (kInstances below); a launch asks for one of
 // them or is refused.
 //
+// EVA-CLIP's block adds two epilogues of the NN layout with a bias
+// (kEvaInstances, the entry point fmm_gemm_epilogue_eva; ops/kernels/
+// eva_block.py), each a flag above the shared ones:
+//   RoPE: in columns below rope_cols (q and k) the thread's adjacent pair
+//     (2 i, 2 i + 1), a rotation pair of the head, is turned after the bias
+//     by the (cos, sin) of table[row % T][pair within the head of 64], read
+//     into registers once a tile (a thread meets 8 of a head's 32 pairs);
+//   gate: the pair is (x1_j, x2_j) of SwiGLU's interleaved W1, W2; each is
+//     rounded to bf16 (the optional pre_out keeps them), and
+//     silu(x1_j) * x2_j is written to column j of an output N / 2 wide.
+//
 // Replaces the products inside the TPU whole-block kernels
 // (federated_multi_modal_tpu/ops/pallas/fused_block.py): QKV (+b),
 // out-projection (+b, +x, fp32 y), fc (+b, QuickGELU, and the saved
@@ -97,6 +108,8 @@ constexpr int code(int bias, int gelu, int pre, int dgelu, int res, int out_f32)
 
 template <int E>
 struct Epi {
+  static constexpr bool rope = (E >> 9) & 1;
+  static constexpr bool gate = (E >> 10) & 1;
   static constexpr bool bias = E & 1;
   static constexpr bool gelu = (E >> 1) & 1;
   static constexpr int pre = (E >> 2) & 3;
@@ -126,6 +139,9 @@ struct Params {
   const void* dgelu;
   const void* res;
   void* out;
+  const float2* rope;  // (rope_T, 32) (cos, sin), the RoPE epilogue's table
+  int rope_T;
+  int rope_cols;
 };
 
 // sigmoid(1.702 h) with the fast exponential and division, a few ulp of
@@ -167,6 +183,30 @@ __device__ __forceinline__ void stage2(unsigned char* st, int r, int c, float v0
   } else {
     *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(st) + r * kLd + c) =
         __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+// silu(a) * b as the gate epilogue and eva_rows.cu's layernorm_bwd_gate
+// compute it (the fast exponential and division)
+__device__ __forceinline__ float gate_of(float a, float b) {
+  return a * __fdividef(1.f, 1.f + __expf(-a)) * b;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// The gate's staged 16 x 16 bf16 chunk to dst rows row0.., columns col0..
+// (an output N wide), 16 bytes a lane.
+__device__ __forceinline__ void write_half_chunk(const unsigned char* st, void* dst, int row0,
+                                                 int col0, int M, int N, int lane) {
+  const int r = lane >> 1;
+  const int c = (lane & 1) * 8;
+  const int row = row0 + r;
+  const int col = col0 + c;
+  if (row < M && col < N) {
+    const uint4 v = *reinterpret_cast<const uint4*>(st + (r * kLd + c) * 2);
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(dst) + static_cast<size_t>(row) * N + col) = v;
   }
 }
 
@@ -212,6 +252,19 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], const Params& p,
   const int g = lane >> 2;
   const int t = lane & 3;
   const size_t out_base = static_cast<size_t>(z) * p.M * p.N;
+  // RoPE: a thread's columns take 8 of a head's 32 pairs (4 k + t), the same
+  // in each of the tile's four heads; their (cos, sin) at its two rows are
+  // read once a tile into registers
+  float2 cs[EP::rope ? 2 : 1][EP::rope ? 8 : 1];
+  if constexpr (EP::rope) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + g + 8 * h;
+      const float2* tr = p.rope + (row < p.M ? row % p.rope_T : 0) * 32 + t;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) cs[h][k] = tr[4 * k];
+    }
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float2 hin[EP::dgelu != 0 ? 2 * kHalfJ : 1];
@@ -253,7 +306,24 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], const Params& p,
             v0 += b.x;
             v1 += b.y;
           }
+          if constexpr (EP::rope) {
+            if (col < p.rope_cols) {  // the pair (col & 63) / 2 = 16 (ch & 1) + 4 jj + t
+              const float2 r = cs[h][(ch & 1) * 4 + jj];
+              const float r0 = v0 * r.x - v1 * r.y;
+              v1 = v1 * r.x + v0 * r.y;
+              v0 = r0;
+            }
+          }
+          if constexpr (EP::gate) {
+            v0 = round_bf16(v0);
+            v1 = round_bf16(v1);
+          }
           if constexpr (EP::pre != 0) stage2<EP::pre == 2>(st_pre, lr, lc, v0, v1);
+          if constexpr (EP::gate) {
+            reinterpret_cast<bf16*>(st_out)[lr * kLd + (lc >> 1)] =
+                __float2bfloat16(gate_of(v0, v1));
+            continue;
+          }
           if constexpr (EP::gelu) {
             v0 = v0 * sigmoid_qg(v0);
             v1 = v1 * sigmoid_qg(v1);
@@ -276,7 +346,12 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], const Params& p,
       if constexpr (EP::pre != 0) {
         write_chunk<EP::pre == 2>(st_pre, p.pre, 0, row0, n0 + c * kCols, p.M, p.N, lane);
       }
-      write_chunk<EP::out_f32>(st_out, p.out, out_base, row0, n0 + c * kCols, p.M, p.N, lane);
+      if constexpr (EP::gate) {
+        write_half_chunk(st_out, p.out, row0, (n0 + c * kCols) >> 1, p.M, p.N >> 1, lane);
+      } else {
+        write_chunk<EP::out_f32>(st_out, p.out, out_base, row0, n0 + c * kCols, p.M, p.N,
+                                 lane);
+      }
       __syncwarp();
     }
   }
@@ -447,6 +522,16 @@ const Instance kInstances[] = {
     FMM_INSTANCE(kNT, code(0, 0, 0, 2, 0, 0))
     FMM_INSTANCE(kTN, code(0, 0, 0, 0, 0, 1))
 };
+
+// EVA-CLIP's (NN, bias, bf16 out): the RoPE QKV product, the gate with and
+// without its bf16 pair kept.
+constexpr int kRope = 1 << 9;
+constexpr int kGate = 1 << 10;
+const Instance kEvaInstances[] = {
+    FMM_INSTANCE(kNN, code(1, 0, 0, 0, 0, 0) | kRope)
+    FMM_INSTANCE(kNN, code(1, 0, 0, 0, 0, 0) | kGate)
+    FMM_INSTANCE(kNN, code(1, 0, 1, 0, 0, 0) | kGate)
+};
 #undef FMM_INSTANCE
 
 const Instance* find_instance(int layout, int c) {
@@ -498,7 +583,7 @@ FMM_EXPORT int fmm_gemm_epilogue(const void* A, const void* W, int layout, int M
   if (err != cudaSuccess) return err;
   const Params p{M, N, K, k_per_split, (N + kBN - 1) / kBN, static_cast<int>(tiles_mn),
                  static_cast<int>(tiles_mn * splits), static_cast<const bf16*>(bias), pre_out,
-                 dgelu_in, residual, out};
+                 dgelu_in, residual, out, nullptr, 1, 0};
   const int grid = p.tiles < sms ? p.tiles : sms;
   return inst->launch(a_map, b_map, p, grid, static_cast<cudaStream_t>(stream));
 }
@@ -522,4 +607,42 @@ FMM_EXPORT int fmm_gemm_epilogue_blocks_per_sm(int variant, int masked, int* blo
   const Instance* inst = find_instance(variant / 512, variant % 512);
   if (inst == nullptr) return cudaErrorInvalidValue;
   return inst->occupancy(blocks, smem_bytes);
+}
+
+// EVA-CLIP's products (kEvaInstances): C = epilogue(A (M, K) . W (K, N) + bias)
+// in bf16. With rope (a (T, 32) float2 (cos, sin) table, M a multiple of T)
+// the columns below rope_cols are turned; with gate, out is (M, N / 2) and
+// pre_out (M, N) bf16 or null. All contiguous and 16-byte aligned; K % 8 ==
+// 0, N % 16 == 0.
+FMM_EXPORT int fmm_gemm_epilogue_eva(const void* A, const void* W, int M, int N, int K,
+                                     const void* bias, void* pre_out, const void* rope,
+                                     int rope_T, int rope_cols, int gate, void* out,
+                                     void* stream) {
+  if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || K % 8 != 0 || bias == nullptr)
+    return cudaErrorInvalidValue;
+  if ((rope != nullptr) == (gate != 0)) return cudaErrorInvalidValue;
+  if (rope != nullptr && (rope_T < 1 || M % rope_T != 0 || rope_cols % 64 != 0 ||
+                          rope_cols > N || pre_out != nullptr))
+    return cudaErrorInvalidValue;
+  const int c = code(1, 0, pre_out != nullptr ? 1 : 0, 0, 0, 0) | (gate ? kGate : kRope);
+  const Instance* inst = nullptr;
+  for (const Instance& e : kEvaInstances)
+    if (e.code == c) inst = &e;
+  if (inst == nullptr) return cudaErrorInvalidValue;
+  const long long tiles_mn =
+      static_cast<long long>((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  if (tiles_mn > INT32_MAX) return cudaErrorInvalidValue;
+  CUtensorMap a_map, b_map;
+  if (!wg::make_map(&a_map, A, K, M, kBM) || !wg::make_map(&b_map, W, N, K, 64))
+    return cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const Params p{M, N, K, (K + kBK - 1) / kBK * kBK, (N + kBN - 1) / kBN,
+                 static_cast<int>(tiles_mn), static_cast<int>(tiles_mn),
+                 static_cast<const bf16*>(bias), pre_out, nullptr, nullptr, out,
+                 static_cast<const float2*>(rope), rope_T, rope_cols};
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  return inst->launch(a_map, b_map, p, grid, static_cast<cudaStream_t>(stream));
 }

@@ -14,7 +14,7 @@
 
 #include "fmm_common.cuh"
 
-constexpr int kSpans = 15;
+constexpr int kSpans = 18;
 
 template <int Id, bool Open>
 __global__ void span_marker() {}

@@ -17,7 +17,9 @@ runs every block through ``fused_block_residual`` with ``inference=True``
 ``fused_block_group_residual``, with the deep prompts injected inside, as
 the JAX package's eval tower does), and through ``fused_block_train`` or
 ``fused_block_train_dw`` in training, unless the JAX package's routing gates
-pick another kernel (``ops/primitives.py``). A ModifiedResNet backbone's
+pick another kernel (``ops/primitives.py``); an EVA-CLIP backbone's vision
+blocks run ``eva_residual_block`` (no ``ln_pre``, rotary q.k on the patch
+rows, the text MLP's exact GELU). A ModifiedResNet backbone's
 image tower is ``models/resnet.py`` (cuDNN's convolutions, no kernel of the
 port).
 """
@@ -29,8 +31,9 @@ from typing import Optional, Sequence
 import torch
 import torch.utils.checkpoint
 
-from federated_multi_modal_tpu_torch.models.params import CLIPConfig
+from federated_multi_modal_tpu_torch.models.params import CLIPConfig, is_eva
 from federated_multi_modal_tpu_torch.models.resnet import encode_image_resnet
+from federated_multi_modal_tpu_torch.ops.kernels.eva_block import rope_table
 from federated_multi_modal_tpu_torch.ops.kernels.fused_block import (
     fused_block_group_eligible,
     fused_block_group_size,
@@ -39,6 +42,7 @@ from federated_multi_modal_tpu_torch.ops.primitives import (
     attention_impl,
     build_block_causal_mask,
     build_causal_mask,
+    eva_residual_block,
     l2_normalize,
     layer_norm,
     linear,
@@ -58,7 +62,7 @@ def patchify(params_visual, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tens
     g = cfg.grid_size
     x = images.reshape(B, g, P, g, P, 3).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(B, g * g, P * P * 3)
-    return linear(x, params_visual["conv1"]["w"])
+    return linear(x, params_visual["conv1"]["w"], params_visual["conv1"].get("b"))
 
 
 def _broadcast_prompt(p: torch.Tensor, batch: int, dtype) -> torch.Tensor:
@@ -70,17 +74,22 @@ def _broadcast_prompt(p: torch.Tensor, batch: int, dtype) -> torch.Tensor:
 
 
 def block_forward(x, blk, n_head: int, mask=None, remat: bool = False,
-                  inference: bool = False):
-    """One residual block (``ops/primitives.py::residual_block``); with
-    ``remat`` it runs under ``torch.utils.checkpoint`` (non-reentrant), as
+                  inference: bool = False, eva=None, quick_gelu_mlp: bool = True):
+    """One residual block (``ops/primitives.py::residual_block``, or with
+    ``eva = (rope table, hidden, eps)`` EVA-CLIP's ``eva_residual_block``);
+    with ``remat`` it runs under ``torch.utils.checkpoint`` (non-reentrant), as
     the JAX package wraps each block in ``jax.checkpoint``
     (``_block_fn``): its activations, the kernels' saved tensors included,
     are dropped after the forward and recomputed in the backward, so the
     block's forward kernels launch twice in a training step."""
+    if eva is not None:
+        fn, args, kw = eva_residual_block, (x, blk, n_head, *eva), {}
+    else:
+        fn, args, kw = residual_block, (x, blk, n_head, mask), {"quick_gelu_mlp": quick_gelu_mlp}
+    kw["inference"] = inference
     if remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(
-            residual_block, x, blk, n_head, mask, inference=inference, use_reentrant=False)
-    return residual_block(x, blk, n_head, mask, inference=inference)
+        return torch.utils.checkpoint.checkpoint(fn, *args, **kw, use_reentrant=False)
+    return fn(*args, **kw)
 
 
 def encode_image(
@@ -141,7 +150,14 @@ def encode_image(
             n_extra = extra_tokens.shape[1]
             x = torch.cat([x, extra_tokens], dim=1)
 
-        x = layer_norm(x, params["ln_pre"])
+        if is_eva(cfg):
+            # EVA has no ln_pre; it turns q and k of the patch rows (CLS, the
+            # prompts and the caption stay)
+            eva = (rope_table(x.shape[1], cfg.grid_size, w // cfg.vision_heads, x.device),
+                   cfg.vision_mlp_width, cfg.vision_ln_eps)
+        else:
+            eva = None
+            x = layer_norm(x, params["ln_pre"])
         n_tail = n_ctx + n_extra
 
         deep_prompts = deep_prompts or []
@@ -157,7 +173,7 @@ def encode_image(
                     "trailing prompt rows one-for-one")
 
         blocks = params["blocks"]
-        if inference and attention_impl() == "pallas" and fused_block_group_eligible(
+        if eva is None and inference and attention_impl() == "pallas" and fused_block_group_eligible(
                 B, x.shape[1], w, cfg.vision_heads, blocks[0]["mlp"]["w_fc"].shape[-1],
                 deep_prompts):
             # groups of G blocks, the last one possibly shorter; the deep prompts
@@ -177,11 +193,14 @@ def encode_image(
                     if extra_tokens is not None:
                         tail.append(extra_tokens)
                     x = torch.cat([x[:, : x.shape[1] - n_tail], *tail], dim=1)
-                x = block_forward(x, blk, cfg.vision_heads, remat=remat, inference=inference)
+                x = block_forward(x, blk, cfg.vision_heads, remat=remat, inference=inference,
+                                  eva=eva)
 
-        pooled = layer_norm(x[:, 0, :], params["ln_post"])
+        pooled = layer_norm(x[:, 0, :], params["ln_post"], 1e-5 if eva is None else eva[2])
         # fp32 products of the storage dtype's values, fp32 result
         out = torch.matmul(pooled.float(), params["proj"].to(dtype).float())
+        if "proj_bias" in params:  # EVA's head
+            out = out + params["proj_bias"].to(dtype).float()
         return span_boundary("vision_tower", out, entry=False)[0]
 
 
@@ -302,7 +321,8 @@ def encode_text_embedded(
                 xs = x.reshape(n_pad, T, d)
                 xs = torch.cat([xs[:, :1], p, xs[:, 1 + n_ctx:]], dim=1)
                 x = xs.reshape(x.shape)
-            x = block_forward(x, blk, cfg.transformer_heads, mask, remat=remat)
+            x = block_forward(x, blk, cfg.transformer_heads, mask, remat=remat,
+                              quick_gelu_mlp=not is_eva(cfg))
 
         x = x.reshape(n_pad, T, d)[:N]
         x = layer_norm(x, params["ln_final"])

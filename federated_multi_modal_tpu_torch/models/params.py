@@ -66,6 +66,41 @@ class CLIPConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class EvaCLIPConfig(CLIPConfig):
+    """EVA02-CLIP (``eva_vit_model.py`` of github.com/baaivision/EVA with
+    ``rope``, ``subln`` and ``naiveswiglu``): CLIP's sizes, and a vision block
+    with 2-D rotary q.k on the patch rows, biases on q and v only, a LayerNorm
+    between attention and its out-projection, a SwiGLU MLP of
+    ``vision_mlp_width`` with a LayerNorm on its hidden, LayerNorms at
+    ``vision_ln_eps``; no ``ln_pre``, biases on the patch embedding and the
+    head; OpenCLIP's text tower, whose MLP takes exact GELU."""
+
+    vision_mlp_width: int = 2730
+    vision_ln_eps: float = 1e-6
+
+    @property
+    def vision_mlp_padded(self) -> int:
+        """The MLP width the port's kernels run: the hidden padded with zero
+        weights to a multiple of 8 (2730 -> 2736)."""
+        return -(-self.vision_mlp_width // 8) * 8
+
+
+def is_eva(cfg) -> bool:
+    """Whether ``cfg`` (the port's or the JAX package's) is EVA-CLIP's."""
+    return isinstance(cfg, EvaCLIPConfig)
+
+
+def eva02_config(**kw) -> EvaCLIPConfig:
+    """EVA02-CLIP-L/14 (``EVA02-CLIP-L-14.json``: vision 24 x 1024, heads of 64,
+    patch 14 at 224, mlp_ratio 2.6667 (2730), LayerNorm eps 1e-6; text 12 x
+    768; embed 768), or a narrower copy with ``kw`` changed."""
+    base = dict(embed_dim=768, vision_layers=24, vision_width=1024, vision_patch_size=14,
+                transformer_width=768, transformer_heads=12, transformer_layers=12)
+    base.update(kw)
+    return EvaCLIPConfig(**base)
+
+
 def tiny_test_config() -> CLIPConfig:
     """A miniature CLIP for fast CPU tests (head width 64, as CLIP)."""
     return CLIPConfig(
@@ -115,6 +150,7 @@ BACKBONE_CONFIGS = {
         transformer_heads=12,
         transformer_layers=12,
     ),
+    "EVA02-CLIP-L/14": eva02_config(),
 }
 
 
@@ -122,7 +158,7 @@ BACKBONE_CONFIGS = {
 
 COMPUTE_DTYPE = torch.bfloat16
 
-_NORM_NAMES = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final")
+_NORM_NAMES = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final", "ln_inner", "ln_ffn")
 
 
 def _is_norm_name(name: str) -> bool:
@@ -175,6 +211,76 @@ def _init_block(gen, width: int, n_layers: int) -> dict:
     }
 
 
+def interleave_gate(w1: torch.Tensor, w2: torch.Tensor, padded: int) -> torch.Tensor:
+    """SwiGLU's ``w1``, ``w2`` (``(..., H)``, input-major or biases) as one
+    ``(..., 2 * padded)`` tensor whose columns ``2 j, 2 j + 1`` are ``w1[...,
+    j]``, ``w2[..., j]``, zero past ``H``: the gate epilogue's layout."""
+    H = w1.shape[-1]
+    out = w1.new_zeros(*w1.shape[:-1], padded, 2)
+    out[..., :H, 0] = w1
+    out[..., :H, 1] = w2
+    return out.reshape(*w1.shape[:-1], 2 * padded)
+
+
+def split_gate(w12: torch.Tensor, H: int) -> tuple:
+    """The inverse of :func:`interleave_gate`: ``(w1, w2)`` of width ``H``."""
+    pairs = w12.reshape(*w12.shape[:-1], -1, 2)
+    return pairs[..., :H, 0], pairs[..., :H, 1]
+
+
+def pad_last(t: torch.Tensor, padded: int) -> torch.Tensor:
+    """``t`` with its last axis zero-padded to ``padded``."""
+    return torch.nn.functional.pad(t, (0, padded - t.shape[-1]))
+
+
+def _ln(width: int, padded: int = None) -> dict:
+    return {"scale": pad_last(torch.ones(width), padded or width),
+            "bias": torch.zeros(padded or width)}
+
+
+def _init_eva_block(gen, width: int, hidden: int, padded: int, layer_id: int) -> dict:
+    """EVA's initialisation (``eva_vit_model.py``: linear weights ~ N(0, 0.02),
+    biases 0, the out-projection and ``w3`` rescaled by ``1 / sqrt(2 *
+    layer_id)``), in the port's layout: q, k, v side by side, ``w1``/``w2``
+    interleaved and the hidden padded (:func:`interleave_gate`)."""
+    rescale = (2.0 * layer_id) ** -0.5
+    return {
+        "ln_1": _ln(width),
+        "attn": {
+            "w_qkv": _normal(gen, (width, 3 * width), 0.02),
+            "q_bias": torch.zeros(width),
+            "v_bias": torch.zeros(width),
+            "ln_inner": _ln(width),
+            "w_out": _normal(gen, (width, width), 0.02 * rescale),
+            "b_out": torch.zeros(width),
+        },
+        "ln_2": _ln(width),
+        "mlp": {
+            "w12": interleave_gate(_normal(gen, (width, hidden), 0.02),
+                                   _normal(gen, (width, hidden), 0.02), padded),
+            "b12": torch.zeros(2 * padded),
+            "ln_ffn": _ln(hidden, padded),
+            "w3": pad_last(_normal(gen, (hidden, width), 0.02 * rescale).T, padded).T.contiguous(),
+            "b3": torch.zeros(width),
+        },
+    }
+
+
+def _init_eva_visual(cfg: CLIPConfig, gen) -> dict:
+    w = cfg.vision_width
+    patch_dim = cfg.vision_patch_size ** 2 * 3
+    return {
+        "conv1": {"w": _normal(gen, (patch_dim, w), 0.02), "b": torch.zeros(w)},
+        "class_embedding": _normal(gen, (w,), 0.02),
+        "positional_embedding": _normal(gen, (cfg.num_patches + 1, w), 0.02),
+        "blocks": [_init_eva_block(gen, w, cfg.vision_mlp_width, cfg.vision_mlp_padded, i + 1)
+                   for i in range(cfg.vision_layers)],
+        "ln_post": _ln(w),
+        "proj": _normal(gen, (w, cfg.embed_dim), 0.02),
+        "proj_bias": torch.zeros(cfg.embed_dim),
+    }
+
+
 def init_clip_params(cfg: CLIPConfig, generator: torch.Generator = None,
                      dtype_policy: bool = True) -> dict:
     """Random CLIP-shaped parameters on the CPU, ViT or ModifiedResNet
@@ -182,7 +288,9 @@ def init_clip_params(cfg: CLIPConfig, generator: torch.Generator = None,
     ``torch.Generator`` does not give ``jax.random``'s numbers, so tests
     carry weights across with :func:`load_jax_params`)."""
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
-    if cfg.is_vit:
+    if is_eva(cfg):
+        visual = _init_eva_visual(cfg, gen)
+    elif cfg.is_vit:
         w = cfg.vision_width
         scale = w ** -0.5
         patch_dim = cfg.vision_patch_size ** 2 * 3
@@ -244,7 +352,10 @@ def load_jax_params(flat, device=None):
 
 def infer_config_from_state_dict(sd) -> CLIPConfig:
     """The architecture of an OpenAI CLIP state dict, ViT or ModifiedResNet,
-    from its shapes (``clip.build_model``)."""
+    from its shapes (``clip.build_model``), or of an EVA-CLIP one
+    (:func:`infer_eva_config`)."""
+    if "visual.patch_embed.proj.weight" in sd:
+        return infer_eva_config(sd)
     if "visual.proj" in sd:
         vision_width = sd["visual.conv1.weight"].shape[0]
         vision_layers = len(
@@ -273,6 +384,32 @@ def infer_config_from_state_dict(sd) -> CLIPConfig:
         transformer_heads=transformer_width // 64,
         transformer_layers=len(
             {k.split(".")[2] for k in sd if k.startswith("transformer.resblocks")}),
+    )
+
+
+def infer_eva_config(sd) -> EvaCLIPConfig:
+    """The architecture of an EVA-CLIP state dict (``EVA02_CLIP_L_psz14_s4B.pt``'s
+    keys: ``visual.patch_embed.proj``, ``visual.blocks.{i}.attn.q_proj`` ...,
+    ``text.transformer.resblocks.{i}`` ...) from its shapes; the text tower
+    is OpenCLIP's with exact GELU."""
+    patch = sd["visual.patch_embed.proj.weight"]
+    width, P = patch.shape[0], patch.shape[-1]
+    grid = round((sd["visual.pos_embed"].shape[-2] - 1) ** 0.5)
+    layers = len({k.split(".")[2] for k in sd if k.startswith("visual.blocks.")})
+    text_width = sd["text.ln_final.weight"].shape[0]
+    return EvaCLIPConfig(
+        embed_dim=sd["text.text_projection"].shape[1],
+        image_resolution=P * grid,
+        vision_layers=layers,
+        vision_width=width,
+        vision_patch_size=P,
+        context_length=sd["text.positional_embedding"].shape[0],
+        vocab_size=sd["text.token_embedding.weight"].shape[0],
+        transformer_width=text_width,
+        transformer_heads=text_width // 64,
+        transformer_layers=len({k.split(".")[3] for k in sd
+                                if k.startswith("text.transformer.resblocks.")}),
+        vision_mlp_width=sd["visual.blocks.0.mlp.w1.weight"].shape[0],
     )
 
 
@@ -313,6 +450,8 @@ def convert_torch_state_dict(sd, cfg: CLIPConfig = None, dtype_policy: bool = Tr
     then the dtype policy."""
     if cfg is None:
         cfg = infer_config_from_state_dict(sd)
+    if is_eva(cfg):
+        return convert_eva_state_dict(sd, cfg, dtype_policy)
     if cfg.is_vit:
         conv_w = _f32(sd["visual.conv1.weight"])  # (O, I, kH, kW)
         conv_w = conv_w.permute(2, 3, 1, 0).reshape(-1, conv_w.shape[0]).contiguous()
@@ -345,6 +484,123 @@ def convert_torch_state_dict(sd, cfg: CLIPConfig = None, dtype_policy: bool = Tr
     return params
 
 
+def _convert_eva_block(sd, prefix: str, padded: int) -> dict:
+    def get(name):
+        return _f32(sd[f"{prefix}.{name}"])
+
+    def ln(name, pad=None):
+        return {"scale": pad_last(get(name + ".weight"), pad or get(name + ".weight").shape[0]),
+                "bias": pad_last(get(name + ".bias"), pad or get(name + ".bias").shape[0])}
+
+    return {
+        "ln_1": ln("norm1"),
+        "attn": {
+            "w_qkv": torch.cat([get(f"attn.{n}_proj.weight") for n in "qkv"]).T.contiguous(),
+            "q_bias": get("attn.q_bias"),
+            "v_bias": get("attn.v_bias"),
+            "ln_inner": ln("attn.inner_attn_ln"),
+            "w_out": get("attn.proj.weight").T.contiguous(),
+            "b_out": get("attn.proj.bias"),
+        },
+        "ln_2": ln("norm2"),
+        "mlp": {
+            "w12": interleave_gate(get("mlp.w1.weight").T, get("mlp.w2.weight").T, padded),
+            "b12": interleave_gate(get("mlp.w1.bias"), get("mlp.w2.bias"), padded),
+            "ln_ffn": ln("mlp.ffn_ln", padded),
+            "w3": pad_last(get("mlp.w3.weight"), padded).T.contiguous(),
+            "b3": get("mlp.w3.bias"),
+        },
+    }
+
+
+def convert_eva_state_dict(sd, cfg: CLIPConfig = None, dtype_policy: bool = True) -> dict:
+    """An EVA-CLIP state dict (:func:`infer_eva_config`'s keys) as the port's
+    parameter tree, on the CPU: q, k and v stacked into ``w_qkv``, ``w1`` and
+    ``w2`` interleaved into ``w12`` and the hidden zero-padded
+    (:func:`interleave_gate`), EVA's final ``norm`` as ``ln_post`` and its
+    ``head`` as ``proj`` and ``proj_bias``; the ``rope.freqs_*`` buffers
+    ignored (the port computes the table); then the dtype policy."""
+    if cfg is None:
+        cfg = infer_eva_config(sd)
+    patch = _f32(sd["visual.patch_embed.proj.weight"])
+    visual = {
+        "conv1": {"w": patch.permute(2, 3, 1, 0).reshape(-1, patch.shape[0]).contiguous(),
+                  "b": _f32(sd["visual.patch_embed.proj.bias"])},
+        "class_embedding": _f32(sd["visual.cls_token"]).reshape(-1),
+        "positional_embedding": _f32(sd["visual.pos_embed"]).reshape(cfg.num_patches + 1, -1),
+        "blocks": [_convert_eva_block(sd, f"visual.blocks.{i}", cfg.vision_mlp_padded)
+                   for i in range(cfg.vision_layers)],
+        "ln_post": {"scale": _f32(sd["visual.norm.weight"]), "bias": _f32(sd["visual.norm.bias"])},
+        "proj": _f32(sd["visual.head.weight"]).T.contiguous(),
+        "proj_bias": _f32(sd["visual.head.bias"]),
+    }
+    text_sd = {k[len("text."):]: v for k, v in sd.items() if k.startswith("text.")}
+    text = {
+        "token_embedding": _f32(text_sd["token_embedding.weight"]),
+        "positional_embedding": _f32(text_sd["positional_embedding"]),
+        "blocks": [_convert_block(text_sd, f"transformer.resblocks.{i}")
+                   for i in range(cfg.transformer_layers)],
+        "ln_final": {"scale": _f32(text_sd["ln_final.weight"]),
+                     "bias": _f32(text_sd["ln_final.bias"])},
+        "text_projection": _f32(text_sd["text_projection"]),
+    }
+    params = {"visual": visual, "text": text,
+              "logit_scale": _f32(sd["logit_scale"]).reshape(())}
+    if dtype_policy:
+        params = apply_dtype_policy(params)
+    return params
+
+
+def export_eva_state_dict(params, cfg: CLIPConfig, dtype=torch.float32) -> dict:
+    """The inverse of :func:`convert_eva_state_dict`: EVA-CLIP's keys, the
+    padding dropped, every tensor in ``dtype`` (contiguous, on the CPU)."""
+    v, t = params["visual"], params["text"]
+    H, P, D = cfg.vision_mlp_width, cfg.vision_patch_size, cfg.vision_width
+    sd = {
+        "visual.patch_embed.proj.weight": v["conv1"]["w"].reshape(P, P, 3, -1).permute(3, 2, 0, 1),
+        "visual.patch_embed.proj.bias": v["conv1"]["b"],
+        "visual.cls_token": v["class_embedding"].reshape(1, 1, -1),
+        "visual.pos_embed": v["positional_embedding"][None],
+        "visual.norm.weight": v["ln_post"]["scale"],
+        "visual.norm.bias": v["ln_post"]["bias"],
+        "visual.head.weight": v["proj"].T,
+        "visual.head.bias": v["proj_bias"],
+    }
+    for i, b in enumerate(v["blocks"]):
+        pre = f"visual.blocks.{i}."
+        a, m = b["attn"], b["mlp"]
+        w1, w2 = split_gate(m["w12"], H)
+        b1, b2 = split_gate(m["b12"], H)
+        sd.update({
+            pre + "norm1.weight": b["ln_1"]["scale"], pre + "norm1.bias": b["ln_1"]["bias"],
+            pre + "attn.q_proj.weight": a["w_qkv"][:, :D].T,
+            pre + "attn.k_proj.weight": a["w_qkv"][:, D:2 * D].T,
+            pre + "attn.v_proj.weight": a["w_qkv"][:, 2 * D:].T,
+            pre + "attn.q_bias": a["q_bias"], pre + "attn.v_bias": a["v_bias"],
+            pre + "attn.inner_attn_ln.weight": a["ln_inner"]["scale"],
+            pre + "attn.inner_attn_ln.bias": a["ln_inner"]["bias"],
+            pre + "attn.proj.weight": a["w_out"].T, pre + "attn.proj.bias": a["b_out"],
+            pre + "norm2.weight": b["ln_2"]["scale"], pre + "norm2.bias": b["ln_2"]["bias"],
+            pre + "mlp.w1.weight": w1.T, pre + "mlp.w1.bias": b1,
+            pre + "mlp.w2.weight": w2.T, pre + "mlp.w2.bias": b2,
+            pre + "mlp.ffn_ln.weight": m["ln_ffn"]["scale"][:H],
+            pre + "mlp.ffn_ln.bias": m["ln_ffn"]["bias"][:H],
+            pre + "mlp.w3.weight": m["w3"][:H].T, pre + "mlp.w3.bias": m["b3"],
+        })
+    sd.update({
+        "text.token_embedding.weight": t["token_embedding"],
+        "text.positional_embedding": t["positional_embedding"],
+        "text.ln_final.weight": t["ln_final"]["scale"],
+        "text.ln_final.bias": t["ln_final"]["bias"],
+        "text.text_projection": t["text_projection"],
+        "logit_scale": params["logit_scale"],
+    })
+    for i, block in enumerate(t["blocks"]):
+        sd.update({"text." + k: x for k, x in
+                   _export_block(block, f"transformer.resblocks.{i}").items()})
+    return {k: x.detach().cpu().to(dtype).contiguous() for k, x in sd.items()}
+
+
 def _export_block(block: dict, prefix: str) -> dict:
     return {
         f"{prefix}.ln_1.weight": block["ln_1"]["scale"],
@@ -366,7 +622,10 @@ def export_openai_state_dict(params, cfg: CLIPConfig, dtype=torch.float16) -> di
     """The inverse of :func:`convert_torch_state_dict`: a parameter tree of
     the port, ViT or ModifiedResNet, as an OpenAI CLIP state dict (OpenAI's
     key layout, every tensor in ``dtype``, fp16 as OpenAI ships it;
-    contiguous, on the CPU)."""
+    contiguous, on the CPU); EVA-CLIP's layout for an EVA backbone
+    (:func:`export_eva_state_dict`)."""
+    if is_eva(cfg):
+        return export_eva_state_dict(params, cfg, dtype)
     v, t = params["visual"], params["text"]
     if cfg.is_vit:
         P = cfg.vision_patch_size

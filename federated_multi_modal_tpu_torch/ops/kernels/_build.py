@@ -54,6 +54,15 @@ _SIGNATURES = {
                           _I, _P, _I, _P, _I, _P],
     # x, x_f32, gamma, beta, out, rows, D, eps, stream
     "fmm_layernorm_rows": [_P, _I, _P, _P, _P, _I, _I, _F, _P],
+    # A, W, M, N, K, bias, pre_out, rope table, rope T, rope columns, gate, out,
+    # stream (EVA-CLIP's RoPE and gate epilogues)
+    "fmm_gemm_epilogue_eva": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # x, gamma, beta, out, rows, D, ld, eps, stream
+    "fmm_layernorm_rows_ld": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # pre, dgn, gamma, dpair, partial, rows, D, ld, blocks, eps, stream
+    "fmm_layernorm_bwd_gate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, table, M, T, D, inverse, stream
+    "fmm_rope_rows": [_P, _P, _I, _I, _I, _I, _P],
     # x, x_f32, dxn, dres, dres_f32, gamma, dx, dx_f32, dx_copy, partial,
     # rows, D, blocks, eps, stream
     "fmm_layernorm_bwd_rows": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I,

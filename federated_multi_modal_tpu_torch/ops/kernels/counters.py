@@ -11,6 +11,7 @@ step launched.
 from __future__ import annotations
 
 from federated_multi_modal_tpu_torch.ops.kernels import attention as k_attn
+from federated_multi_modal_tpu_torch.ops.kernels import eva_block as k_eva
 from federated_multi_modal_tpu_torch.ops.kernels import fused_block as k_block
 from federated_multi_modal_tpu_torch.ops.kernels import prototypes as k_proto
 
@@ -31,7 +32,10 @@ def wrappers() -> dict:
             "K9 fused_block_group_residual": k_block.fused_block_group_residual,
             "P1 fused_lnqkv_attention": k_proto.fused_lnqkv_attention,
             "P2 fused_lnqkv_attention_bwd_dx": k_proto.fused_lnqkv_attention_bwd_dx,
-            "P3 packed4d_attention": k_proto.packed4d_attention}
+            "P3 packed4d_attention": k_proto.packed4d_attention,
+            "E1 eva_block_train": k_eva.eva_block_train,
+            "E2 eva_block_train_dw": k_eva.eva_block_train_dw,
+            "E3 eva_block_residual": k_eva.eva_block_residual}
 
 
 def reset() -> None:

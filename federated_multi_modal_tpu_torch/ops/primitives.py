@@ -44,7 +44,9 @@ import os
 import torch
 
 from federated_multi_modal_tpu_torch.ops.kernels import attention as _attn_kernels
+from federated_multi_modal_tpu_torch.ops.kernels import eva_block as _eva_kernels
 from federated_multi_modal_tpu_torch.ops.kernels import fused_block as _block_kernels
+from federated_multi_modal_tpu_torch.utils.profiling import span
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -131,23 +133,31 @@ def multi_head_attention(x: torch.Tensor, p, n_head: int,
     return linear(out, p["w_out"], p["b_out"])
 
 
-def mlp(x: torch.Tensor, p) -> torch.Tensor:
-    h = quick_gelu(linear(x, p["w_fc"], p["b_fc"]))
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU in fp32, in the input's dtype: OpenCLIP's text MLP."""
+    return torch.nn.functional.gelu(x.float()).to(x.dtype)
+
+
+def mlp(x: torch.Tensor, p, quick: bool = True) -> torch.Tensor:
+    h = linear(x, p["w_fc"], p["b_fc"])
+    h = quick_gelu(h) if quick else gelu(h)
     return linear(h, p["w_proj"], p["b_proj"])
 
 
 def residual_block(x: torch.Tensor, p, n_head: int,
                    attn_mask: torch.Tensor = None,
-                   inference: bool = False) -> torch.Tensor:
+                   inference: bool = False, quick_gelu_mlp: bool = True) -> torch.Tensor:
     """Pre-LN transformer block. ``inference=True`` asserts that no
     gradient flows through the block (eval towers); in training, a block
     none of whose attention or MLP weights requires a gradient is frozen.
     Mask-free blocks take the kernel that the JAX package's
     ``residual_block`` and ``encode_image`` pick for that case under the
-    environment gates (see the module docstring)."""
-    if _ATTENTION_IMPL == "xla":
+    environment gates (see the module docstring). ``quick_gelu_mlp=False``
+    (OpenCLIP's exact GELU) runs the plain formulation: every block kernel's
+    MLP is QuickGELU's."""
+    if _ATTENTION_IMPL == "xla" or not quick_gelu_mlp:
         x = x + multi_head_attention(layer_norm(x, p["ln_1"]), p["attn"], n_head, attn_mask)
-        return x + mlp(layer_norm(x, p["ln_2"]), p["mlp"])
+        return x + mlp(layer_norm(x, p["ln_2"]), p["mlp"], quick_gelu_mlp)
     B, T, D = x.shape
     hidden = p["mlp"]["w_fc"].shape[-1]
     kernels = _block_kernels
@@ -180,6 +190,57 @@ def residual_block(x: torch.Tensor, p, n_head: int,
                                  attn_mask)
     x = x + mlp(layer_norm(x, p["ln_2"]), p["mlp"])
     return x
+
+
+def eva_attention(x: torch.Tensor, attn, n_head: int, table: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """EVA's attention half before its residual, plainly: q, k, v (biases on q
+    and v), q and k turned by ``table`` (``eva_block.rope_table``), fp32
+    scores and softmax, ``LN_inner``, the out-projection."""
+    B, T, D = x.shape
+    hd = D // n_head
+    qkv = linear(x, attn["w_qkv"], _eva_kernels.qkv_bias(attn))
+    qk = _eva_kernels.apply_rope(qkv[..., :2 * D], table).to(x.dtype)
+    q, k, v = (t.reshape(B, T, n_head, hd).transpose(1, 2)
+               for t in (qk[..., :D], qk[..., D:], qkv[..., 2 * D:]))
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
+    out = torch.matmul(torch.softmax(scores, dim=-1).to(x.dtype), v)
+    out = layer_norm(out.transpose(1, 2).reshape(B, T, D), attn["ln_inner"], eps)
+    return linear(out, attn["w_out"], attn["b_out"])
+
+
+def swiglu_mlp(x: torch.Tensor, p, hidden: int, eps: float) -> torch.Tensor:
+    """EVA's SwiGLU half before its residual, plainly, over the port's padded
+    layout: ``w12``'s interleaved pair cut to ``hidden`` columns, ``silu(x1)
+    * x2`` in fp32, ``LN_ffn``, ``w3``."""
+    u = linear(x, p["w12"], p["b12"])
+    pair = u.reshape(*u.shape[:-1], -1, 2)[..., :hidden, :].float()
+    g = (pair[..., 0] * torch.sigmoid(pair[..., 0]) * pair[..., 1]).to(x.dtype)
+    ln = {k: v[:hidden] for k, v in p["ln_ffn"].items()}
+    return linear(layer_norm(g, ln, eps), p["w3"][:hidden], p["b3"])
+
+
+def eva_residual_block(x: torch.Tensor, p, n_head: int, table: torch.Tensor, hidden: int,
+                       eps: float, inference: bool = False) -> torch.Tensor:
+    """EVA-CLIP's block (``ops/kernels/eva_block.py``): under ``"pallas"``, for
+    lane-aligned shapes, the eval block ``eva_block_residual`` with
+    ``inference``, else ``eva_block_train_dw`` when any of its weights
+    requires a gradient and ``eva_block_train`` when none does; under
+    ``"xla"``, ``FMM_TPU_FUSED=0`` or ``T < 32``, the plain formulation
+    (:func:`eva_attention`, :func:`swiglu_mlp`). The SwiGLU half is span
+    ``vision_mlp`` on every route."""
+    B, T, D = x.shape
+    k = _eva_kernels
+    if (_ATTENTION_IMPL == "pallas" and T >= 32
+            and _block_kernels.fused_ln_attention_eligible(B, T, D, n_head, None)):
+        if inference:
+            return k.eva_block_residual(x, p, n_head, table, hidden, eps)
+        if any(k._get(p, path).requires_grad for path in k.WEIGHT_LEAVES):
+            return k.eva_block_train_dw(x, p, n_head, table, hidden, eps)
+        return k.eva_block_train(x, p, n_head, table, hidden, eps)
+    x = x + eva_attention(layer_norm(x, p["ln_1"], eps), p["attn"], n_head, table, eps)
+    with span("vision_mlp"):
+        return x + swiglu_mlp(layer_norm(x, p["ln_2"], eps), p["mlp"], hidden, eps)
 
 
 def residual_block_group(x: torch.Tensor, blocks, n_head: int, inject_flags,

@@ -35,6 +35,7 @@ from federated_multi_modal_tpu_torch.parallel.mesh import (
     replicate,
     run_replicas,
 )
+from federated_multi_modal_tpu_torch.utils.profiling import span
 
 
 def stack_client_trees(trees):
@@ -54,14 +55,15 @@ def fedavg_over_clients(stacked_trainable):
     +-1e4, the sum over clients in client order times the
     fp32 reciprocal of their count (XLA's form of ``jnp.mean``'s division,
     so the bits equal the JAX package's), cast back to the leaf's dtype; the
-    averaged tree is broadcast back to ``(C, ...)``."""
+    averaged tree is broadcast back to ``(C, ...)``. Span ``fedavg``."""
 
     def avg(_, x):
         x32 = torch.nan_to_num(x.float(), nan=0.0, posinf=1e4, neginf=-1e4)
         mean = (x32.sum(0, keepdim=True) * (1.0 / x.shape[0])).to(x.dtype)
         return mean.expand_as(x)
 
-    return tree_map_with_path(avg, stacked_trainable)
+    with span("fedavg"):
+        return tree_map_with_path(avg, stacked_trainable)
 
 
 def _client_groups(mesh) -> np.ndarray:
@@ -96,7 +98,9 @@ def build_parallel_fed_step(loss_fn: Callable, tx, mesh, fedavg_every_step: bool
     Returns ``step(stacked_trainable, frozen, stacked_opt_state, batch,
     run=run_replicas) -> (stacked_trainable, stacked_opt_state, losses
     (C,))``; the stacked trees and the losses are on the device of the
-    stacked trainable leaves, and every batch leaf is ``(C, B, ...)``.
+    stacked trainable leaves, and every batch leaf is ``(C, B, ...)``, or
+    ``batch`` is a list of the ``C`` clients' batches (leaves ``(B, ...)``),
+    each on any device: a leaf already on its replica's card is not copied.
     ``run`` runs the replicas (``mesh.run_replicas``, or a capture's
     ``mesh.StepGraph.replicas``)."""
     from federated_multi_modal_tpu_torch.engine.trainer import loss_grads_and_aux
@@ -122,11 +126,17 @@ def build_parallel_fed_step(loss_fn: Callable, tx, mesh, fedavg_every_step: bool
             return False
         if C % nc:
             return False
+        if isinstance(batch, (list, tuple)):
+            return len(batch) == C and all(x.ndim >= 1 and x.shape[0] % nd == 0
+                                           for b in batch for x in leaves(b))
         return all(x.ndim >= 2 and x.shape[0] == C and x.shape[1] % nd == 0
                    for x in leaves(batch))
 
     def client(tree, c):
         return tree_map_with_path(lambda _, x: x[c], tree)
+
+    def client_batch(batch, c):
+        return batch[c] if isinstance(batch, (list, tuple)) else client(batch, c)
 
     def step(stacked_trainable, frozen, stacked_opt_state, batch, run=run_replicas):
         C = leaves(stacked_trainable)[0].shape[0]
@@ -146,7 +156,7 @@ def build_parallel_fed_step(loss_fn: Callable, tx, mesh, fedavg_every_step: bool
             row = groups[c // per_group]
             row = list(row) if split_data else [row[0]]
             n = len(row)
-            tr_c, b_c = client(stacked_trainable, c), client(batch, c)
+            tr_c, b_c = client(stacked_trainable, c), client_batch(batch, c)
             for j, d in enumerate(row):
                 shard = b_c if n == 1 else tree_map_with_path(
                     lambda _, x, j=j: x.chunk(n)[j], b_c)

@@ -85,7 +85,7 @@ def maple_clip_params(prec: str, clip_params, device):
 
 def maple_trainable_predicate(visual_layers: int, text_layers: int):
     """Prompt learner + every LayerNorm + the last block of both towers."""
-    ln_names = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final")
+    ln_names = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final", "ln_inner", "ln_ffn")
     vis_last = f"visual.blocks.{visual_layers - 1}."
     txt_last = f"text.blocks.{text_layers - 1}."
 

@@ -55,6 +55,9 @@ SPANS = (
     "text_tower.backward",
     "vision_tower.backward",
     "loss.backward",
+    "vision_mlp",  # ops/kernels/eva_block.py, ops/primitives.py: an EVA block's SwiGLU half
+    "fedavg",  # parallel/fedavg.py::fedavg_over_clients
+    "vision_mlp.backward",
 )
 SPAN_ID = {name: i for i, name in enumerate(SPANS)}
 

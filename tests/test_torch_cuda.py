@@ -2183,3 +2183,222 @@ def test_captured_step_marks_its_spans_in_every_replay(gen, monkeypatch):
     assert got == captured * 3
     host = {e.name() for e in prof.profiler.kineto_results.events()}
     assert "replay" in host
+
+
+# -- EVA02-CLIP-L/14's block (ops/kernels/eva_block.py): the RoPE and gate
+#    epilogues, LN_ffn at 2730 valid columns of 2736, its backward fused with
+#    the gate's, the inverse rotation of d(QKV), and the whole block at the
+#    published widths (T = 260, 16 heads of 64, hidden 2730), each against its
+#    plain version (EVA_PLAIN_STEPS) with a planted fault caught.
+
+from federated_multi_modal_tpu_torch.models import params as eva_params  # noqa: E402
+from federated_multi_modal_tpu_torch.ops.kernels import eva_block as k_eva  # noqa: E402
+
+EVA_D, EVA_H, EVA_HIDDEN, EVA_PAD, EVA_T = 1024, 16, 2730, 2736, 260
+
+
+def _eva_table(T=EVA_T):
+    return k_eva.rope_table(T, 16, 64, "cuda")
+
+
+def test_eva_gemm_rope(gen):
+    """The QKV product with the rotation in its epilogue against the plain
+    product turned in fp32: one bf16 rounding apart (2**-7); the same product
+    with the identity table (no rotation) fails that."""
+    B = 4
+    a = _randn(gen, B * EVA_T, EVA_D)
+    w = _randn(gen, EVA_D, 3 * EVA_D, scale=EVA_D ** -0.5)
+    bias = _randn(gen, 3 * EVA_D, scale=0.1)
+    table = _eva_table()
+    got = k_eva.gemm_rope_cuda(a, w, bias, table)
+    ref = k_eva.gemm_rope_reference(a, w, bias, table)
+    _assert_close(got, ref, 2 ** -7)
+    # CLS, prompt and caption rows and v are the plain product
+    plain = k_block.gemm_epilogue_reference(a, w, bias).reshape(B, EVA_T, -1)
+    g3 = got.reshape(B, EVA_T, -1)
+    _assert_close(g3[:, 0], plain[:, 0], 2 ** -7)
+    _assert_close(g3[:, 257:], plain[:, 257:], 2 ** -7)
+    _assert_close(g3[..., 2 * EVA_D:], plain[..., 2 * EVA_D:], 2 ** -7)
+    unrotated = k_eva.gemm_rope_cuda(a, w, bias, k_eva.rope_table(EVA_T, 0, 64, "cuda"))
+    assert not _close(unrotated, ref, 2 ** -7)
+
+
+@pytest.mark.parametrize("pre", [False, True])
+def test_eva_gemm_gate(gen, pre):
+    """The SwiGLU product (W1, W2 interleaved and padded to 2736) with the gate
+    in its epilogue: g at one bf16 rounding (2**-7) of the plain version, the
+    kept pair likewise, zeros past 2730; a gate that drops x2 fails."""
+    M = 2 * EVA_T
+    a = _randn(gen, M, EVA_D)
+    w12 = eva_params.interleave_gate(_randn(gen, EVA_D, EVA_HIDDEN, scale=0.03),
+                                     _randn(gen, EVA_D, EVA_HIDDEN, scale=0.03), EVA_PAD)
+    b12 = eva_params.interleave_gate(_randn(gen, EVA_HIDDEN, scale=0.1),
+                                     _randn(gen, EVA_HIDDEN, scale=0.1), EVA_PAD)
+    got = k_eva.gemm_gate_cuda(a, w12, b12, pre=pre)
+    ref = k_eva.gemm_gate_reference(a, w12, b12, pre=pre)
+    if pre:
+        _assert_close(got[1], ref[1], 2 ** -7)
+        got, ref = got[0], ref[0]
+    assert got.shape == (M, EVA_PAD)
+    _assert_close(got, ref, 2 ** -7)
+    assert not got[:, EVA_HIDDEN:].any()
+    pair = k_block.gemm_epilogue_reference(a, w12, b12).float().reshape(M, EVA_PAD, 2)
+    assert not _close(got, k_eva.silu(pair[..., 0]).to(torch.bfloat16), 2 ** -7)
+
+
+def test_eva_layernorm_ld(gen):
+    """LN_ffn over 2730 valid columns of 2736 against the plain version, with
+    the padding of its input holding 8s that it must not read; its output's
+    padding is zero; LN over all 2736 fails."""
+    rows = 3 * EVA_T
+    x = _randn(gen, rows, EVA_PAD)
+    x[:, EVA_HIDDEN:] = 8
+    gamma = torch.nn.functional.pad(_randn(gen, EVA_HIDDEN, dtype=torch.float32), (0, 6))
+    beta = torch.nn.functional.pad(_randn(gen, EVA_HIDDEN, dtype=torch.float32), (0, 6))
+    got = k_eva.layernorm_ld_cuda(x, gamma, beta, EVA_HIDDEN, 1e-6)
+    ref = k_eva.layernorm_ld_reference(x, gamma, beta, EVA_HIDDEN, 1e-6)
+    _assert_close(got, ref, 2 ** -7)
+    assert not got[:, EVA_HIDDEN:].any()
+    wide = k_block.layernorm_rows_reference(x, gamma, beta, torch.bfloat16, 1e-6)
+    assert not _close(got, wide, 2 ** -7)
+
+
+def test_eva_layernorm_bwd_gate(gen):
+    """LN_ffn's backward fused with the gate's, over the saved pair: d(x1, x2)
+    at 2**-6 of the plain version plus 2**-6 of its largest value (an fp32 LN
+    backward over 2730 columns, then one bf16 rounding), d gamma and d beta
+    (sums over the rows) at 2**-8 relative plus 2**-8 of their largest;
+    zeros past 2730; d x2 taken without silu(x1) fails."""
+    rows = 2 * EVA_T + 3
+    pre = eva_params.interleave_gate(_randn(gen, rows, EVA_HIDDEN), _randn(gen, rows, EVA_HIDDEN),
+                                     EVA_PAD)
+    dgn = _randn(gen, rows, EVA_PAD, dtype=torch.float32)
+    dgn[:, EVA_HIDDEN:] = 0
+    gamma = torch.nn.functional.pad(1 + 0.1 * _randn(gen, EVA_HIDDEN, dtype=torch.float32), (0, 6))
+    got = k_eva.layernorm_bwd_gate_cuda(pre, dgn, gamma, EVA_HIDDEN, 1e-6)
+    ref = k_eva.layernorm_bwd_gate_reference(pre, dgn, gamma, EVA_HIDDEN, 1e-6)
+    scale = float(ref[0].float().abs().max())
+    d = (got[0].float() - ref[0].float()).abs()
+    assert bool((d <= 2 ** -6 * (scale + ref[0].float().abs())).all()), float(d.max())
+    for g, r in zip(got[1:], ref[1:]):
+        d = (g - r).abs()
+        assert bool((d <= 2 ** -8 * (float(r.abs().max()) + r.abs())).all()), float(d.max())
+        assert not g[EVA_HIDDEN:].any()
+    assert not got[0].reshape(rows, EVA_PAD, 2)[:, EVA_HIDDEN:].any()
+    broken = ref[0].float().reshape(rows, EVA_PAD, 2).clone()
+    pair = pre.float().reshape(rows, EVA_PAD, 2)
+    s = torch.sigmoid(pair[..., 0])
+    broken[..., 1] = torch.where(s > 0, broken[..., 1] / (pair[..., 0] * s + 1e-30), broken[..., 1])
+    assert not bool(((got[0].float() - broken.reshape(rows, -1)).abs()
+                     <= 2 ** -6 * (scale + broken.reshape(rows, -1).abs())).all())
+
+
+def test_eva_rope_rows_inverse(gen):
+    """d(QKV)'s inverse rotation in place against the plain version; turning by
+    theta then by -theta gives the input back at a bf16 rounding each way."""
+    B = 3
+    qkv = _randn(gen, B, EVA_T, 3 * EVA_D)
+    table = _eva_table()
+    ref = k_eva.rope_rows_reference(qkv, table, inverse=True)
+    got = k_eva.rope_rows_cuda(qkv.clone(), table, inverse=True)
+    _assert_close(got, ref, 2 ** -7)
+    back = k_eva.rope_rows_cuda(got.clone(), table)
+    _assert_close(back, qkv, 2 ** -6)
+    assert not _close(got, qkv, 2 ** -7)
+
+
+def _eva_block_params(gen, wgrad):
+    cpu = torch.Generator().manual_seed(int(torch.randint(0, 2 ** 31, (1,), generator=gen,
+                                                          device="cuda")))
+    blk = eva_params._init_eva_block(cpu, EVA_D, EVA_HIDDEN, EVA_PAD, 12)
+    blk = eva_params.apply_dtype_policy({"b": blk})["b"]
+    out = {}
+    for path in k_eva.BLOCK_LEAVES:
+        t = k_eva._get(blk, path).cuda()
+        if wgrad or path in k_eva.LN_LEAVES:
+            t = t.float().requires_grad_(True)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return out
+
+
+@pytest.mark.parametrize("wgrad", [False, True], ids=["frozen", "trainable"])
+def test_eva_train_block(gen, wgrad):
+    """The EVA block at its published widths (T = 260, 16 heads of 64, hidden
+    2730), forward and every gradient, against the same sequence on the plain
+    steps at the limits of ``test_vit_l14_train_block`` (2**-5); the launch
+    counts of its wrapper; dx with the last image's rows unwritten fails."""
+    B = 2
+    p = _eva_block_params(gen, wgrad)
+    x = _randn(gen, B, EVA_T, EVA_D).requires_grad_(True)
+    dy = _randn(gen, B, EVA_T, EVA_D)
+    table = _eva_table()
+    kernel = k_eva.eva_block_train_dw if wgrad else k_eva.eva_block_train
+    leaves = [x] + [t for t in k_eva._leaves(p) if t.requires_grad]
+    before = (kernel.launches, kernel.backward_launches)
+    out = kernel(x, p, EVA_H, table, EVA_HIDDEN, 1e-6)
+    got = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref_out = k_eva._EvaBlockTrain.apply(x, table, EVA_H, EVA_HIDDEN, 1e-6, k_eva.EVA_PLAIN_STEPS,
+                                         wgrad, None, *k_eva._leaves(p))
+    ref = torch.autograd.grad(ref_out, leaves, dy)
+    assert _close(out, ref_out, 2 ** -5) and _close(got[0], ref[0], 2 ** -5)
+    assert not _close(_tail_zeroed(got[0], EVA_T), ref[0], 2 ** -5)
+    assert len(got) == 1 + (17 if wgrad else 8)
+    for g, r in zip(got[1:], ref[1:]):
+        d = (g.float() - r.float()).abs()
+        assert bool((d <= 2 ** -5 * (float(r.abs().max()) + r.abs())).all()), float(d.max())
+
+
+def test_eva_inference_block(gen):
+    """The eval block (no pair kept) against its plain version at 2**-5."""
+    B = 2
+    p = _eva_block_params(gen, False)
+    x = _randn(gen, B, EVA_T - 1, EVA_D)
+    table = _eva_table(EVA_T - 1)
+    before = k_eva.eva_block_residual.launches
+    with torch.no_grad():
+        got = k_eva.eva_block_residual(x, p, EVA_H, table, EVA_HIDDEN, 1e-6)
+        ref = k_eva.eva_block_forward(x, p, EVA_H, table, EVA_HIDDEN, 1e-6,
+                                      k_eva.EVA_PLAIN_STEPS, False)[0]
+    assert k_eva.eva_block_residual.launches == before + 1
+    assert _close(got, ref, 2 ** -5)
+    assert not _close(_tail_zeroed(got, EVA_T - 1), ref, 2 ** -5)
+
+
+def test_eva_program_launches_its_blocks_on_the_card(gen, monkeypatch):
+    """A narrow EVA MaPLe program (width 128, 3 vision blocks) on the card:
+    one train step launches the frozen block twice and the trainable once,
+    each backward once, no CLIP block; the eval launches the eval block
+    three times; its loss within 2**-6 of the plain steps' on the card."""
+    from federated_multi_modal_tpu_torch import flagship
+    from federated_multi_modal_tpu_torch.engine.tree import tree_map_with_path
+    from federated_multi_modal_tpu_torch.ops.kernels import counters
+
+    cfg = eva_params.eva02_config(embed_dim=64, image_resolution=48, vision_layers=3,
+                                  vision_width=128, vision_patch_size=8, transformer_width=128,
+                                  transformer_heads=2, transformer_layers=2, vision_mlp_width=341)
+    monkeypatch.setitem(eva_params.BACKBONE_CONFIGS, "EVA02-CLIP-L/14", cfg)
+    prog = flagship.build_maple_program(backbone="EVA02-CLIP-L/14", depth=3,
+                                        classnames=[f"class {i}" for i in range(5)], device="cuda")
+    batch = flagship.example_batch(cfg, batch_size=4, n_cls=5, device="cuda")
+    counters.reset()
+    tr = tree_map_with_path(lambda _, t: t.detach().clone().requires_grad_(True), prog["trainable"])
+    loss, _ = prog["loss_fn"](tr, prog["frozen"], batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = counters.read(nonzero=True)
+    assert counts["E1 eva_block_train"] == 2 and counts["E1 eva_block_train (backward)"] == 2
+    assert counts["E2 eva_block_train_dw"] == 1 and counts["E2 eva_block_train_dw (backward)"] == 1
+    assert not any(k.startswith(("K3", "K4", "K5")) for k in counts), counts
+    monkeypatch.setattr(k_eva, "EVA_CUDA_STEPS", k_eva.EVA_PLAIN_STEPS)
+    with torch.no_grad():
+        plain, _ = prog["loss_fn"](prog["trainable"], prog["frozen"], batch)
+    assert abs(float(loss) - float(plain)) <= 2 ** -6 * abs(float(plain))
+    counters.reset()
+    prep = prog["eval_prepare_fn"](prog["trainable"], prog["frozen"])
+    prog["eval_apply_fn"](prog["trainable"], prog["frozen"], batch["image"], prep)
+    assert counters.read(nonzero=True).get("E3 eva_block_residual") == 3

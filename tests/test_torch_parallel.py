@@ -227,6 +227,21 @@ def test_parallel_fed_step_matches_jax(impl, fed_step_inputs):
     assert not np.allclose(ctx[0], ctx[1])
 
 
+@pytest.mark.parametrize("impl", ["vmap", "shard_map"])
+def test_fed_step_takes_a_batch_a_client(impl, fed_step_inputs):
+    """The batch as a list of each client's batch gives the stacked batch's
+    step bit for bit, under both implementations."""
+    batch = fed_step_inputs["port"][3]
+    per_client = [{k: v[c] for k, v in batch.items()} for c in range(2)]
+    want = _port_fed_step(fed_step_inputs["port"], impl)
+    got = _port_fed_step(fed_step_inputs["port"], impl, batch=per_client)
+    np.testing.assert_array_equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.keys() == w.keys()
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
 def test_fed_step_nan_batch_keeps_client_state_and_fedavg_every_step(fed_step_inputs):
     """A NaN batch in client 1 leaves its parameters and momentum as they
     were while client 0 steps; ``fedavg_every_step`` averages the clients'
