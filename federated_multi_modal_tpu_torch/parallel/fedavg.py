@@ -11,10 +11,11 @@ each leaf's dtype and broadcast back to ``(C, ...)``.
 client's local SGD step, in one process: each client runs on its client
 group's row of the mesh (``parallel/mesh.py``), the frozen tower replicated
 once per device, the per-client parameters and optimizer state moved to the
-group and back. PyTorch launches work on different cards asynchronously from
-one thread, so the groups run at once. ``"shard_map"`` splits a client's
-batch over its group's ``data`` devices and averages their gradients and
-losses on the group's first device (the JAX package's ``pmean``);
+group and back. Every replica, its copies between cards included, is issued
+on streams of its own before the device of the stacked state waits for any
+(``mesh.ReplicaPhase``), so the groups run at once. ``"shard_map"`` splits
+a client's batch over its group's ``data`` devices and averages their
+gradients and losses on the group's first device (the JAX package's ``pmean``);
 ``"vmap"`` runs the whole client batch on the group's first device.
 """
 

@@ -11,18 +11,21 @@ client group on its row of the array.
 
 Work spread over several devices in one process (the data-parallel shares
 of a batch, the clients of a federated step) goes through
-:func:`run_replicas`: each replica runs on a CUDA stream of its own, so
-that replicas on separate cards, or on one card named more than once in the
-device list, run at once, and the home device waits for each replica's
-stream with an event before it reads the replica's outputs.
+:func:`run_replicas`: each replica runs on a CUDA stream of its own, and
+:class:`ReplicaPhase` issues every replica, its copies between cards
+included, before the home device's stream waits on any of them, so that
+replicas on separate cards, or on one card named more than once in the
+device list, run at once. The home device then waits for every replica's
+streams with events before it reads the replicas' outputs.
 :class:`StepGraph` captures such a step as CUDA graphs (the bench's
 ``--dispatch scan``): the home device's work in stretches, one graph per
-replica, and the copies between separate cards outside the graphs, between
-replays.
+replica, and the copies between separate cards outside the graphs, issued
+around each replica's graph in the same way in every replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Optional, Sequence
 
@@ -137,6 +140,14 @@ def make_mesh_from_cfg(cfg, num_clients: int, devices: Optional[Sequence] = None
     return ClientMesh(arr.reshape(shape), axes)
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 # (source tensor id, device) -> (weak reference to the source, its version,
 # the copy on the device)
 _REPLICAS: dict = {}
@@ -147,9 +158,7 @@ def replicate(tree, device):
     returned as they are, and a copy is made once per source tensor and
     device (kept while the source lives and is not written to), so that
     clients sharing one frozen tower share its replicas too."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = _indexed(device)
 
     def put(_, t):
         if t.device == device:
@@ -218,19 +227,119 @@ def _join(stream, home) -> None:
     torch.cuda.current_stream(home).wait_stream(stream)
 
 
+def _copy(dst, src) -> None:
+    """``dst.copy_(src)`` between two cards. PyTorch runs it on the source
+    card's current stream after an event of the destination card's current
+    stream, and makes that stream wait for it with another event."""
+    dst.copy_(src)
+
+
+def copy_stream(j, home) -> "torch.cuda.Stream":
+    """The side stream of ``home`` that replica ``j``'s copies between cards
+    run beside (:class:`ReplicaPhase`)."""
+    return replica_stream(("copies", j), home)
+
+
+class ReplicaPhase:
+    """The replicas of one :func:`run_replicas` call, or of one replay of a
+    :meth:`StepGraph.replicas` call, issued so that they run at once.
+
+    The home stream is ``home``'s current stream as the phase begins.
+    Replica ``j`` (:meth:`replica`) runs on its stream
+    (:func:`replica_stream`), which first waits for the home stream and for
+    its device's current stream. A replica on another card than ``home``
+    also makes its own side stream of ``home`` (:func:`copy_stream`, which
+    first waits for the home stream too) ``home``'s current stream, so that
+    the two events PyTorch puts around each copy between the cards
+    (:func:`_copy`) tie the replica's two streams to each other and never
+    to the home stream, through which the next replica would wait for this
+    one. The home stream waits for every replica's streams in :meth:`join`,
+    once all are issued. A replica on ``home`` (a device named twice
+    included) copies nothing between cards and takes no side stream.
+
+    So a copy onto a far card waits for that card's replica stream, and
+    does not overwrite what the last replay's graph may still read; a copy
+    home waits for the home stream's work before the phase, and does not
+    overwrite what the home stream has yet to read; and what the replicas
+    read on ``home`` is not written before :meth:`join`. The outputs
+    :func:`run_replicas` copies home are allocated while the side stream is
+    current, so their memory, once freed, goes back to new work on that
+    stream alone, which first waits for the home stream of a later phase.
+
+    ``in_flight`` is the number of replicas issued before the home stream
+    first waited for one (at :meth:`join`, or at a copy home issued while the
+    home stream was ``home``'s current stream); ``copies`` the number of
+    copies between cards."""
+
+    def __init__(self, home):
+        self.home = home
+        self.home_stream = torch.cuda.current_stream(home)
+        self.issued = 0
+        self.in_flight = None
+        self.copies = 0
+        self._streams = []
+        self._home_current = False  # the home stream is ``home``'s current one
+
+    @contextlib.contextmanager
+    def replica(self, j, device):
+        """The body issued as replica ``j`` on ``device``: the replica's
+        stream current on ``device`` and, where ``device`` is not ``home``,
+        its side stream current on ``home``."""
+        stream = replica_stream(j, device)
+        stream.wait_stream(self.home_stream)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        self._streams.append(stream)
+        with contextlib.ExitStack() as current:
+            if not same_device(device, self.home):
+                side = copy_stream(j, self.home)
+                side.wait_stream(self.home_stream)
+                self._streams.append(side)
+                current.enter_context(torch.cuda.stream(side))
+            current.enter_context(torch.cuda.stream(stream))
+            self.issued += 1
+            self._home_current = torch.cuda.current_stream(self.home) == self.home_stream
+            yield
+
+    def copy(self, dst, src) -> None:
+        """``dst.copy_(src)`` between cards (:func:`_copy`), counted."""
+        if (self._home_current and self.in_flight is None
+                and same_device(dst.device, self.home)):
+            self.in_flight = self.issued
+        self.copies += 1
+        _copy(dst, src)
+
+    def moved(self, tree, device):
+        """``tree`` with every leaf not on ``device`` copied there
+        (:meth:`copy`)."""
+        def move(_, t):
+            if same_device(t.device, device):
+                return t
+            dst = torch.empty_like(t, device=device)
+            self.copy(dst, t)
+            return dst
+
+        return tree_map_with_path(move, tree)
+
+    def join(self) -> None:
+        """The home stream waits for every replica's streams."""
+        if self.in_flight is None:
+            self.in_flight = self.issued
+        for stream in self._streams:
+            _join(stream, self.home)
+
+
 def run_replicas(work, devices, inputs, home):
     """``[work(devices[j], inputs[j] on devices[j]) on home for each j]``.
 
-    On the CPU the replicas run one after another. On CUDA replica ``j``
-    runs on its own stream (:func:`replica_stream`), which first waits for
-    ``home``'s and its device's current streams, so that it reads its
-    inputs after they were written; its outputs are copied to ``home``
-    there, and ``home``'s current stream waits for every replica's stream
-    before the call returns, so that what runs next on ``home`` (the mean)
-    reads finished outputs, and memory a replica read is not handed to new
-    work on ``home`` while the replica may still read it. A device named
-    twice (two replicas of one card) gets two streams. One replica on
-    ``home`` runs in place, on the current stream. A step captured by
+    On the CPU the replicas run one after another. On CUDA a
+    :class:`ReplicaPhase` issues them, each on its own stream with its
+    inputs copied to its device and its outputs to ``home``, and ``home``'s
+    current stream waits for every replica's streams before the call
+    returns, so that what runs next on ``home`` (the mean) reads finished
+    outputs, and memory a replica read is not handed to new work on
+    ``home`` while the replica may still read it. A device named twice (two
+    replicas of one card) gets two streams. One replica on ``home`` runs in
+    place, on the current stream. A step captured by
     :meth:`StepGraph.capture` calls :meth:`StepGraph.replicas` in its
     place."""
     devices = [torch.device(d) for d in devices]
@@ -240,16 +349,14 @@ def run_replicas(work, devices, inputs, home):
         return [work(home, to_device(inputs[0], home))]
     if home.type != "cuda":
         return [to_device(work(d, to_device(x, d)), home) for d, x in zip(devices, inputs)]
-    outs, streams = [], []
+    # by index: a replica's stream makes its card the current one
+    home, devices = _indexed(home), [_indexed(d) for d in devices]
+    phase = ReplicaPhase(home)
+    outs = []
     for j, (d, x) in enumerate(zip(devices, inputs)):
-        s = replica_stream(j, d)
-        s.wait_stream(torch.cuda.current_stream(home))
-        s.wait_stream(torch.cuda.current_stream(d))
-        with torch.cuda.stream(s):
-            outs.append(to_device(work(d, to_device(x, d)), home))
-        streams.append(s)
-    for s in streams:
-        _join(s, home)
+        with phase.replica(j, d):
+            outs.append(phase.moved(work(d, phase.moved(x, d)), home))
+    phase.join()
     return outs
 
 
@@ -278,24 +385,27 @@ class StepGraph:
     in the order they were captured). A leaf that has to cross to another
     card cannot be captured with the graphs of either card: it gets a
     buffer on the far card at capture, and the replay copies it there
-    before the replica's graph and its outputs back after it, on the
-    replica's stream, outside the graphs. On one card (a device named
-    twice included) nothing crosses. A replay runs the home graphs on
-    ``home``'s current stream and each replica's graph on its stream, after
-    an event of the home stream, and the next home graph after an event of
-    every replica's stream. ``generators`` are registered with the home
-    graphs, so that each replay draws new numbers (a replica draws none). A step that cannot
-    be captured raises whatever the capture raised."""
+    before the replica's graph and its outputs back after it, outside the
+    graphs. On one card (a device named twice included) nothing crosses. A
+    replay runs the home graphs on ``home``'s current stream, and each
+    call's replicas, their graphs and copies, as a :class:`ReplicaPhase`
+    issues them: every replica after an event of the home stream, and the
+    next home graph after the events of every replica's streams, which the
+    home stream takes once all the replicas are issued. ``in_flight`` and
+    ``copies`` count the last replay's replica phases (the fewest replicas
+    issued before the home stream waited for one, the copies of them all).
+    ``generators`` are registered with the home graphs, so that each replay
+    draws new numbers (a replica draws none). A step that cannot be
+    captured raises whatever the capture raised."""
 
     def __init__(self, home, generators=()):
-        home = torch.device(home)
-        if home.index is None:
-            home = torch.device("cuda", torch.cuda.current_device())
-        self.home = home
+        self.home = _indexed(home)
         self.generators = tuple(generators)
-        self.program = []  # ("home", graph) or ("replicas", [(device, stream, in, graph, out)])
+        self.program = []  # ("home", graph) or ("replicas", [(device, in, graph, out)])
         self._pools = {}
         self._open = None
+        self.in_flight = None
+        self.copies = 0
 
     def _begin(self, device, stream, register: bool):
         graph = torch.cuda.CUDAGraph()
@@ -357,6 +467,7 @@ class StepGraph:
             raise RuntimeError("StepGraph.replicas called outside StepGraph.capture")
         if not same_device(home, self.home):
             raise ValueError(f"replicas homed on {home} in a step captured on {self.home}")
+        devices = [_indexed(d) for d in devices]
         self._end()
         entries, outs = [], []
         try:
@@ -372,7 +483,7 @@ class StepGraph:
                     raise
                 self._end()
                 outs.append(_moved(out, self.home, copies_out))
-                entries.append((d, stream, copies_in, graph, copies_out))
+                entries.append((d, copies_in, graph, copies_out))
         finally:
             self.program.append(("replicas", entries))
         self._begin_home()
@@ -381,19 +492,20 @@ class StepGraph:
     def replay(self) -> None:
         """The captured step once (the host range ``replay``, no marker)."""
         with span("replay", marker=False):
-            home_stream = torch.cuda.current_stream(self.home)
+            self.in_flight, self.copies = None, 0
             for kind, item in self.program:
                 if kind == "home":
                     item.replay()
                     continue
-                for d, stream, copies_in, graph, copies_out in item:
-                    stream.wait_stream(home_stream)
-                    stream.wait_stream(torch.cuda.current_stream(d))
-                    with torch.cuda.stream(stream):
+                phase = ReplicaPhase(self.home)
+                for j, (d, copies_in, graph, copies_out) in enumerate(item):
+                    with phase.replica(j, d):
                         for src, dst in copies_in:
-                            dst.copy_(src)
+                            phase.copy(dst, src)
                         graph.replay()
                         for src, dst in copies_out:
-                            dst.copy_(src)
-                for _, stream, *_ in item:
-                    _join(stream, self.home)
+                            phase.copy(dst, src)
+                phase.join()
+                if self.in_flight is None or phase.in_flight < self.in_flight:
+                    self.in_flight = phase.in_flight
+                self.copies += phase.copies

@@ -1391,11 +1391,19 @@ def test_packed4d_attention_small_heads(gen, hd, T):
         assert not _within_share_of_max(fault, ref, 2 ** -6)
 
 
+def _one_card(mp):
+    """The port sees ``cuda:0`` alone (no data parallelism over the other
+    cards of a machine with several)."""
+    from federated_multi_modal_tpu_torch.parallel import mesh
+
+    mp.setattr(mesh, "visible_devices", lambda device=None: [torch.device("cuda", 0)])
+
+
 def _cli_maple_tiny(tmp_path, impl):
     """One epoch of MaPLe through the port's command line at the Tiny width
-    on the card (``TPU.ATTENTION_IMPL`` ``impl``), the module globals and
-    ``sys.stdout`` put back: the first step's loss and the launches of
-    K1, K1b, K3, K4 and K5 over the run."""
+    on the card (``TPU.ATTENTION_IMPL`` ``impl``; ``cuda:0`` alone), the
+    module globals and ``sys.stdout`` put back: the first step's loss and
+    the launches of K1, K1b, K3, K4 and K5 over the run."""
     import sys
 
     from federated_multi_modal_tpu_torch import train as port_cli
@@ -1428,6 +1436,7 @@ def _cli_maple_tiny(tmp_path, impl):
         mp.setattr(primitives, "_ATTENTION_IMPL", primitives._ATTENTION_IMPL)
         mp.setattr(clip_model, "_TEXT_PACK_DEFAULT", clip_model._TEXT_PACK_DEFAULT)
         mp.setattr(eng.FunctionalTrainerMixin, "train_step", recorded)
+        _one_card(mp)
         mp.delenv("FMM_TPU_PLATFORM", raising=False)
         for gate in ("FMM_TPU_FUSED", "FMM_TPU_FUSED_BLOCK", "FMM_TPU_FUSED_TRAIN",
                      "FMM_TPU_FUSED_TRAIN_BLOCK", "FMM_TPU_FUSED_TRAIN_DW",
@@ -1459,11 +1468,11 @@ def test_cli_maple_tiny_on_the_card(gen, tmp_path):
 
 def test_federated_round_tiny_on_the_card(gen, tmp_path):
     """One federated round of ``MaPLeFederated`` through the command line at
-    the Tiny width on the card, two Synthetic clients of one local epoch
-    each: no failed client or skipped round, one update, and the launches
-    the routing implies: per client step K1 3, K1b 3, K3 2, K4 1; per
-    ``test()`` (one after each client's epoch, the round's and the final
-    one on client 0) K1 3 and K5 3 a test batch."""
+    the Tiny width on the card (``cuda:0`` alone), two Synthetic clients of
+    one local epoch each: no failed client or skipped round, one update,
+    and the launches the routing implies: per client step K1 3, K1b 3, K3
+    2, K4 1; per ``test()`` (one after each client's epoch, the round's and
+    the final one on client 0) K1 3 and K5 3 a test batch."""
     import sys
 
     from federated_multi_modal_tpu_torch import train as port_cli
@@ -1487,6 +1496,7 @@ def test_federated_round_tiny_on_the_card(gen, tmp_path):
         mp.setattr(sys, "stdout", sys.stdout)
         mp.setattr(primitives, "_ATTENTION_IMPL", primitives._ATTENTION_IMPL)
         mp.setattr(clip_model, "_TEXT_PACK_DEFAULT", clip_model._TEXT_PACK_DEFAULT)
+        _one_card(mp)
         mp.delenv("FMM_TPU_PLATFORM", raising=False)
         for gate in ("FMM_TPU_FUSED", "FMM_TPU_FUSED_BLOCK", "FMM_TPU_FUSED_TRAIN",
                      "FMM_TPU_FUSED_TRAIN_BLOCK", "FMM_TPU_FUSED_TRAIN_DW",
@@ -1683,7 +1693,7 @@ def test_parallel_fed_step_one_client_on_the_card(gen):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(primitives, "_ATTENTION_IMPL", impl)
             prog = flagship.build_maple_program("Tiny", depth=3, seed=0, device="cuda")
-            mesh = make_client_mesh(1)
+            mesh = make_client_mesh(1, [torch.device("cuda", 0)])
             assert mesh.shape == {"client": 1, "data": 1}
             tx = flagship.build_fed_optimizer()
             step = build_parallel_fed_step(prog["loss_fn"], tx, mesh)
@@ -2014,15 +2024,11 @@ BENCH_TINY_LAUNCHES = {"K1 packed_attention_masked": 3, "K1b packed_attention_ma
                        "K4 fused_block_train_dw": 1, "K4 fused_block_train_dw (backward)": 1}
 
 
-@pytest.mark.parametrize("mode", [["--no-secondary"], ["--mode", "fed-step"]],
-                         ids=["train", "fed-step"])
-def test_bench_scan_over_a_card_named_twice(gen, capsys, monkeypatch, mode):
-    """``--dispatch scan`` over ``[cuda:0, cuda:0]`` at Tiny through the
-    bench's ``main``: the train batch split over the two replicas, the
-    fed-step's two clients one a replica, each replica a graph of its own on
-    its own stream; the replayed step equals the eager one bit for bit, the
-    captured step launches twice the one-device routing's kernels, and the
-    line says ``devices=2``."""
+def _bench_scan_over(cards, mode, capsys, monkeypatch):
+    """The bench's ``main`` at Tiny under ``--dispatch scan`` with ``cards``
+    as the visible devices: exit 0, one line, the replayed step equal to the
+    eager one bit for bit, twice the one-device routing's launches, and
+    ``devices=2``."""
     import json
 
     from federated_multi_modal_tpu_torch import bench
@@ -2031,8 +2037,7 @@ def test_bench_scan_over_a_card_named_twice(gen, capsys, monkeypatch, mode):
 
     monkeypatch.setattr(primitives, "_ATTENTION_IMPL", primitives._ATTENTION_IMPL)
     monkeypatch.setattr(clip_model, "_TEXT_PACK_DEFAULT", clip_model._TEXT_PACK_DEFAULT)
-    card = torch.device("cuda", 0)
-    monkeypatch.setattr(bench, "visible_devices", lambda device: [card, card])
+    monkeypatch.setattr(bench, "visible_devices", lambda device: list(cards))
     assert bench.main(BENCH_TINY + mode) == 0
     out, err = capsys.readouterr()
     assert len([ln for ln in out.splitlines() if ln.startswith("{")]) == 1, out
@@ -2042,6 +2047,34 @@ def test_bench_scan_over_a_card_named_twice(gen, capsys, monkeypatch, mode):
     assert replay["bit_for_bit"], replay
     assert json.loads(records["launches"]) == {k: 2 * v for k, v in BENCH_TINY_LAUNCHES.items()}
     assert "devices=2" in err, err[-2000:]
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("mode", [["--no-secondary"], ["--mode", "fed-step"]],
+                         ids=["train", "fed-step"])
+def test_bench_scan_over_a_card_named_twice(gen, capsys, monkeypatch, mode):
+    """``--dispatch scan`` over ``[cuda:0, cuda:0]`` at Tiny through the
+    bench's ``main``: the train batch split over the two replicas, the
+    fed-step's two clients one a replica, each replica a graph of its own on
+    its own stream; the replayed step equals the eager one bit for bit, the
+    captured step launches twice the one-device routing's kernels, and the
+    line says ``devices=2``."""
+    card = torch.device("cuda", 0)
+    _bench_scan_over([card, card], mode, capsys, monkeypatch)
+
+
+@pytest.mark.parametrize("mode", [["--no-secondary"], ["--mode", "fed-step"]],
+                         ids=["train", "fed-step"])
+def test_bench_scan_over_two_cards(gen, capsys, monkeypatch, mode):
+    """The same over ``[cuda:0, cuda:1]``: each replica on a card of its
+    own, its inputs and outputs copied between the cards around its graph;
+    the replayed step equals the eager one bit for bit."""
+    _bench_scan_over(list(_two_cards()), mode, capsys, monkeypatch)
 
 
 def test_replicas_mean_without_its_event_reads_a_stale_shard(gen, monkeypatch):
@@ -2079,6 +2112,77 @@ def test_replicas_mean_without_its_event_reads_a_stale_shard(gen, monkeypatch):
     torch.cuda.synchronize()
     assert not torch.equal(stale, torch.full_like(x, 11.0))
     assert not torch.equal(state[0], torch.full_like(x, 7.0))
+
+
+def test_replicas_on_two_cards_run_at_once(gen, monkeypatch):
+    """Two replicas, on ``cuda:0`` (home) and ``cuda:1``, each sleeping about
+    100 ms on its stream before it writes its output, which is copied home:
+    eagerly and replayed through ``bench.capture_step``, the mean is right,
+    one call takes under 1.5 times one replica's sleep (one after the other
+    they take twice it), and both replicas were issued before the home
+    stream waited for either, with a copy each way (``in_flight`` and
+    ``copies`` of ``mesh.ReplicaPhase`` and ``mesh.StepGraph``)."""
+    import time
+
+    from federated_multi_modal_tpu_torch import bench
+    from federated_multi_modal_tpu_torch.parallel import mesh
+
+    home, far = _two_cards()
+    phases = []
+
+    class Phase(mesh.ReplicaPhase):
+        def __init__(self, home):
+            super().__init__(home)
+            phases.append(self)
+
+    monkeypatch.setattr(mesh, "ReplicaPhase", Phase)
+
+    def sleep_s(cycles):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    cycles = int(100_000_000 * 0.1 / sleep_s(100_000_000))
+    sleep = sleep_s(cycles)
+
+    def work(d, v):
+        torch.cuda._sleep(cycles)
+        return v * 2
+
+    def mean(v, run=mesh.run_replicas):
+        return mesh.mean_over_devices(run(work, [home, far], [v, v + 1], home), home)
+
+    def timed(fn):
+        for d in (home, far):
+            torch.cuda.synchronize(d)
+        t = time.perf_counter()
+        out = fn()
+        for d in (home, far):
+            torch.cuda.synchronize(d)
+        return out, time.perf_counter() - t
+
+    x = torch.ones(1 << 16, device=home)
+    mean(x)
+    got, wall = timed(lambda: mean(x))
+    assert torch.equal(got, torch.full_like(x, 3.0))
+    assert wall < 1.5 * sleep, (wall, sleep)
+    assert (phases[-1].in_flight, phases[-1].copies) == (2, 2)
+
+    def step(state, run):
+        y = mean(state[0], run)
+        return (y,), y.sum()
+
+    state = (x.clone(),)
+    graph, _, _ = bench.capture_step(step, state)
+    state[0].fill_(1.0)
+    _, wall = timed(graph.replay)
+    assert torch.equal(state[0], torch.full_like(x, 3.0))
+    assert wall < 1.5 * sleep, (wall, sleep)
+    assert (graph.in_flight, graph.copies) == (2, 2)
+    print(f"one replica's sleep {sleep * 1e3:.2f} ms; eager and replayed calls under 1.5x it")
 
 
 def test_capture_of_a_replica_host_read_fails_loudly(gen):

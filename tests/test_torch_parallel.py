@@ -13,12 +13,14 @@ through ``MODEL.BACKBONE.WEIGHTS_PATH`` and ``MODEL.INIT_WEIGHTS`` as in
 ``tests/test_torch_fed.py``, whose helpers this module uses.
 """
 
+import collections
 import contextlib
 import io
 import json
 import os
 import re
 import shutil
+import types
 
 import jax
 import jax.numpy as jnp
@@ -647,6 +649,196 @@ def test_run_replicas_over_a_device_named_twice():
     assert one is not x and torch.equal(one, x)
     a, b, c = torch.tensor([1e8]), torch.tensor([1.0]), torch.tensor([-1e8])
     assert float(port_mesh.mean_over_devices([a, b, c], cpu)) == float((a + b + c) / 3)
+
+
+# -- the order in which the replicas are issued on CUDA streams --------------------
+
+# kind: "replay" (a graph), "work" (an eager replica's or the home's work), "copy"
+# or "wait"; owner: a replica's index or "home" (None for a wait); stream: where
+# it runs (for a wait, the stream that waits); waited: the stream waited for
+Op = collections.namedtuple("Op", "kind owner stream round waited")
+
+
+class _Issue:
+    """Stand-ins for CUDA streams, graphs and copies between cards that
+    record every operation in the order the host issues it, and for each the
+    operations it is ordered after. A stream holds what was issued to it and
+    what it waited for. A copy between cards runs as PyTorch's does: on the
+    source card's current stream, after that stream waited for the
+    destination card's current stream, which then waits for the copy. As
+    in PyTorch, making a stream current makes its card the current one."""
+
+    def __init__(self, monkeypatch):
+        self.ops, self.after, self.current, self.round = [], {}, {}, 0
+        self.card = 0
+        issue = self
+
+        class Stream:
+            def __init__(self, device):
+                self.device, self.before = torch.device(device), set()
+
+            def wait_stream(self, other):
+                issue.ops.append(Op("wait", None, self, issue.round, other))
+                self.before |= other.before
+
+        @contextlib.contextmanager
+        def stream(s):
+            prev, card = self.stream_of(s.device), self.card
+            self.current[s.device.index], self.card = s, s.device.index
+            try:
+                yield
+            finally:
+                self.current[s.device.index], self.card = prev, card
+
+        self.Stream = Stream
+        monkeypatch.setattr(port_mesh, "_STREAMS", {})
+        monkeypatch.setattr(torch.cuda, "Stream", Stream)
+        monkeypatch.setattr(torch.cuda, "stream", stream)
+        monkeypatch.setattr(torch.cuda, "current_stream", self.stream_of)
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: self.card)
+        monkeypatch.setattr(port_mesh, "_copy", self.copy)
+        monkeypatch.setattr(torch, "empty_like", lambda t, device: self.tensor(t.owner, device))
+
+    def stream_of(self, device):
+        index = torch.device(device).index
+        index = self.card if index is None else index
+        if index not in self.current:
+            self.current[index] = self.Stream(torch.device("cuda", index))
+        return self.current[index]
+
+    def run(self, kind, owner, stream):
+        self.after[len(self.ops)] = frozenset(stream.before)
+        stream.before.add(len(self.ops))
+        self.ops.append(Op(kind, owner, stream, self.round, None))
+
+    def copy(self, dst, src):
+        stream, far = self.stream_of(src.device), self.stream_of(dst.device)
+        stream.wait_stream(far)
+        self.run("copy", src.owner, stream)
+        far.wait_stream(stream)
+
+    def tensor(self, owner, device):
+        return types.SimpleNamespace(owner=owner, device=torch.device(device))
+
+    def graph(self, owner, device):
+        return types.SimpleNamespace(
+            replay=lambda: self.run("replay", owner, self.stream_of(device)))
+
+    def faults(self, home_stream) -> list:
+        """What, in each recorded round (home work, the replicas, home
+        work), breaks the order the replicas must be issued in."""
+        out = []
+        for r in range(self.round + 1):
+            runs = [(i, op) for i, op in enumerate(self.ops) if op.round == r and op.kind != "wait"]
+            replica = [(i, op) for i, op in runs if op.owner != "home"]
+            graphs = {op.owner: i for i, op in replica if op.kind != "copy"}
+            waited = [i for i, op in enumerate(self.ops) if op.round == r and op.kind == "wait"
+                      and op.stream is home_stream and op.waited is not home_stream]
+            for j, i in graphs.items():
+                if waited and i > waited[0]:
+                    out.append(f"round {r}: replica {j} issued after the home stream waited")
+                if any(k in self.after[i] and op.owner != j for k, op in replica):
+                    out.append(f"round {r}: replica {j} waits for another replica")
+            out += [f"round {r}: replica {op.owner} copies on the home stream"
+                    for _, op in replica if op.kind == "copy" and op.stream is home_stream]
+            last_home = [i for i, op in runs if op.owner == "home"][-1]
+            if not {i for i, _ in replica} <= self.after[last_home]:
+                out.append(f"round {r}: the home work after the replicas does not wait for them")
+            if r:
+                prev = [(i, op) for i, op in enumerate(self.ops)
+                        if op.round == r - 1 and op.kind != "wait"]
+                prev_home = [i for i, op in prev if op.owner == "home"][-1]
+                prev_graph = {op.owner: i for i, op in prev if op.kind != "copy"}
+                out += [f"round {r}: replica {op.owner}'s copy may overtake round {r - 1}"
+                        for i, op in replica if op.kind == "copy"
+                        and not {prev_home, prev_graph[op.owner]} <= self.after[i]]
+        return out
+
+
+ISSUE_CASES = {
+    # id: (the cards of the replicas, home on card 0; the planted fault)
+    "far_cards": ([0, 1, 2, 3], False),
+    "card_named_twice": ([0, 0], False),
+    "far_cards_planted_fault": ([0, 1, 2, 3], True),
+}
+
+
+@pytest.mark.parametrize("path", ["replay", "eager"])
+@pytest.mark.parametrize("case", list(ISSUE_CASES))
+def test_replicas_are_issued_before_the_home_stream_waits(case, path, monkeypatch):
+    """Two rounds of home work, the replicas, home work, through
+    ``StepGraph.replay`` (a hand-built program: a far replica copies two
+    leaves each way) and through ``run_replicas`` on CUDA, with stand-in
+    streams, graphs and copies: every replica's graph or work is issued
+    before the home stream first waits for a replica; no replica is ordered
+    after another's work or copies, directly or through the home stream; no
+    copy runs on the home stream; the home work after the replicas waits for
+    all of them; and each copy of the second round waits for its replica's
+    graph and the home work of the first. ``run_replicas`` is given its
+    home as ``cuda`` (the current card, which a replica's stream changes)
+    and returns every output on card 0. Where nothing crosses cards (a
+    card named twice) there is no copy and no side stream. The planted fault
+    gives the copies the home stream as their side stream, which is the
+    order that issued the replicas one after another: the faults are
+    found, and the counter reads the two replicas issued before the home
+    stream waited."""
+    cards, planted = ISSUE_CASES[case]
+    issue = _Issue(monkeypatch)
+    home = torch.device("cuda", 0)
+    devices = [torch.device("cuda", c) for c in cards]
+    far = [j for j, d in enumerate(devices) if d != home]
+    home_stream = torch.cuda.current_stream(home)
+    phases = []
+
+    class Phase(port_mesh.ReplicaPhase):
+        def __init__(self, home):
+            super().__init__(home)
+            phases.append(self)
+
+    monkeypatch.setattr(port_mesh, "ReplicaPhase", Phase)
+    if planted:
+        monkeypatch.setattr(port_mesh, "copy_stream",
+                            lambda j, home: torch.cuda.current_stream(home))
+    if path == "replay":
+        graph = port_mesh.StepGraph(home)
+
+        def leaves(j, d):
+            return [issue.tensor(j, d) for _ in range(2 if j in far else 0)]
+
+        graph.program = [("home", issue.graph("home", home)),
+                         ("replicas", [(d, list(zip(leaves(j, home), leaves(j, d))),
+                                        issue.graph(j, d), list(zip(leaves(j, d), leaves(j, home))))
+                                       for j, d in enumerate(devices)]),
+                         ("home", issue.graph("home", home))]
+        step = graph.replay
+    else:
+        def work(d, x):
+            issue.run("work", x[0].owner, torch.cuda.current_stream(d))
+            return [issue.tensor(x[0].owner, d), issue.tensor(x[0].owner, d)]
+
+        def step():
+            issue.run("work", "home", home_stream)
+            outs = port_mesh.run_replicas(work, devices, [[issue.tensor(j, home)] * 2
+                                                          for j in range(len(devices))],
+                                          torch.device("cuda"))
+            assert {t.device for out in outs for t in out} == {home}
+            issue.run("work", "home", home_stream)
+
+    for issue.round in range(2):
+        step()
+    counted = graph if path == "replay" else phases[-1]
+    faults = issue.faults(home_stream)
+    side = sorted(k[0][1] for k in port_mesh._STREAMS if isinstance(k[0], tuple))
+    if planted:
+        assert any("issued after the home stream waited" in f for f in faults), faults
+        assert any("waits for another replica" in f for f in faults), faults
+        assert any("copies on the home stream" in f for f in faults), faults
+        assert counted.in_flight == 2
+        return
+    assert faults == []
+    assert (counted.in_flight, counted.copies) == (len(devices), 4 * len(far))
+    assert side == far
+    assert (not far) == (not any(op.kind == "copy" for op in issue.ops))
 
 
 LOCAL_LAUNCHES = {
